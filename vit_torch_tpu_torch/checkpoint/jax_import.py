@@ -1,0 +1,52 @@
+"""JAX/flax parameter tree → the port's state dict.
+
+The inverse of ``vit_torch_tpu/checkpoint/torch_import.py:import_vit``, so
+weights trained or initialised by the JAX package run in the port:
+
+- a Dense ``kernel`` ``(in, out)`` becomes a Linear ``weight`` ``(out, in)``;
+- the patch-embed matmul kernel ``(p*p*C, D)`` becomes the conv weight
+  ``(D, C, p, p)``;
+- LayerNorm ``scale`` becomes ``weight``;
+- ``blocks_{i}`` becomes ``blocks.{i}``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = ""):
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            yield from _flatten(val, path + ".")
+        else:
+            yield path, np.asarray(val)
+
+
+def state_dict_from_jax(params: Mapping[str, Any], image_channels: int = 3
+                        ) -> Dict[str, torch.Tensor]:
+    """Map a flax ViT classifier tree (``{"backbone": ..., "head": ...}``,
+    or a bare backbone tree) of numpy-convertible arrays to a state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params):
+        key = re.sub(r"blocks_(\d+)", r"blocks.\1", path)
+        leaf = key.rsplit(".", 1)[-1]
+        if key.endswith("patch_embed.kernel"):
+            D = arr.shape[1]
+            p = int(round((arr.shape[0] // image_channels) ** 0.5))
+            arr = arr.reshape(p, p, image_channels, D).transpose(3, 2, 0, 1)
+            key = key[:-len("kernel")] + "proj.weight"
+        elif key.endswith("patch_embed.bias"):
+            key = key[:-len("bias")] + "proj.bias"
+        elif leaf == "kernel":
+            arr = arr.T
+            key = key[:-len("kernel")] + "weight"
+        elif leaf == "scale":
+            key = key[:-len("scale")] + "weight"
+        out[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+    return out

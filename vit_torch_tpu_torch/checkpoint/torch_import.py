@@ -1,0 +1,117 @@
+"""Torch checkpoints into the port's models, counterpart of the serving
+part of ``vit_torch_tpu/checkpoint/torch_import.py``.
+
+The port's parameter names are DINO's, so a DINO/timm ViT state dict loads
+as it is; what remains is unwrapping the published checkpoint variants and
+bicubic interpolation of the position table to the model's grid, with the
+JAX package's ``jax.image.resize`` semantics (Keys cubic, a = -0.5, half-
+pixel centres, antialiased when shrinking) written in numpy.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pickle
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) bicubic resampling matrix of ``jax.image.resize``."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    w = _keys_cubic(np.abs(sample[None, :] - np.arange(n_in)[:, None])
+                    / kernel_scale)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0)
+
+
+def interpolate_pos_embed(pos: np.ndarray, target_tokens: int,
+                          num_prefix: int = 1) -> np.ndarray:
+    """Bicubic-resize the patch-grid part of a ``(1, P+prefix, D)`` position
+    table to ``target_tokens`` patch positions (DINO semantics)."""
+    n_patch = pos.shape[1] - num_prefix
+    if n_patch == target_tokens:
+        return pos
+    prefix, grid = pos[:, :num_prefix], pos[:, num_prefix:]
+    src = int(round(n_patch ** 0.5))
+    dst = int(round(target_tokens ** 0.5))
+    if src * src != n_patch or dst * dst != target_tokens:
+        raise ValueError(
+            f"non-square pos-embed grids: {n_patch} -> {target_tokens}")
+    D = pos.shape[2]
+    w = _resize_weights(src, dst).astype(np.float32)
+    grid = grid.reshape(src, src, D).astype(np.float32)
+    grid = np.einsum("hwd,hy,wx->yxd", grid, w, w)
+    return np.concatenate(
+        [prefix, grid.reshape(1, dst * dst, D).astype(pos.dtype)], axis=1)
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """Load a torch checkpoint file to a flat ``{key: tensor}`` dict.
+
+    Unwraps ``{'model': sd}`` / ``{'state_dict': sd}`` / ``{'teacher': sd}``,
+    strips the ``module.`` prefix, and keeps the ``backbone.`` subtree of a
+    DINO full checkpoint."""
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        # DINO full checkpoints pickle an argparse.Namespace beside the
+        # weights; allow just that type and retry
+        with torch.serialization.safe_globals([argparse.Namespace]):
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+    for wrapper in ("model", "state_dict", "teacher"):
+        if wrapper in sd and isinstance(sd[wrapper], dict):
+            sd = sd[wrapper]
+            break
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if isinstance(v, torch.Tensor):
+            out[k] = v
+    if out and all(k.startswith(("backbone.", "head.", "head_dist."))
+                   for k in out):
+        out = {k[len("backbone."):]: v for k, v in out.items()
+               if k.startswith("backbone.")}
+    return out
+
+
+def load_backbone_state_dict(path: str, model: nn.Module,
+                             image_size: int) -> None:
+    """Load a DINO/timm ViT checkpoint into ``model.backbone`` in place,
+    interpolating the position table to the ``image_size`` grid.  Keys the
+    backbone lacks (a timm ``head.*``) are ignored; keys it needs and the
+    file lacks raise."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    backbone = model.backbone
+    sd = load_torch_state_dict(path)
+    target = backbone.state_dict()
+    n_target = target["pos_embed"].shape[1] - 1
+    if n_target != (image_size // backbone.config.patch_size) ** 2:
+        raise ValueError(f"model grid has {n_target} patches, not the grid "
+                         f"of image size {image_size}")
+    if "pos_embed" in sd:
+        sd["pos_embed"] = torch.from_numpy(interpolate_pos_embed(
+            sd["pos_embed"].float().numpy(), n_target))
+    sd = {k: v for k, v in sd.items() if k in target}
+    missing = sorted(set(target) - set(sd))
+    if missing:
+        raise ValueError(f"checkpoint {path} lacks backbone keys "
+                         f"{missing[:8]}")
+    backbone.load_state_dict(sd)

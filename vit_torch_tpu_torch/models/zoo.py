@@ -1,0 +1,124 @@
+"""Model zoo facade, counterpart of ``vit_torch_tpu/models/zoo.py``.
+
+``VisionModelZoo.get_model(arch, ...)`` returns a :class:`ZooModel` whose
+``model`` is a :class:`Classifier` (backbone + optional MLP head) with
+seeded weights on the requested device.  This slice builds the dino/vit
+family; the other families raise until their slice lands (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Union
+
+import torch
+from torch import nn
+
+from vit_torch_tpu_torch.device import resolve_device
+from vit_torch_tpu_torch.models.layers import ClassifierHead, init_weights
+from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, VisionTransformer
+
+
+class Classifier(nn.Module):
+    """Backbone + optional MLP head; state dict keys ``backbone.*`` and
+    ``head.*``."""
+
+    def __init__(self, backbone: nn.Module, head: Optional[nn.Module] = None):
+        super().__init__()
+        self.backbone = backbone
+        self.head = head
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feats = self.backbone(x)
+        if self.head is not None:
+            feats = self.head(feats)
+        return feats
+
+
+@dataclasses.dataclass
+class ZooModel:
+    arch: str
+    family: str
+    model: Classifier
+    feature_dim: int
+    image_size: int
+    classifier: Optional[List[int]] = None
+    patch_size: Optional[int] = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.model.backbone.dtype
+
+
+# arch-string prefix → family, as in the JAX package
+_ARCH_FAMILIES: List = [
+    ("dino_", "dino"),
+    ("vit_", "dino"),
+    ("cait", "cait"),
+    ("xcit", "xcit"),
+    ("swin", "swin"),
+    ("deit", "deit"),
+    ("resnext", "resnet"),
+    ("wide_resnet", "resnet"),
+    ("resnet", "resnet"),
+]
+
+
+def arch_family(arch: str) -> str:
+    for prefix, family in _ARCH_FAMILIES:
+        if arch.startswith(prefix):
+            return family
+    raise ValueError(f"unknown arch {arch!r}; known families: "
+                     f"{sorted(set(f for _, f in _ARCH_FAMILIES))}")
+
+
+class VisionModelZoo:
+    """Facade: ``get_model(arch, ...)`` → :class:`ZooModel`."""
+
+    @classmethod
+    def get_model(
+        cls,
+        arch: str,
+        image_channels: int = 3,
+        classifier: Optional[Sequence[int]] = None,
+        image_size: int = 224,
+        dtype: torch.dtype = torch.bfloat16,
+        device: Optional[Union[str, torch.device]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> ZooModel:
+        """Build a zoo model with seeded weights.
+
+        ``classifier=None`` gives the headless backbone (features out);
+        ``classifier=[*fc, num_labels]`` appends the MLP head.  Weights are
+        drawn on the CPU from ``generator`` (seed 0 when omitted), so a seed
+        gives the same weights on every device, then moved to ``device``
+        (CUDA when omitted).  ``device="meta"`` skips the init, for callers
+        that load a state dict next."""
+        dev = resolve_device(device)
+        family = arch_family(arch)
+        if family != "dino":
+            raise NotImplementedError(
+                f"model family {family!r} (arch {arch!r}) is not ported yet; "
+                f"see ROADMAP.md for the order of the port")
+        if arch not in VIT_CONFIGS:
+            raise ValueError(
+                f"unknown ViT arch {arch!r}; have {sorted(VIT_CONFIGS)}")
+        cfg = VIT_CONFIGS[arch]
+        with torch.device("meta"):
+            backbone = VisionTransformer(cfg, image_size=image_size,
+                                         image_channels=image_channels,
+                                         dtype=dtype)
+            head = (ClassifierHead(cfg.embed_dim, classifier)
+                    if classifier else None)
+            model = Classifier(backbone, head)
+        if dev.type != "meta":
+            model.to_empty(device="cpu")
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            init_weights(model, generator)
+            model.to(dev)
+        model.eval()
+        return ZooModel(arch=arch, family=family, model=model,
+                        feature_dim=cfg.embed_dim, image_size=image_size,
+                        classifier=list(classifier) if classifier else None,
+                        patch_size=cfg.patch_size)
