@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card: the flash-attention forward against
-its plain version, its input checks and its launch count, and the
-classifier on CUDA against the same weights on the CPU.
+"""The port's CUDA kernels on the card: the flash-attention forward and
+backward against their plain versions, their input checks and launch
+counts, the classifier on CUDA against the same weights on the CPU, and a
+bf16 train step that runs the backward kernel once per layer.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere.  They
 import neither JAX nor the JAX package, so they run on a machine without
@@ -21,6 +22,9 @@ pytestmark = pytest.mark.cuda
 # bf16 outputs of order 1 that differ by summation order and the final
 # rounding (see chip_smoke.py)
 ATOL = 2e-2
+# gradients: max |kernel - plain| relative to max |plain|, floored (see
+# chip_smoke.py BWD_RTOL)
+BWD_RTOL, BWD_FLOOR = 2e-2, 1e-3
 
 
 @pytest.fixture
@@ -61,8 +65,34 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention_bhnd(q[..., :48], k[..., :48], v[..., :48])
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention_bhnd(q[..., 1:33], k[..., 1:33], v[..., 1:33])
-    with pytest.raises(NotImplementedError, match="backward"):
-        fa.flash_attention_bhnd(q.requires_grad_(), k, v)
+    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, k, v, o, lse[..., :8], o)
+    with pytest.raises(TypeError):
+        fa.flash_attention_bwd(q, k, v, o, lse, o.float())
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 1, 64), (2, 3, 65, 64),
+                                   (1, 2, 130, 32), (3, 2, 257, 64)])
+def test_bwd_kernel_matches_plain(cuda, shape):
+    """Gradients through the packed-qkv entry, as the model calls it,
+    against the plain backward; one backward launch per call."""
+    B, H, N, D = shape
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    qkv = torch.randn((B, N, 3, H, D), generator=gen, device=cuda,
+                      dtype=torch.bfloat16, requires_grad=True)
+    dout = torch.randn((B, N, H, D), generator=gen, device=cuda,
+                       dtype=torch.bfloat16)
+    before = fa.flash_attention_bwd.launches
+    (dqkv,) = torch.autograd.grad(fa.flash_attention_qkv(qkv), qkv, dout)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    q, k, v = (x.detach().transpose(1, 2) for x in qkv.unbind(2))
+    ref = fa.flash_attention_bwd_reference(q, k, v, dout.transpose(1, 2))
+    for got, want in zip(dqkv.unbind(2), ref):
+        err = (got.transpose(1, 2).float() - want.float()).abs().max().item()
+        assert err <= BWD_RTOL * max(want.float().abs().max().item(),
+                                     BWD_FLOOR)
 
 
 def test_launch_count(cuda):
@@ -88,3 +118,26 @@ def test_classifier_on_cuda_matches_cpu(cuda):
                     for zm, dev in zip(models, (cuda, "cpu")))
     assert fa.flash_attention_bhnd.launches == before + 2   # depth 2
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=3e-2, rtol=0)
+
+
+def test_train_step_launches_bwd_kernel_per_layer(cuda):
+    """One bf16 finetune step of a depth-2 model on the card: two forward
+    and two backward kernel launches, finite loss and gradients."""
+    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+    from vit_torch_tpu_torch.train.optimizers import get_optimizer
+    from vit_torch_tpu_torch.train.steps import make_train_step
+    zm = VisionModelZoo.get_model("vit_tiny_test", classifier=[10],
+                                  image_size=32, device=cuda)
+    model = zm.model.train()
+    opt = get_optimizer("adamw", model.parameters(), 1e-3)
+    step = make_train_step(model, opt)
+    x = torch.randn((4, 32, 32, 3), device=cuda)
+    labels = torch.arange(4, device=cuda)
+    mask = torch.ones(4, device=cuda)
+    fwd, bwd = fa.flash_attention_bhnd.launches, fa.flash_attention_bwd.launches
+    m = step(x, labels, mask)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bhnd.launches == fwd + 2
+    assert fa.flash_attention_bwd.launches == bwd + 2
+    assert torch.isfinite(m["loss_sum"]).item()
+    assert all(torch.isfinite(p).all() for p in model.parameters())

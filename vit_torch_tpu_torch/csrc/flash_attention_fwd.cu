@@ -37,81 +37,33 @@
 // version uses mma.sync with synchronous tile loads and no software
 // pipelining; wgmma, TMA and warp specialisation are later work.
 //
+// For training the kernel also writes each row's log-sum-exp,
+// LSE = log sum_j exp(scale * S_ij) in natural log, fp32, into a
+// (B*H, N) buffer (row (b*H + h) * N + i); the backward recomputes
+// P = exp(scale * S - LSE) from it.  A null pointer skips the write
+// (inference).  The kernel runs in base 2, so it stores
+// (m + log2 l) / log2(e) and the backward multiplies by log2(e) again.
+//
 // C entry point (ctypes): flash_attention_fwd_bf16(...) returns the
 // cudaError_t of the launch; it launches on the given stream and does not
 // synchronise or allocate.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int kBlockM = 64;   // query rows per block
-constexpr int kBlockN = 64;   // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPad = 8;       // bf16 elements (16 bytes) of row padding
-static_assert(kBlockM == kBlockN, "load_tile copies 64-row tiles");
 
 struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;  // (B*H, N) natural-log LSE, or null (inference)
   // element strides: [tensor][batch, head, row] for tensor in q, k, v, o
   long long stride[4][3];
   int H;
   int N;
   float scale_log2;  // scale * log2(e): softmax runs in base 2
 };
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* smem_ptr) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copies rows [row0, row0 + kBlockM) of one (b, h) slice into a padded shared
-// tile, 16 bytes per thread per step; rows >= N are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[D + kPad],
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int N) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < kBlockM * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (row0 + r < N) {
-      val = *reinterpret_cast<const int4*>(src + (row0 + r) * row_stride + col);
-    }
-    *reinterpret_cast<int4*>(&dst[r][col]) = val;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -141,13 +93,7 @@ __global__ void __launch_bounds__(kThreads)
   // Q as A-fragments: rows warp*16 + g (+8), k-steps of 16 along D
   const int r0 = warp * 16 + g;
   uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qf[kk][0] = lds32(&sQ[r0][kk * 16 + 2 * t]);
-    qf[kk][1] = lds32(&sQ[r0 + 8][kk * 16 + 2 * t]);
-    qf[kk][2] = lds32(&sQ[r0][kk * 16 + 8 + 2 * t]);
-    qf[kk][3] = lds32(&sQ[r0 + 8][kk * 16 + 8 + 2 * t]);
-  }
+  load_a_frags<D>(qf, sQ, r0, t);
 
   float acc[D / 8][4];
 #pragma unroll
@@ -167,16 +113,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // S = Q K^T for this warp's 16 rows x 64 keys
     float s[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t b0 = lds32(&sK[nt * 8 + g][kk * 16 + 2 * t]);
-        const uint32_t b1 = lds32(&sK[nt * 8 + g][kk * 16 + 8 + 2 * t]);
-        mma_bf16_16816(s[nt], qf[kk], b0, b1);
-      }
-    }
+    mma_abt<D>(s, qf, sK, g, t);
 
     // scale into base 2, mask the ragged edge, row max over the tile
     float mx[2] = {-INFINITY, -INFINITY};
@@ -219,55 +156,35 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // O += P V: P's accumulator layout is the A-fragment layout
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int vrow = kk * 16 + (lane & 15);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, &sV[vrow][dt * 8 + (lane >> 4) * 8]);
-        mma_bf16_16816(acc[dt], a, bv[0], bv[1]);
-        mma_bf16_16816(acc[dt + 1], a, bv[2], bv[3]);
-      }
-    }
+    mma_pv<D>(acc, s, sV, lane);
   }
 
   // finish the row sums across the quad and normalise once
   float inv[2];
+  float lse[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_run[i];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[i] = 1.f / l;
+    // log-sum-exp of scale * S in natural log: (m + log2 l) / log2(e)
+    lse[i] = (m_run[i] + log2f(l)) * (1.f / kLog2e);
   }
   const int row_a = q0 + r0;
-  const int row_b = row_a + 8;
-  const long long os = p.stride[3][2];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (row_a < N) {
-      *reinterpret_cast<uint32_t*>(og + row_a * os + col) =
-          pack_bf16x2(acc[dt][0] * inv[0], acc[dt][1] * inv[0]);
-    }
-    if (row_b < N) {
-      *reinterpret_cast<uint32_t*>(og + row_b * os + col) =
-          pack_bf16x2(acc[dt][2] * inv[1], acc[dt][3] * inv[1]);
-    }
+  store_rows<D>(og, p.stride[3][2], acc, row_a, N, t, inv);
+  if (p.lse != nullptr && t == 0) {
+    float* lg = p.lse + static_cast<long long>(blockIdx.y) * N;
+    if (row_a < N) lg[row_a] = lse[0];
+    if (row_a + 8 < N) lg[row_a + 8] = lse[1];
   }
 }
 
 }  // namespace
 
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
-                                        const void* v, void* o, int B, int H,
-                                        int N, int D,
+                                        const void* v, void* o, void* lse,
+                                        int B, int H, int N, int D,
                                         const long long* strides, float scale,
                                         void* stream) {
   Params p;
@@ -275,12 +192,13 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   for (int i = 0; i < 4; ++i) {
     for (int j = 0; j < 3; ++j) p.stride[i][j] = strides[3 * i + j];
   }
   p.H = H;
   p.N = N;
-  p.scale_log2 = scale * 1.4426950408889634f;
+  p.scale_log2 = scale * kLog2e;
   const dim3 grid((N + kBlockM - 1) / kBlockM, B * H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) {

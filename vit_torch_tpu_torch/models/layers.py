@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vit_torch_tpu_torch.ops.attention import dot_product_attention
+from vit_torch_tpu_torch.ops.attention import qkv_attention
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -63,20 +63,68 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
+def _keep_mask(x: torch.Tensor, shape, keep: float,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    if generator is None:
+        raise RuntimeError(
+            "dropout and drop-path in training draw from an explicit "
+            "torch.Generator: call set_generator(model, generator) first")
+    return torch.rand(shape, generator=generator, device=x.device) < keep
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator] = None,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stochastic depth: drop the whole residual branch per sample, as the
+    JAX ``drop_path`` does (``where(mask, x / keep, 0)``).  The keep mask
+    (shape ``(B, 1, ...)``) is drawn from ``generator``, or given."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    if mask is None:
+        mask = _keep_mask(x, (x.shape[0],) + (1,) * (x.dim() - 1), keep,
+                          generator)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class DropPath(nn.Module):
-    """Stochastic depth: drop the whole residual branch per sample."""
+    """Stochastic depth; draws from ``self.generator`` (see
+    :func:`set_generator`), never from the global RNG."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.rate == 0.0 or not self.training:
+        return drop_path(x, self.rate, self.training, self.generator)
+
+
+class Dropout(nn.Module):
+    """Element dropout as flax's ``nn.Dropout`` (``where(mask, x / keep,
+    0)``), drawing from ``self.generator`` (see :func:`set_generator`)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = _keep_mask(x, x.shape, keep, self.generator)
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_generator(model: nn.Module,
+                  generator: Optional[torch.Generator]) -> None:
+    """Give every :class:`DropPath` and :class:`Dropout` of ``model`` the
+    generator they draw from in training (the trainer owns it, as the JAX
+    train step owns the ``dropout`` rng)."""
+    for mod in model.modules():
+        if isinstance(mod, (DropPath, Dropout)):
+            mod.generator = generator
 
 
 class Mlp(nn.Module):
@@ -87,7 +135,7 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = Linear(dim, hidden_dim)
         self.fc2 = Linear(hidden_dim, out_dim or dim)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.drop(gelu_exact(self.fc1(x)))
@@ -110,14 +158,13 @@ class Attention(nn.Module):
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = Linear(dim, dim)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.proj_drop = Dropout(proj_drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
         qkv = self.qkv(x).view(B, N, 3, H, C // H)
-        out = dot_product_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-                                    scale=self.scale)
+        out = qkv_attention(qkv, scale=self.scale)
         return self.proj_drop(self.proj(out.reshape(B, N, C)))
 
 

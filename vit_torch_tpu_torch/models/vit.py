@@ -14,7 +14,8 @@ import dataclasses
 import torch
 from torch import nn
 
-from vit_torch_tpu_torch.models.layers import Block, LayerNorm, PatchEmbed
+from vit_torch_tpu_torch.models.layers import (Block, Dropout, LayerNorm,
+                                               PatchEmbed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +66,7 @@ class VisionTransformer(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.embed_dim))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, n_patches + 1, cfg.embed_dim))
-        self.pos_drop = nn.Dropout(cfg.drop_rate)
+        self.pos_drop = Dropout(cfg.drop_rate)
         # stochastic depth decays linearly over depth (timm convention)
         self.blocks = nn.ModuleList(
             Block(cfg.embed_dim, cfg.num_heads, mlp_ratio=cfg.mlp_ratio,

@@ -3,8 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the root of the checkout, then loaded with
-``ctypes``.  The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+``ctypes``.  The library's file name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and a stale library is never loaded.  ``ptxas -v`` reports each
+kernel's registers, shared memory and spills; the report of the last build
+of each kernel is kept in :data:`LOGS`.
 Nothing here runs when the module is imported.
 """
 
@@ -23,8 +26,9 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("flash_attention_fwd",)
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+LOGS: Dict[str, str] = {}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -41,9 +45,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -66,6 +72,7 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     failed = []
     for name, out, tmp, proc in procs:
         log = proc.communicate()[0].decode(errors="replace")
+        LOGS[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
         else:

@@ -4,7 +4,8 @@
 Layout: ``(batch, seq, heads, head_dim)``.  On CUDA, attention without a
 bias or mask always runs the flash kernel (:mod:`.flash_attention`), at
 every sequence length: the TPU package's ``VITX_FLASH_MIN_SEQ`` crossover
-was measured on a TPU and does not carry over.  Biased or masked attention
+was measured on a TPU and does not carry over.  Gradients flow through it:
+the kernel has a backward kernel.  Biased or masked attention
 (Swin's windows) has no CUDA kernel yet.  On the CPU the plain softmax
 attention below runs, as the JAX package's ``_xla_attention`` does off the
 TPU.
@@ -16,7 +17,8 @@ from typing import Optional
 
 import torch
 
-from vit_torch_tpu_torch.ops.flash_attention import flash_attention
+from vit_torch_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_qkv)
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -38,6 +40,20 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "comes with the Swin slice (ROADMAP.md)")
         return flash_attention(q, k, v, scale=scale)
     return _plain_attention(q, k, v, scale=scale, bias=bias, mask=mask)
+
+
+def qkv_attention(qkv: torch.Tensor, *,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over the fused ``(B, N, 3, H, Dh)`` qkv projection, the
+    ViT block's call; ``(B, N, H, Dh)`` out.  On CUDA the flash kernel
+    reads q, k and v through their strides and its backward writes one
+    gradient of qkv's shape; on the CPU the plain attention runs on the
+    three views."""
+    if scale is None:
+        scale = qkv.shape[-1] ** -0.5
+    if qkv.device.type == "cuda":
+        return flash_attention_qkv(qkv, scale=scale)
+    return _plain_attention(*qkv.unbind(2), scale=scale)
 
 
 def _plain_attention(q, k, v, *, scale, bias=None, mask=None):

@@ -1,24 +1,32 @@
-"""Flash-attention forward: a hand-written CUDA kernel for Hopper and its
-plain PyTorch version.
+"""Flash attention: hand-written CUDA kernels for Hopper, forward and
+backward, and their plain PyTorch versions.
 
-Counterpart of ``vit_torch_tpu/ops/flash_attention.py`` (Pallas
-``_fwd_kernel`` / ``_fwd_kernel_hb``).  The kernel is
-``csrc/flash_attention_fwd.cu``; its source note gives the design and the
-bound.  The TPU's ``block_q`` and head-blocking knobs are tilings of the
-same function and have no counterpart here.
+Counterpart of ``vit_torch_tpu/ops/flash_attention.py``: the forward
+kernel ``csrc/flash_attention_fwd.cu`` replaces the Pallas ``_fwd_kernel``
+and ``_fwd_kernel_hb``; the backward kernel ``csrc/flash_attention_bwd.cu``
+replaces ``_bwd_fused_kernel_hb``, ``_bwd_fused_kernel``,
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.  Their source notes give the
+designs and the bounds.  The TPU's ``block_q`` and head-blocking knobs are
+tilings of the same functions and have no counterpart here.
 
-Dispatch is by the tensors' device: a CPU tensor runs
-:func:`flash_attention_bhnd_reference`; a CUDA tensor launches the kernel,
-or raises if the kernel does not take the input.  There is no fallback.
-The backward kernels come with the training slice, so inputs that require
-grad are refused on CUDA.
+Dispatch is by the tensors' device: a CPU tensor runs the plain version
+(:func:`flash_attention_bhnd_reference`, :func:`flash_attention_bwd_reference`);
+a CUDA tensor launches the kernel, or raises if the kernel does not take
+the input.  There is no fallback.
+
+Gradients: when an input requires grad, the entry points go through a
+``torch.autograd.Function`` whose forward also writes the per-row
+log-sum-exp and whose backward launches the backward kernel.
+:func:`flash_attention_qkv` takes the fused ``(B, N, 3, H, D)`` qkv
+projection itself, so its backward writes dq, dk and dv straight into one
+gradient of that shape.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,98 +39,286 @@ _HEAD_DIMS = (32, 64)
 
 def flash_attention_bhnd_reference(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, *,
-                                   scale: Optional[float] = None
-                                   ) -> torch.Tensor:
+                                   scale: Optional[float] = None,
+                                   return_lse: bool = False):
     """Plain version over ``(B, H, N, D)``: fp32 scores, max-subtracted
     softmax, P rounded to V's dtype for the PV product, normalised after it
-    (the TPU kernel's arithmetic)."""
+    (the TPU kernel's arithmetic).  ``return_lse`` also returns the fp32
+    ``(B, H, N)`` log-sum-exp of the scaled scores, as the kernel writes
+    it for training."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
-    return (o / l).to(q.dtype)
+    o = (o / l).to(q.dtype)
+    if return_lse:
+        return o, (m + torch.log(l)).squeeze(-1)
+    return o
 
 
-def _check(q, k, v):
-    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
-        raise ValueError(f"q, k, v must share one (B, H, N, D) shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, do: torch.Tensor, *,
+                                  scale: Optional[float] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain backward over ``(B, H, N, D)``, the TPU kernels' arithmetic
+    (``_bwd_fused_kernel``): P recomputed in fp32 and normalised;
+    dV = P(in dO's dtype)ᵀ·dO; dP = dO·Vᵀ in fp32; Di = rowsum(P∘dP);
+    dS = P∘(dP − Di)·scale rounded to Q's dtype; dQ = dS·K, dK = dSᵀ·Q,
+    all with fp32 accumulation.  Returns ``(dq, dk, dv)``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    di = (p * dp).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - di) * scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(*named):
+    """What both kernels take: bf16 CUDA tensors of one (B, H, N, D)
+    shape, D in {32, 64}."""
+    shape, dev = named[0][1].shape, named[0][1].device
+    for name, x in named:
+        if x.shape != shape or x.dim() != 4:
+            raise ValueError(f"{name} must have q's (B, H, N, D) shape "
+                             f"{tuple(shape)}, got {tuple(x.shape)}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, q on {dev}")
         if x.dtype != torch.bfloat16:
             raise TypeError(f"the CUDA kernel takes bfloat16, {name} is "
                             f"{x.dtype}")
-        if x.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "flash attention has no backward kernel yet (training "
-                "slice); call it under torch.inference_mode()")
-    B, H, N, D = q.shape
+    B, H, N, D = shape
     if D not in _HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {_HEAD_DIMS}")
     if B * H > _MAX_BH:
         raise ValueError(f"B*H = {B * H} exceeds {_MAX_BH}")
 
 
+def _takes_rows(x: torch.Tensor) -> bool:
+    """The kernels read and write 16-byte rows: unit stride along D,
+    (batch, head, row) strides that are multiples of 8, 16-byte aligned."""
+    return (x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3])
+            and x.data_ptr() % 16 == 0)
+
+
+def _strides(*named):
+    out = []
+    for name, x in named:
+        if not _takes_rows(x):
+            raise ValueError(
+                f"the kernel reads 16-byte rows: {name} needs unit stride "
+                f"along D, strides that are multiples of 8 and a 16-byte "
+                f"aligned pointer, got strides {x.stride()}")
+        out.extend(x.stride()[:3])
+    return (ctypes.c_longlong * len(out))(*out)
+
+
+def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
+    if (lse.dtype != torch.float32 or lse.shape != q.shape[:3]
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous float32 "
+                         f"{tuple(q.shape[:3])} tensor on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """The C entry point, built and loaded on first use."""
+def _fwd_fn():
+    """The forward's C entry point, built and loaded on first use."""
     fn = _build.load("flash_attention_fwd").flash_attention_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, o, scale: float) -> None:
-    """Launch the kernel on the current stream; ``o`` may be any view
-    with unit stride along D (e.g. into a (B, N, H, D) buffer)."""
-    strides = []
-    for x in (q, k, v, o):
-        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]) \
-                or x.data_ptr() % 16:
-            raise ValueError(
-                f"the kernel reads 16-byte rows: need unit stride along D, "
-                f"strides that are multiples of 8 and a 16-byte aligned "
-                f"pointer, got strides {x.stride()}")
-        strides.extend(x.stride()[:3])
+@functools.lru_cache(maxsize=None)
+def _bwd_fn():
+    """The backward's C entry point, built and loaded on first use."""
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_fwd(q, k, v, o, lse, scale: float) -> None:
+    """Launch the forward kernel on the current stream; ``o`` may be any
+    view with unit stride along D (e.g. into a (B, N, H, D) buffer);
+    ``lse`` is a contiguous fp32 (B, H, N) buffer or None."""
+    _check(("q", q), ("k", k), ("v", v), ("o", o))
+    if lse is not None:
+        _check_lse(lse, q)
     B, H, N, D = q.shape
-    fn = _kernel_fn()
-    stride_arr = (ctypes.c_longlong * 12)(*strides)
+    if not B * H * N:
+        return
+    strides = _strides(("q", q), ("k", k), ("v", v), ("o", o))
+    fn = _fwd_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 B, H, N, D, ctypes.cast(stride_arr, ctypes.c_void_p),
-                 float(scale), stream)
+                 None if lse is None else lse.data_ptr(), B, H, N, D,
+                 ctypes.cast(strides, ctypes.c_void_p), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{err}")
     flash_attention_bhnd.launches += 1
 
 
-def _run(q, k, v, o, scale) -> torch.Tensor:
-    _check(q, k, v)
-    if q.shape[0] * q.shape[1] * q.shape[2]:
-        _launch(q, k, v, o, scale)
-    return o
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: Optional[float] = None,
+                        out: Optional[torch.Tensor] = None,
+                        return_lse: bool = False):
+    """The forward over ``(B, H, N, D)`` views into ``out`` (a new
+    contiguous tensor when None).  ``return_lse`` also returns the fp32
+    ``(B, H, N)`` log-sum-exp, natural log, that the backward reads."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        o, lse = flash_attention_bhnd_reference(q, k, v, scale=scale,
+                                                return_lse=True)
+        if out is not None:
+            o = out.copy_(o)
+        return (o, lse) if return_lse else o
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention for device {q.device}")
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    _launch_fwd(q, k, v, out, lse, scale)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, scale: Optional[float] = None,
+                        dq: Optional[torch.Tensor] = None,
+                        dk: Optional[torch.Tensor] = None,
+                        dv: Optional[torch.Tensor] = None):
+    """Gradients of attention over ``(B, H, N, D)`` views, from the
+    forward's output ``o`` and log-sum-exp ``lse``.  ``dq``, ``dk`` and
+    ``dv`` are written in place when given (any views with unit stride
+    along D), else allocated.  Returns ``(dq, dk, dv)``.
+
+    On CPU tensors the plain version runs (it recomputes P and reads
+    neither ``o`` nor ``lse``).  ``flash_attention_bwd.launches`` counts
+    kernel launches."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        grads = flash_attention_bwd_reference(q, k, v, do, scale=scale)
+        return tuple(g if buf is None else buf.copy_(g)
+                     for g, buf in zip(grads, (dq, dk, dv)))
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention for device {q.device}")
+    dq, dk, dv = (torch.empty(q.shape, dtype=x.dtype, device=x.device)
+                  if buf is None else buf
+                  for x, buf in ((q, dq), (k, dk), (v, dv)))
+    named = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
+             ("dq", dq), ("dk", dk), ("dv", dv))
+    _check(*named)
+    _check_lse(lse, q)
+    B, H, N, D = q.shape
+    if not B * H * N:
+        return dq, dk, dv
+    strides = _strides(*named)
+    di = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    fn = _bwd_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), B, H, N, D,
+                 ctypes.cast(strides, ctypes.c_void_p), float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when the kernel can read it, else a contiguous copy
+    (an incoming gradient may be expanded or oddly strided)."""
+    if x.device.type == "cuda" and not _takes_rows(x):
+        return x.contiguous()
+    return x
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Differentiable attention over ``(B, H, N, D)`` views."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_attention_fwd(q, k, v, scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, _rows(dout),
+                                         scale=ctx.scale)
+        return dq, dk, dv, None
+
+
+class _FlashAttentionQKV(torch.autograd.Function):
+    """Differentiable attention over the fused ``(B, N, 3, H, D)`` qkv
+    projection, ``(B, N, H, D)`` out.  The backward writes dq, dk and dv
+    through strides into one gradient of qkv's shape: no stack, no copy."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale):
+        B, N, _, H, D = qkv.shape
+        q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+        out = qkv.new_empty((B, N, H, D))
+        _, lse = flash_attention_fwd(q, k, v, scale=scale,
+                                     out=out.transpose(1, 2), return_lse=True)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+        q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+        dq, dk, dv = (x.transpose(1, 2) for x in dqkv.unbind(2))
+        flash_attention_bwd(q, k, v, out.transpose(1, 2), lse,
+                            _rows(dout).transpose(1, 2), scale=ctx.scale,
+                            dq=dq, dk=dk, dv=dv)
+        return dqkv, None
+
+
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
 def flash_attention_bhnd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: Optional[float] = None) -> torch.Tensor:
-    """Attention over ``(B, H, N, D)`` tensors, the kernel's native layout.
+    """Attention over ``(B, H, N, D)`` tensors, the kernel's native layout;
+    differentiable.
 
-    ``flash_attention_bhnd.launches`` counts kernel launches."""
+    ``flash_attention_bhnd.launches`` counts forward kernel launches."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_bhnd_reference(q, k, v, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention for device {q.device}")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    return _run(q, k, v, out, scale)
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, float(scale))
+    return flash_attention_fwd(q, k, v, scale=scale)
 
 
 flash_attention_bhnd.launches = 0
@@ -130,18 +326,36 @@ flash_attention_bhnd.launches = 0
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Attention over ``(B, N, H, D)`` tensors (the JAX package's layout).
+    """Attention over ``(B, N, H, D)`` tensors (the JAX package's layout);
+    differentiable.
 
-    On CUDA the kernel reads the inputs through their strides and writes a
-    contiguous ``(B, N, H, D)`` result, so no transposed copies are made."""
+    On CUDA the kernel reads the inputs through their strides and, without
+    grad, writes a contiguous ``(B, N, H, D)`` result, so no transposed
+    copies are made.  (The model's call, with grad, is
+    :func:`flash_attention_qkv`.)"""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(qt, kt, vt, float(scale)).transpose(1, 2)
     if q.device.type == "cpu":
         return flash_attention_bhnd_reference(
             qt, kt, vt, scale=scale).transpose(1, 2)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention for device {q.device}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _run(qt, kt, vt, out.transpose(1, 2), scale)
+    flash_attention_fwd(qt, kt, vt, scale=scale, out=out.transpose(1, 2))
     return out
+
+
+def flash_attention_qkv(qkv: torch.Tensor, *,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over the fused ``(B, N, 3, H, D)`` qkv projection, the
+    model's call; ``(B, N, H, D)`` out.  With grad, the backward fills one
+    ``(B, N, 3, H, D)`` gradient in place."""
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"qkv must be (B, N, 3, H, D), got "
+                         f"{tuple(qkv.shape)}")
+    if scale is None:
+        scale = qkv.shape[-1] ** -0.5
+    if _needs_grad(qkv):
+        return _FlashAttentionQKV.apply(qkv, float(scale))
+    return flash_attention(*qkv.unbind(2), scale=scale)
