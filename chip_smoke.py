@@ -4,11 +4,17 @@
 
 1. prints the device and its power limit;
 2. builds every CUDA kernel (``_build.KERNELS``: the flash-attention
-   forward and backward) from the sources in the checkout (``nvcc``,
-   ``sm_90a``);
+   forward and backward, the Swin window-attention core and the window
+   GEMM) from the sources in the checkout (``nvcc``, ``sm_90a``, one
+   process per source, all started together) and prints each kernel's
+   registers, shared memory and spills;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes the serving and training paths give it, and times kernel, plain
-   version and the PyTorch library call that computes the same function;
+   version and the PyTorch library call that computes the same function
+   (where there is one): the flash kernels at the dino_vitb8 shapes; the
+   window-attention core (row 5) and the window blocks B8 and B9 (rows 8
+   and 9) at all four stages of swin_base_384 bs32, shifted and unshifted,
+   at swin_tiny's window-7 stage 1 and at a ragged small shape;
 4. exports a full-width dino_vitb8 @224 classifier with seeded weights
    through ``vit_torch_tpu_torch.cli.export``, serves it with
    ``BundleServer`` on the card, sends concurrent HTTP requests, checks the
@@ -22,7 +28,16 @@
 6. times the steady-state finetune step (CUDA events), profiles one step
    by kernel group, and compares loss and gradients of one bs8 step on the
    kernel path with the same step on the plain attention;
-7. prints one JSON line with each kernel's numbers, then the card's name
+7. Swin: exports and serves swin_base_patch4_window12_384_22k @384 over
+   HTTP as in 4 (every block through B9: launches = 24 x dispatches, the
+   logits held against the plain versions); linear-evaluates it @384 bs32
+   for one synthetic epoch through ``vit_torch_tpu_torch.cli.main_swin``
+   (B8 takes the 23 train-mode blocks whose drop-path is active, B9 block
+   0 and every eval block) and runs the cached linear eval (B9 only);
+   times the steady-state linear-eval step and a bs32 eval forward and
+   profiles the step; checks that a Swin fine-tune on the card raises
+   before its first step (the window kernels have no backward yet);
+8. prints one JSON line with each kernel's numbers, then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -76,6 +91,20 @@ LSE_ATOL = 1e-3
 # norm
 STEP_LOSS_ATOL = 2e-2
 STEP_GRAD_RTOL = 5e-2
+# window-attention core: as KERNEL_ATOL (bf16 outputs of order 1, fp32
+# sums in another order, P rounded to bf16 at the same point)
+WINDOW_ATOL = 2e-2
+# window blocks B8 and B9: max |kernel - plain| relative to max |plain|.
+# Both round at the same points, but an fp32 sum in another order can move
+# a rounded qkv, head output, LN output or hidden value by one bf16 ulp
+# (2^-8 = 0.4%), which the next product carries; B9's output holds the
+# residual stream of order 1-4
+BLOCK_RTOL = 3e-2
+# served Swin logits, kernels vs plain versions through the same bf16
+# model: such one-ulp differences in 24 blocks, carried through the
+# residual stream, the final LayerNorm and the head; relative to
+# max |plain logit|
+SWIN_LOGITS_RTOL = 5e-2
 H100_BF16_FLOPS = 989e12          # dense tensor-core peak, SXM
 H100_BYTES_PER_S = 3.35e12
 ARCH, IMAGE_SIZE, CLASSIFIER, BUCKETS = "dino_vitb8", 224, "512,10", "1,8,32"
@@ -89,6 +118,20 @@ ATTN_SHAPES = [(32, 12, 785, 64), (8, 12, 197, 64), (2, 2, 65, 32),
 # ragged ones
 BWD_SHAPES = [(32, 12, 785, 64), (128, 12, 17, 64), (8, 12, 197, 64),
               (2, 2, 65, 32), (1, 1, 1, 64)]
+SWIN_ARCH, SWIN_SIZE, SWIN_DEPTH = "swin_base_patch4_window12_384_22k", 384, 24
+SWIN_TRAIN_ARGS = ["--dataset", "synthetic", "--arch", SWIN_ARCH,
+                   "--image_size", str(SWIN_SIZE), "--bs", str(TRAIN_BS),
+                   "--epoch", "1", "--opt", "adamw", "--lr", "1e-3", "--fc",
+                   "512"]
+# (B, H, W, C, window, shift) of the Swin blocks checked: the four stages of
+# swin_base_384 at bs32, shifted and unshifted (stage 4 is one window, never
+# shifted); swin_tiny's stage 1 at 224 px (window 7, N = 49); a ragged
+# window 5 on a 10 x 15 map.  The first is the headline shape.
+SWIN_BLOCKS = [(32, 96, 96, 128, 12, 6), (32, 96, 96, 128, 12, 0),
+               (32, 48, 48, 256, 12, 6), (32, 48, 48, 256, 12, 0),
+               (32, 24, 24, 512, 12, 6), (32, 24, 24, 512, 12, 0),
+               (32, 12, 12, 1024, 12, 0), (32, 56, 56, 96, 7, 3),
+               (2, 10, 15, 64, 5, 2)]
 
 
 def _say(*parts) -> None:
@@ -110,20 +153,22 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _attention_bound_ms(B, H, N, D):
-    flops = 4 * B * H * N * N * D            # QK^T and PV, 2 flops per MAC
-    nbytes = 4 * B * H * N * D * 2           # q, k, v read once, o written
+def _bound(flops, nbytes):
+    """(least ms, what bounds it): the operations at the dense bf16 peak
+    or the bytes at the memory rate, whichever takes longer."""
     t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _attention_bound_ms(B, H, N, D):
+    return _bound(4 * B * H * N * N * D,     # QK^T and PV, 2 flops per MAC
+                  4 * B * H * N * D * 2)     # q, k, v read once, o written
 
 
 def _bwd_bound_ms(B, H, N, D):
-    flops = 10 * B * H * N * N * D           # S, dP, dV, dQ, dK products
-    nbytes = 8 * B * H * N * D * 2 + B * H * N * 4   # + the fp32 LSE
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    return _bound(10 * B * H * N * N * D,    # S, dP, dV, dQ, dK products
+                  8 * B * H * N * D * 2 + B * H * N * 4)  # + the fp32 LSE
 
 
 def check_flash_bwd_kernel(shape, seed):
@@ -238,6 +283,146 @@ def check_flash_kernel(shape, seed):
     return row
 
 
+def _swin_mask(case, device):
+    """The (nW, N, N) shifted-window mask of a block case, or None."""
+    import torch
+    from vit_torch_tpu_torch.models.swin import shifted_window_mask
+    _, H, W, _, w, shift = case
+    if not shift:
+        return None
+    return torch.from_numpy(shifted_window_mask(H, W, w, shift)).to(device)
+
+
+def check_window_attention(case, seed):
+    """The window-attention core (row 5) vs its plain version on the
+    windows of one block case, fed as the block chains feed it: q, k and v
+    strided views into one window-major (Bn, N, 3, H, D) qkv tensor, the
+    fp32 bias and the block's real shifted-window mask.  Times kernel, plain
+    version and SDPA with the float ``bias + mask`` as ``attn_mask`` (over
+    (B, nW, H, N, D) so that the mask broadcasts per window)."""
+    import torch
+    import torch.nn.functional as F
+    from vit_torch_tpu_torch.ops import window_attention as wa
+    B, H, W, C, w, shift = case
+    heads, N, nW = C // 32, w * w, (H // w) * (W // w)
+    Bn = B * nW
+    gen = torch.Generator(device="cuda").manual_seed(2000 + seed)
+    qkv = torch.randn((Bn, N, 3, heads, 32), generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    bias = 0.5 * torch.randn((heads, N, N), generator=gen, device="cuda")
+    mask = _swin_mask(case, "cuda")
+    q, k, v = qkv.unbind(2)
+    out = wa.window_attention(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    ref = wa.window_attention_reference(q, k, v, bias, mask).float()
+    err = (out.float() - ref).abs().max().item()
+    if not (torch.isfinite(out).all() and err <= WINDOW_ATOL):
+        raise AssertionError(f"window_attention {case}: max abs err {err} > "
+                             f"{WINDOW_ATOL}")
+    del ref
+    ms = _time_ms(lambda: wa.window_attention(q, k, v, bias, mask), iters=20)
+    plain_ms = _time_ms(lambda: wa.window_attention_reference(
+        q, k, v, bias, mask), iters=3)
+    qs, ks, vs = (x.reshape(B, nW, N, heads, 32).transpose(2, 3).contiguous()
+                  for x in (q, k, v))
+    add = bias[None, None] + (0 if mask is None else mask[None, :, None])
+    add = add.to(torch.bfloat16).expand(B, nW, heads, N, N)
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=add, scale=32 ** -0.5), iters=20)
+    bound_ms, bound_by = _attention_bound_ms(Bn, heads, N, 32)
+    row = {"case": list(case), "shape": [Bn, N, heads, 32],
+           "masked": mask is not None, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    _say("kernel check window_attention", json.dumps(row))
+    return row
+
+
+def _block_inputs(case, seed):
+    """A bf16 (B, H, W, C) map, bf16 weights in nn.Linear layout of std
+    1/sqrt(fan in), fp32 LN weights and the fp32 bias, on the card."""
+    import torch
+    B, H, W, C, w, shift = case
+    gen = torch.Generator(device="cuda").manual_seed(3000 + seed)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+
+    lin = lambda o, i: (rnd(o, i, scale=i ** -0.5), rnd(o, scale=0.1))
+    ln = lambda: (1 + rnd(C, scale=0.1, dtype=torch.float32),
+                  rnd(C, scale=0.1, dtype=torch.float32))
+    return dict(x=rnd(B, H, W, C), qkv=lin(3 * C, C), proj=lin(C, C),
+                fc1=lin(4 * C, C), fc2=lin(C, 4 * C), ln1=ln(), ln2=ln(),
+                bias=rnd(C // 32, w * w, w * w, scale=0.5,
+                         dtype=torch.float32),
+                mask=_swin_mask(case, "cuda"))
+
+
+def _block_bound_ms(case, full):
+    """Operations of the block's products and attention; bytes of the map
+    read once and written once plus the weights (bf16) and the fp32 bias
+    and mask tables."""
+    from vit_torch_tpu_torch.ops.window_block import block_flops
+    B, H, W, C, w, shift = case
+    T, N = B * H * W, w * w
+    nbytes = (2 * T * C * 2 + (12 if full else 4) * C * C * 2
+              + (C // 32) * N * N * 4
+              + (shift > 0) * (H // w) * (W // w) * N * N * 4)
+    return _bound(block_flops(T, C, N, full), nbytes)
+
+
+def check_window_blocks(case, seed):
+    """B8 (``window_block_spatial``, row 8) and B9
+    (``window_block_full_spatial``, row 9) vs their plain versions on one
+    block case, the shift folded into the kernels' addressing and rolled by
+    the plain versions; times each chain and each plain version."""
+    import torch
+    from vit_torch_tpu_torch.ops import window_block as wb
+    B, H, W, C, w, shift = case
+    d = _block_inputs(case, seed)
+    kw = dict(num_heads=C // 32, window=w, shift=shift)
+    b8 = (d["x"], *d["qkv"], d["bias"], d["mask"], *d["proj"])
+    b9 = (d["x"], d["ln1"], d["qkv"], d["bias"], d["mask"], d["proj"],
+          d["ln2"], d["fc1"], d["fc2"])
+    rows = {}
+    for name, fn, ref_fn, args, full in (
+            ("window_block_spatial", wb.window_block_spatial,
+             wb.window_block_spatial_reference, b8, False),
+            ("window_block_full_spatial", wb.window_block_full_spatial,
+             wb.window_block_full_spatial_reference, b9, True)):
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        ref = ref_fn(*args, **kw).float()
+        abs_err = (out.float() - ref).abs().max().item()
+        rel = abs_err / ref.abs().max().item()
+        del ref
+        if not (torch.isfinite(out).all() and rel <= BLOCK_RTOL):
+            raise AssertionError(f"{name} {case}: max abs err relative to "
+                                 f"max|plain| {rel} > {BLOCK_RTOL}")
+        ms = _time_ms(lambda: fn(*args, **kw), iters=20)
+        plain_ms = _time_ms(lambda: ref_fn(*args, **kw), iters=3)
+        bound_ms, bound_by = _block_bound_ms(case, full)
+        rows[name] = {"case": list(case), "max_abs_err": abs_err,
+                      "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": None, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        _say(f"kernel check {name}", json.dumps(rows[name]))
+    return rows
+
+
+def _plain_window_blocks():
+    """The Swin blocks on their plain versions, patched in for the
+    kernel-vs-plain comparison of the served model."""
+    import contextlib
+    from vit_torch_tpu_torch.ops import window_block as wb
+    stack = contextlib.ExitStack()
+    for name in ("window_block_spatial", "window_block_full_spatial"):
+        stack.enter_context(mock.patch.object(
+            wb, name, getattr(wb, f"{name}_reference")))
+    return stack
+
+
 def _plain_qkv(qkv, *, scale):
     """The model's attention call on the plain version (differentiable
     through autograd), patched in for the kernel-vs-plain comparisons."""
@@ -280,6 +465,10 @@ def _kernel_group(name: str) -> str:
         return "flash_attention_fwd"
     if "flash_bwd_" in name:
         return "flash_attention_bwd"
+    if "window_attn_fwd_kernel" in name:
+        return "window_attention"
+    if "window_gemm_kernel" in name:
+        return "window_gemm"        # the B8 / B9 products
     if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
         return "matmul"
     if "layer_norm" in low or "gammabetabackward" in low:
@@ -333,31 +522,40 @@ def profile_predict(model, batch, iters: int = 3):
             **_device_groups(prof, iters, window_ms, top_n=8)}
 
 
-def serve_end_to_end(workdir: str):
+def _depth(backbone) -> int:
+    if hasattr(backbone, "blocks"):
+        return len(backbone.blocks)
+    return sum(len(layer.blocks) for layer in backbone.layers)
+
+
+def serve_end_to_end(workdir: str, arch: str, image_size: int,
+                     kernels, plain, flops_per_image: int,
+                     logits_tol: float, relative: bool):
     """Export → BundleServer on cuda → concurrent HTTP requests; prints
-    the serving numbers and returns the flash launches of the HTTP run."""
+    the serving numbers and returns the launch counts of the HTTP run.
+    Each of ``kernels`` must launch once per layer per dispatch, and no
+    other kernel at all.  ``plain()`` is a context that patches the plain
+    versions in; the logits of the two must agree within ``logits_tol``
+    (relative to max |plain logit| when ``relative``)."""
     import torch
     from vit_torch_tpu_torch.cli import export as cli_export
     from vit_torch_tpu_torch.data.datasets import resize_images
-    from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, vit_flops
-    from vit_torch_tpu_torch.ops import attention as attention_mod
-    from vit_torch_tpu_torch.ops import flash_attention as fa
     from vit_torch_tpu_torch.serving.server import BundleServer
 
-    bundle = f"{workdir}/bundle"
+    bundle = f"{workdir}/bundle-{arch}"
     t0 = time.perf_counter()
-    cli_export.main(["--arch", ARCH, "--classifier", CLASSIFIER,
-                     "--image_size", str(IMAGE_SIZE), "--bs", BUCKETS,
+    cli_export.main(["--arch", arch, "--classifier", CLASSIFIER,
+                     "--image_size", str(image_size), "--bs", BUCKETS,
                      "--dataset", "stl10", "--out", bundle])
-    _say(f"export seconds {time.perf_counter() - t0:.2f}")
+    _say(f"export {arch} seconds {time.perf_counter() - t0:.2f}")
 
     server = BundleServer(bundle, port=0, max_wait_ms=10)
     try:
-        depth = len(server.model.model.backbone.blocks)
+        depth = _depth(server.model.model.backbone)
         addr = server.address
         server.start()
         rng = np.random.default_rng(0)
-        batch32 = rng.integers(0, 256, (32, IMAGE_SIZE, IMAGE_SIZE, 3),
+        batch32 = rng.integers(0, 256, (32, image_size, image_size, 3),
                                dtype=np.uint8)
         for bs in (1, 8, 32):                   # warm cuBLAS per bucket
             server.model.predict(batch32[:bs])
@@ -375,26 +573,28 @@ def serve_end_to_end(workdir: str):
 
         threads = [threading.Thread(target=send, args=(i,))
                    for i in range(len(payloads))]
-        fa.flash_attention_bhnd.launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=600)
         http_s = time.perf_counter() - t0
-        launches = fa.flash_attention_bhnd.launches
+        launches = _read_counts()
         if any(t.is_alive() for t in threads):
             raise AssertionError("an HTTP request did not finish")
         status, stats = _get(addr, "/stats")
         if status != 200:
             raise AssertionError(f"/stats answered {status}")
         dispatches = sum(stats["dispatches"].values())
-        _say(f"http requests {len(payloads)} images "
+        _say(f"http {arch} requests {len(payloads)} images "
              f"{len(singles) + len(batch32)} seconds {http_s:.3f} "
-             f"dispatches {stats['dispatches']} flash launches {launches}")
-        if launches != depth * dispatches or dispatches == 0:
-            raise AssertionError(f"flash launches {launches} != {depth} x "
-                                 f"{dispatches} dispatches")
+             f"dispatches {stats['dispatches']} launches {launches}")
+        want = _want(**{k: depth * dispatches for k in kernels})
+        if launches != want or dispatches == 0:
+            raise AssertionError(f"{arch} launches {launches} != {want} "
+                                 f"({depth} layers x {dispatches} "
+                                 f"dispatches)")
         for status, body in replies:
             if status != 200:
                 raise AssertionError(f"predict answered {status}: {body}")
@@ -406,23 +606,24 @@ def serve_end_to_end(workdir: str):
                     raise AssertionError("label is not the argmax")
         http32 = np.asarray([p["logits"] for p in replies[-1][1]["predictions"]])
 
-        # logits: kernel path vs plain attention, same weights, on the card
-        resized = resize_images(batch32, IMAGE_SIZE)
+        # logits: kernel path vs plain versions, same weights, on the card
+        resized = resize_images(batch32, image_size)
         kernel_logits = server.model.predict(resized)
-
-        with mock.patch.object(attention_mod, "flash_attention_qkv",
-                               _plain_qkv):
+        with plain():
             plain_logits = server.model.predict(resized)
         err = float(np.abs(kernel_logits - plain_logits).max())
         err_http = float(np.abs(http32 - plain_logits).max())
-        _say(f"logits kernel vs plain attention: max abs err {err:.5f} "
-             f"(http {err_http:.5f}), max |logit| "
-             f"{float(np.abs(plain_logits).max()):.4f}, argmax agree "
+        max_logit = float(np.abs(plain_logits).max())
+        _say(f"logits {arch} kernel vs plain: max abs err {err:.5f} "
+             f"(http {err_http:.5f}), max |logit| {max_logit:.4f}, argmax "
+             f"agree "
              f"{int((kernel_logits.argmax(1) == plain_logits.argmax(1)).sum())}"
              f"/32")
-        if not max(err, err_http) <= LOGITS_ATOL:
+        limit = logits_tol * (max_logit if relative else 1.0)
+        if not max(err, err_http) <= limit:
             raise AssertionError(f"served logits differ from the plain "
-                                 f"attention by {max(err, err_http)}")
+                                 f"versions by {max(err, err_http)} > "
+                                 f"{limit}")
 
         # predict time per bucket, uint8 in, logits out, host clock; the
         # 32 bucket gives the served img/s
@@ -438,57 +639,61 @@ def serve_end_to_end(workdir: str):
                 (x.to(server.model.mean.dtype) / 255.0 - server.model.mean)
                 / server.model.std), iters=10)
         _say(json.dumps({
-            "serve": {"arch": ARCH, "image_size": IMAGE_SIZE, "depth": depth,
+            "serve": {"arch": arch, "image_size": image_size, "depth": depth,
                       "bucket": 32,
                       "predict_img_per_s": 32e3 / predict_ms[32],
                       "predict_ms_by_bucket": predict_ms,
                       "forward_ms_cuda_events": fwd_ms,
                       "forward_img_per_s": 32e3 / fwd_ms,
-                      "forward_tflop_per_s": 32 * vit_flops(
-                          VIT_CONFIGS[ARCH], IMAGE_SIZE) / fwd_ms / 1e9,
-                      "stats": stats, "logits_max_abs_err": err}}))
+                      "forward_tflop_per_s": 32 * flops_per_image / fwd_ms
+                      / 1e9,
+                      "stats": stats, "logits_max_abs_err": err,
+                      "max_abs_logit": max_logit}}))
         _say(json.dumps({"profile": profile_predict(server.model, batch32)}))
         return launches
     finally:
         server.shutdown()
 
 
-def _reset_counts():
+def _plain_attention():
+    from vit_torch_tpu_torch.ops import attention as attention_mod
+    return mock.patch.object(attention_mod, "flash_attention_qkv", _plain_qkv)
+
+
+def _counters():
+    """Every kernel wrapper, by the name it has in the kernels line."""
     from vit_torch_tpu_torch.ops import flash_attention as fa
-    fa.flash_attention_bhnd.launches = 0
-    fa.flash_attention_bwd.launches = 0
+    from vit_torch_tpu_torch.ops import window_attention as wa
+    from vit_torch_tpu_torch.ops import window_block as wb
+    return {"flash_attention_fwd": fa.flash_attention_bhnd,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "window_attention": wa.window_attention,
+            "window_block_spatial": wb.window_block_spatial,
+            "window_block_full_spatial": wb.window_block_full_spatial}
+
+
+def _reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
 
 
 def _read_counts():
-    from vit_torch_tpu_torch.ops import flash_attention as fa
-    return {"flash_attention_fwd": fa.flash_attention_bhnd.launches,
-            "flash_attention_bwd": fa.flash_attention_bwd.launches}
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
-def train_through_cli(workdir: str, lineareval: bool):
-    """One epoch of the synthetic data through the port's CLI on the card;
+def _want(**launches):
+    """Launch counts with every kernel not named at 0."""
+    return {name: launches.get(name, 0) for name in _counters()}
+
+
+def _run_cli(main_fn, argv, fp: str, mode: str, want):
+    """One epoch of the synthetic data through a port CLI on the card;
     checks the stats JSON and the kernels' launch counts."""
-    from vit_torch_tpu_torch.cli import main as cli_main
-    from vit_torch_tpu_torch.models.vit import VIT_CONFIGS
-    mode = "lineareval" if lineareval else "finetune"
-    fp = f"{workdir}/{mode}.json"
-    argv = TRAIN_ARGS + ["--stats_fp", fp] + (
-        ["--lineareval", "--cache_features"] if lineareval else [])
     _reset_counts()
     t0 = time.perf_counter()
-    cli_main.main(argv)
+    main_fn(argv + ["--stats_fp", fp])
     seconds = time.perf_counter() - t0
     counts = _read_counts()
-    depth = VIT_CONFIGS[ARCH].depth
-    steps = SYNTHETIC_N // TRAIN_BS           # per split
-    if lineareval:
-        # the frozen backbone runs once over each split (forward only);
-        # the head trains on cached features
-        want = {"flash_attention_fwd": depth * 2 * steps,
-                "flash_attention_bwd": 0}
-    else:
-        want = {"flash_attention_fwd": depth * 2 * steps,
-                "flash_attention_bwd": depth * steps}
     with open(fp) as f:
         stats = json.load(f)
     rows = {split: stats[split] for split in ("train", "val")}
@@ -507,9 +712,68 @@ def train_through_cli(workdir: str, lineareval: bool):
     return counts
 
 
-def _train_setup(bs: int, seed: int = 0):
-    """A seeded full-width finetune trainer and one uint8 batch on the
-    card."""
+def train_through_cli(workdir: str, lineareval: bool):
+    """dino_vitb8 fine-tune, or cached linear eval, through ``cli.main``."""
+    from vit_torch_tpu_torch.cli import main as cli_main
+    from vit_torch_tpu_torch.models.vit import VIT_CONFIGS
+    mode = "lineareval" if lineareval else "finetune"
+    depth = VIT_CONFIGS[ARCH].depth
+    steps = SYNTHETIC_N // TRAIN_BS           # per split
+    if lineareval:
+        # the frozen backbone runs once over each split (forward only);
+        # the head trains on cached features
+        want = _want(flash_attention_fwd=depth * 2 * steps)
+    else:
+        want = _want(flash_attention_fwd=depth * 2 * steps,
+                     flash_attention_bwd=depth * steps)
+    return _run_cli(cli_main.main, TRAIN_ARGS + (
+        ["--lineareval", "--cache_features"] if lineareval else []),
+        f"{workdir}/{mode}.json", mode, want)
+
+
+def swin_lineareval_through_cli(workdir: str, cached: bool):
+    """swin_base_384 linear eval (bench config 4's unit) through
+    ``cli.main_swin``.  In a train step the backbone runs in train mode
+    under no_grad: block 0's drop-path rate is 0, so it takes B9, and the
+    23 blocks whose drop-path is active take B8; every eval step takes B9
+    in all 24 blocks.  The cached run takes B9 only, once over each
+    split."""
+    from vit_torch_tpu_torch.cli import main_swin
+    steps = SYNTHETIC_N // TRAIN_BS
+    if cached:
+        want = _want(window_attention=SWIN_DEPTH * 2 * steps,
+                     window_block_full_spatial=SWIN_DEPTH * 2 * steps)
+    else:
+        want = _want(window_attention=SWIN_DEPTH * 2 * steps,
+                     window_block_spatial=(SWIN_DEPTH - 1) * steps,
+                     window_block_full_spatial=(1 + SWIN_DEPTH) * steps)
+    mode = "swin_lineareval" + ("_cached" if cached else "")
+    return _run_cli(main_swin.main, SWIN_TRAIN_ARGS + ["--lineareval"] + (
+        ["--cache_features"] if cached else []), f"{workdir}/{mode}.json",
+        mode, want)
+
+
+def swin_finetune_refused(workdir: str):
+    """A Swin fine-tune on the card raises before its first step, naming
+    the backward still to port."""
+    from vit_torch_tpu_torch.cli import main_swin
+    _reset_counts()
+    try:
+        main_swin.main(SWIN_TRAIN_ARGS + ["--stats_fp",
+                                          f"{workdir}/swin_finetune.json"])
+    except NotImplementedError as e:
+        if "B6" not in str(e) or any(_read_counts().values()):
+            raise AssertionError(f"unexpected refusal: {e}") from e
+        _say(f"swin finetune on cuda refused: {e}")
+        return
+    raise AssertionError("a Swin fine-tune on CUDA was not refused")
+
+
+def _train_setup(bs: int, seed: int = 0, arch: str = ARCH,
+                 image_size: int = IMAGE_SIZE, lineareval: bool = False,
+                 lr: float = 1e-4):
+    """A seeded full-width trainer (finetune, or linear eval) and one uint8
+    batch on the card."""
     import torch
     from vit_torch_tpu_torch.data.augment import (make_eval_transform,
                                                   make_train_augment)
@@ -518,16 +782,17 @@ def _train_setup(bs: int, seed: int = 0):
     from vit_torch_tpu_torch.models.zoo import VisionModelZoo
     from vit_torch_tpu_torch.train.trainer import Trainer
     zm = VisionModelZoo.get_model(
-        ARCH, classifier=[512, 10], image_size=IMAGE_SIZE,
+        arch, classifier=[512, 10], image_size=image_size,
         generator=torch.Generator().manual_seed(seed))
     norm = NORM_VALUES["synthetic"]
-    trainer = Trainer(zm, opt="adamw", lr=1e-4, seed=seed,
+    trainer = Trainer(zm, opt="adamw", lr=lr, seed=seed,
+                      lineareval=lineareval,
                       augment_fn=make_train_augment(**norm,
                                                     dtype=torch.bfloat16),
                       eval_transform=make_eval_transform(
                           **norm, dtype=torch.bfloat16),
                       print_progress=False)
-    imgs, labels = _synthetic_arrays("train", n=bs, image_size=IMAGE_SIZE,
+    imgs, labels = _synthetic_arrays("train", n=bs, image_size=image_size,
                                      seed=seed)
     batch = (torch.from_numpy(imgs).cuda(),
              torch.from_numpy(labels.astype(np.int64)).cuda(),
@@ -587,9 +852,70 @@ def steady_state_train(iters: int = 12):
            "profile": profile_train_step(trainer, batch)}
     _say(json.dumps({"train": row}))
     depth = VIT_CONFIGS[ARCH].depth
-    if per_step != {"flash_attention_fwd": depth,
-                    "flash_attention_bwd": depth}:
+    if per_step != _want(flash_attention_fwd=depth,
+                         flash_attention_bwd=depth):
         raise AssertionError(f"launches per train step {per_step}")
+    return row
+
+
+def steady_state_swin_lineareval(iters: int = 12):
+    """The swin_base_384 linear-eval step at bs32 (augment, backbone in
+    train mode under no_grad on the B8 route, head forward and backward,
+    AdamW on the head) on the card: CUDA-event time over ``iters`` steps
+    after warm-up, MFU with step FLOPs = 1 x forward (the backbone runs no
+    backward; ``bench.py`` counts the same), a profile, the launches per
+    step; and a bs32 eval forward (the B9 route) timed on its own."""
+    import torch
+    from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, swin_flops
+    zm, trainer, batch = _train_setup(TRAIN_BS, arch=SWIN_ARCH,
+                                      image_size=SWIN_SIZE, lineareval=True,
+                                      lr=1e-3)
+    zm.model.train()
+    for _ in range(3):
+        trainer.train_step(*batch)
+    torch.cuda.synchronize()
+    _reset_counts()
+    trainer.train_step(*batch)
+    per_step = _read_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        trainer.train_step(*batch)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / iters
+    step_ms = start.elapsed_time(end) / iters
+    fwd_flops = swin_flops(SWIN_CONFIGS[SWIN_ARCH], SWIN_SIZE) * TRAIN_BS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = profile_train_step(trainer, batch)
+    zm.model.eval()
+    x = trainer.eval_transform(batch[0])
+    _reset_counts()
+    with torch.no_grad():
+        eval_ms = _time_ms(lambda: zm.model(x), iters=10)
+    eval_counts = _read_counts()
+    row = {"arch": SWIN_ARCH, "image_size": SWIN_SIZE, "bs": TRAIN_BS,
+           "opt": "adamw", "iters": iters, "lineareval_step_ms": step_ms,
+           "host_step_ms": host_ms,
+           "lineareval_img_per_s": TRAIN_BS * 1e3 / step_ms,
+           "step_tflop": fwd_flops / 1e12,
+           "mfu": fwd_flops / (step_ms / 1e3) / H100_BF16_FLOPS,
+           "launches_per_step": per_step, "peak_mem_gb": peak_gb,
+           "eval_forward_ms": eval_ms,
+           "eval_forward_img_per_s": TRAIN_BS * 1e3 / eval_ms,
+           "eval_forward_mfu": fwd_flops / (eval_ms / 1e3) / H100_BF16_FLOPS,
+           "profile": profile}
+    _say(json.dumps({"swin_lineareval_step": row}))
+    if per_step != _want(window_attention=SWIN_DEPTH,
+                         window_block_spatial=SWIN_DEPTH - 1,
+                         window_block_full_spatial=1):
+        raise AssertionError(f"launches per lineareval step {per_step}")
+    if eval_counts != _want(window_attention=SWIN_DEPTH * 12,
+                            window_block_full_spatial=SWIN_DEPTH * 12):
+        raise AssertionError(f"launches in 12 eval forwards {eval_counts}")
     return row
 
 
@@ -667,18 +993,40 @@ def main() -> int:
                 for i, shape in enumerate(BWD_SHAPES)]
     train_row = bwd_rows[0]
 
+    attn_rows = [check_window_attention(case, seed=i)
+                 for i, case in enumerate(SWIN_BLOCKS)]
+    block_rows = [check_window_blocks(case, seed=i)
+                  for i, case in enumerate(SWIN_BLOCKS)]
+
+    from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, swin_flops
+    from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, vit_flops
     with tempfile.TemporaryDirectory() as workdir:
-        launches = serve_end_to_end(workdir)
+        launches = serve_end_to_end(
+            workdir, ARCH, IMAGE_SIZE, ("flash_attention_fwd",),
+            _plain_attention, vit_flops(VIT_CONFIGS[ARCH], IMAGE_SIZE),
+            LOGITS_ATOL, relative=False)
         finetune = train_through_cli(workdir, lineareval=False)
         lineareval = train_through_cli(workdir, lineareval=True)
     steady_state_train()
     compare_step_with_plain()
 
+    with tempfile.TemporaryDirectory() as workdir:
+        swin_serve = serve_end_to_end(
+            workdir, SWIN_ARCH, SWIN_SIZE,
+            ("window_attention", "window_block_full_spatial"),
+            _plain_window_blocks,
+            swin_flops(SWIN_CONFIGS[SWIN_ARCH], SWIN_SIZE),
+            SWIN_LOGITS_RTOL, relative=True)
+        swin_le = swin_lineareval_through_cli(workdir, cached=False)
+        swin_cached = swin_lineareval_through_cli(workdir, cached=True)
+        swin_finetune_refused(workdir)
+    swin_step = steady_state_swin_lineareval()
+
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "vit_torch_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "vit_torch_tpu/ops/flash_attention.py:251",
-        "launches": launches,
+        "launches": launches["flash_attention_fwd"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": serving_row["ms"], "plain_ms": serving_row["plain_ms"],
         "bound_ms": serving_row["bound_ms"],
@@ -686,7 +1034,7 @@ def main() -> int:
         "library_ms": serving_row["library_ms"],
         "shape": serving_row["shape"],
         "launches_by_path": {
-            "serve": launches,
+            "serve": launches["flash_attention_fwd"],
             "finetune": finetune["flash_attention_fwd"],
             "lineareval": lineareval["flash_attention_fwd"]},
         "ms_with_lse": train_row["fwd_with_lse_ms"],
@@ -707,6 +1055,37 @@ def main() -> int:
             "lineareval": lineareval["flash_attention_bwd"]},
         "ms_32px_bs128": bwd_rows[1]["ms"],
         "bound_ms_32px_bs128": bwd_rows[1]["bound_ms"]}]
+    # the Swin rows: launches from the linear-eval run (the slice's main
+    # path, bench config 4), numbers at the headline shape (swin_base_384
+    # bs32 stage 1, shifted), the other shapes beside them
+    swin_paths = {"lineareval": swin_le, "lineareval_cached": swin_cached,
+                  "serve": swin_serve}
+    for kernel, source, replaces, by_case in (
+            ("window_attention", "window_attention_fwd.cu",
+             "window_attention.py:164", attn_rows),
+            ("window_block_spatial", "window_gemm.cu",
+             "window_block.py:496", [r["window_block_spatial"]
+                                     for r in block_rows]),
+            ("window_block_full_spatial", "window_gemm.cu",
+             "window_block.py:806", [r["window_block_full_spatial"]
+                                     for r in block_rows])):
+        head = by_case[0]
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": f"vit_torch_tpu_torch/csrc/{source}",
+            "replaces": f"vit_torch_tpu/ops/{replaces}",
+            "launches": swin_le[kernel],
+            "max_abs_err": max(r["max_abs_err"] for r in by_case),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "case": head["case"],
+            "launches_by_path": {p: c[kernel]
+                                 for p, c in swin_paths.items()},
+            "ms_plain_bound_by_case": [
+                [r["case"], r["ms"], r["plain_ms"], r["bound_ms"]]
+                for r in by_case]})
+    kernels[-1]["lineareval_step_ms"] = swin_step["lineareval_step_ms"]
+    kernels[-1]["eval_forward_ms"] = swin_step["eval_forward_ms"]
     _say(json.dumps({"kernels": kernels}))
     _say(smi)
     _say(json.dumps({"ok": True, "device": {

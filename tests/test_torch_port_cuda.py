@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: the flash-attention forward and
 backward against their plain versions, their input checks and launch
 counts, the classifier on CUDA against the same weights on the CPU, and a
-bf16 train step that runs the backward kernel once per layer.
+bf16 train step that runs the backward kernel once per layer; the Swin
+window-attention and window-block kernels against their plain versions,
+their refusals, and a small Swin on the card against the CPU.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere.  They
 import neither JAX nor the JAX package, so they run on a machine without
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from vit_torch_tpu_torch.ops import flash_attention as fa
+from vit_torch_tpu_torch.ops import window_attention as wa
+from vit_torch_tpu_torch.ops import window_block as wb
 
 pytestmark = pytest.mark.cuda
 
@@ -25,6 +29,11 @@ ATOL = 2e-2
 # gradients: max |kernel - plain| relative to max |plain|, floored (see
 # chip_smoke.py BWD_RTOL)
 BWD_RTOL, BWD_FLOOR = 2e-2, 1e-3
+# window blocks: max |kernel - plain| relative to max |plain|.  Both round
+# at the same points, but fp32 sums in another order can move a rounded
+# qkv, head output or hidden value by one bf16 ulp (2^-8), which the next
+# product carries; outputs hold the residual stream (see chip_smoke.py)
+BLOCK_RTOL = 3e-2
 
 
 @pytest.fixture
@@ -141,3 +150,149 @@ def test_train_step_launches_bwd_kernel_per_layer(cuda):
     assert fa.flash_attention_bwd.launches == bwd + 2
     assert torch.isfinite(m["loss_sum"]).item()
     assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+# (B, H, W, C, window, shift): window 12 shifted and unshifted, window 7
+# (N = 49, padded to 64 rows), a ragged window 5 on a 10 x 15 map
+BLOCK_CASES = [(2, 24, 24, 64, 12, 6), (1, 12, 12, 128, 12, 0),
+               (2, 14, 14, 96, 7, 3), (1, 10, 15, 64, 5, 2)]
+
+
+def _block_inputs(case, device, seed=0):
+    """A bf16 map, bf16 weights in nn.Linear layout, fp32 LN weights, the
+    fp32 bias and, for a shifted block, a -100/0 mask."""
+    B, H, W, C, w, shift = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    heads, N, hid = C // 32, w * w, 4 * C
+    nW = (H // w) * (W // w)
+    x = rnd(B, H, W, C)
+    mask = None
+    if shift:
+        mask = torch.where(torch.rand((nW, N, N), generator=gen,
+                                      device=device) > 0.7, -100.0, 0.0)
+    lin = lambda o, i: (rnd(o, i, scale=i ** -0.5), rnd(o, scale=0.1))
+    ln = lambda: (1 + rnd(C, scale=0.1, dtype=torch.float32),
+                  rnd(C, scale=0.1, dtype=torch.float32))
+    return dict(x=x, bias=rnd(heads, N, N, scale=0.5, dtype=torch.float32),
+                mask=mask, qkv=lin(3 * C, C), proj=lin(C, C), fc1=lin(hid, C),
+                fc2=lin(C, hid), ln1=ln(), ln2=ln(), heads=heads, w=w,
+                shift=shift)
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("N", [144, 49, 16, 1])
+def test_window_attention_kernel_matches_plain(cuda, N, masked):
+    """The core over views of one (Bn, N, 3, H, D) qkv tensor, as the
+    block kernels feed it, and over contiguous tensors."""
+    Bn, H, nW = 8, 3, 4
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    qkv = torch.randn((Bn, N, 3, H, 32), generator=gen, device=cuda,
+                      dtype=torch.bfloat16)
+    bias = torch.randn((H, N, N), generator=gen, device=cuda)
+    mask = (torch.where(torch.rand((nW, N, N), generator=gen, device=cuda)
+                        > 0.7, -100.0, 0.0) if masked else None)
+    q, k, v = qkv.unbind(2)
+    before = wa.window_attention.launches
+    got = wa.window_attention(q, k, v, bias, mask)
+    got_c = wa.window_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), bias, mask)
+    torch.cuda.synchronize()
+    assert wa.window_attention.launches == before + 2
+    ref = wa.window_attention_reference(q, k, v, bias, mask).float()
+    assert got.shape == (Bn, N, H, 32) and got.is_contiguous()
+    for out in (got, got_c):
+        assert (out.float() - ref).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=str)
+def test_window_block_kernels_match_plain(cuda, case):
+    """B8 and B9 with the shift folded in, against their plain versions
+    (which roll); one launch of each chain and one core launch each."""
+    d = _block_inputs(case, cuda)
+    kw = dict(num_heads=d["heads"], window=d["w"], shift=d["shift"])
+    b8 = (d["x"], *d["qkv"], d["bias"], d["mask"], *d["proj"])
+    b9 = (d["x"], d["ln1"], d["qkv"], d["bias"], d["mask"], d["proj"],
+          d["ln2"], d["fc1"], d["fc2"])
+    counts = (wb.window_block_spatial.launches,
+              wb.window_block_full_spatial.launches,
+              wa.window_attention.launches)
+    got8 = wb.window_block_spatial(*b8, **kw)
+    got9 = wb.window_block_full_spatial(*b9, **kw)
+    torch.cuda.synchronize()
+    assert (wb.window_block_spatial.launches,
+            wb.window_block_full_spatial.launches,
+            wa.window_attention.launches) == (counts[0] + 1, counts[1] + 1,
+                                              counts[2] + 2)
+    ref8 = wb.window_block_spatial_reference(*b8, **kw)
+    ref9 = wb.window_block_full_spatial_reference(*b9, **kw)
+    assert got8.shape == got9.shape == d["x"].shape
+    assert _rel_err(got8, ref8) <= BLOCK_RTOL
+    assert _rel_err(got9, ref9) <= BLOCK_RTOL
+
+
+def test_window_kernels_refuse_what_they_do_not_take(cuda):
+    d = _block_inputs((1, 12, 12, 64, 12, 0), cuda)
+    q = torch.randn((2, 144, 2, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="B6"):
+        wa.window_attention(q.requires_grad_(), q, q, d["bias"])
+    q = q.detach()
+    with pytest.raises(TypeError):
+        wa.window_attention(q.float(), q.float(), q.float(), d["bias"])
+    with pytest.raises(ValueError, match="head dim"):
+        wa.window_attention(q[..., :16], q[..., :16], q[..., :16], d["bias"])
+    with pytest.raises(ValueError, match="bias"):
+        wa.window_attention(q, q, q, d["bias"].bfloat16())
+    kw = dict(num_heads=2, window=12)
+    w_qkv = d["qkv"][0].float().requires_grad_()
+    with pytest.raises(NotImplementedError, match="B6"):
+        wb.window_block_spatial(d["x"], w_qkv.bfloat16(), d["qkv"][1],
+                                d["bias"], None, *d["proj"], **kw)
+    with pytest.raises(ValueError, match="tiled by window"):
+        wb.window_block_spatial(d["x"][:, :10], *d["qkv"], d["bias"], None,
+                                *d["proj"], **kw)
+    with pytest.raises(ValueError, match="ln1"):
+        wb.window_block_full_spatial(
+            d["x"], (d["ln1"][0].bfloat16(), d["ln1"][1]), d["qkv"],
+            d["bias"], None, d["proj"], d["ln2"], d["fc1"], d["fc2"], **kw)
+
+
+def test_swin_on_cuda_matches_cpu(cuda):
+    """bf16 features of one seeded small Swin (head dim 32) on the card,
+    every block through B9 in eval, against the same weights on the CPU
+    (plain versions)."""
+    from vit_torch_tpu_torch.models.layers import init_weights
+    from vit_torch_tpu_torch.models.swin import SwinConfig, SwinTransformer
+    cfg = SwinConfig(embed_dim=64, depths=(2, 2), num_heads=(2, 4),
+                     window_size=4, drop_path_rate=0.0)
+    model = SwinTransformer(cfg, image_size=32).eval()
+    init_weights(model, torch.Generator().manual_seed(0))
+    x = np.random.default_rng(0).standard_normal((4, 32, 32, 3)).astype(
+        np.float32)
+    before = wb.window_block_full_spatial.launches
+    with torch.inference_mode():
+        ref = model(torch.from_numpy(x)).float()
+        got = model.to(cuda)(torch.from_numpy(x).to(cuda)).float().cpu()
+    assert wb.window_block_full_spatial.launches == before + 4   # depth 4
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=5e-2, rtol=0)
+
+
+def test_swin_finetune_on_cuda_raises_before_the_first_step(cuda):
+    """The window kernels have no backward yet: the trainer refuses a Swin
+    fine-tune on the card when it is built, and takes a linear eval."""
+    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+    from vit_torch_tpu_torch.train.trainer import Trainer
+    zm = VisionModelZoo.get_model("swin_test", classifier=[10],
+                                  image_size=32, device=cuda)
+    with pytest.raises(NotImplementedError, match="B6"):
+        Trainer(zm, print_progress=False)
+    Trainer(zm, lineareval=True, print_progress=False)

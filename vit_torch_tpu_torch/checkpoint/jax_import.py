@@ -1,13 +1,19 @@
 """JAX/flax parameter tree → the port's state dict.
 
-The inverse of ``vit_torch_tpu/checkpoint/torch_import.py:import_vit``, so
-weights trained or initialised by the JAX package run in the port:
+The inverse of ``vit_torch_tpu/checkpoint/torch_import.py:import_vit`` and
+``import_swin``, so weights trained or initialised by the JAX package run
+in the port:
 
 - a Dense ``kernel`` ``(in, out)`` becomes a Linear ``weight`` ``(out, in)``;
 - the patch-embed matmul kernel ``(p*p*C, D)`` becomes the conv weight
-  ``(D, C, p, p)``;
+  ``(D, C, p, p)`` (ViT's ``patch_embed.kernel``, Swin's
+  ``patch_embed_kernel``; Swin's ``patch_embed_norm`` becomes
+  ``patch_embed.norm``);
 - LayerNorm ``scale`` becomes ``weight``;
-- ``blocks_{i}`` becomes ``blocks.{i}``.
+- ``blocks_{i}`` becomes ``blocks.{i}``; Swin's ``layers_{i}_blocks_{j}``
+  and ``layers_{i}_downsample`` become ``layers.{i}.blocks.{j}`` and
+  ``layers.{i}.downsample``;
+- Swin's ``relative_position_bias_table`` is kept as it is.
 """
 
 from __future__ import annotations
@@ -30,11 +36,15 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
 
 def state_dict_from_jax(params: Mapping[str, Any], image_channels: int = 3
                         ) -> Dict[str, torch.Tensor]:
-    """Map a flax ViT classifier tree (``{"backbone": ..., "head": ...}``,
-    or a bare backbone tree) of numpy-convertible arrays to a state dict."""
+    """Map a flax ViT or Swin classifier tree (``{"backbone": ...,
+    "head": ...}``, or a bare backbone tree) of numpy-convertible arrays to
+    a state dict."""
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(params):
-        key = re.sub(r"blocks_(\d+)", r"blocks.\1", path)
+        key = re.sub(r"layers_(\d+)_", r"layers.\1.", path)
+        key = re.sub(r"patch_embed_(kernel|bias|norm)", r"patch_embed.\1",
+                     key)
+        key = re.sub(r"blocks_(\d+)", r"blocks.\1", key)
         leaf = key.rsplit(".", 1)[-1]
         if key.endswith("patch_embed.kernel"):
             D = arr.shape[1]

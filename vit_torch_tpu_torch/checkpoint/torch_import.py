@@ -1,8 +1,9 @@
 """Torch checkpoints into the port's models, counterpart of the serving
 part of ``vit_torch_tpu/checkpoint/torch_import.py``.
 
-The port's parameter names are DINO's, so a DINO/timm ViT state dict loads
-as it is; what remains is unwrapping the published checkpoint variants and
+The port's parameter names are DINO's and Microsoft Swin's, so a DINO/timm
+ViT or a Swin state dict loads as it is; what remains is unwrapping the
+published checkpoint variants, skipping Swin's computed buffers, and
 bicubic interpolation of the position table to the model's grid, with the
 JAX package's ``jax.image.resize`` semantics (Keys cubic, a = -0.5, half-
 pixel centres, antialiased when shrinking) written in numpy.
@@ -93,15 +94,19 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 def load_backbone_state_dict(path: str, model: nn.Module,
                              image_size: int) -> None:
-    """Load a DINO/timm ViT checkpoint into ``model.backbone`` in place,
-    interpolating the position table to the ``image_size`` grid.  Keys the
-    backbone lacks (a timm ``head.*``) are ignored; keys it needs and the
-    file lacks raise."""
+    """Load a DINO/timm ViT or Microsoft Swin checkpoint into
+    ``model.backbone`` in place.  For a ViT the position table is
+    interpolated to the ``image_size`` grid; a Swin checkpoint goes through
+    :func:`load_swin_state_dict`.  Keys the backbone lacks (a ``head.*``)
+    are ignored; keys it needs and the file lacks raise."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     backbone = model.backbone
     sd = load_torch_state_dict(path)
     target = backbone.state_dict()
+    if "pos_embed" not in target:
+        load_swin_state_dict(sd, backbone)
+        return
     n_target = target["pos_embed"].shape[1] - 1
     if n_target != (image_size // backbone.config.patch_size) ** 2:
         raise ValueError(f"model grid has {n_target} patches, not the grid "
@@ -115,3 +120,31 @@ def load_backbone_state_dict(path: str, model: nn.Module,
         raise ValueError(f"checkpoint {path} lacks backbone keys "
                          f"{missing[:8]}")
     backbone.load_state_dict(sd)
+
+
+# computed from the window and map size (non-persistent buffers of the port)
+_SWIN_COMPUTED = ("relative_position_index", "attn_mask")
+
+
+def load_swin_state_dict(sd: Dict[str, torch.Tensor],
+                         backbone: nn.Module) -> None:
+    """Load a Microsoft Swin state dict (already unwrapped from
+    ``checkpoint['model']``) into a port Swin backbone in place.  The
+    port's names are Microsoft's, so this is a load by name that skips
+    ``relative_position_index``, ``attn_mask`` and ``head.*``, as the
+    reference's ``strict=False`` load does, and raises on any key the
+    backbone needs and the dict lacks or on a shape mismatch."""
+    sd = {k: v for k, v in sd.items()
+          if not k.startswith("head.")
+          and k.rsplit(".", 1)[-1] not in _SWIN_COMPUTED}
+    target = backbone.state_dict()
+    missing = sorted(set(target) - set(sd))
+    if missing:
+        raise ValueError(f"Swin state dict lacks backbone keys "
+                         f"{missing[:8]}")
+    bad = [f"{k}: {tuple(sd[k].shape)} vs {tuple(v.shape)}"
+           for k, v in target.items() if sd[k].shape != v.shape]
+    if bad:
+        raise ValueError(f"Swin state dict shapes do not match the "
+                         f"backbone: {bad[:8]}")
+    backbone.load_state_dict({k: sd[k] for k in target})

@@ -7,7 +7,9 @@ writes a bundle (``serving/export.py``: manifest + weights) that
 ``python -m vit_torch_tpu_torch.cli.serve --bundle /tmp/bundle`` serves.
 Without ``--torch_ckpt`` the weights are seeded random ones (pipeline
 smoke and speed only); with it the backbone comes from a DINO/timm torch
-checkpoint, its position table interpolated to ``--image_size``.
+checkpoint, its position table interpolated to ``--image_size``, or from a
+Microsoft Swin checkpoint (``--arch swin_base_patch4_window12_384_22k``
+and the other Swin archs).
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ def main(argv=None) -> None:
     p.add_argument("--classifier", default="10",
                    help="comma-separated head units incl. class count, "
                         "e.g. 512,10 (reference [*fc, num_labels])")
-    p.add_argument("--image_size", type=int, default=224)
+    p.add_argument("--image_size", type=int, default=None,
+                   help="input size (default: 384 for *384* archs, else 224)")
     p.add_argument("--bs", default="1,8,32",
                    help="comma-separated batch-size buckets")
     p.add_argument("--dataset", default="synthetic",
@@ -83,7 +86,7 @@ def main(argv=None) -> None:
         args.arch, classifier=classifier, image_size=args.image_size,
         device=args.device, generator=torch.Generator().manual_seed(0))
     if args.torch_ckpt:
-        load_backbone_state_dict(args.torch_ckpt, zm.model, args.image_size)
+        load_backbone_state_dict(args.torch_ckpt, zm.model, zm.image_size)
     else:
         print("warning: no --torch_ckpt — exporting randomly-initialized "
               "weights (smoke only)", file=sys.stderr)

@@ -2,8 +2,8 @@
 
 ``VisionModelZoo.get_model(arch, ...)`` returns a :class:`ZooModel` whose
 ``model`` is a :class:`Classifier` (backbone + optional MLP head) with
-seeded weights on the requested device.  This slice builds the dino/vit
-family; the other families raise until their slice lands (ROADMAP.md).
+seeded weights on the requested device.  The dino/vit and swin families
+are ported; the other families raise until their slice lands (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from torch import nn
 
 from vit_torch_tpu_torch.device import resolve_device
 from vit_torch_tpu_torch.models.layers import ClassifierHead, init_weights
+from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, SwinTransformer
 from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, VisionTransformer
 
 
@@ -72,6 +73,23 @@ def arch_family(arch: str) -> str:
                      f"{sorted(set(f for _, f in _ARCH_FAMILIES))}")
 
 
+# family → (its configs, its backbone class), for the families ported
+_PORTED = {"dino": (VIT_CONFIGS, VisionTransformer),
+           "swin": (SWIN_CONFIGS, SwinTransformer)}
+
+
+def reset_buffers(model: nn.Module,
+                  device: Optional[Union[str, torch.device]] = None) -> None:
+    """Recompute every module's computed buffers (Swin's relative-position
+    index and shifted-window masks) on ``device`` (each buffer's own when
+    None): after ``to_empty``, or after a state-dict load into a model
+    built on meta, whose non-persistent buffers hold no data."""
+    for mod in model.modules():
+        if hasattr(mod, "reset_buffers"):
+            mod.reset_buffers(None if device is None
+                              else torch.device(device))
+
+
 class VisionModelZoo:
     """Facade: ``get_model(arch, ...)`` → :class:`ZooModel`."""
 
@@ -81,7 +99,7 @@ class VisionModelZoo:
         arch: str,
         image_channels: int = 3,
         classifier: Optional[Sequence[int]] = None,
-        image_size: int = 224,
+        image_size: Optional[int] = None,
         dtype: torch.dtype = torch.bfloat16,
         device: Optional[Union[str, torch.device]] = None,
         generator: Optional[torch.Generator] = None,
@@ -93,22 +111,25 @@ class VisionModelZoo:
         drawn on the CPU from ``generator`` (seed 0 when omitted), so a seed
         gives the same weights on every device, then moved to ``device``
         (CUDA when omitted).  ``device="meta"`` skips the init, for callers
-        that load a state dict next."""
+        that load a state dict next.  ``image_size`` defaults to 384 for
+        the ``*384*`` archs and to 224 otherwise."""
         dev = resolve_device(device)
         family = arch_family(arch)
-        if family != "dino":
+        if image_size is None:
+            image_size = 384 if "384" in arch else 224
+        if family not in _PORTED:
             raise NotImplementedError(
                 f"model family {family!r} (arch {arch!r}) is not ported yet; "
                 f"see ROADMAP.md for the order of the port")
-        if arch not in VIT_CONFIGS:
-            raise ValueError(
-                f"unknown ViT arch {arch!r}; have {sorted(VIT_CONFIGS)}")
-        cfg = VIT_CONFIGS[arch]
+        configs, backbone_cls = _PORTED[family]
+        if arch not in configs:
+            raise ValueError(f"unknown {family} arch {arch!r}; have "
+                             f"{sorted(configs)}")
         with torch.device("meta"):
-            backbone = VisionTransformer(cfg, image_size=image_size,
-                                         image_channels=image_channels,
-                                         dtype=dtype)
-            head = (ClassifierHead(cfg.embed_dim, classifier)
+            backbone = backbone_cls(configs[arch], image_size=image_size,
+                                    image_channels=image_channels,
+                                    dtype=dtype)
+            head = (ClassifierHead(backbone.feature_dim, classifier)
                     if classifier else None)
             model = Classifier(backbone, head)
         if dev.type != "meta":
@@ -116,9 +137,11 @@ class VisionModelZoo:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
             init_weights(model, generator)
+            reset_buffers(model)
             model.to(dev)
         model.eval()
         return ZooModel(arch=arch, family=family, model=model,
-                        feature_dim=cfg.embed_dim, image_size=image_size,
+                        feature_dim=backbone.feature_dim,
+                        image_size=image_size,
                         classifier=list(classifier) if classifier else None,
-                        patch_size=cfg.patch_size)
+                        patch_size=configs[arch].patch_size)

@@ -5,8 +5,12 @@ Layout: ``(batch, seq, heads, head_dim)``.  On CUDA, attention without a
 bias or mask always runs the flash kernel (:mod:`.flash_attention`), at
 every sequence length: the TPU package's ``VITX_FLASH_MIN_SEQ`` crossover
 was measured on a TPU and does not carry over.  Gradients flow through it:
-the kernel has a backward kernel.  Biased or masked attention
-(Swin's windows) has no CUDA kernel yet.  On the CPU the plain softmax
+the kernel has a backward kernel.  Swin's biased and masked window
+attention does not come through here: it has its own kernels
+(:mod:`.window_attention`, :mod:`.window_block`).  No model of the JAX
+package passes a bias or mask to this function; on CUDA such a call
+raises until a slice that needs it brings a kernel (the detection slice,
+ROADMAP.md A10, is the first candidate).  On the CPU the plain softmax
 attention below runs, as the JAX package's ``_xla_attention`` does off the
 TPU.
 """
@@ -36,8 +40,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cuda":
         if bias is not None or mask is not None:
             raise NotImplementedError(
-                "attention with a bias or mask has no CUDA kernel yet: it "
-                "comes with the Swin slice (ROADMAP.md)")
+                "generic attention with a bias or mask has no CUDA kernel: "
+                "Swin's window attention has its own "
+                "(ops/window_attention.py), and a kernel for this call comes "
+                "with the first slice that needs it (detection, ROADMAP.md "
+                "A10)")
         return flash_attention(q, k, v, scale=scale)
     return _plain_attention(q, k, v, scale=scale, bias=bias, mask=mask)
 

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from vit_torch_tpu_torch.device import resolve_device
-from vit_torch_tpu_torch.models.zoo import VisionModelZoo, ZooModel
+from vit_torch_tpu_torch.models.zoo import (VisionModelZoo, ZooModel,
+                                            reset_buffers)
 
 FORMAT = "vit_torch_tpu_torch.serving/1"
 _DETECTION_FORMAT = "vit_torch_tpu.serving.detection"
@@ -161,6 +162,7 @@ def load_bundle(bundle_dir: str,
     state = torch.load(os.path.join(bundle_dir, _WEIGHTS),
                        map_location="cpu", weights_only=True)
     zm.model.load_state_dict(state, assign=True)
+    reset_buffers(zm.model, "cpu")
     model = zm.model.to(dev).eval()
     norm = manifest["norm"]
     return ServingModel(
