@@ -4,17 +4,20 @@
 
 1. prints the device and its power limit;
 2. builds every CUDA kernel (``_build.KERNELS``: the flash-attention
-   forward and backward, the Swin window-attention core and the window
-   GEMM) from the sources in the checkout (``nvcc``, ``sm_90a``, one
-   process per source, all started together) and prints each kernel's
-   registers, shared memory and spills;
+   forward and backward, the Swin window-attention core forward and
+   backward and the window GEMM) from the sources in the checkout
+   (``nvcc``, ``sm_90a``, one process per source, all started together)
+   and prints each kernel's registers, shared memory and spills;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes the serving and training paths give it, and times kernel, plain
    version and the PyTorch library call that computes the same function
    (where there is one): the flash kernels at the dino_vitb8 shapes; the
-   window-attention core (row 5) and the window blocks B8 and B9 (rows 8
-   and 9) at all four stages of swin_base_384 bs32, shifted and unshifted,
-   at swin_tiny's window-7 stage 1 and at a ragged small shape;
+   window-attention core (row 5), its backward (row 6) and the window
+   blocks B8 and B9 (rows 8 and 9) at all four stages of swin_base_384
+   bs32, shifted and unshifted, at swin_tiny's window-7 stage 1 and at a
+   ragged small shape; the gradients of B8 and B9 against autograd
+   through their plain versions at the headline, window-7 and ragged
+   shapes;
 4. exports a full-width dino_vitb8 @224 classifier with seeded weights
    through ``vit_torch_tpu_torch.cli.export``, serves it with
    ``BundleServer`` on the card, sends concurrent HTTP requests, checks the
@@ -34,9 +37,12 @@
    for one synthetic epoch through ``vit_torch_tpu_torch.cli.main_swin``
    (B8 takes the 23 train-mode blocks whose drop-path is active, B9 block
    0 and every eval block) and runs the cached linear eval (B9 only);
-   times the steady-state linear-eval step and a bs32 eval forward and
-   profiles the step; checks that a Swin fine-tune on the card raises
-   before its first step (the window kernels have no backward yet);
+   fine-tunes it @384 bs32 for one synthetic epoch through
+   ``cli.main_swin`` (B9 with grad for block 0, B8 with grad for the
+   other 23, every attention backward through B6; no plain version
+   launched); times the steady-state linear-eval and fine-tune steps and
+   a bs32 eval forward and profiles both steps; holds one bs8 fine-tune
+   step on the kernels against the same step on the plain versions;
 8. prints one JSON line with each kernel's numbers, then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -105,6 +111,19 @@ BLOCK_RTOL = 3e-2
 # residual stream, the final LayerNorm and the head; relative to
 # max |plain logit|
 SWIN_LOGITS_RTOL = 5e-2
+# window-attention backward (B6) vs its plain version: dq, dk and dv as
+# BWD_RTOL / BWD_FLOOR (the same rounding points, bf16 P and dS, fp32 sums
+# in another order).  dbias relative to max |plain dbias|: both sum the
+# unrounded fp32 dS over all windows, the kernel per chunk then over the
+# chunks, so they differ by summation order over up to 2048 windows
+WINDOW_DBIAS_RTOL = 1e-2
+# B8 / B9 gradients through their Functions (chain forward, B6, bf16
+# matmuls; B9 recomputes with the JAX backward's bf16 bias adds) vs
+# autograd through the plain versions (fp32 products rounded where the
+# forward rounds, so autograd rounds the gradient at each cast back):
+# relative to max |plain| of each gradient; one-ulp bf16 differences
+# (2^-8) carried through two products and the attention backward
+BLOCK_GRAD_RTOL = 5e-2
 H100_BF16_FLOPS = 989e12          # dense tensor-core peak, SXM
 H100_BYTES_PER_S = 3.35e12
 ARCH, IMAGE_SIZE, CLASSIFIER, BUCKETS = "dino_vitb8", 224, "512,10", "1,8,32"
@@ -123,6 +142,7 @@ SWIN_TRAIN_ARGS = ["--dataset", "synthetic", "--arch", SWIN_ARCH,
                    "--image_size", str(SWIN_SIZE), "--bs", str(TRAIN_BS),
                    "--epoch", "1", "--opt", "adamw", "--lr", "1e-3", "--fc",
                    "512"]
+SWIN_FINETUNE_ARGS = [a if a != "1e-3" else "1e-4" for a in SWIN_TRAIN_ARGS]
 # (B, H, W, C, window, shift) of the Swin blocks checked: the four stages of
 # swin_base_384 at bs32, shifted and unshifted (stage 4 is one window, never
 # shifted); swin_tiny's stage 1 at 224 px (window 7, N = 49); a ragged
@@ -169,6 +189,11 @@ def _attention_bound_ms(B, H, N, D):
 def _bwd_bound_ms(B, H, N, D):
     return _bound(10 * B * H * N * N * D,    # S, dP, dV, dQ, dK products
                   8 * B * H * N * D * 2 + B * H * N * 4)  # + the fp32 LSE
+
+
+def _window_bwd_bound_ms(Bn, H, N, D):
+    return _bound(10 * Bn * H * N * N * D,   # S, dP, dV, dQ, dK products
+                  7 * Bn * N * H * D * 2)    # q, k, v, dO read; dq, dk, dv
 
 
 def check_flash_bwd_kernel(shape, seed):
@@ -338,6 +363,98 @@ def check_window_attention(case, seed):
     return row
 
 
+def _library_backend(fn) -> str:
+    """The kernel that takes most device time in one call of ``fn``: the
+    backend PyTorch picked."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        return "not measured"
+    return max(evs, key=lambda e: e.self_device_time_total).key[:80]
+
+
+def check_window_attention_bwd(case, seed):
+    """The window-attention backward (row 6) vs its plain version on the
+    windows of one block case, fed as the B8 Function feeds it: q, k, v
+    strided views into one window-major qkv tensor, through
+    ``window_attention_qkv``'s autograd Function, whose backward writes one
+    (Bn, N, 3, H, D) gradient; the fp32 bias and the block's real mask.
+    Times the kernel, the plain backward and SDPA's backward with the
+    float ``bias + mask`` as ``attn_mask`` (over (B, nW, H, N, D), as
+    row 5 times its forward), and names the kernel SDPA ran."""
+    import torch
+    import torch.nn.functional as F
+    from vit_torch_tpu_torch.ops import window_attention as wa
+    B, H, W, C, w, shift = case
+    heads, N, nW = C // 32, w * w, (H // w) * (W // w)
+    Bn = B * nW
+    gen = torch.Generator(device="cuda").manual_seed(4000 + seed)
+    qkv = torch.randn((Bn, N, 3, heads, 32), generator=gen, device="cuda",
+                      dtype=torch.bfloat16, requires_grad=True)
+    bias = (0.5 * torch.randn((heads, N, N), generator=gen, device="cuda")
+            ).requires_grad_(True)
+    dout = torch.randn((Bn, N, heads, 32), generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    mask = _swin_mask(case, "cuda")
+    dqkv, dbias = torch.autograd.grad(
+        wa.window_attention_qkv(qkv, bias, mask), (qkv, bias), dout)
+    torch.cuda.synchronize()
+    qkv, bias = qkv.detach(), bias.detach()
+    q, k, v = qkv.unbind(2)
+    ref = wa.window_attention_bwd_reference(q, k, v, bias, mask, dout)
+    errs, abs_err = [], 0.0
+    for got, want in zip(dqkv.unbind(2), ref):
+        want = want.float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"window_attention_bwd {case}: non-finite")
+        err = (got.float() - want).abs().max().item()
+        abs_err = max(abs_err, err)
+        errs.append(err / max(want.abs().max().item(), BWD_FLOOR))
+    db_err = ((dbias - ref[3]).abs().max().item()
+              / max(ref[3].abs().max().item(), BWD_FLOOR))
+    del ref
+    if not (max(errs) <= BWD_RTOL and db_err <= WINDOW_DBIAS_RTOL
+            and torch.isfinite(dbias).all()):
+        raise AssertionError(f"window_attention_bwd {case}: dq/dk/dv error "
+                             f"relative to max|plain| {errs} (limit "
+                             f"{BWD_RTOL}), dbias {db_err} (limit "
+                             f"{WINDOW_DBIAS_RTOL})")
+    dq, dk, dv = dqkv.unbind(2)
+    ms = _time_ms(lambda: wa.window_attention_bwd(
+        q, k, v, bias, mask, dout, dq=dq, dk=dk, dv=dv), iters=20)
+    plain_ms = _time_ms(lambda: wa.window_attention_bwd_reference(
+        q, k, v, bias, mask, dout), iters=3)
+    qs, ks, vs = (x.reshape(B, nW, N, heads, 32).transpose(2, 3)
+                  .contiguous().requires_grad_(True) for x in (q, k, v))
+    dos = dout.reshape(B, nW, N, heads, 32).transpose(2, 3).contiguous()
+    add = bias[None, None] + (0 if mask is None else mask[None, :, None])
+    add = add.to(torch.bfloat16).expand(B, nW, heads, N, N)
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=add,
+                                           scale=32 ** -0.5)
+
+    def lib():
+        return torch.autograd.grad(o_lib, (qs, ks, vs), dos,
+                                   retain_graph=True)
+
+    library_ms = _time_ms(lib, iters=20)
+    backend = _library_backend(lib) if seed == 0 else None
+    del o_lib
+    bound_ms, bound_by = _window_bwd_bound_ms(Bn, heads, N, 32)
+    row = {"case": list(case), "shape": [Bn, N, heads, 32],
+           "masked": mask is not None, "rel_err_dq_dk_dv": errs,
+           "rel_err_dbias": db_err, "max_abs_err": abs_err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_kernel": backend, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    _say("kernel check window_attention_bwd", json.dumps(row))
+    return row
+
+
 def _block_inputs(case, seed):
     """A bf16 (B, H, W, C) map, bf16 weights in nn.Linear layout of std
     1/sqrt(fan in), fp32 LN weights and the fp32 bias, on the card."""
@@ -411,6 +528,57 @@ def check_window_blocks(case, seed):
     return rows
 
 
+def check_window_block_grads(case, seed):
+    """The gradients of B8 and B9 through their autograd Functions (the
+    kernel chains forward, B6 in the backward) vs autograd through their
+    plain versions on one block case, every input but the mask; times one
+    forward and backward of each."""
+    import torch
+    from vit_torch_tpu_torch.ops import window_attention as wa
+    from vit_torch_tpu_torch.ops import window_block as wb
+    B, H, W, C, w, shift = case
+    d = _block_inputs(case, seed)
+    kw = dict(num_heads=C // 32, window=w, shift=shift)
+    gen = torch.Generator(device="cuda").manual_seed(5000 + seed)
+    dout = torch.randn(d["x"].shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (
+        d["x"], *d["ln1"], *d["qkv"], d["bias"], *d["proj"], *d["ln2"],
+        *d["fc1"], *d["fc2"])]
+    x, l1w, l1b, wq, bq, bias, wp, bp, l2w, l2b, w1, b1, w2, b2 = leaves
+    rows = {}
+    for name, fn, ref_fn, args, wrt in (
+            ("window_block_spatial", wb.window_block_spatial,
+             wb.window_block_spatial_reference,
+             (x, wq, bq, bias, d["mask"], wp, bp),
+             [x, wq, bq, bias, wp, bp]),
+            ("window_block_full_spatial", wb.window_block_full_spatial,
+             wb.window_block_full_spatial_reference,
+             (x, (l1w, l1b), (wq, bq), bias, d["mask"], (wp, bp),
+              (l2w, l2b), (w1, b1), (w2, b2)), leaves)):
+        before = wa.window_attention_bwd.launches
+        got = torch.autograd.grad(fn(*args, **kw), wrt, dout)
+        torch.cuda.synchronize()
+        if wa.window_attention_bwd.launches != before + 1:
+            raise AssertionError(f"{name} grad did not launch B6 once")
+        want = torch.autograd.grad(ref_fn(*args, **kw), wrt, dout)
+        rel = [((g.float() - r.float()).abs().max()
+                / r.float().abs().max().clamp_min(1e-30)).item()
+               for g, r in zip(got, want)]
+        finite = all(torch.isfinite(g).all().item() for g in got)
+        del got, want
+        if not (finite and max(rel) <= BLOCK_GRAD_RTOL):
+            raise AssertionError(f"{name} grads {case}: error relative to "
+                                 f"max|plain| {rel} (limit "
+                                 f"{BLOCK_GRAD_RTOL})")
+        ms = _time_ms(lambda: torch.autograd.grad(fn(*args, **kw), wrt,
+                                                  dout), iters=5)
+        rows[name] = {"case": list(case), "grad_rel_err": rel,
+                      "fwd_bwd_ms": ms}
+        _say(f"grad check {name}", json.dumps(rows[name]))
+    return rows
+
+
 def _plain_window_blocks():
     """The Swin blocks on their plain versions, patched in for the
     kernel-vs-plain comparison of the served model."""
@@ -467,6 +635,8 @@ def _kernel_group(name: str) -> str:
         return "flash_attention_bwd"
     if "window_attn_fwd_kernel" in name:
         return "window_attention"
+    if "window_attn_bwd_kernel" in name or "dbias_reduce_kernel" in name:
+        return "window_attention_bwd"
     if "window_gemm_kernel" in name:
         return "window_gemm"        # the B8 / B9 products
     if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
@@ -668,6 +838,7 @@ def _counters():
     return {"flash_attention_fwd": fa.flash_attention_bhnd,
             "flash_attention_bwd": fa.flash_attention_bwd,
             "window_attention": wa.window_attention,
+            "window_attention_bwd": wa.window_attention_bwd,
             "window_block_spatial": wb.window_block_spatial,
             "window_block_full_spatial": wb.window_block_full_spatial}
 
@@ -753,20 +924,33 @@ def swin_lineareval_through_cli(workdir: str, cached: bool):
         mode, want)
 
 
-def swin_finetune_refused(workdir: str):
-    """A Swin fine-tune on the card raises before its first step, naming
-    the backward still to port."""
+def _plain_attention_calls():
+    from vit_torch_tpu_torch.ops import window_attention as wa
+    return (wa.window_attention_reference, wa.window_attention_bwd_reference)
+
+
+def swin_finetune_through_cli(workdir: str):
+    """swin_base_384 fine-tune through ``cli.main_swin`` without
+    ``--lineareval``: in a train step block 0 (drop-path rate 0) takes B9
+    with grad and the 23 others B8 with grad; every block's attention
+    backward is one B6 launch, and B9's backward recomputes its core once
+    (one more core launch a step); eval steps take B9 in all 24 blocks.
+    The plain window attention, forward or backward, never runs."""
     from vit_torch_tpu_torch.cli import main_swin
-    _reset_counts()
-    try:
-        main_swin.main(SWIN_TRAIN_ARGS + ["--stats_fp",
-                                          f"{workdir}/swin_finetune.json"])
-    except NotImplementedError as e:
-        if "B6" not in str(e) or any(_read_counts().values()):
-            raise AssertionError(f"unexpected refusal: {e}") from e
-        _say(f"swin finetune on cuda refused: {e}")
-        return
-    raise AssertionError("a Swin fine-tune on CUDA was not refused")
+    steps = SYNTHETIC_N // TRAIN_BS
+    want = _want(window_attention=(2 * SWIN_DEPTH + 1) * steps,
+                 window_attention_bwd=SWIN_DEPTH * steps,
+                 window_block_spatial=(SWIN_DEPTH - 1) * steps,
+                 window_block_full_spatial=(1 + SWIN_DEPTH) * steps)
+    for fn in _plain_attention_calls():
+        fn.calls = 0
+    counts = _run_cli(main_swin.main, SWIN_FINETUNE_ARGS,
+                      f"{workdir}/swin_finetune.json", "swin_finetune", want)
+    plain = [fn.calls for fn in _plain_attention_calls()]
+    if any(plain):
+        raise AssertionError(f"the fine-tune ran the plain window attention "
+                             f"forward and backward {plain} times")
+    return counts
 
 
 def _train_setup(bs: int, seed: int = 0, arch: str = ARCH,
@@ -962,6 +1146,106 @@ def compare_step_with_plain(bs: int = 8):
     return row
 
 
+def steady_state_swin_finetune(iters: int = 12):
+    """The swin_base_384 fine-tune step at bs32 (augment, forward with
+    grad, loss, backward through B6, AdamW on every parameter) on the
+    card: CUDA-event time over ``iters`` steps after warm-up, MFU with
+    step FLOPs = 3 x forward (``bench.py``'s count), a profile by kernel
+    group with the idle share, the launches per step and the peak memory
+    allocated."""
+    import torch
+    from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, swin_flops
+    zm, trainer, batch = _train_setup(TRAIN_BS, arch=SWIN_ARCH,
+                                      image_size=SWIN_SIZE, lr=1e-4)
+    zm.model.train()
+    for _ in range(3):
+        trainer.train_step(*batch)
+    torch.cuda.synchronize()
+    _reset_counts()
+    trainer.train_step(*batch)
+    per_step = _read_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        trainer.train_step(*batch)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / iters
+    step_ms = start.elapsed_time(end) / iters
+    step_flops = 3 * swin_flops(SWIN_CONFIGS[SWIN_ARCH], SWIN_SIZE) * TRAIN_BS
+    row = {"arch": SWIN_ARCH, "image_size": SWIN_SIZE, "bs": TRAIN_BS,
+           "opt": "adamw", "iters": iters, "finetune_step_ms": step_ms,
+           "host_step_ms": host_ms,
+           "finetune_img_per_s": TRAIN_BS * 1e3 / step_ms,
+           "step_tflop": step_flops / 1e12,
+           "mfu": step_flops / (step_ms / 1e3) / H100_BF16_FLOPS,
+           "launches_per_step": per_step,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "profile": profile_train_step(trainer, batch)}
+    _say(json.dumps({"swin_finetune_step": row}))
+    if per_step != _want(window_attention=SWIN_DEPTH + 1,
+                         window_attention_bwd=SWIN_DEPTH,
+                         window_block_spatial=SWIN_DEPTH - 1,
+                         window_block_full_spatial=1):
+        raise AssertionError(f"launches per finetune step {per_step}")
+    return row
+
+
+def compare_swin_step_with_plain(bs: int = 8):
+    """Loss and gradients of one bs8 swin_base_384 fine-tune step
+    (eval-normalised batch, no optimizer step) on the kernels and on the
+    plain versions of B8 and B9 (autograd through them, no kernel), same
+    weights, batch and drop-path masks; the limits are the dino step's
+    (STEP_LOSS_ATOL, STEP_GRAD_RTOL), here over 24 blocks."""
+    import torch
+    from vit_torch_tpu_torch.train.steps import cross_entropy_loss
+    zm, trainer, (images, labels, mask) = _train_setup(
+        bs, seed=1, arch=SWIN_ARCH, image_size=SWIN_SIZE)
+    model = zm.model
+    model.train()
+    x = trainer.eval_transform(images)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        trainer.generator.manual_seed(7)          # the same drop-path masks
+        loss = cross_entropy_loss(model(x), labels, mask)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone()
+                             for n, p in model.named_parameters()}
+
+    _reset_counts()
+    loss_k, grads_k = loss_and_grads()
+    counts = _read_counts()
+    with _plain_window_blocks():
+        loss_p, grads_p = loss_and_grads()
+    if _read_counts() != counts:
+        raise AssertionError("the plain step launched a kernel")
+    if counts != _want(window_attention=SWIN_DEPTH + 1,
+                       window_attention_bwd=SWIN_DEPTH,
+                       window_block_spatial=SWIN_DEPTH - 1,
+                       window_block_full_spatial=1):
+        raise AssertionError(f"launches in the kernel step {counts}")
+    rel = {n: ((grads_k[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+           for n, g in grads_p.items()}
+    worst = max(rel, key=rel.get)
+    tables = [v for n, v in rel.items() if "relative_position" in n]
+    row = {"arch": SWIN_ARCH, "bs": bs, "loss_kernel": loss_k,
+           "loss_plain": loss_p, "loss_abs_diff": abs(loss_k - loss_p),
+           "max_grad_rel_err": rel[worst], "worst_param": worst,
+           "median_grad_rel_err": float(np.median(list(rel.values()))),
+           "max_bias_table_grad_rel_err": max(tables), "launches": counts}
+    _say(json.dumps({"swin_step_vs_plain": row}))
+    if not (np.isfinite(loss_k) and row["loss_abs_diff"] <= STEP_LOSS_ATOL
+            and rel[worst] <= STEP_GRAD_RTOL):
+        raise AssertionError(f"swin kernel step vs plain step: {row} "
+                             f"(limits loss {STEP_LOSS_ATOL}, grad "
+                             f"{STEP_GRAD_RTOL})")
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -997,6 +1281,11 @@ def main() -> int:
                  for i, case in enumerate(SWIN_BLOCKS)]
     block_rows = [check_window_blocks(case, seed=i)
                   for i, case in enumerate(SWIN_BLOCKS)]
+    attn_bwd_rows = [check_window_attention_bwd(case, seed=i)
+                     for i, case in enumerate(SWIN_BLOCKS)]
+    # the headline case, window 7 and the ragged case
+    for i in (0, 7, 8):
+        check_window_block_grads(SWIN_BLOCKS[i], seed=i)
 
     from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, swin_flops
     from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, vit_flops
@@ -1019,8 +1308,10 @@ def main() -> int:
             SWIN_LOGITS_RTOL, relative=True)
         swin_le = swin_lineareval_through_cli(workdir, cached=False)
         swin_cached = swin_lineareval_through_cli(workdir, cached=True)
-        swin_finetune_refused(workdir)
+        swin_ft = swin_finetune_through_cli(workdir)
     swin_step = steady_state_swin_lineareval()
+    swin_ft_step = steady_state_swin_finetune()
+    compare_swin_step_with_plain()
 
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -1055,14 +1346,17 @@ def main() -> int:
             "lineareval": lineareval["flash_attention_bwd"]},
         "ms_32px_bs128": bwd_rows[1]["ms"],
         "bound_ms_32px_bs128": bwd_rows[1]["bound_ms"]}]
-    # the Swin rows: launches from the linear-eval run (the slice's main
-    # path, bench config 4), numbers at the headline shape (swin_base_384
-    # bs32 stage 1, shifted), the other shapes beside them
+    # the Swin rows: numbers at the headline shape (swin_base_384 bs32
+    # stage 1, shifted), the other shapes beside them; launches of the
+    # forward kernels from the linear-eval run (slice 3's main path, bench
+    # config 4), of the backward from the fine-tune run (slice 4's)
     swin_paths = {"lineareval": swin_le, "lineareval_cached": swin_cached,
-                  "serve": swin_serve}
+                  "serve": swin_serve, "finetune": swin_ft}
     for kernel, source, replaces, by_case in (
             ("window_attention", "window_attention_fwd.cu",
              "window_attention.py:164", attn_rows),
+            ("window_attention_bwd", "window_attention_bwd.cu",
+             "window_attention.py:196", attn_bwd_rows),
             ("window_block_spatial", "window_gemm.cu",
              "window_block.py:496", [r["window_block_spatial"]
                                      for r in block_rows]),
@@ -1074,7 +1368,8 @@ def main() -> int:
             "name": kernel, "route": "cuda",
             "source": f"vit_torch_tpu_torch/csrc/{source}",
             "replaces": f"vit_torch_tpu/ops/{replaces}",
-            "launches": swin_le[kernel],
+            "launches": (swin_ft if kernel == "window_attention_bwd"
+                         else swin_le)[kernel],
             "max_abs_err": max(r["max_abs_err"] for r in by_case),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1086,6 +1381,14 @@ def main() -> int:
                 for r in by_case]})
     kernels[-1]["lineareval_step_ms"] = swin_step["lineareval_step_ms"]
     kernels[-1]["eval_forward_ms"] = swin_step["eval_forward_ms"]
+    kernels[-1]["finetune_step_ms"] = swin_ft_step["finetune_step_ms"]
+    bwd_entry = next(k for k in kernels
+                     if k["name"] == "window_attention_bwd")
+    bwd_entry["max_rel_err"] = max(max(r["rel_err_dq_dk_dv"])
+                                   for r in attn_bwd_rows)
+    bwd_entry["max_rel_err_dbias"] = max(r["rel_err_dbias"]
+                                         for r in attn_bwd_rows)
+    bwd_entry["library_kernel"] = attn_bwd_rows[0]["library_kernel"]
     _say(json.dumps({"kernels": kernels}))
     _say(smi)
     _say(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 backward against their plain versions, their input checks and launch
 counts, the classifier on CUDA against the same weights on the CPU, and a
 bf16 train step that runs the backward kernel once per layer; the Swin
-window-attention and window-block kernels against their plain versions,
-their refusals, and a small Swin on the card against the CPU.
+window-attention kernels (forward and backward) and window-block kernels
+against their plain versions, with gradients, their refusals, a small Swin
+on the card against the CPU, and a Swin fine-tune step that runs the
+window-attention backward once per block.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere.  They
 import neither JAX nor the JAX package, so they run on a machine without
@@ -243,20 +245,19 @@ def test_window_block_kernels_match_plain(cuda, case):
 def test_window_kernels_refuse_what_they_do_not_take(cuda):
     d = _block_inputs((1, 12, 12, 64, 12, 0), cuda)
     q = torch.randn((2, 144, 2, 32), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="B6"):
-        wa.window_attention(q.requires_grad_(), q, q, d["bias"])
-    q = q.detach()
     with pytest.raises(TypeError):
         wa.window_attention(q.float(), q.float(), q.float(), d["bias"])
     with pytest.raises(ValueError, match="head dim"):
         wa.window_attention(q[..., :16], q[..., :16], q[..., :16], d["bias"])
     with pytest.raises(ValueError, match="bias"):
         wa.window_attention(q, q, q, d["bias"].bfloat16())
+    with pytest.raises(TypeError):
+        wa.window_attention_bwd(q, q, q, d["bias"], None, q.float())
+    odd = torch.empty((2, 144, 2, 40), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        wa.window_attention_bwd(q, q, q, d["bias"], None, q,
+                                dq=odd[..., 1:33])
     kw = dict(num_heads=2, window=12)
-    w_qkv = d["qkv"][0].float().requires_grad_()
-    with pytest.raises(NotImplementedError, match="B6"):
-        wb.window_block_spatial(d["x"], w_qkv.bfloat16(), d["qkv"][1],
-                                d["bias"], None, *d["proj"], **kw)
     with pytest.raises(ValueError, match="tiled by window"):
         wb.window_block_spatial(d["x"][:, :10], *d["qkv"], d["bias"], None,
                                 *d["proj"], **kw)
@@ -286,13 +287,111 @@ def test_swin_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=5e-2, rtol=0)
 
 
-def test_swin_finetune_on_cuda_raises_before_the_first_step(cuda):
-    """The window kernels have no backward yet: the trainer refuses a Swin
-    fine-tune on the card when it is built, and takes a linear eval."""
-    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
-    from vit_torch_tpu_torch.train.trainer import Trainer
-    zm = VisionModelZoo.get_model("swin_test", classifier=[10],
-                                  image_size=32, device=cuda)
-    with pytest.raises(NotImplementedError, match="B6"):
-        Trainer(zm, print_progress=False)
-    Trainer(zm, lineareval=True, print_progress=False)
+def _bwd_counts():
+    return (wa.window_attention.launches, wa.window_attention_bwd.launches,
+            wa.window_attention_reference.calls,
+            wa.window_attention_bwd_reference.calls)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("N", [144, 49, 16, 1])
+def test_window_attention_bwd_kernel_matches_plain(cuda, N, masked):
+    """B6 through the qkv entry's autograd Function, as the model calls
+    it, against the plain backward: dq, dk and dv within BWD_RTOL of
+    max |plain| (floored), dbias within 1e-2 of max |plain dbias|; one
+    launch of each kernel and no plain version on the way."""
+    Bn, H, nW = 8, 3, 4
+    gen = torch.Generator(device=cuda).manual_seed(100 + N)
+    qkv = torch.randn((Bn, N, 3, H, 32), generator=gen, device=cuda,
+                      dtype=torch.bfloat16, requires_grad=True)
+    bias = torch.randn((H, N, N), generator=gen, device=cuda,
+                       requires_grad=True)
+    mask = (torch.where(torch.rand((nW, N, N), generator=gen, device=cuda)
+                        > 0.7, -100.0, 0.0) if masked else None)
+    dout = torch.randn((Bn, N, H, 32), generator=gen, device=cuda,
+                       dtype=torch.bfloat16)
+    before = _bwd_counts()
+    out = wa.window_attention_qkv(qkv, bias, mask)
+    dqkv, dbias = torch.autograd.grad(out, (qkv, bias), dout)
+    torch.cuda.synchronize()
+    assert _bwd_counts() == (before[0] + 1, before[1] + 1, *before[2:])
+    ref = wa.window_attention_bwd_reference(
+        *qkv.detach().unbind(2), bias.detach(), mask, dout)
+    for got, want in zip(dqkv.unbind(2), ref):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BWD_RTOL * max(want.float().abs().max().item(),
+                                     BWD_FLOOR)
+    assert dbias.shape == (H, N, N) and dbias.dtype == torch.float32
+    err = (dbias - ref[3]).abs().max().item()
+    assert err <= 1e-2 * max(ref[3].abs().max().item(), BWD_FLOOR)
+
+
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=str)
+def test_window_block_grads_match_plain(cuda, case):
+    """The gradients of B8 and B9 through their autograd Functions (the
+    chains forward, B6 backward) against autograd through their plain
+    versions, every input but the mask."""
+    d = _block_inputs(case, cuda)
+    kw = dict(num_heads=d["heads"], window=d["w"], shift=d["shift"])
+    for fn, ref_fn, full in (
+            (wb.window_block_spatial, wb.window_block_spatial_reference,
+             False),
+            (wb.window_block_full_spatial,
+             wb.window_block_full_spatial_reference, True)):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (
+            d["x"], *d["ln1"], *d["qkv"], d["bias"], *d["proj"], *d["ln2"],
+            *d["fc1"], *d["fc2"])]
+        x, l1w, l1b, wq, bq, bias, wp, bp, l2w, l2b, w1, b1, w2, b2 = leaves
+        if full:
+            args = (x, (l1w, l1b), (wq, bq), bias, d["mask"], (wp, bp),
+                    (l2w, l2b), (w1, b1), (w2, b2))
+            wrt = leaves
+        else:
+            args = (x, wq, bq, bias, d["mask"], wp, bp)
+            wrt = [x, wq, bq, bias, wp, bp]
+        dout = torch.randn_like(d["x"])
+        before = wa.window_attention_bwd.launches
+        got = torch.autograd.grad(fn(*args, **kw), wrt, dout)
+        torch.cuda.synchronize()
+        assert wa.window_attention_bwd.launches == before + 1
+        want = torch.autograd.grad(ref_fn(*args, **kw), wrt, dout)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.isfinite(g).all()
+            assert _rel_err(g, w) <= BLOCK_RTOL
+
+
+def test_swin_finetune_step_on_cuda_runs_b6_per_block(cuda):
+    """One bf16 AdamW fine-tune step of a small Swin (head dim 32) on the
+    card: block 0 (drop-path rate 0) through B9, the others through B8,
+    and the attention backward of every block through B6; finite loss and
+    gradients, no plain version launched."""
+    from vit_torch_tpu_torch.models.layers import set_generator
+    from vit_torch_tpu_torch.models.swin import SwinConfig, SwinTransformer
+    from vit_torch_tpu_torch.models.zoo import Classifier
+    from vit_torch_tpu_torch.models.layers import ClassifierHead, init_weights
+    from vit_torch_tpu_torch.train.optimizers import get_optimizer
+    from vit_torch_tpu_torch.train.steps import make_train_step
+    cfg = SwinConfig(embed_dim=64, depths=(2, 2), num_heads=(2, 4),
+                     window_size=4, drop_path_rate=0.1)
+    model = Classifier(SwinTransformer(cfg, image_size=32),
+                       ClassifierHead(cfg.feature_dim, [10]))
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).train()
+    set_generator(model, torch.Generator(device=cuda).manual_seed(0))
+    step = make_train_step(model, get_optimizer("adamw", model.parameters(),
+                                                1e-3))
+    x = torch.randn((4, 32, 32, 3), device=cuda)
+    labels = torch.arange(4, device=cuda)
+    mask = torch.ones(4, device=cuda)
+    blocks = (wb.window_block_spatial.launches,
+              wb.window_block_full_spatial.launches)
+    before = _bwd_counts()
+    m = step(x, labels, mask)
+    torch.cuda.synchronize()
+    assert (wb.window_block_spatial.launches,
+            wb.window_block_full_spatial.launches) == (blocks[0] + 3,
+                                                        blocks[1] + 1)
+    # the core: 4 forwards and B9's recompute; B6: one per block
+    assert _bwd_counts() == (before[0] + 5, before[1] + 4, *before[2:])
+    assert torch.isfinite(m["loss_sum"]).item()
+    assert all(torch.isfinite(p).all() for p in model.parameters())

@@ -2,9 +2,10 @@
 
 The backbone from the same weights (carried over by ``state_dict_from_jax``)
 on both block routes: the whole-block route (B9) on maps the window tiles,
-the window-block route (B8) on maps that need padding; the feature-map
-modes; the Microsoft-layout checkpoint importer against ``import_swin``;
-the ``main_swin`` CLI and a Swin serving bundle.  The JAX side runs its
+the window-block route (B8) on maps that need padding, forward and
+gradients; a 3-step AdamW fine-tune against the JAX train step; the
+feature-map modes; the Microsoft-layout checkpoint importer against
+``import_swin``; the ``main_swin`` CLI and a Swin serving bundle.  The JAX side runs its
 Pallas kernels in interpret mode through ``VITX_FUSED_FULL=1`` and
 ``VITX_FUSED_SPATIAL=1``, as ``tests/test_fused_block.py`` does.  Inputs
 come from numpy with a seed and everything runs in fp32, so the tolerances
@@ -25,6 +26,11 @@ from vit_torch_tpu.checkpoint.torch_import import (
     load_torch_state_dict as jax_load_torch_state_dict)
 from vit_torch_tpu.cli.main_swin import main as jax_main_swin
 from vit_torch_tpu.models import swin as jax_swin
+from vit_torch_tpu.models.layers import ClassifierHead as JaxClassifierHead
+from vit_torch_tpu.models.zoo import Classifier as JaxClassifier
+from vit_torch_tpu.models.zoo import ZooModel as JaxZooModel
+from vit_torch_tpu.train import steps as jax_steps
+from vit_torch_tpu.train.optimizers import get_optimizer as jax_get_optimizer
 from vit_torch_tpu_torch.checkpoint.jax_import import state_dict_from_jax
 from vit_torch_tpu_torch.checkpoint.torch_import import (
     load_backbone_state_dict)
@@ -33,10 +39,13 @@ from vit_torch_tpu_torch.cli import main as cli_main
 from vit_torch_tpu_torch.cli import main_swin as main_swin_mod
 from vit_torch_tpu_torch.data.datasets import NORM_VALUES
 from vit_torch_tpu_torch.models import swin
-from vit_torch_tpu_torch.models.layers import init_weights
+from vit_torch_tpu_torch.models.layers import ClassifierHead, init_weights
 from vit_torch_tpu_torch.models.zoo import Classifier, VisionModelZoo
+from vit_torch_tpu_torch.ops import window_attention as wa
 from vit_torch_tpu_torch.ops import window_block as wb
 from vit_torch_tpu_torch.serving import load_bundle
+from vit_torch_tpu_torch.train import steps
+from vit_torch_tpu_torch.train.optimizers import get_optimizer
 
 # head dim 32, as every published Swin config has, so both routes reach the
 # Pallas kernels on the JAX side
@@ -111,6 +120,33 @@ def test_swin_backbone_matches_jax(case, monkeypatch):
                                rtol=1e-4)
 
 
+@pytest.mark.parametrize("case", range(2))
+def test_swin_backbone_grads_match_jax(case, monkeypatch):
+    """The gradient of every backbone parameter, relative-position bias
+    tables included, of ``sum(features * r)`` for a fixed random ``r``:
+    D32 at 32 px runs every block through B9's Function, at 40 px through
+    B8's on padded maps (both with the plain B6 backward here), against
+    ``jax.grad`` through the Pallas kernels' custom VJPs.  Max |port - JAX|
+    relative to max |JAX| of each gradient: fp32 sums in another order
+    over four blocks."""
+    cfg, size, n_b8, n_b9 = MODEL_CASES[case]
+    jmodel, params, model, x = _pair(cfg, size, monkeypatch)
+    r = np.random.default_rng(4).standard_normal(
+        (2, cfg.feature_dim)).astype(np.float32)
+    want = jax.jit(jax.grad(lambda p: jnp.sum(
+        jmodel.apply({"params": p}, jnp.asarray(x), True) * r)))(params)
+    want = state_dict_from_jax(jax.tree.map(np.asarray, want))
+    counts = _count_routes(monkeypatch)
+    (model(torch.from_numpy(x)) * torch.from_numpy(r)).sum().backward()
+    assert counts == {"b8": n_b8, "b9": n_b9}
+    got = {n: p.grad for n, p in model.named_parameters()}
+    assert set(got) == set(want)
+    assert any("relative_position_bias_table" in n for n in got)
+    for n, w in want.items():
+        err = (got[n] - w).abs().max().item() / w.abs().max().item()
+        assert err <= 1e-4, (n, err)
+
+
 def test_swin_feature_maps_match_jax(monkeypatch):
     """``multi_features``: every stage's map, the last one normed; and
     ``features_only``: the final normed map."""
@@ -160,6 +196,59 @@ def test_swin_flops_match_jax():
             assert swin.swin_flops(swin.SWIN_CONFIGS[arch], size) == \
                 jax_swin.swin_flops(jax_swin.SWIN_CONFIGS[arch], size)
     assert sorted(swin.SWIN_CONFIGS) == sorted(jax_swin.SWIN_CONFIGS)
+
+
+def test_adamw_finetune_trajectory_matches_jax_train_step(monkeypatch):
+    """Three AdamW fine-tune steps of a D32 Swin classifier at 40 px (every
+    block on B8's Function, padded maps) from the same weights and batches,
+    against the JAX train step through the Pallas kernels: the loss of each
+    step and every parameter after the last, within fp32 summation order
+    (the ViT trajectory's limits)."""
+    lr = 1e-4
+    head = (16, 10)
+    jmodel = JaxClassifier(jax_swin.SwinTransformer(D32, dtype=jnp.float32,
+                                                    name="backbone"),
+                           JaxClassifierHead(head, dtype=jnp.float32,
+                                             name="head"))
+    zm_j = JaxZooModel(arch="d32", family="swin", model=jmodel,
+                       feature_dim=D32.feature_dim)
+    params = jax.jit(lambda rng: zm_j.init(rng, image_size=40))(
+        jax.random.PRNGKey(0))["params"]
+    monkeypatch.setenv("VITX_FUSED_FULL", "1")
+    monkeypatch.setenv("VITX_FUSED_SPATIAL", "1")
+    tx = jax_get_optimizer("adamw", lr)
+    state = jax_steps.create_train_state(jax.random.PRNGKey(1), params, tx)
+    jstep = jax_steps.make_train_step(zm_j.apply, tx, donate=False)
+
+    model = Classifier(swin.SwinTransformer(_port_config(D32), image_size=40,
+                                            dtype=torch.float32),
+                       ClassifierHead(D32.feature_dim, head))
+    model.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray,
+                                                           params)))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    tstep = steps.make_train_step(model.train(), get_optimizer(
+        "adamw", steps.split_params(model, False), lr))
+    bwd = wa.window_attention_bwd_reference.calls
+    rng = np.random.default_rng(8)
+    for i in range(3):
+        images = rng.standard_normal((4, 40, 40, 3)).astype(np.float32)
+        labels = rng.integers(0, 10, 4).astype(np.int32)
+        mask = np.array([1, 1, 1, float(i < 2)], np.float32)
+        state, jm = jstep(state, {"image": jnp.asarray(images),
+                                  "label": jnp.asarray(labels),
+                                  "mask": jnp.asarray(mask)})
+        tm = tstep(*(torch.from_numpy(a) for a in (images, labels, mask)))
+        np.testing.assert_allclose((tm["loss_sum"] / tm["count"]).item(),
+                                   float(jm["loss_sum"] / jm["count"]),
+                                   rtol=1e-5)
+    assert wa.window_attention_bwd_reference.calls == bwd + 3 * 4
+    want = state_dict_from_jax(jax.tree.map(np.asarray,
+                                            state.merged_params()))
+    got = model.state_dict()
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), w.numpy(), atol=2e-5,
+                                   rtol=1e-4, err_msg=k)
+        assert not torch.equal(got[k], before[k]), k
 
 
 # --------------------------------------------------------------------------

@@ -4,12 +4,15 @@ to a Swin config.
 
     python -m vit_torch_tpu_torch.cli.main_swin \\
         --arch swin_base_patch4_window12_384_22k --dataset synthetic \\
-        --image_size 384 --bs 32 --epoch 1 --opt adamw --lr 1e-3 --fc 512 \\
-        --lineareval [--cache_features]
+        --image_size 384 --bs 32 --epoch 1 --opt adamw --lr 1e-4 --fc 512 \\
+        [--lineareval [--cache_features]]
 
-On CUDA, Swin runs linear eval and eval only: fine-tuning needs the
-window-attention backward kernel (ROADMAP.md B6) and raises before the
-first step.  ``--device cpu`` fine-tunes through the plain versions.
+Without ``--lineareval`` every parameter trains.  On CUDA a fine-tune step
+runs the window kernels forward (the whole-block kernel B9 for blocks whose
+DropPath is inactive, PyTorch ops around the window-block kernel B8 for the
+others) and their backward through the window-attention backward kernel
+(B6); linear eval, cached linear eval and eval run the forward kernels
+only.  ``--device cpu`` runs the same paths through the plain versions.
 """
 
 from __future__ import annotations

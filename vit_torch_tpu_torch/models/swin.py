@@ -20,8 +20,11 @@ DropPath is inactive (eval, or rate 0) runs the whole-block kernel
 (B9); every other block runs PyTorch ops around the window-block kernel
 :func:`~vit_torch_tpu_torch.ops.window_block.window_block_spatial` (B8):
 LN1, pad, B8 (with the cyclic shift folded in), crop, DropPath, residual,
-LN2, MLP, DropPath, residual.  On the CPU the same dispatch runs the
-kernels' plain versions.
+LN2, MLP, DropPath, residual.  With grad, both routes go through the
+block functions' autograd Functions, whose attention backward is the
+window-attention backward kernel (B6); the bias table's gradient flows
+through the autograd gather of :meth:`WindowAttention.gathered_bias`.  On
+the CPU the same dispatch runs the kernels' plain versions.
 """
 
 from __future__ import annotations

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
-           "window_attention_fwd", "window_gemm")
+           "window_attention_fwd", "window_attention_bwd", "window_gemm")
 LOGS: Dict[str, str] = {}
 
 _lock = threading.Lock()

@@ -1,13 +1,16 @@
-"""Swin window attention: a hand-written CUDA forward kernel for Hopper and
-its plain PyTorch version.
+"""Swin window attention: hand-written CUDA kernels for Hopper, forward and
+backward, and their plain PyTorch versions.
 
 Counterpart of ``vit_torch_tpu/ops/window_attention.py``: the kernel
-``csrc/window_attention_fwd.cu`` replaces the Pallas ``_fwd_kernel``.  It
+``csrc/window_attention_fwd.cu`` replaces the Pallas ``_fwd_kernel`` and
+``csrc/window_attention_bwd.cu`` replaces ``_bwd_kernel``.  The forward
 computes ``softmax(scale * Q K^T + bias[h] + mask[i mod nW]) V`` for every
 window ``i`` and head ``h`` of ``(Bn, N, H, D)`` tensors (the flax layout,
 ``Bn = B * nW`` windows flattened window-major per image), with exact
 softmax rows: fp32 scores, the row max subtracted, P rounded to V's dtype
-for the PV product and the row sum divided out after it.
+for the PV product and the row sum divided out after it.  The backward
+recomputes P and returns dq, dk, dv and ``dbias[h] = sum over windows of
+dS`` (fp32); the mask gets no gradient.
 
 Layout contracts (the JAX module's):
 
@@ -17,22 +20,26 @@ Layout contracts (the JAX module's):
 - ``mask``: ``(nW, N, N)`` additive fp32 (the shifted-window mask), or
   None; window ``i`` takes row ``i mod nW``.
 
-Dispatch is by the tensors' device: a CPU tensor runs the plain version
-(:func:`window_attention_reference`), which autograd differentiates; a CUDA
-tensor launches the kernel, or raises if the kernel does not take the
-input.  The kernel has no backward yet (ROADMAP.md B6), so a CUDA input
-that requires grad raises.  There is no fallback.
+Dispatch is by the tensors' device: a CPU tensor runs the plain versions
+(:func:`window_attention_reference`, :func:`window_attention_bwd_reference`);
+a CUDA tensor launches the kernels, or raises if a kernel does not take the
+input.  There is no fallback.  When an input requires grad, the entry
+points go through a ``torch.autograd.Function`` whose backward is
+:func:`window_attention_bwd`; :func:`window_attention_qkv` takes the
+window-major ``(Bn, N, 3, H, D)`` qkv projection itself, so its backward
+writes dq, dk and dv into one gradient of that shape.
 
-The Swin block kernels of :mod:`.window_block` launch this kernel as their
-attention core, through :func:`launch_window_attention`, so
-``window_attention.launches`` counts every launch of the core.
+The Swin block kernels of :mod:`.window_block` launch the forward kernel as
+their attention core, through :func:`launch_window_attention`, so
+``window_attention.launches`` counts every launch of the core and
+``window_attention_bwd.launches`` every launch of the backward.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,7 +47,21 @@ from vit_torch_tpu_torch.ops import _build
 
 HEAD_DIM = 32          # every Swin config has head dim 32
 MAX_TOKENS = 144       # N = w^2 up to window 12
-BACKWARD_ITEM = "ROADMAP.md B6, the window-attention backward"
+# blocks of the backward per SM: its dbias partial sums are one (N, N)
+# table per block, so the block count is held near two waves
+_BWD_BLOCKS_PER_SM = 2
+
+
+def _scores(q, k, bias, mask, scale):
+    """fp32 ``scale * Q K^T + bias[h] + mask[i mod nW]`` over (Bn, H, N, N)."""
+    Bn, N, H, _ = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = s + bias.float()[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        s = (s.view(Bn // nW, nW, H, N, N)
+             + mask.float()[None, :, None]).view(Bn, H, N, N)
+    return s
 
 
 def window_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -50,15 +71,10 @@ def window_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                ) -> torch.Tensor:
     """Plain version over ``(Bn, N, H, D)``: the Pallas ``_fwd_kernel``'s
     arithmetic.  Differentiable through autograd."""
+    window_attention_reference.calls += 1
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    Bn, N, H, _ = q.shape
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    s = s + bias.float()[None]
-    if mask is not None:
-        nW = mask.shape[0]
-        s = (s.view(Bn // nW, nW, H, N, N)
-             + mask.float()[None, :, None]).view(Bn, H, N, N)
+    s = _scores(q, k, bias, mask, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1)                                      # (Bn, H, N)
@@ -66,28 +82,50 @@ def window_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
-def requires_grad_on_cuda(*xs) -> bool:
-    """True when a CUDA input would need a gradient from a kernel that has
-    no backward yet."""
-    return torch.is_grad_enabled() and any(
-        x is not None and x.requires_grad for x in xs)
+window_attention_reference.calls = 0
 
 
-def refuse_grad(name: str) -> None:
-    raise NotImplementedError(
-        f"{name} has no backward kernel on CUDA yet ({BACKWARD_ITEM}): run "
-        f"it under torch.no_grad(), or train on the CPU")
+def window_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, bias: torch.Tensor,
+                                   mask: Optional[torch.Tensor],
+                                   do: torch.Tensor, *,
+                                   scale: Optional[float] = None
+                                   ) -> Tuple[torch.Tensor, ...]:
+    """Plain backward over ``(Bn, N, H, D)``, the Pallas ``_bwd_kernel``'s
+    arithmetic step by step: P recomputed in fp32 and normalised;
+    dV = P(in dO's dtype)ᵀ·dO; dP = dO·Vᵀ in fp32; Di = rowsum(P∘dP);
+    dS = P∘(dP − Di); dQ = dS(in Q's dtype)·K·scale, dK = dSᵀ·Q·scale, with
+    fp32 accumulation; dbias[h] = the fp32 dS summed over windows, unrounded.
+    Returns ``(dq, dk, dv, dbias)``, dbias ``(H, N, N)`` fp32."""
+    window_attention_bwd_reference.calls += 1
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = _scores(q, k, bias, mask, scale)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    dof = do.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    di = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - di)
+    ds_lo = ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds_lo, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds_lo, q.float()) * scale
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds.sum(dim=0))
+
+
+window_attention_bwd_reference.calls = 0
 
 
 def _takes_rows(x: torch.Tensor) -> bool:
-    """The kernel reads and writes 16-byte rows: unit stride along D,
+    """The kernels read and write 16-byte rows: unit stride along D,
     (window, row, head) strides that are multiples of 8, 16-byte aligned."""
     return (x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0)
 
 
 def _check_bias_mask(bias, mask, H, N, Bn, dev) -> int:
-    """The tables as the kernel reads them (column pairs, 8 bytes at a
+    """The tables as the kernels read them (column pairs, 8 bytes at a
     time): contiguous fp32, 8-byte aligned; the number of mask rows."""
     if (bias.dtype != torch.float32 or bias.shape != (H, N, N)
             or not bias.is_contiguous() or bias.device != dev
@@ -109,9 +147,45 @@ def _check_bias_mask(bias, mask, H, N, Bn, dev) -> int:
     return mask.shape[0]
 
 
+def _check_rows(**named) -> Tuple[int, int, int, int]:
+    """What both kernels take: bf16 ``(Bn, N, H, D)`` CUDA views of one
+    shape and device that :func:`_takes_rows` accepts, D = 32, N <= 144."""
+    shape, dev = next(iter(named.values())).shape, None
+    for name, x in named.items():
+        dev = dev or x.device
+        if x.dim() != 4 or x.shape != shape:
+            raise ValueError(f"{name} must have q's (Bn, N, H, D) shape "
+                             f"{tuple(shape)}, got {tuple(x.shape)}")
+        if x.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} is on {x.device}; the kernels take "
+                             f"CUDA tensors on one device")
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"the CUDA kernels take bfloat16, {name} is "
+                            f"{x.dtype}")
+        if not _takes_rows(x):
+            raise ValueError(
+                f"the kernels read 16-byte rows: {name} needs unit stride "
+                f"along D, strides that are multiples of 8 and a 16-byte "
+                f"aligned pointer, got strides {x.stride()}")
+    Bn, N, H, D = shape
+    if D != HEAD_DIM:
+        raise ValueError(f"head dim {D} is not {HEAD_DIM}")
+    if not 1 <= N <= MAX_TOKENS:
+        raise ValueError(f"{N} tokens per window: the kernels take 1 to "
+                         f"{MAX_TOKENS}")
+    if H > 65535:
+        raise ValueError(f"{H} heads exceed the grid's 65535")
+    return Bn, N, H, D
+
+
+def _strides(*xs):
+    out = [s for x in xs for s in x.stride()[:3]]
+    return (ctypes.c_longlong * len(out))(*out)
+
+
 @functools.lru_cache(maxsize=None)
 def _fwd_fn():
-    """The kernel's C entry point, built and loaded on first use."""
+    """The forward's C entry point, built and loaded on first use."""
     fn = _build.load("window_attention_fwd").window_attention_fwd_bf16
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
@@ -119,42 +193,34 @@ def _fwd_fn():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_fn():
+    """The backward's C entry point, built and loaded on first use."""
+    fn = _build.load("window_attention_bwd").window_attention_bwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def launch_window_attention(q, k, v, bias, mask, out, scale: float) -> None:
-    """Launch the kernel on the current stream: ``q``, ``k``, ``v`` and
-    ``out`` are ``(Bn, N, H, D)`` bf16 CUDA views with unit stride along D
-    (e.g. into the ``(Bn, N, 3, H, D)`` qkv projection and a ``(Bn, N, C)``
-    buffer); ``bias`` and ``mask`` as :func:`window_attention` takes them."""
-    shape, dev = q.shape, q.device
-    for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if x.dim() != 4 or x.shape != shape:
-            raise ValueError(f"{name} must have q's (Bn, N, H, D) shape "
-                             f"{tuple(shape)}, got {tuple(x.shape)}")
-        if x.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} is on {x.device}; the kernel takes "
-                             f"CUDA tensors on one device")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA kernel takes bfloat16, {name} is "
-                            f"{x.dtype}")
-        if not _takes_rows(x):
-            raise ValueError(
-                f"the kernel reads 16-byte rows: {name} needs unit stride "
-                f"along D, strides that are multiples of 8 and a 16-byte "
-                f"aligned pointer, got strides {x.stride()}")
-    Bn, N, H, D = shape
-    if D != HEAD_DIM:
-        raise ValueError(f"head dim {D} is not {HEAD_DIM}")
-    if not 1 <= N <= MAX_TOKENS:
-        raise ValueError(f"{N} tokens per window: the kernel takes 1 to "
-                         f"{MAX_TOKENS}")
-    if H > 65535:
-        raise ValueError(f"{H} heads exceed the grid's 65535")
-    nW = _check_bias_mask(bias, mask, H, N, Bn, dev)
+    """Launch the forward kernel on the current stream: ``q``, ``k``, ``v``
+    and ``out`` are ``(Bn, N, H, D)`` bf16 CUDA views with unit stride
+    along D (e.g. into the ``(Bn, N, 3, H, D)`` qkv projection and a
+    ``(Bn, N, C)`` buffer); ``bias`` and ``mask`` as
+    :func:`window_attention` takes them."""
+    Bn, N, H, D = _check_rows(q=q, k=k, v=v, out=out)
+    nW = _check_bias_mask(bias, mask, H, N, Bn, q.device)
     if not Bn:
         return
-    strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
-    strides = (ctypes.c_longlong * 12)(*strides)
+    strides = _strides(q, k, v, out)
     fn = _fwd_fn()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  bias.data_ptr(), None if mask is None else mask.data_ptr(),
@@ -166,24 +232,163 @@ def launch_window_attention(q, k, v, bias, mask, out, scale: float) -> None:
     window_attention.launches += 1
 
 
-def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     bias: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                     *, scale: Optional[float] = None) -> torch.Tensor:
-    """Window attention over ``(Bn, N, H, D)`` tensors (the flax layout);
-    ``(Bn, N, H, D)`` out, contiguous on CUDA.
-
-    ``window_attention.launches`` counts kernel launches."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+def _attention_fwd(q, k, v, bias, mask, scale, out=None) -> torch.Tensor:
+    """The forward without autograd: the plain version on CPU tensors, the
+    kernel on CUDA tensors (into ``out``, a new contiguous tensor when
+    None)."""
     if q.device.type == "cpu":
-        return window_attention_reference(q, k, v, bias, mask, scale=scale)
+        o = window_attention_reference(q, k, v, bias, mask, scale=scale)
+        return o if out is None else out.copy_(o)
     if q.device.type != "cuda":
         raise ValueError(f"no window attention for device {q.device}")
-    if requires_grad_on_cuda(q, k, v, bias):
-        refuse_grad("window_attention")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     launch_window_attention(q, k, v, bias, mask, out, scale)
     return out
 
 
+def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: torch.Tensor, mask: Optional[torch.Tensor],
+                         do: torch.Tensor, *, scale: Optional[float] = None,
+                         dq: Optional[torch.Tensor] = None,
+                         dk: Optional[torch.Tensor] = None,
+                         dv: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, ...]:
+    """Gradients of window attention over ``(Bn, N, H, D)`` views: returns
+    ``(dq, dk, dv, dbias)``, dbias an ``(H, N, N)`` fp32 tensor.  ``dq``,
+    ``dk`` and ``dv`` are written in place when given (any views with unit
+    stride along D, e.g. into one ``(Bn, N, 3, H, D)`` gradient), else
+    allocated.
+
+    On CPU tensors the plain version runs; on CUDA tensors the kernel
+    (two launches: the window loop with per-block dbias sums, then their
+    fixed-order reduction).  ``window_attention_bwd.launches`` counts
+    kernel launches."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        *grads, dbias = window_attention_bwd_reference(q, k, v, bias, mask,
+                                                       do, scale=scale)
+        return (*(g if buf is None else buf.copy_(g)
+                  for g, buf in zip(grads, (dq, dk, dv))), dbias)
+    if q.device.type != "cuda":
+        raise ValueError(f"no window attention for device {q.device}")
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  if buf is None else buf for buf in (dq, dk, dv))
+    Bn, N, H, D = _check_rows(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv)
+    nW = _check_bias_mask(bias, mask, H, N, Bn, q.device)
+    dbias = torch.zeros((H, N, N), dtype=torch.float32, device=q.device)
+    if not Bn:
+        return dq, dk, dv, dbias
+    # one block per (head, mask row, chunk of the Bn / nW images)
+    index = q.device.index if q.device.index is not None else \
+        torch.cuda.current_device()
+    chunks = max(1, min(Bn // nW,
+                        _BWD_BLOCKS_PER_SM * _sm_count(index) // (nW * H)))
+    partial = torch.empty((chunks * nW, H, N, N), dtype=torch.float32,
+                          device=q.device)
+    strides = _strides(q, k, v, do, dq, dk, dv)
+    fn = _bwd_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 bias.data_ptr(), None if mask is None else mask.data_ptr(),
+                 partial.data_ptr(), dbias.data_ptr(), Bn, H, N, D, nW,
+                 chunks, ctypes.cast(strides, ctypes.c_void_p), float(scale),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"window_attention_bwd launch failed: CUDA error "
+                           f"{err}")
+    window_attention_bwd.launches += 1
+    return dq, dk, dv, dbias
+
+
+window_attention_bwd.launches = 0
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when the kernels can read it, else a contiguous copy
+    (an incoming gradient may be expanded or oddly strided)."""
+    if x.device.type == "cuda" and not _takes_rows(x):
+        return x.contiguous()
+    return x
+
+
+class _WindowAttention(torch.autograd.Function):
+    """Differentiable window attention over ``(Bn, N, H, D)`` views."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, scale):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        ctx.scale = scale
+        return _attention_fwd(q, k, v, bias, mask, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, mask = ctx.saved_tensors
+        dq, dk, dv, dbias = window_attention_bwd(q, k, v, bias, mask,
+                                                 _rows(dout), scale=ctx.scale)
+        return dq, dk, dv, dbias, None, None
+
+
+class _WindowAttentionQKV(torch.autograd.Function):
+    """Differentiable window attention over the window-major
+    ``(Bn, N, 3, H, D)`` qkv projection, ``(Bn, N, H, D)`` out.  The
+    backward writes dq, dk and dv through strides into one gradient of
+    qkv's shape: no stack, no copy."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, scale):
+        ctx.save_for_backward(qkv, bias, mask)
+        ctx.scale = scale
+        return _attention_fwd(*qkv.unbind(2), bias, mask, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, bias, mask = ctx.saved_tensors
+        dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+        _, _, _, dbias = window_attention_bwd(
+            *qkv.unbind(2), bias, mask, _rows(dout), scale=ctx.scale,
+            **dict(zip(("dq", "dk", "dv"), dqkv.unbind(2))))
+        return dqkv, dbias, None, None
+
+
+def needs_grad(*xs) -> bool:
+    """True when autograd records and an input requires grad."""
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in xs)
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                     *, scale: Optional[float] = None) -> torch.Tensor:
+    """Window attention over ``(Bn, N, H, D)`` tensors (the flax layout);
+    ``(Bn, N, H, D)`` out, contiguous on CUDA.  Differentiable in q, k, v
+    and bias.
+
+    ``window_attention.launches`` counts forward kernel launches."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if needs_grad(q, k, v, bias):
+        return _WindowAttention.apply(q, k, v, bias, mask, float(scale))
+    return _attention_fwd(q, k, v, bias, mask, scale)
+
+
 window_attention.launches = 0
+
+
+def window_attention_qkv(qkv: torch.Tensor, bias: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None, *,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Window attention over the window-major ``(Bn, N, 3, H, D)`` qkv
+    projection; ``(Bn, N, H, D)`` out.  With grad, the backward fills one
+    ``(Bn, N, 3, H, D)`` gradient in place."""
+    if qkv.dim() != 5 or qkv.shape[2] != 3:
+        raise ValueError(f"qkv must be (Bn, N, 3, H, D), got "
+                         f"{tuple(qkv.shape)}")
+    if scale is None:
+        scale = qkv.shape[-1] ** -0.5
+    if needs_grad(qkv, bias):
+        return _WindowAttentionQKV.apply(qkv, bias, mask, float(scale))
+    return _attention_fwd(*qkv.unbind(2), bias, mask, scale)

@@ -1,5 +1,5 @@
 """Swin window blocks on the spatial map: hand-written CUDA kernels for
-Hopper and their plain PyTorch versions.
+Hopper and their plain PyTorch versions, with gradients.
 
 Counterpart of ``vit_torch_tpu/ops/window_block.py``:
 
@@ -10,15 +10,15 @@ Counterpart of ``vit_torch_tpu/ops/window_block.py``:
   (B9): a whole Swin block, LN1 → window attention → residual → LN2 →
   fc1 → exact GELU → fc2 → residual, on the unpadded, already-rolled map.
 
-On CUDA each is a short chain of launches of two hand-written sources:
-``csrc/window_gemm.cu`` (the products, with the window partition/reverse
-folded into their row addressing and the fused epilogues, and the
-LayerNorm) and ``csrc/window_attention_fwd.cu`` (the attention core, the
-kernel of :mod:`.window_attention`).  B8 is qkv → core → proj; B9 is LN1
-→ qkv → core → proj+residual → LN2 → fc1+GELU → fc2+residual.  The source notes give the
-design and the bounds.  The TPU's window-chunk pickers, head-split groups
-and VMEM budgets are tilings of the same functions and have no
-counterpart here.
+On CUDA each forward is a short chain of launches of two hand-written
+sources: ``csrc/window_gemm.cu`` (the products, with the window
+partition/reverse folded into their row addressing and the fused
+epilogues, and the LayerNorm) and ``csrc/window_attention_fwd.cu`` (the
+attention core, the kernel of :mod:`.window_attention`).  B8 is qkv → core
+→ proj; B9 is LN1 → qkv → core → proj+residual → LN2 → fc1+GELU →
+fc2+residual.  The source notes give the design and the bounds.  The TPU's
+window-chunk pickers, head-split groups and VMEM budgets are tilings of the
+same functions and have no counterpart here.
 
 Rounding points follow the TPU kernels (``_block_compute`` and
 ``_fwd_kernel_spatial_full``): products accumulate in fp32; qkv and B8's
@@ -35,11 +35,25 @@ un-rolled and the function is ``roll(+s) ∘ f ∘ roll(-s)``, the shifted
 Swin block's order; the kernels fold the roll into their addressing, the
 plain versions roll.
 
+Gradients, as the JAX package's custom VJPs (``_wbs_bwd``, ``_wbsf_bwd``)
+take them: when an input requires grad, each entry point goes through a
+``torch.autograd.Function`` whose forward is the chain above (the plain
+version on CPU tensors) and whose attention backward is the window
+attention backward (B6, ``csrc/window_attention_bwd.cu``).  B8's keeps the
+window-major qkv projection and attention output of its forward and
+computes the products' gradients with ``torch.matmul`` (the JAX backward
+leaves them to XLA dots too).  B9's recomputes the composition of
+``_wbsf_bwd`` (LN1 → qkv → core → proj → residual → LN2 → fc1 → GELU → fc2
+→ residual) under autograd, its core through
+:func:`.window_attention_qkv` (B5 once more, then B6).  The mask gets no
+gradient.
+
 Dispatch is by the tensors' device, as in :mod:`.window_attention`: CPU
-tensors run the plain versions (differentiable through autograd); CUDA
-tensors launch the kernels or raise; a CUDA input that requires grad
-raises (the backward is ROADMAP B6).  ``window_block_spatial.launches``
-and ``window_block_full_spatial.launches`` count kernel chains launched.
+tensors run the plain versions (differentiable through autograd, their
+attention through :func:`.window_attention_qkv`, so the plain B6 backward
+runs there too); CUDA tensors launch the kernels or raise.
+``window_block_spatial.launches`` and ``window_block_full_spatial.launches``
+count kernel chains launched.
 """
 
 from __future__ import annotations
@@ -53,8 +67,8 @@ import torch.nn.functional as F
 
 from vit_torch_tpu_torch.ops import _build
 from vit_torch_tpu_torch.ops.window_attention import (
-    HEAD_DIM, MAX_TOKENS, launch_window_attention, refuse_grad,
-    requires_grad_on_cuda, window_attention_reference)
+    HEAD_DIM, MAX_TOKENS, launch_window_attention, needs_grad,
+    window_attention_bwd, window_attention_qkv, window_attention_reference)
 
 LN_EPS = 1e-5
 # window_gemm.cu epilogues
@@ -105,22 +119,48 @@ def _layer_norm_f32(x: torch.Tensor, weight: torch.Tensor,
     return (x32 - mu) * mul + bias.float()
 
 
+def _plain_core(qkv: torch.Tensor, bias, mask, scale) -> torch.Tensor:
+    """The plain versions' attention over a (Bn, N, 3, H, D) qkv: on the
+    CPU the differentiable entry (the plain forward, and the plain B6
+    backward under autograd); on the card the plain forward itself, which
+    autograd differentiates, so that no kernel runs inside a plain
+    version."""
+    if qkv.device.type == "cpu":
+        return window_attention_qkv(qkv, bias, mask, scale=scale)
+    return window_attention_reference(*qkv.unbind(2), bias, mask,
+                                      scale=scale)
+
+
 def _attention_core_reference(t, w_qkv, b_qkv, bias, mask, w_proj, b_proj,
                               num_heads, scale):
-    """``_block_compute`` over (Bn, N, C) windows; fp32 (Bn, N, C) out."""
+    """``_block_compute`` over (Bn, N, C) windows: the fp32 (Bn, N, C) out,
+    the (Bn, N, 3, H, D) qkv projection and the (Bn, N, C) attention
+    output."""
     Bn, N, C = t.shape
     dt = t.dtype
     qkv = _dense_f32(t, w_qkv, b_qkv).to(dt).view(Bn, N, 3, num_heads, -1)
-    o = window_attention_reference(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-                                   bias, mask, scale=scale)
-    return _dense_f32(o.reshape(Bn, N, C), w_proj, b_proj)
+    o = _plain_core(qkv, bias, mask, scale).reshape(Bn, N, C)
+    return _dense_f32(o, w_proj, b_proj), qkv, o
+
+
+def _roll(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """``x`` rolled by ``shift`` along both map axes."""
+    return torch.roll(x, (shift, shift), dims=(1, 2)) if shift else x
 
 
 def _rolled(fn, y: torch.Tensor, shift: int) -> torch.Tensor:
-    if not shift:
-        return fn(y)
-    out = fn(torch.roll(y, (-shift, -shift), dims=(1, 2)))
-    return torch.roll(out, (shift, shift), dims=(1, 2))
+    return _roll(fn(_roll(y, -shift)), shift)
+
+
+def _spatial_reference_parts(y, w_qkv, b_qkv, bias, mask, w_proj, b_proj,
+                             num_heads, window, scale, shift):
+    """The plain B8: (out map, window-major qkv, attention output)."""
+    _, Hp, Wp, _ = y.shape
+    out, qkv, o = _attention_core_reference(
+        window_partition(_roll(y, -shift), window), w_qkv, b_qkv, bias, mask,
+        w_proj, b_proj, num_heads, scale)
+    return _roll(window_reverse(out.to(y.dtype), window, Hp, Wp), shift), \
+        qkv, o
 
 
 def window_block_spatial_reference(
@@ -130,18 +170,11 @@ def window_block_spatial_reference(
         num_heads: int, window: int, scale: Optional[float] = None,
         shift: int = 0) -> torch.Tensor:
     """Plain version of :func:`window_block_spatial` (B8)."""
-    C = y.shape[-1]
     if scale is None:
-        scale = (C // num_heads) ** -0.5
-
-    def f(y):
-        _, Hp, Wp, _ = y.shape
-        out = _attention_core_reference(
-            window_partition(y, window), w_qkv, b_qkv, bias, mask, w_proj,
-            b_proj, num_heads, scale).to(y.dtype)
-        return window_reverse(out, window, Hp, Wp)
-
-    return _rolled(f, y, shift)
+        scale = (y.shape[-1] // num_heads) ** -0.5
+    return _spatial_reference_parts(y, w_qkv, b_qkv, bias, mask, w_proj,
+                                    b_proj, num_heads, window, scale,
+                                    shift)[0]
 
 
 def window_block_full_spatial_reference(
@@ -158,8 +191,9 @@ def window_block_full_spatial_reference(
         _, H, W, _ = x.shape
         dt = x.dtype
         t = _layer_norm_f32(x, *ln1).to(dt)
-        a = _attention_core_reference(window_partition(t, window), *qkv,
-                                      bias, mask, *proj, num_heads, scale)
+        a, _, _ = _attention_core_reference(window_partition(t, window),
+                                            *qkv, bias, mask, *proj,
+                                            num_heads, scale)
         h = x + window_reverse(a.to(dt), window, H, W)
         u = _layer_norm_f32(h, *ln2).to(dt)
         hid = _dense_f32(u, fc1[0], None).to(dt)
@@ -273,9 +307,10 @@ def _check_inputs(x: torch.Tensor, window: int, num_heads: int,
 
 
 def _attention_chain(src: torch.Tensor, w_qkv, b_qkv, bias, mask, geom,
-                     num_heads: int, scale: float) -> torch.Tensor:
+                     num_heads: int, scale: float):
     """qkv product (rows gathered window-major from the map) → attention
-    core; returns the (T, C) window-major attention output."""
+    core; returns the (Bn, N, 3, H, D) window-major qkv projection and the
+    (Bn, N, C) attention output."""
     B, H, W, C = src.shape
     window = geom[2]
     N = window * window
@@ -288,7 +323,92 @@ def _attention_chain(src: torch.Tensor, w_qkv, b_qkv, bias, mask, geom,
     launch_window_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], bias,
                             mask, attn.view(Bn, N, num_heads, HEAD_DIM),
                             scale)
-    return attn
+    return qkv, attn
+
+
+def _spatial_parts(y, w_qkv, b_qkv, bias, mask, w_proj, b_proj, num_heads,
+                   window, scale, shift):
+    """B8 without autograd: (out map, window-major qkv, attention output),
+    from the plain version on CPU tensors and the kernel chain on CUDA
+    tensors."""
+    if y.device.type == "cpu":
+        return _spatial_reference_parts(y, w_qkv, b_qkv, bias, mask, w_proj,
+                                        b_proj, num_heads, window, scale,
+                                        shift)
+    if y.device.type != "cuda":
+        raise ValueError(f"no window block for device {y.device}")
+    C = y.shape[-1]
+    _check_inputs(y, window, num_heads, [
+        ("w_qkv", w_qkv, (3 * C, C)), ("b_qkv", b_qkv, (3 * C,)),
+        ("w_proj", w_proj, (C, C)), ("b_proj", b_proj, (C,))])
+    B, Hp, Wp, _ = y.shape
+    geom = (Hp, Wp, window, shift)
+    qkv, attn = _attention_chain(y, w_qkv, b_qkv, bias, mask, geom,
+                                 num_heads, scale)
+    out = torch.empty_like(y)
+    _gemm(attn, w_proj, b_proj, out, epilogue=_EPI_BIAS, geom=geom,
+          scatter=True)
+    window_block_spatial.launches += 1
+    return out, qkv, attn
+
+
+@functools.lru_cache(maxsize=64)
+def _window_order(Hp: int, Wp: int, window: int, shift: int,
+                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order, inverse): the map position (within an image) of each
+    window-major row of the rolled map, the order the kernels' gathered and
+    scattered rows take, and its inverse permutation."""
+    pos = torch.arange(Hp * Wp).view(1, Hp, Wp, 1)
+    order = window_partition(_roll(pos, -shift), window).reshape(-1)
+    return order.to(device), torch.argsort(order).to(device)
+
+
+class _WindowBlockSpatial(torch.autograd.Function):
+    """B8 with gradients (``_wbs_fwd`` / ``_wbs_bwd``).  The forward keeps
+    the window-major qkv projection and attention output; the backward
+    gathers the output gradient into window-major rows (one gather: the
+    roll and the partition), runs the proj product's gradients, the
+    attention backward (B6) into one dqkv, the qkv product's gradients,
+    and gathers dy back into map order."""
+
+    @staticmethod
+    def forward(ctx, y, w_qkv, b_qkv, bias, mask, w_proj, b_proj, num_heads,
+                window, scale, shift):
+        out, qkv, attn = _spatial_parts(y, w_qkv, b_qkv, bias, mask, w_proj,
+                                        b_proj, num_heads, window, scale,
+                                        shift)
+        ctx.save_for_backward(y, w_qkv, bias, mask, w_proj, qkv, attn)
+        ctx.geom = (window, scale, shift)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, w_qkv, bias, mask, w_proj, qkv, attn = ctx.saved_tensors
+        window, scale, shift = ctx.geom
+        need = ctx.needs_input_grad
+        B, Hp, Wp, C = y.shape
+        order, inverse = _window_order(Hp, Wp, window, shift, y.device)
+
+        def rows(m):                          # map → (T, C) window-major
+            return m.reshape(B, Hp * Wp, C)[:, order].view(-1, C)
+
+        do = rows(dout)
+        dw_proj = do.t() @ attn.reshape(-1, C) if need[5] else None
+        db_proj = do.sum(dim=0) if need[6] else None
+        dqkv = torch.empty_like(qkv)
+        _, _, _, dbias = window_attention_bwd(
+            *qkv.unbind(2), bias, mask, (do @ w_proj).view(attn.shape[0], -1,
+                                                           *qkv.shape[3:]),
+            scale=scale, **dict(zip(("dq", "dk", "dv"), dqkv.unbind(2))))
+        dqkv = dqkv.view(-1, 3 * C)
+        dw_qkv = dqkv.t() @ rows(y) if need[1] else None
+        db_qkv = dqkv.sum(dim=0) if need[2] else None
+        dy = None
+        if need[0]:
+            dx = (dqkv @ w_qkv).view(B, Hp * Wp, C)
+            dy = dx[:, inverse].view(B, Hp, Wp, C)
+        return (dy, dw_qkv, db_qkv, dbias if need[3] else None, None,
+                dw_proj, db_proj, None, None, None, None)
 
 
 def window_block_spatial(y: torch.Tensor, w_qkv: torch.Tensor,
@@ -299,35 +419,118 @@ def window_block_spatial(y: torch.Tensor, w_qkv: torch.Tensor,
                          shift: int = 0) -> torch.Tensor:
     """Window attention block (qkv → attention → proj) over the padded
     spatial map ``(B, Hp, Wp, C)`` (B8); ``(B, Hp, Wp, C)`` out.
+    Differentiable in every input but the mask.
 
     ``bias`` (H, N, N) and ``mask`` (nW, N, N) as :func:`.window_attention`
     takes them; ``w_qkv`` (3C, C), ``w_proj`` (C, C)."""
-    C = y.shape[-1]
     if scale is None:
-        scale = (C // num_heads) ** -0.5
-    if y.device.type == "cpu":
-        return window_block_spatial_reference(
-            y, w_qkv, b_qkv, bias, mask, w_proj, b_proj, num_heads=num_heads,
-            window=window, scale=scale, shift=shift)
-    if y.device.type != "cuda":
-        raise ValueError(f"no window block for device {y.device}")
-    if requires_grad_on_cuda(y, w_qkv, b_qkv, bias, w_proj, b_proj):
-        refuse_grad("window_block_spatial")
-    _check_inputs(y, window, num_heads, [
-        ("w_qkv", w_qkv, (3 * C, C)), ("b_qkv", b_qkv, (3 * C,)),
-        ("w_proj", w_proj, (C, C)), ("b_proj", b_proj, (C,))])
-    B, Hp, Wp, _ = y.shape
-    geom = (Hp, Wp, window, shift)
-    attn = _attention_chain(y, w_qkv, b_qkv, bias, mask, geom, num_heads,
-                            scale)
-    out = torch.empty_like(y)
-    _gemm(attn, w_proj, b_proj, out, epilogue=_EPI_BIAS, geom=geom,
-          scatter=True)
-    window_block_spatial.launches += 1
-    return out
+        scale = (y.shape[-1] // num_heads) ** -0.5
+    args = (y, w_qkv, b_qkv, bias, mask, w_proj, b_proj, num_heads, window,
+            float(scale), shift)
+    if needs_grad(y, w_qkv, b_qkv, bias, w_proj, b_proj):
+        return _WindowBlockSpatial.apply(*args)
+    return _spatial_parts(*args)[0]
 
 
 window_block_spatial.launches = 0
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor,
+            b: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x @ w.T`` rounded to x's dtype, then ``+ b`` in that dtype: the
+    rounding of the JAX backward's recomputed XLA dots."""
+    y = torch.matmul(x, w.t())
+    return y if b is None else y + b.to(x.dtype)
+
+
+def _full_spatial_graph(x, ln1w, ln1b, w_qkv, b_qkv, bias, mask, w_proj,
+                        b_proj, ln2w, ln2b, w1, b1, w2, b2, num_heads,
+                        window, scale, shift):
+    """The composition ``_wbsf_bwd`` differentiates: LN1 → partition → qkv
+    → core → proj → reverse → residual → LN2 → fc1 → +b1 → GELU in fp32 →
+    fc2 → +b2 → residual, its core through :func:`.window_attention_qkv`."""
+
+    def f(x):
+        B, H, W, C = x.shape
+        dt = x.dtype
+        t = window_partition(_layer_norm_f32(x, ln1w, ln1b).to(dt), window)
+        Bn, N, _ = t.shape
+        qkv = _linear(t, w_qkv, b_qkv).view(Bn, N, 3, num_heads, -1)
+        o = window_attention_qkv(qkv, bias, mask, scale=scale)
+        a = _linear(o.reshape(Bn, N, C), w_proj, b_proj)
+        h = x + window_reverse(a, window, H, W)
+        u = _layer_norm_f32(h, ln2w, ln2b).to(dt)
+        g = F.gelu(_linear(u, w1, b1).float()).to(dt)
+        return h + _linear(g, w2, b2)
+
+    return _rolled(f, x, shift)
+
+
+def _full_spatial_forward(x, ln1w, ln1b, w_qkv, b_qkv, bias, mask, w_proj,
+                          b_proj, ln2w, ln2b, w1, b1, w2, b2, num_heads,
+                          window, scale, shift):
+    """B9 without autograd: the plain version on CPU tensors, the kernel
+    chain on CUDA tensors."""
+    ln1, qkv, proj = (ln1w, ln1b), (w_qkv, b_qkv), (w_proj, b_proj)
+    ln2, fc1, fc2 = (ln2w, ln2b), (w1, b1), (w2, b2)
+    if x.device.type == "cpu":
+        return window_block_full_spatial_reference(
+            x, ln1, qkv, bias, mask, proj, ln2, fc1, fc2,
+            num_heads=num_heads, window=window, scale=scale, shift=shift)
+    if x.device.type != "cuda":
+        raise ValueError(f"no window block for device {x.device}")
+    C = x.shape[-1]
+    hidden = w1.shape[0]
+    _check_inputs(x, window, num_heads, [
+        ("qkv weight", w_qkv, (3 * C, C)), ("qkv bias", b_qkv, (3 * C,)),
+        ("proj weight", w_proj, (C, C)), ("proj bias", b_proj, (C,)),
+        ("fc1 weight", w1, (hidden, C)), ("fc1 bias", b1, (hidden,)),
+        ("fc2 weight", w2, (C, hidden)), ("fc2 bias", b2, (C,))],
+        lns=[("ln1", ln1), ("ln2", ln2)])
+    if hidden % 32:
+        raise ValueError(f"MLP width {hidden} is not a multiple of 32")
+    B, H, W, _ = x.shape
+    geom = (H, W, window, shift)
+    _, attn = _attention_chain(_layer_norm(x, ln1), *qkv, bias, mask, geom,
+                               num_heads, scale)
+    h = torch.empty_like(x)
+    _gemm(attn, *proj, h, epilogue=_EPI_BIAS_RES, geom=geom, scatter=True,
+          res=x)
+    hid = torch.empty((B, H, W, hidden), dtype=x.dtype, device=x.device)
+    _gemm(_layer_norm(h, ln2), *fc1, hid, epilogue=_EPI_GELU, geom=geom)
+    out = torch.empty_like(x)
+    _gemm(hid, *fc2, out, epilogue=_EPI_BIAS16_RES, geom=geom, res=h)
+    window_block_full_spatial.launches += 1
+    return out
+
+
+_FULL_TENSORS = 15        # x, ln1 (2), qkv (2), bias, mask, proj (2), ...
+
+
+class _WindowBlockFullSpatial(torch.autograd.Function):
+    """B9 with gradients (``_wbsf_fwd`` / ``_wbsf_bwd``): the forward is
+    the chain; the backward recomputes :func:`_full_spatial_graph` under
+    autograd and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args[:_FULL_TENSORS])
+        ctx.meta = args[_FULL_TENSORS:]
+        return _full_spatial_forward(*args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        need = ctx.needs_input_grad
+        leaves = [t if t is None else t.detach().requires_grad_(need[i])
+                  for i, t in enumerate(ctx.saved_tensors)]
+        wrt = [i for i, t in enumerate(leaves) if t is not None and need[i]]
+        with torch.enable_grad():
+            out = _full_spatial_graph(*leaves, *ctx.meta)
+        grads = torch.autograd.grad(out, [leaves[i] for i in wrt], dout)
+        res = [None] * len(need)
+        for i, g in zip(wrt, grads):
+            res[i] = g
+        return tuple(res)
 
 
 def window_block_full_spatial(x: torch.Tensor, ln1: Pair, qkv: Pair,
@@ -339,44 +542,19 @@ def window_block_full_spatial(x: torch.Tensor, ln1: Pair, qkv: Pair,
                               shift: int = 0) -> torch.Tensor:
     """A whole Swin block (LN1 → W-MSA → +residual → LN2 → MLP →
     +residual) over the unpadded spatial map ``(B, H, W, C)`` (B9).
+    Differentiable in every input but the mask.
 
     ``ln1``/``ln2`` are (weight, bias) pairs, fp32; ``qkv``, ``proj``,
     ``fc1``, ``fc2`` are (weight, bias) pairs in ``nn.Linear`` layout.
     DropPath and dropout are the caller's business: the residuals are
     inside."""
-    C = x.shape[-1]
     if scale is None:
-        scale = (C // num_heads) ** -0.5
-    if x.device.type == "cpu":
-        return window_block_full_spatial_reference(
-            x, ln1, qkv, bias, mask, proj, ln2, fc1, fc2,
-            num_heads=num_heads, window=window, scale=scale, shift=shift)
-    if x.device.type != "cuda":
-        raise ValueError(f"no window block for device {x.device}")
-    if requires_grad_on_cuda(x, bias, *ln1, *qkv, *proj, *ln2, *fc1, *fc2):
-        refuse_grad("window_block_full_spatial")
-    hidden = fc1[0].shape[0]
-    _check_inputs(x, window, num_heads, [
-        ("qkv weight", qkv[0], (3 * C, C)), ("qkv bias", qkv[1], (3 * C,)),
-        ("proj weight", proj[0], (C, C)), ("proj bias", proj[1], (C,)),
-        ("fc1 weight", fc1[0], (hidden, C)), ("fc1 bias", fc1[1], (hidden,)),
-        ("fc2 weight", fc2[0], (C, hidden)), ("fc2 bias", fc2[1], (C,))],
-        lns=[("ln1", ln1), ("ln2", ln2)])
-    if hidden % 32:
-        raise ValueError(f"MLP width {hidden} is not a multiple of 32")
-    B, H, W, _ = x.shape
-    geom = (H, W, window, shift)
-    attn = _attention_chain(_layer_norm(x, ln1), *qkv, bias, mask, geom,
-                            num_heads, scale)
-    h = torch.empty_like(x)
-    _gemm(attn, *proj, h, epilogue=_EPI_BIAS_RES, geom=geom, scatter=True,
-          res=x)
-    hid = torch.empty((B, H, W, hidden), dtype=x.dtype, device=x.device)
-    _gemm(_layer_norm(h, ln2), *fc1, hid, epilogue=_EPI_GELU, geom=geom)
-    out = torch.empty_like(x)
-    _gemm(hid, *fc2, out, epilogue=_EPI_BIAS16_RES, geom=geom, res=h)
-    window_block_full_spatial.launches += 1
-    return out
+        scale = (x.shape[-1] // num_heads) ** -0.5
+    tensors = (x, *ln1, *qkv, bias, mask, *proj, *ln2, *fc1, *fc2)
+    meta = (num_heads, window, float(scale), shift)
+    if needs_grad(*tensors):
+        return _WindowBlockFullSpatial.apply(*tensors, *meta)
+    return _full_spatial_forward(*tensors, *meta)
 
 
 window_block_full_spatial.launches = 0

@@ -14,9 +14,7 @@ run is reproducible from ``seed``.  It switches the model to ``train()``
 for the train split and ``eval()`` for the val split.
 
 Checkpointing, resume, meshes and pipelines are not ported yet: the CLI
-refuses their flags (``utils/args.py:check_ported``).  Fine-tuning a Swin
-on CUDA raises here, before the first step: its window kernels have no
-backward yet (ROADMAP.md B6).
+refuses their flags (``utils/args.py:check_ported``).
 """
 
 from __future__ import annotations
@@ -29,7 +27,6 @@ import torch
 
 from vit_torch_tpu_torch.models.layers import set_generator
 from vit_torch_tpu_torch.models.zoo import ZooModel
-from vit_torch_tpu_torch.ops.window_attention import BACKWARD_ITEM
 from vit_torch_tpu_torch.train.optimizers import (get_optimizer,
                                                   set_learning_rate)
 from vit_torch_tpu_torch.train.scan import (cache_backbone_features,
@@ -92,13 +89,6 @@ class Trainer:
         self.zoo_model = zoo_model
         self.model = zoo_model.model
         self.device = next(self.model.parameters()).device
-        if (self.device.type == "cuda" and not lineareval
-                and zoo_model.family == "swin"):
-            # refused here, before the first step, not inside one
-            raise NotImplementedError(
-                f"fine-tuning Swin on CUDA needs the window kernels' "
-                f"backward ({BACKWARD_ITEM}): use --lineareval, or train on "
-                f"the CPU")
         self.epochs = epochs
         self.base_lr = lr
         self.opt_name = opt
