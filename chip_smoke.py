@@ -17,7 +17,10 @@
    bs32, shifted and unshifted, at swin_tiny's window-7 stage 1 and at a
    ragged small shape; the gradients of B8 and B9 against autograd
    through their plain versions at the headline, window-7 and ragged
-   shapes;
+   shapes; the talking-heads kernel (rows 10 and 11) at the attention
+   shapes of cait_s24_224 bs32, xxs24, s24_384, m36_384, m48_448 and a
+   ragged one through the model's qkv entry, and the headline through
+   the (B, N, C) entry;
 4. exports a full-width dino_vitb8 @224 classifier with seeded weights
    through ``vit_torch_tpu_torch.cli.export``, serves it with
    ``BundleServer`` on the card, sends concurrent HTTP requests, checks the
@@ -43,7 +46,19 @@
    launched); times the steady-state linear-eval and fine-tune steps and
    a bs32 eval forward and profiles both steps; holds one bs8 fine-tune
    step on the kernels against the same step on the plain versions;
-8. prints one JSON line with each kernel's numbers, then the card's name
+8. CaiT: exports and serves cait_s24_224 @224 over HTTP as in 4 (every
+   talking-heads block through the kernel: launches = 24 x dispatches, the
+   logits held against the plain version, LayerScale gates raised from
+   their 1e-5 init to CAIT_GAMMA so that the comparison holds something);
+   linear-evaluates it (plain and
+   cached) and fine-tunes it @224 bs32 for one synthetic epoch through
+   ``cli.main`` (24 kernel launches per backbone forward, no flash or
+   window kernel, no plain talking-heads forward; the fine-tune's
+   backward recomputes each block through the plain version, as the JAX
+   backward does); times the steady-state fine-tune and linear-eval steps
+   and a bs32 eval forward, profiles the steps; holds one bs8 fine-tune
+   step against the same step on the plain version;
+9. prints one JSON line with each kernel's numbers, then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -124,6 +139,21 @@ WINDOW_DBIAS_RTOL = 1e-2
 # relative to max |plain| of each gradient; one-ulp bf16 differences
 # (2^-8) carried through two products and the attention backward
 BLOCK_GRAD_RTOL = 5e-2
+# talking heads (rows 10 and 11) vs the plain version: max |kernel - plain|
+# relative to max |plain|.  Both round the mixed weights A to bf16 before
+# PV and sum in fp32, in another order, so an A element can land one bf16
+# ulp (2^-8) away, which PV carries over the N keys
+TH_RTOL = 2e-2
+# served CaiT logits, kernel vs plain through the same bf16 model: such
+# one-ulp differences in 24 blocks, through the residual stream, the class
+# attention, the final LayerNorm and the head; relative to max |plain
+# logit|
+CAIT_LOGITS_RTOL = 5e-2
+# the LayerScale gates of the CaiT that serving and the bs8 step compare:
+# seeded at init_scale = 1e-5, a block's branch vanishes under the bf16
+# residual (x + 1e-5 * y rounds to x), and the comparison with the plain
+# version would hold nothing; at 0.1 every block moves the stream
+CAIT_GAMMA = 0.1
 H100_BF16_FLOPS = 989e12          # dense tensor-core peak, SXM
 H100_BYTES_PER_S = 3.35e12
 ARCH, IMAGE_SIZE, CLASSIFIER, BUCKETS = "dino_vitb8", 224, "512,10", "1,8,32"
@@ -147,6 +177,17 @@ SWIN_FINETUNE_ARGS = [a if a != "1e-3" else "1e-4" for a in SWIN_TRAIN_ARGS]
 # swin_base_384 at bs32, shifted and unshifted (stage 4 is one window, never
 # shifted); swin_tiny's stage 1 at 224 px (window 7, N = 49); a ragged
 # window 5 on a 10 x 15 map.  The first is the headline shape.
+CAIT_ARCH, CAIT_SIZE, CAIT_DEPTH = "cait_s24_224", 224, 24
+CAIT_TRAIN_ARGS = ["--dataset", "synthetic", "--arch", CAIT_ARCH,
+                   "--image_size", str(CAIT_SIZE), "--bs", str(TRAIN_BS),
+                   "--epoch", "1", "--opt", "adamw", "--lr", "1e-4", "--fc",
+                   "512"]
+# (B, H, N, D) of the talking-heads attentions checked: cait_s24_224 bs32
+# (the headline), xxs24_224 bs32, s24_384 and m36_384 bs8, m48_448 bs4 (N =
+# 784, 16 heads: the largest of the zoo) and a ragged shape; the headline
+# again through the (B, N, C) entry
+TH_SHAPES = [(32, 8, 196, 48), (32, 4, 196, 48), (8, 8, 576, 48),
+             (8, 16, 576, 48), (4, 16, 784, 48), (2, 4, 37, 48)]
 SWIN_BLOCKS = [(32, 96, 96, 128, 12, 6), (32, 96, 96, 128, 12, 0),
                (32, 48, 48, 256, 12, 6), (32, 48, 48, 256, 12, 0),
                (32, 24, 24, 512, 12, 6), (32, 24, 24, 512, 12, 0),
@@ -378,6 +419,23 @@ def _library_backend(fn) -> str:
     return max(evs, key=lambda e: e.self_device_time_total).key[:80]
 
 
+def _device_ms(fn, kernel: str, iters: int = 10) -> float:
+    """Mean device time per call of ``fn`` spent in the kernels whose name
+    holds ``kernel``, from torch.profiler: the kernel's own time where the
+    CUDA-event time of a loop of calls is set by the host's launch rate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and kernel in e.key) / 1e3 / iters
+
+
 def check_window_attention_bwd(case, seed):
     """The window-attention backward (row 6) vs its plain version on the
     windows of one block case, fed as the B8 Function feeds it: q, k, v
@@ -579,6 +637,120 @@ def check_window_block_grads(case, seed):
     return rows
 
 
+def _th_bound_ms(B, H, N, D):
+    return _bound(4 * B * H * N * N * D       # QK^T and PV
+                  + 4 * B * H * H * N * N,    # the two (H, H) mixes
+                  4 * B * H * N * D * 2)      # q, k, v read once, o written
+
+
+def _th_library(q, k, v, tables, H, scale):
+    """Row 11's form through one SDPA call: Q̂_g = q ⊙ (scale · wl[:, g]
+    repeated over D), K̂ = k and V̂ = v shared by the H "heads" of width C
+    (broadcast once, outside the timed call), then the ww mix as one einsum
+    plus bw ⊙ colsum(V) (bl dropped: softmax is shift-invariant).
+    ``(B, N, C)`` inputs; a callable."""
+    import torch
+    import torch.nn.functional as F
+    wl, _, ww, bw = tables
+    B, N, C = q.shape
+    D = C // H
+    wl_exp = (wl.t().repeat_interleave(D, dim=1) * scale)[None, :, None]
+    ww_exp = ww.repeat_interleave(D, dim=1)
+    bw_exp = bw.repeat_interleave(D)
+    kh, vh = (x[:, None].expand(B, H, N, C).contiguous() for x in (k, v))
+
+    def lib():
+        qh = (q[:, None].float() * wl_exp).to(q.dtype)
+        x = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+        return (torch.einsum("bgnc,gc->bnc", x.float(), ww_exp)
+                + bw_exp * v.float().sum(1, keepdim=True))
+
+    return lib
+
+
+def check_talking_heads(shape, seed, bnc: bool = False):
+    """The talking-heads kernel (rows 10 and 11) vs its plain version on one
+    shape: through ``talking_heads_attention_qkv`` as the model feeds it
+    (q, k, v strided views into one (B, N, 3, H, D) qkv tensor), or through
+    the (B, N, C) entry; mixing tables of std 0.3 around the identity,
+    biases of std 0.1.  Times the kernel, the plain version and row 11's
+    form through SDPA, names the kernel SDPA ran and checks that form
+    against the plain version too.  ``ms`` is CUDA events over a loop of
+    calls, ``device_ms`` the kernel's own time from the profiler (the two
+    part where the host's launch rate sets the loop)."""
+    import torch
+    from vit_torch_tpu_torch.ops import talking_heads as th
+    B, H, N, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(6000 + seed)
+    qkv = torch.randn((B, N, 3, H, D), generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    eye = torch.eye(H, device="cuda")
+    tables = (eye + 0.3 * torch.randn((H, H), generator=gen, device="cuda"),
+              0.1 * torch.randn((H,), generator=gen, device="cuda"),
+              eye + 0.3 * torch.randn((H, H), generator=gen, device="cuda"),
+              0.1 * torch.randn((H,), generator=gen, device="cuda"))
+    scale = D ** -0.5
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    qc, kc, vc = (x.reshape(B, N, H * D) for x in qkv.unbind(2))
+    if bnc:
+        def run():
+            return th.talking_heads_attention_bnc(qc, kc, vc, *tables,
+                                                  num_heads=H, scale=scale)
+        out = run().view(B, N, H, D).transpose(1, 2)
+    else:
+        def run():
+            return th.talking_heads_attention_qkv(qkv, *tables, scale=scale)
+        out = run().transpose(1, 2)
+    torch.cuda.synchronize()
+    ref = th.talking_heads_reference(q, k, v, *tables, scale=scale).float()
+    abs_err = (out.float() - ref).abs().max().item()
+    rel = abs_err / ref.abs().max().item()
+    if not (torch.isfinite(out).all() and rel <= TH_RTOL):
+        raise AssertionError(f"talking_heads {shape}: max abs err relative "
+                             f"to max|plain| {rel} > {TH_RTOL}")
+    lib = _th_library(qc, kc, vc, tables, H, scale)
+    lib_rel = ((lib().view(B, N, H, D).transpose(1, 2) - ref).abs().max()
+               / ref.abs().max()).item()
+    del ref
+    big = B * H * N * N > 2e7
+    ms = _time_ms(run, iters=20 if big else 100)
+    device_ms = _device_ms(run, "talking_heads_fwd_kernel")
+    plain_ms = _time_ms(lambda: th.talking_heads_reference(
+        q, k, v, *tables, scale=scale), iters=3 if big else 20)
+    library_ms = _time_ms(lib, iters=10 if big else 50)
+    bound_ms, bound_by = _th_bound_ms(B, H, N, D)
+    row = {"shape": list(shape), "entry": "bnc" if bnc else "qkv",
+           "max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
+           "device_ms": device_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_kernel": _library_backend(lib) if seed == 0 else None,
+           "library_max_rel_err": lib_rel, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    _say("kernel check talking_heads", json.dumps(row))
+    return row
+
+
+def _show_layerscale(state) -> None:
+    """Set every CaiT LayerScale gate of a state dict to CAIT_GAMMA."""
+    for name, value in state.items():
+        if ".gamma_" in name:
+            value.fill_(CAIT_GAMMA)
+
+
+def _plain_th_qkv(qkv, wl, bl, ww, bw, *, scale):
+    """The CaiT block's attention call on the plain version (differentiable
+    through autograd), patched in for the kernel-vs-plain comparisons."""
+    from vit_torch_tpu_torch.ops import talking_heads as th
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    return th.talking_heads_reference(q, k, v, wl, bl, ww, bw,
+                                      scale=scale).transpose(1, 2)
+
+
+def _plain_talking_heads():
+    from vit_torch_tpu_torch.ops import talking_heads as th
+    return mock.patch.object(th, "talking_heads_attention_qkv", _plain_th_qkv)
+
+
 def _plain_window_blocks():
     """The Swin blocks on their plain versions, patched in for the
     kernel-vs-plain comparison of the served model."""
@@ -639,6 +811,8 @@ def _kernel_group(name: str) -> str:
         return "window_attention_bwd"
     if "window_gemm_kernel" in name:
         return "window_gemm"        # the B8 / B9 products
+    if "talking_heads_fwd_kernel" in name:
+        return "talking_heads"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
         return "matmul"
     if "layer_norm" in low or "gammabetabackward" in low:
@@ -700,13 +874,15 @@ def _depth(backbone) -> int:
 
 def serve_end_to_end(workdir: str, arch: str, image_size: int,
                      kernels, plain, flops_per_image: int,
-                     logits_tol: float, relative: bool):
+                     logits_tol: float, relative: bool, prepare=None):
     """Export → BundleServer on cuda → concurrent HTTP requests; prints
     the serving numbers and returns the launch counts of the HTTP run.
     Each of ``kernels`` must launch once per layer per dispatch, and no
     other kernel at all.  ``plain()`` is a context that patches the plain
     versions in; the logits of the two must agree within ``logits_tol``
-    (relative to max |plain logit| when ``relative``)."""
+    (relative to max |plain logit| when ``relative``).  ``prepare(state)``
+    may edit the exported state dict in place before the server loads
+    it."""
     import torch
     from vit_torch_tpu_torch.cli import export as cli_export
     from vit_torch_tpu_torch.data.datasets import resize_images
@@ -718,6 +894,11 @@ def serve_end_to_end(workdir: str, arch: str, image_size: int,
                      "--image_size", str(image_size), "--bs", BUCKETS,
                      "--dataset", "stl10", "--out", bundle])
     _say(f"export {arch} seconds {time.perf_counter() - t0:.2f}")
+    if prepare is not None:
+        weights = f"{bundle}/weights.pt"
+        state = torch.load(weights, weights_only=True)
+        prepare(state)
+        torch.save(state, weights)
 
     server = BundleServer(bundle, port=0, max_wait_ms=10)
     try:
@@ -833,6 +1014,7 @@ def _plain_attention():
 def _counters():
     """Every kernel wrapper, by the name it has in the kernels line."""
     from vit_torch_tpu_torch.ops import flash_attention as fa
+    from vit_torch_tpu_torch.ops import talking_heads as th
     from vit_torch_tpu_torch.ops import window_attention as wa
     from vit_torch_tpu_torch.ops import window_block as wb
     return {"flash_attention_fwd": fa.flash_attention_bhnd,
@@ -840,7 +1022,8 @@ def _counters():
             "window_attention": wa.window_attention,
             "window_attention_bwd": wa.window_attention_bwd,
             "window_block_spatial": wb.window_block_spatial,
-            "window_block_full_spatial": wb.window_block_full_spatial}
+            "window_block_full_spatial": wb.window_block_full_spatial,
+            "talking_heads": th.talking_heads_attention}
 
 
 def _reset_counts():
@@ -953,6 +1136,35 @@ def swin_finetune_through_cli(workdir: str):
     return counts
 
 
+def cait_through_cli(workdir: str, mode: str):
+    """cait_s24_224 through ``cli.main``: ``lineareval`` (the backbone in
+    train mode under no_grad in train steps), ``lineareval_cached`` (the
+    backbone once over each split) or ``finetune``.  Every backbone forward
+    launches the talking-heads kernel once per block, train and eval steps
+    alike; no plain talking-heads forward runs; the fine-tune's backward
+    recomputes each block once through the plain version."""
+    from vit_torch_tpu_torch.cli import main as cli_main
+    from vit_torch_tpu_torch.ops import talking_heads as th
+    steps = SYNTHETIC_N // TRAIN_BS
+    extra = {"lineareval": ["--lineareval"],
+             "lineareval_cached": ["--lineareval", "--cache_features"],
+             "finetune": []}[mode]
+    th.talking_heads_reference.calls = th.talking_heads_bwd.calls = 0
+    counts = _run_cli(cli_main.main, CAIT_TRAIN_ARGS + extra,
+                      f"{workdir}/cait_{mode}.json", f"cait_{mode}",
+                      _want(talking_heads=CAIT_DEPTH * 2 * steps))
+    plain, recomputes = (th.talking_heads_reference.calls,
+                         th.talking_heads_bwd.calls)
+    want = CAIT_DEPTH * steps if mode == "finetune" else 0
+    _say(f"cait_{mode}: plain talking-heads forwards {plain}, backward "
+         f"recomputes {recomputes}")
+    if plain or recomputes != want:
+        raise AssertionError(f"cait_{mode}: {plain} plain forwards (want 0), "
+                             f"{recomputes} backward recomputes (want "
+                             f"{want})")
+    return dict(counts, backward_recomputes=recomputes)
+
+
 def _train_setup(bs: int, seed: int = 0, arch: str = ARCH,
                  image_size: int = IMAGE_SIZE, lineareval: bool = False,
                  lr: float = 1e-4):
@@ -999,14 +1211,11 @@ def profile_train_step(trainer, batch, iters: int = 2):
     return _device_groups(prof, iters, window_ms, top_n=10)
 
 
-def steady_state_train(iters: int = 12):
-    """The finetune step at bs32 (augment, forward, loss, backward, AdamW)
-    on the card: CUDA-event time over ``iters`` steps after warm-up, MFU
-    against the dense bf16 peak, a profile, and the launches per step."""
+def _time_train_steps(trainer, batch, iters: int):
+    """Warm-up, the launches of one step, then ``iters`` steps on CUDA
+    events and the host clock, the peak memory allocated and a profile of
+    two more steps; ``steps_run`` counts every step taken."""
     import torch
-    from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, vit_flops
-    zm, trainer, batch = _train_setup(TRAIN_BS)
-    zm.model.train()
     for _ in range(3):
         trainer.train_step(*batch)
     torch.cuda.synchronize()
@@ -1022,18 +1231,32 @@ def steady_state_train(iters: int = 12):
         trainer.train_step(*batch)
     end.record()
     torch.cuda.synchronize()
-    host_ms = 1e3 * (time.perf_counter() - t0) / iters
-    step_ms = start.elapsed_time(end) / iters
+    return {"iters": iters, "step_ms": start.elapsed_time(end) / iters,
+            "host_step_ms": 1e3 * (time.perf_counter() - t0) / iters,
+            "launches_per_step": per_step,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "profile": profile_train_step(trainer, batch, iters=2),
+            "steps_run": 3 + 1 + iters + 2}
+
+
+def steady_state_train(iters: int = 12):
+    """The finetune step at bs32 (augment, forward, loss, backward, AdamW)
+    on the card: CUDA-event time over ``iters`` steps after warm-up, MFU
+    against the dense bf16 peak, a profile, and the launches per step."""
+    from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, vit_flops
+    zm, trainer, batch = _train_setup(TRAIN_BS)
+    zm.model.train()
+    t = _time_train_steps(trainer, batch, iters)
+    step_ms, per_step = t["step_ms"], t["launches_per_step"]
     step_flops = 3 * vit_flops(VIT_CONFIGS[ARCH], IMAGE_SIZE) * TRAIN_BS
     row = {"arch": ARCH, "image_size": IMAGE_SIZE, "bs": TRAIN_BS,
            "opt": "adamw", "iters": iters, "train_step_ms": step_ms,
-           "host_step_ms": host_ms,
+           "host_step_ms": t["host_step_ms"],
            "train_img_per_s": TRAIN_BS * 1e3 / step_ms,
            "step_tflop": step_flops / 1e12,
            "mfu": step_flops / (step_ms / 1e3) / H100_BF16_FLOPS,
-           "launches_per_step": per_step,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "profile": profile_train_step(trainer, batch)}
+           "launches_per_step": per_step, "peak_mem_gb": t["peak_mem_gb"],
+           "profile": t["profile"]}
     _say(json.dumps({"train": row}))
     depth = VIT_CONFIGS[ARCH].depth
     if per_step != _want(flash_attention_fwd=depth,
@@ -1055,26 +1278,9 @@ def steady_state_swin_lineareval(iters: int = 12):
                                       image_size=SWIN_SIZE, lineareval=True,
                                       lr=1e-3)
     zm.model.train()
-    for _ in range(3):
-        trainer.train_step(*batch)
-    torch.cuda.synchronize()
-    _reset_counts()
-    trainer.train_step(*batch)
-    per_step = _read_counts()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(iters):
-        trainer.train_step(*batch)
-    end.record()
-    torch.cuda.synchronize()
-    host_ms = 1e3 * (time.perf_counter() - t0) / iters
-    step_ms = start.elapsed_time(end) / iters
+    t = _time_train_steps(trainer, batch, iters)
+    step_ms, per_step = t["step_ms"], t["launches_per_step"]
     fwd_flops = swin_flops(SWIN_CONFIGS[SWIN_ARCH], SWIN_SIZE) * TRAIN_BS
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    profile = profile_train_step(trainer, batch)
     zm.model.eval()
     x = trainer.eval_transform(batch[0])
     _reset_counts()
@@ -1083,15 +1289,15 @@ def steady_state_swin_lineareval(iters: int = 12):
     eval_counts = _read_counts()
     row = {"arch": SWIN_ARCH, "image_size": SWIN_SIZE, "bs": TRAIN_BS,
            "opt": "adamw", "iters": iters, "lineareval_step_ms": step_ms,
-           "host_step_ms": host_ms,
+           "host_step_ms": t["host_step_ms"],
            "lineareval_img_per_s": TRAIN_BS * 1e3 / step_ms,
            "step_tflop": fwd_flops / 1e12,
            "mfu": fwd_flops / (step_ms / 1e3) / H100_BF16_FLOPS,
-           "launches_per_step": per_step, "peak_mem_gb": peak_gb,
+           "launches_per_step": per_step, "peak_mem_gb": t["peak_mem_gb"],
            "eval_forward_ms": eval_ms,
            "eval_forward_img_per_s": TRAIN_BS * 1e3 / eval_ms,
            "eval_forward_mfu": fwd_flops / (eval_ms / 1e3) / H100_BF16_FLOPS,
-           "profile": profile}
+           "profile": t["profile"]}
     _say(json.dumps({"swin_lineareval_step": row}))
     if per_step != _want(window_attention=SWIN_DEPTH,
                          window_block_spatial=SWIN_DEPTH - 1,
@@ -1153,38 +1359,21 @@ def steady_state_swin_finetune(iters: int = 12):
     step FLOPs = 3 x forward (``bench.py``'s count), a profile by kernel
     group with the idle share, the launches per step and the peak memory
     allocated."""
-    import torch
     from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, swin_flops
     zm, trainer, batch = _train_setup(TRAIN_BS, arch=SWIN_ARCH,
                                       image_size=SWIN_SIZE, lr=1e-4)
     zm.model.train()
-    for _ in range(3):
-        trainer.train_step(*batch)
-    torch.cuda.synchronize()
-    _reset_counts()
-    trainer.train_step(*batch)
-    per_step = _read_counts()
-    torch.cuda.reset_peak_memory_stats()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(iters):
-        trainer.train_step(*batch)
-    end.record()
-    torch.cuda.synchronize()
-    host_ms = 1e3 * (time.perf_counter() - t0) / iters
-    step_ms = start.elapsed_time(end) / iters
+    t = _time_train_steps(trainer, batch, iters)
+    step_ms, per_step = t["step_ms"], t["launches_per_step"]
     step_flops = 3 * swin_flops(SWIN_CONFIGS[SWIN_ARCH], SWIN_SIZE) * TRAIN_BS
     row = {"arch": SWIN_ARCH, "image_size": SWIN_SIZE, "bs": TRAIN_BS,
            "opt": "adamw", "iters": iters, "finetune_step_ms": step_ms,
-           "host_step_ms": host_ms,
+           "host_step_ms": t["host_step_ms"],
            "finetune_img_per_s": TRAIN_BS * 1e3 / step_ms,
            "step_tflop": step_flops / 1e12,
            "mfu": step_flops / (step_ms / 1e3) / H100_BF16_FLOPS,
-           "launches_per_step": per_step,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "profile": profile_train_step(trainer, batch)}
+           "launches_per_step": per_step, "peak_mem_gb": t["peak_mem_gb"],
+           "profile": t["profile"]}
     _say(json.dumps({"swin_finetune_step": row}))
     if per_step != _want(window_attention=SWIN_DEPTH + 1,
                          window_attention_bwd=SWIN_DEPTH,
@@ -1246,6 +1435,115 @@ def compare_swin_step_with_plain(bs: int = 8):
     return row
 
 
+def steady_state_cait(iters: int = 12):
+    """cait_s24_224 at bs32 on the card: the fine-tune step (MFU with 3 x
+    forward FLOPs, ``cait_flops``), the linear-eval step (1 x forward) and
+    a bs32 eval forward, each on CUDA events after warm-up, with the
+    launches per step, the peak memory and a profile of each step."""
+    import torch
+    from vit_torch_tpu_torch.models.cait import CAIT_CONFIGS, cait_flops
+    from vit_torch_tpu_torch.ops import talking_heads as th
+    fwd_flops = cait_flops(CAIT_CONFIGS[CAIT_ARCH], CAIT_SIZE) * TRAIN_BS
+    rows = {}
+    for mode, flops in (("finetune", 3 * fwd_flops),
+                        ("lineareval", fwd_flops)):
+        zm, trainer, batch = _train_setup(TRAIN_BS, arch=CAIT_ARCH,
+                                          image_size=CAIT_SIZE,
+                                          lineareval=mode == "lineareval")
+        zm.model.train()
+        recomputes = th.talking_heads_bwd.calls
+        row = _time_train_steps(trainer, batch, iters)
+        recomputes = th.talking_heads_bwd.calls - recomputes
+        row.update(mode=mode, img_per_s=TRAIN_BS * 1e3 / row["step_ms"],
+                   step_tflop=flops / 1e12,
+                   mfu=flops / (row["step_ms"] / 1e3) / H100_BF16_FLOPS)
+        rows[mode] = row
+        if row["launches_per_step"] != _want(talking_heads=CAIT_DEPTH):
+            raise AssertionError(f"cait {mode}: launches per step "
+                                 f"{row['launches_per_step']}")
+        want = CAIT_DEPTH * row["steps_run"] if mode == "finetune" else 0
+        if recomputes != want:
+            raise AssertionError(f"cait {mode}: {recomputes} backward "
+                                 f"recomputes, want {want}")
+        if mode == "lineareval":
+            zm.model.eval()
+            x = trainer.eval_transform(batch[0])
+            _reset_counts()
+            with torch.no_grad():
+                eval_ms = _time_ms(lambda: zm.model(x), iters=10)
+            counts = _read_counts()
+            if counts != _want(talking_heads=CAIT_DEPTH * 12):
+                raise AssertionError(f"cait: launches in 12 eval forwards "
+                                     f"{counts}")
+            rows["eval_forward"] = {
+                "ms": eval_ms, "img_per_s": TRAIN_BS * 1e3 / eval_ms,
+                "mfu": fwd_flops / (eval_ms / 1e3) / H100_BF16_FLOPS}
+        del zm, trainer, batch
+        torch.cuda.empty_cache()
+    _say(json.dumps({"cait_steady_state": {
+        "arch": CAIT_ARCH, "image_size": CAIT_SIZE, "bs": TRAIN_BS,
+        "opt": "adamw", **rows}}))
+    return rows
+
+
+def compare_cait_step_with_plain(bs: int = 8):
+    """Loss and gradients of one bs8 cait_s24_224 fine-tune step
+    (eval-normalised batch, no optimizer step) with the talking-heads
+    kernel forward and with the plain version (autograd through it, no
+    kernel), same weights (LayerScale gates at CAIT_GAMMA) and batch; the
+    limits are the dino step's (STEP_LOSS_ATOL, STEP_GRAD_RTOL), here over
+    24 blocks.  ``proj_l.bias`` and the class attention's ``k.bias`` shift
+    whole softmax rows, so their gradients are 0 in exact arithmetic and
+    rounding noise on both sides: their norms are reported, not held to
+    the relative limit."""
+    from vit_torch_tpu_torch.train.steps import cross_entropy_loss
+    import torch
+    zm, trainer, (images, labels, mask) = _train_setup(
+        bs, seed=1, arch=CAIT_ARCH, image_size=CAIT_SIZE)
+    model = zm.model
+    with torch.no_grad():
+        _show_layerscale(dict(model.named_parameters()))
+    model.train()
+    x = trainer.eval_transform(images)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = cross_entropy_loss(model(x), labels, mask)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone()
+                             for n, p in model.named_parameters()}
+
+    _reset_counts()
+    loss_k, grads_k = loss_and_grads()
+    counts = _read_counts()
+    with _plain_talking_heads():
+        loss_p, grads_p = loss_and_grads()
+    if _read_counts() != counts:
+        raise AssertionError("the plain step launched a kernel")
+    if counts != _want(talking_heads=CAIT_DEPTH):
+        raise AssertionError(f"launches in the kernel step {counts}")
+    shift = ("attn.proj_l.bias", "attn.k.bias")
+    rel = {n: ((grads_k[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+           for n, g in grads_p.items() if not n.endswith(shift)}
+    worst = max(rel, key=rel.get)
+    noise = [max(grads_k[n].norm().item(), g.norm().item())
+             for n, g in grads_p.items() if n.endswith(shift)]
+    row = {"arch": CAIT_ARCH, "bs": bs, "loss_kernel": loss_k,
+           "loss_plain": loss_p, "loss_abs_diff": abs(loss_k - loss_p),
+           "max_grad_rel_err": rel[worst], "worst_param": worst,
+           "median_grad_rel_err": float(np.median(list(rel.values()))),
+           "max_shift_invariant_grad_norm": max(noise),
+           "max_grad_norm": max(g.norm().item() for g in grads_p.values()),
+           "launches": counts}
+    _say(json.dumps({"cait_step_vs_plain": row}))
+    if not (np.isfinite(loss_k) and row["loss_abs_diff"] <= STEP_LOSS_ATOL
+            and rel[worst] <= STEP_GRAD_RTOL):
+        raise AssertionError(f"cait kernel step vs plain step: {row} "
+                             f"(limits loss {STEP_LOSS_ATOL}, grad "
+                             f"{STEP_GRAD_RTOL})")
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1286,6 +1584,10 @@ def main() -> int:
     # the headline case, window 7 and the ragged case
     for i in (0, 7, 8):
         check_window_block_grads(SWIN_BLOCKS[i], seed=i)
+    th_rows = [check_talking_heads(shape, seed=i)
+               for i, shape in enumerate(TH_SHAPES)]
+    th_rows.append(check_talking_heads(TH_SHAPES[0], seed=len(TH_SHAPES),
+                                       bnc=True))
 
     from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, swin_flops
     from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, vit_flops
@@ -1312,6 +1614,18 @@ def main() -> int:
     swin_step = steady_state_swin_lineareval()
     swin_ft_step = steady_state_swin_finetune()
     compare_swin_step_with_plain()
+
+    from vit_torch_tpu_torch.models.cait import CAIT_CONFIGS, cait_flops
+    with tempfile.TemporaryDirectory() as workdir:
+        cait_paths = {"serve": serve_end_to_end(
+            workdir, CAIT_ARCH, CAIT_SIZE, ("talking_heads",),
+            _plain_talking_heads,
+            cait_flops(CAIT_CONFIGS[CAIT_ARCH], CAIT_SIZE),
+            CAIT_LOGITS_RTOL, relative=True, prepare=_show_layerscale)}
+        for mode in ("lineareval", "lineareval_cached", "finetune"):
+            cait_paths[mode] = cait_through_cli(workdir, mode)
+    cait_steps = steady_state_cait()
+    compare_cait_step_with_plain()
 
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -1389,6 +1703,33 @@ def main() -> int:
     bwd_entry["max_rel_err_dbias"] = max(r["rel_err_dbias"]
                                          for r in attn_bwd_rows)
     bwd_entry["library_kernel"] = attn_bwd_rows[0]["library_kernel"]
+    # talking heads: numbers at the headline shape (cait_s24_224 bs32,
+    # the model's qkv entry), every shape beside them; launches from the
+    # fine-tune run (the slice's training path), every path beside them
+    head = th_rows[0]
+    kernels.append({
+        "name": "talking_heads", "route": "cuda",
+        "source": "vit_torch_tpu_torch/csrc/talking_heads.cu",
+        "replaces": "vit_torch_tpu/ops/talking_heads.py:96, "
+                    "vit_torch_tpu/ops/talking_heads.py:272",
+        "launches": cait_paths["finetune"]["talking_heads"],
+        "max_abs_err": max(r["max_abs_err"] for r in th_rows),
+        "max_rel_err": max(r["max_rel_err"] for r in th_rows),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library_kernel": head["library_kernel"], "shape": head["shape"],
+        "launches_by_path": {p: c["talking_heads"]
+                             for p, c in cait_paths.items()},
+        "backward_recomputes_finetune":
+            cait_paths["finetune"]["backward_recomputes"],
+        "device_ms": head["device_ms"],
+        "ms_device_plain_bound_library_by_shape": [
+            [r["shape"], r["entry"], r["ms"], r["device_ms"], r["plain_ms"],
+             r["bound_ms"], r["library_ms"]] for r in th_rows],
+        "finetune_step_ms": cait_steps["finetune"]["step_ms"],
+        "lineareval_step_ms": cait_steps["lineareval"]["step_ms"],
+        "eval_forward_ms": cait_steps["eval_forward"]["ms"]})
     _say(json.dumps({"kernels": kernels}))
     _say(smi)
     _say(json.dumps({"ok": True, "device": {

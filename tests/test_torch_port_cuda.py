@@ -5,7 +5,10 @@ bf16 train step that runs the backward kernel once per layer; the Swin
 window-attention kernels (forward and backward) and window-block kernels
 against their plain versions, with gradients, their refusals, a small Swin
 on the card against the CPU, and a Swin fine-tune step that runs the
-window-attention backward once per block.
+window-attention backward once per block; the CaiT talking-heads kernel
+against its plain version through its three entry points, its refusals,
+a small CaiT on the card against the CPU, and a CaiT fine-tune step that
+launches the kernel once per talking-heads block.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere.  They
 import neither JAX nor the JAX package, so they run on a machine without
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from vit_torch_tpu_torch.ops import flash_attention as fa
+from vit_torch_tpu_torch.ops import talking_heads as th
 from vit_torch_tpu_torch.ops import window_attention as wa
 from vit_torch_tpu_torch.ops import window_block as wb
 
@@ -393,5 +397,139 @@ def test_swin_finetune_step_on_cuda_runs_b6_per_block(cuda):
                                                         blocks[1] + 1)
     # the core: 4 forwards and B9's recompute; B6: one per block
     assert _bwd_counts() == (before[0] + 5, before[1] + 4, *before[2:])
+    assert torch.isfinite(m["loss_sum"]).item()
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+# talking heads: max |kernel - plain| relative to max |plain|.  Both round
+# the mixed weights A to bf16 at the same point, but fp32 sums in another
+# order can move one A element by one bf16 ulp (2^-8), which PV carries
+# (see chip_smoke.py TH_RTOL)
+TH_RTOL = 2e-2
+
+
+def _th_inputs(shape, device, seed=0):
+    """A (B, N, 3, H, D) bf16 qkv tensor and fp32 tables: mixes of std 0.3
+    around the identity, biases of std 0.1."""
+    B, H, N, D = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn((B, N, 3, H, D), generator=gen, device=device,
+                      dtype=torch.bfloat16)
+    eye = torch.eye(H, device=device)
+    tables = (eye + 0.3 * torch.randn((H, H), generator=gen, device=device),
+              0.1 * torch.randn((H,), generator=gen, device=device),
+              eye + 0.3 * torch.randn((H, H), generator=gen, device=device),
+              0.1 * torch.randn((H,), generator=gen, device=device))
+    return qkv, tables
+
+
+# cait_s24 at 224 px (shrunk batch), xxs, m48's 16 heads of dim 64, a
+# ragged N, H = 6 (xs), head dims 16 and 32, a single token
+TH_SHAPES = [(2, 8, 196, 48), (2, 4, 37, 48), (1, 16, 100, 64),
+             (3, 2, 17, 16), (1, 6, 50, 32), (2, 1, 1, 48)]
+
+
+@pytest.mark.parametrize("shape", TH_SHAPES, ids=str)
+def test_talking_heads_kernel_matches_plain(cuda, shape):
+    """The kernel through the model's qkv entry (strided views), the
+    (B, H, N, D) entry on contiguous tensors and the (B, N, C) entry,
+    against the plain version; one launch each, no plain forward."""
+    B, H, N, D = shape
+    qkv, tables = _th_inputs(shape, cuda, seed=N)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    before = (th.talking_heads_attention.launches,
+              th.talking_heads_reference.calls)
+    got_qkv = th.talking_heads_attention_qkv(qkv, *tables).transpose(1, 2)
+    got_bhnd = th.talking_heads_attention(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), *tables)
+    bnc = [x.reshape(B, N, H * D) for x in qkv.unbind(2)]
+    got_bnc = th.talking_heads_attention_bnc(*bnc, *tables, num_heads=H)
+    torch.cuda.synchronize()
+    assert (th.talking_heads_attention.launches,
+            th.talking_heads_reference.calls) == (before[0] + 3, before[1])
+    ref = th.talking_heads_reference(q, k, v, *tables)
+    assert got_bnc.shape == (B, N, H * D) and got_bnc.is_contiguous()
+    got_bnc = got_bnc.view(B, N, H, D).transpose(1, 2)
+    for got in (got_qkv, got_bhnd, got_bnc):
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert _rel_err(got, ref) <= TH_RTOL
+
+
+def test_talking_heads_kernel_refuses_what_it_does_not_take(cuda):
+    qkv, tables = _th_inputs((1, 4, 16, 48), cuda)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    wl, bl, ww, bw = tables
+    with pytest.raises(TypeError):
+        th.talking_heads_attention(q.float(), k.float(), v.float(), *tables)
+    with pytest.raises(ValueError, match="head dim"):
+        th.talking_heads_attention(q[..., :40], k[..., :40], v[..., :40],
+                                   *tables)
+    big = torch.zeros((1, 17, 8, 16), device=cuda, dtype=torch.bfloat16)
+    eye = torch.eye(17, device=cuda)
+    zero = torch.zeros(17, device=cuda)
+    with pytest.raises(ValueError, match="heads"):
+        th.talking_heads_attention(big, big, big, eye, zero, eye, zero)
+    long = torch.zeros((1, 1, th.MAX_TOKENS + 1, 16), device=cuda,
+                       dtype=torch.bfloat16)
+    one, bias = torch.ones((1, 1), device=cuda), torch.zeros(1, device=cuda)
+    with pytest.raises(ValueError, match="tokens"):
+        th.talking_heads_attention(long, long, long, one, bias, one, bias)
+    odd = torch.zeros((1, 4, 16, 49), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        th.talking_heads_attention(odd[..., 1:], odd[..., 1:], odd[..., 1:],
+                                   *tables)
+    with pytest.raises(ValueError, match="wl"):
+        th.talking_heads_attention(q, k, v, wl.double(), bl, ww, bw)
+
+
+def test_cait_on_cuda_matches_cpu(cuda):
+    """bf16 features of the seeded cait_test backbone on the card (every
+    talking-heads block through the kernel) against the same weights on
+    the CPU (plain version); the LayerScale gates are raised from their
+    1e-5 init to 0.1 so that every block shows in the bf16 features."""
+    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+    models = [VisionModelZoo.get_model("cait_test", image_size=32,
+                                       device=dev)
+              for dev in (cuda, "cpu")]
+    with torch.no_grad():
+        for zm in models:
+            for name, p in zm.model.named_parameters():
+                if ".gamma_" in name:
+                    p.fill_(0.1)
+    x = np.random.default_rng(0).standard_normal((4, 32, 32, 3)).astype(
+        np.float32)
+    before = th.talking_heads_attention.launches
+    with torch.inference_mode():
+        got, ref = (zm.model(torch.from_numpy(x).to(dev)).float().cpu()
+                    for zm, dev in zip(models, (cuda, "cpu")))
+    assert th.talking_heads_attention.launches == before + 2   # depth 2
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=3e-2, rtol=0)
+
+
+def test_cait_finetune_step_launches_the_kernel_per_block(cuda):
+    """One bf16 AdamW fine-tune step of cait_test on the card: one kernel
+    launch and one backward recompute per talking-heads block, no plain
+    forward, no flash or window kernel; finite loss and parameters."""
+    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+    from vit_torch_tpu_torch.train.optimizers import get_optimizer
+    from vit_torch_tpu_torch.train.steps import make_train_step
+    zm = VisionModelZoo.get_model("cait_test", classifier=[10],
+                                  image_size=32, device=cuda)
+    model = zm.model.train()
+    step = make_train_step(model, get_optimizer("adamw", model.parameters(),
+                                                1e-3))
+    x = torch.randn((4, 32, 32, 3), device=cuda)
+    labels = torch.arange(4, device=cuda)
+    mask = torch.ones(4, device=cuda)
+
+    def counts():
+        return (th.talking_heads_attention.launches,
+                th.talking_heads_bwd.calls, th.talking_heads_reference.calls,
+                fa.flash_attention_bhnd.launches, wa.window_attention.launches)
+
+    before = counts()
+    m = step(x, labels, mask)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 2, before[1] + 2, *before[2:])
     assert torch.isfinite(m["loss_sum"]).item()
     assert all(torch.isfinite(p).all() for p in model.parameters())

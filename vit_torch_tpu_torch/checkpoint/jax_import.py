@@ -12,8 +12,13 @@ in the port:
 - LayerNorm ``scale`` becomes ``weight``;
 - ``blocks_{i}`` becomes ``blocks.{i}``; Swin's ``layers_{i}_blocks_{j}``
   and ``layers_{i}_downsample`` become ``layers.{i}.blocks.{j}`` and
-  ``layers.{i}.downsample``;
-- Swin's ``relative_position_bias_table`` is kept as it is.
+  ``layers.{i}.downsample``; CaiT's ``blocks_token_only_{i}`` becomes
+  ``blocks_token_only.{i}``;
+- CaiT's head mixes ``attn.proj_l_kernel`` / ``attn.proj_l_bias`` (and
+  ``proj_w``) become the ``Linear(H, H)`` ``attn.proj_l.weight``
+  (transposed) / ``attn.proj_l.bias``;
+- Swin's ``relative_position_bias_table`` and CaiT's ``gamma_1``,
+  ``gamma_2``, ``cls_token`` and ``pos_embed`` are kept as they are.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
 
 def state_dict_from_jax(params: Mapping[str, Any], image_channels: int = 3
                         ) -> Dict[str, torch.Tensor]:
-    """Map a flax ViT or Swin classifier tree (``{"backbone": ...,
+    """Map a flax ViT, Swin or CaiT classifier tree (``{"backbone": ...,
     "head": ...}``, or a bare backbone tree) of numpy-convertible arrays to
     a state dict."""
     out: Dict[str, torch.Tensor] = {}
@@ -44,7 +49,10 @@ def state_dict_from_jax(params: Mapping[str, Any], image_channels: int = 3
         key = re.sub(r"layers_(\d+)_", r"layers.\1.", path)
         key = re.sub(r"patch_embed_(kernel|bias|norm)", r"patch_embed.\1",
                      key)
+        key = re.sub(r"blocks_token_only_(\d+)", r"blocks_token_only.\1",
+                     key)
         key = re.sub(r"blocks_(\d+)", r"blocks.\1", key)
+        key = re.sub(r"(^|\.)(proj_[lw])_(kernel|bias)$", r"\1\2.\3", key)
         leaf = key.rsplit(".", 1)[-1]
         if key.endswith("patch_embed.kernel"):
             D = arr.shape[1]

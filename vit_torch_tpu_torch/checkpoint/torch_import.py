@@ -1,8 +1,9 @@
 """Torch checkpoints into the port's models, counterpart of the serving
 part of ``vit_torch_tpu/checkpoint/torch_import.py``.
 
-The port's parameter names are DINO's and Microsoft Swin's, so a DINO/timm
-ViT or a Swin state dict loads as it is; what remains is unwrapping the
+The port's parameter names are DINO's, Facebook CaiT's and Microsoft
+Swin's, so a DINO/timm ViT, a CaiT or a Swin state dict loads as it is
+(CaiT's ``module.`` prefix is stripped); what remains is unwrapping the
 published checkpoint variants, skipping Swin's computed buffers, and
 bicubic interpolation of the position table to the model's grid, with the
 JAX package's ``jax.image.resize`` semantics (Keys cubic, a = -0.5, half-
@@ -94,11 +95,12 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 def load_backbone_state_dict(path: str, model: nn.Module,
                              image_size: int) -> None:
-    """Load a DINO/timm ViT or Microsoft Swin checkpoint into
-    ``model.backbone`` in place.  For a ViT the position table is
-    interpolated to the ``image_size`` grid; a Swin checkpoint goes through
-    :func:`load_swin_state_dict`.  Keys the backbone lacks (a ``head.*``)
-    are ignored; keys it needs and the file lacks raise."""
+    """Load a DINO/timm ViT, Facebook/timm CaiT or Microsoft Swin checkpoint
+    into ``model.backbone`` in place.  For a ViT or CaiT the position table
+    is interpolated to the ``image_size`` grid (CaiT's table has no CLS
+    slot: the backbone's ``num_prefix_tokens`` is 0); a Swin checkpoint
+    goes through :func:`load_swin_state_dict`.  Keys the backbone lacks (a
+    ``head.*``) are ignored; keys it needs and the file lacks raise."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     backbone = model.backbone
@@ -107,13 +109,15 @@ def load_backbone_state_dict(path: str, model: nn.Module,
     if "pos_embed" not in target:
         load_swin_state_dict(sd, backbone)
         return
-    n_target = target["pos_embed"].shape[1] - 1
+    num_prefix = getattr(backbone, "num_prefix_tokens", 1)
+    n_target = target["pos_embed"].shape[1] - num_prefix
     if n_target != (image_size // backbone.config.patch_size) ** 2:
         raise ValueError(f"model grid has {n_target} patches, not the grid "
                          f"of image size {image_size}")
     if "pos_embed" in sd:
         sd["pos_embed"] = torch.from_numpy(interpolate_pos_embed(
-            sd["pos_embed"].float().numpy(), n_target))
+            sd["pos_embed"].float().numpy(), n_target,
+            num_prefix=num_prefix))
     sd = {k: v for k, v in sd.items() if k in target}
     missing = sorted(set(target) - set(sd))
     if missing:

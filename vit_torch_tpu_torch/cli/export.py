@@ -7,9 +7,10 @@ writes a bundle (``serving/export.py``: manifest + weights) that
 ``python -m vit_torch_tpu_torch.cli.serve --bundle /tmp/bundle`` serves.
 Without ``--torch_ckpt`` the weights are seeded random ones (pipeline
 smoke and speed only); with it the backbone comes from a DINO/timm torch
-checkpoint, its position table interpolated to ``--image_size``, or from a
-Microsoft Swin checkpoint (``--arch swin_base_patch4_window12_384_22k``
-and the other Swin archs).
+checkpoint or a Facebook CaiT checkpoint (``--arch cait_*``), its
+position table interpolated to ``--image_size``, or from a Microsoft Swin
+checkpoint (``--arch swin_base_patch4_window12_384_22k`` and the other
+Swin archs).
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def main(argv=None) -> None:
                    help="comma-separated head units incl. class count, "
                         "e.g. 512,10 (reference [*fc, num_labels])")
     p.add_argument("--image_size", type=int, default=None,
-                   help="input size (default: 384 for *384* archs, else 224)")
+                   help="input size (default: the arch's, as the zoo "
+                        "gives it)")
     p.add_argument("--bs", default="1,8,32",
                    help="comma-separated batch-size buckets")
     p.add_argument("--dataset", default="synthetic",

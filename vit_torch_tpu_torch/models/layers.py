@@ -241,15 +241,20 @@ class ClassifierHead(nn.Module):
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init in the JAX package's scheme: LayerNorm weight 1, every
-    bias 0, every other parameter truncated normal (std 0.02, cut at two
-    standard deviations).  Parameters are visited in module order, so one
-    seed gives one set of weights on every device."""
+    bias 0, LayerScale gates (``gamma_1``/``gamma_2`` of a module with an
+    ``init_scale``, CaiT) the constant ``init_scale``, every other
+    parameter truncated normal (std 0.02, cut at two standard deviations).
+    Parameters are visited in module order, so one seed gives one set of
+    weights on every device."""
     for mod in model.modules():
         for name, param in mod.named_parameters(recurse=False):
             if isinstance(mod, LayerNorm) and name == "weight":
                 param.fill_(1.0)
             elif name == "bias":
                 param.zero_()
+            elif name in ("gamma_1", "gamma_2") and hasattr(mod,
+                                                            "init_scale"):
+                param.fill_(mod.init_scale)
             else:
                 nn.init.trunc_normal_(param, std=0.02, a=-0.04, b=0.04,
                                       generator=generator)

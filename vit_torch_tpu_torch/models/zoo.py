@@ -2,8 +2,9 @@
 
 ``VisionModelZoo.get_model(arch, ...)`` returns a :class:`ZooModel` whose
 ``model`` is a :class:`Classifier` (backbone + optional MLP head) with
-seeded weights on the requested device.  The dino/vit and swin families
-are ported; the other families raise until their slice lands (ROADMAP.md).
+seeded weights on the requested device.  The dino/vit, swin and cait
+families are ported; the other families raise until their slice lands
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from torch import nn
 
 from vit_torch_tpu_torch.device import resolve_device
+from vit_torch_tpu_torch.models.cait import CAIT_CONFIGS, CaiT
 from vit_torch_tpu_torch.models.layers import ClassifierHead, init_weights
 from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, SwinTransformer
 from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, VisionTransformer
@@ -75,7 +77,8 @@ def arch_family(arch: str) -> str:
 
 # family → (its configs, its backbone class), for the families ported
 _PORTED = {"dino": (VIT_CONFIGS, VisionTransformer),
-           "swin": (SWIN_CONFIGS, SwinTransformer)}
+           "swin": (SWIN_CONFIGS, SwinTransformer),
+           "cait": (CAIT_CONFIGS, CaiT)}
 
 
 def reset_buffers(model: nn.Module,
@@ -111,12 +114,11 @@ class VisionModelZoo:
         drawn on the CPU from ``generator`` (seed 0 when omitted), so a seed
         gives the same weights on every device, then moved to ``device``
         (CUDA when omitted).  ``device="meta"`` skips the init, for callers
-        that load a state dict next.  ``image_size`` defaults to 384 for
-        the ``*384*`` archs and to 224 otherwise."""
+        that load a state dict next.  ``image_size`` defaults to the
+        config's ``default_image_size`` where it has one (CaiT), else to
+        384 for the ``*384*`` archs and to 224 otherwise."""
         dev = resolve_device(device)
         family = arch_family(arch)
-        if image_size is None:
-            image_size = 384 if "384" in arch else 224
         if family not in _PORTED:
             raise NotImplementedError(
                 f"model family {family!r} (arch {arch!r}) is not ported yet; "
@@ -125,6 +127,9 @@ class VisionModelZoo:
         if arch not in configs:
             raise ValueError(f"unknown {family} arch {arch!r}; have "
                              f"{sorted(configs)}")
+        if image_size is None:
+            image_size = getattr(configs[arch], "default_image_size",
+                                 384 if "384" in arch else 224)
         with torch.device("meta"):
             backbone = backbone_cls(configs[arch], image_size=image_size,
                                     image_channels=image_channels,
