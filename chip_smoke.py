@@ -5,7 +5,8 @@
 1. prints the device and its power limit;
 2. builds every CUDA kernel (``_build.KERNELS``: the flash-attention
    forward and backward, the Swin window-attention core forward and
-   backward and the window GEMM) from the sources in the checkout
+   backward, the window GEMM, talking heads and the fused attention
+   block) from the sources in the checkout
    (``nvcc``, ``sm_90a``, one process per source, all started together)
    and prints each kernel's registers, shared memory and spills;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -58,7 +59,20 @@
    backward does); times the steady-state fine-tune and linear-eval steps
    and a bs32 eval forward, profiles the steps; holds one bs8 fine-tune
    step against the same step on the plain version;
-9. prints one JSON line with each kernel's numbers, then the card's name
+9. the fused attention block: holds B3 (``attention_block``) and B4
+   (``attention_block_packed``, its qkv output too) against their plain
+   versions at dino_vits16 @224 bs64 and bs128, dino_vitb8 @224 bs32, the
+   dino_vitb8 @32 bs128 pack and ragged shapes, their gradients at the
+   headline shapes, and times each beside the port's unfused path (cuBLAS
+   + flash + cuBLAS) and cuBLAS + SDPA; exports and serves dino_vits16
+   @224 over HTTP with B3 on (buckets 1/8/64, launches = 12 x
+   dispatches); linear-evaluates (plain and cached) and fine-tunes it at
+   bs64 through ``cli.main`` with B3 on (12 launches per backbone
+   forward; the fine-tune's backward recomputes through the flash
+   kernels); fine-tunes dino_vitb8 @32 bs128 (bench config 3) with B4
+   on; times the steady-state steps and the eval forward with each kernel
+   on and off, and holds one bs8 step of each against the plain versions;
+10. prints one JSON line with each kernel's numbers, then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -72,6 +86,7 @@ import base64
 import http.client
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -188,6 +203,42 @@ CAIT_TRAIN_ARGS = ["--dataset", "synthetic", "--arch", CAIT_ARCH,
 # again through the (B, N, C) entry
 TH_SHAPES = [(32, 8, 196, 48), (32, 4, 196, 48), (8, 8, 576, 48),
              (8, 16, 576, 48), (4, 16, 784, 48), (2, 4, 37, 48)]
+# the fused attention block (rows 3 and 4): dino_vits16 @224 (N = 197, C =
+# 384, 6 heads of 64) through its serving, linear-eval and fine-tune paths
+# at bs64 with B3 on; dino_vitb8 fine-tuned at 32 px, bs128 (bench.py config
+# 3, N = 17) with B4 on (VITX_PACKED_ATTN=1)
+VITS_ARCH, VITS_SIZE, VITS_BS, VITS_DEPTH = "dino_vits16", 224, 64, 12
+VITS_BUCKETS = "1,8,64"
+VITS_TRAIN_ARGS = ["--dataset", "synthetic", "--arch", VITS_ARCH,
+                   "--image_size", str(VITS_SIZE), "--bs", str(VITS_BS),
+                   "--epoch", "1", "--opt", "adamw", "--lr", "1e-4", "--fc",
+                   "512"]
+SMALL_SIZE, SMALL_BS = 32, 128
+SMALL_TRAIN_ARGS = ["--dataset", "synthetic", "--arch", ARCH, "--image_size",
+                    str(SMALL_SIZE), "--bs", str(SMALL_BS), "--epoch", "1",
+                    "--opt", "adamw", "--lr", "1e-4", "--fc", "512"]
+# (B, N, C, heads) of the B3 checks: dino_vits16 @224 bs64 (the headline)
+# and bs128, dino_vitb8 @224 bs32, a ragged shape; of the B4 checks:
+# dino_vitb8 @32 bs128 (the headline) and a ragged pack
+AB_SHAPES = [(64, 197, 384, 6), (128, 197, 384, 6), (32, 785, 768, 12),
+             (3, 37, 128, 2)]
+AB_PACKED_SHAPES = [(128, 17, 768, 12), (7, 5, 128, 4)]
+# B3 / B4 vs their plain versions: max |kernel - plain| relative to
+# max |plain|.  Both round qkv, P and each head's output to bf16 at the same
+# points, but fp32 sums in another order (and the kernel's online softmax
+# over 64-key tiles, which rounds P against the running max) can move one
+# of them by a bf16 ulp (2^-8), which the projection carries
+ATTN_BLOCK_RTOL = 3e-2
+# their gradients through the Functions (B3: the flash recompute with the
+# JAX backward's bf16 bias adds; B4: the analytic backward) vs autograd
+# through the plain versions: relative to max |plain| of each gradient, as
+# BLOCK_GRAD_RTOL
+ATTN_BLOCK_GRAD_RTOL = 5e-2
+# served dino_vits16 logits, B3 vs its plain version through the same bf16
+# model: such one-ulp differences in 12 blocks through the residual stream,
+# the final LayerNorm and the head; relative to max |plain logit| (the
+# seeded head's logits are small)
+VITS_LOGITS_RTOL = 5e-2
 SWIN_BLOCKS = [(32, 96, 96, 128, 12, 6), (32, 96, 96, 128, 12, 0),
                (32, 48, 48, 256, 12, 6), (32, 48, 48, 256, 12, 0),
                (32, 24, 24, 512, 12, 6), (32, 24, 24, 512, 12, 0),
@@ -419,10 +470,12 @@ def _library_backend(fn) -> str:
     return max(evs, key=lambda e: e.self_device_time_total).key[:80]
 
 
-def _device_ms(fn, kernel: str, iters: int = 10) -> float:
+def _device_ms(fn, kernel, iters: int = 10) -> float:
     """Mean device time per call of ``fn`` spent in the kernels whose name
-    holds ``kernel``, from torch.profiler: the kernel's own time where the
-    CUDA-event time of a loop of calls is set by the host's launch rate."""
+    holds ``kernel`` (a name, or a tuple of names), from torch.profiler:
+    the kernel's own time where the CUDA-event time of a loop of calls is
+    set by the host's launch rate."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -433,7 +486,7 @@ def _device_ms(fn, kernel: str, iters: int = 10) -> float:
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and kernel in e.key) / 1e3 / iters
+               and any(n in e.key for n in names)) / 1e3 / iters
 
 
 def check_window_attention_bwd(case, seed):
@@ -810,7 +863,9 @@ def _kernel_group(name: str) -> str:
     if "window_attn_bwd_kernel" in name or "dbias_reduce_kernel" in name:
         return "window_attention_bwd"
     if "window_gemm_kernel" in name:
-        return "window_gemm"        # the B8 / B9 products
+        return "window_gemm"        # the B8 / B9 products, B3 / B4's qkv
+    if "attn_block_kernel" in name:
+        return "attention_block"    # B3 / B4 attention and projection
     if "talking_heads_fwd_kernel" in name:
         return "talking_heads"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
@@ -874,7 +929,8 @@ def _depth(backbone) -> int:
 
 def serve_end_to_end(workdir: str, arch: str, image_size: int,
                      kernels, plain, flops_per_image: int,
-                     logits_tol: float, relative: bool, prepare=None):
+                     logits_tol: float, relative: bool, prepare=None,
+                     buckets: str = BUCKETS):
     """Export → BundleServer on cuda → concurrent HTTP requests; prints
     the serving numbers and returns the launch counts of the HTTP run.
     Each of ``kernels`` must launch once per layer per dispatch, and no
@@ -882,7 +938,8 @@ def serve_end_to_end(workdir: str, arch: str, image_size: int,
     versions in; the logits of the two must agree within ``logits_tol``
     (relative to max |plain logit| when ``relative``).  ``prepare(state)``
     may edit the exported state dict in place before the server loads
-    it."""
+    it.  The last of ``buckets`` is the batch of the batched request and
+    of the served img/s."""
     import torch
     from vit_torch_tpu_torch.cli import export as cli_export
     from vit_torch_tpu_torch.data.datasets import resize_images
@@ -891,7 +948,7 @@ def serve_end_to_end(workdir: str, arch: str, image_size: int,
     bundle = f"{workdir}/bundle-{arch}"
     t0 = time.perf_counter()
     cli_export.main(["--arch", arch, "--classifier", CLASSIFIER,
-                     "--image_size", str(image_size), "--bs", BUCKETS,
+                     "--image_size", str(image_size), "--bs", buckets,
                      "--dataset", "stl10", "--out", bundle])
     _say(f"export {arch} seconds {time.perf_counter() - t0:.2f}")
     if prepare is not None:
@@ -906,17 +963,19 @@ def serve_end_to_end(workdir: str, arch: str, image_size: int,
         addr = server.address
         server.start()
         rng = np.random.default_rng(0)
-        batch32 = rng.integers(0, 256, (32, image_size, image_size, 3),
-                               dtype=np.uint8)
-        for bs in (1, 8, 32):                   # warm cuBLAS per bucket
-            server.model.predict(batch32[:bs])
+        sizes = tuple(int(b) for b in buckets.split(","))
+        big = sizes[-1]
+        batch = rng.integers(0, 256, (big, image_size, image_size, 3),
+                             dtype=np.uint8)
+        for bs in sizes:                        # warm cuBLAS per bucket
+            server.model.predict(batch[:bs])
 
-        sizes = (96, 160, 224, 256, 300, 517)
+        sides = (96, 160, 224, 256, 300, 517)
         singles = [rng.integers(0, 256, (s, s + 13 * (i % 3), 3),
                                 dtype=np.uint8)
-                   for i, s in enumerate(sizes * 4)]
+                   for i, s in enumerate(sides * 4)]
         payloads = ([{"images": [_png_b64(img)]} for img in singles]
-                    + [{"images": [_png_b64(img) for img in batch32]}])
+                    + [{"images": [_png_b64(img) for img in batch]}])
         replies = [None] * len(payloads)
 
         def send(i):
@@ -939,7 +998,7 @@ def serve_end_to_end(workdir: str, arch: str, image_size: int,
             raise AssertionError(f"/stats answered {status}")
         dispatches = sum(stats["dispatches"].values())
         _say(f"http {arch} requests {len(payloads)} images "
-             f"{len(singles) + len(batch32)} seconds {http_s:.3f} "
+             f"{len(singles) + len(batch)} seconds {http_s:.3f} "
              f"dispatches {stats['dispatches']} launches {launches}")
         want = _want(**{k: depth * dispatches for k in kernels})
         if launches != want or dispatches == 0:
@@ -955,21 +1014,22 @@ def serve_end_to_end(workdir: str, arch: str, image_size: int,
                     raise AssertionError(f"bad logits {logits}")
                 if pred["label"] != int(np.argmax(logits)):
                     raise AssertionError("label is not the argmax")
-        http32 = np.asarray([p["logits"] for p in replies[-1][1]["predictions"]])
+        http_big = np.asarray([p["logits"]
+                               for p in replies[-1][1]["predictions"]])
 
         # logits: kernel path vs plain versions, same weights, on the card
-        resized = resize_images(batch32, image_size)
+        resized = resize_images(batch, image_size)
         kernel_logits = server.model.predict(resized)
         with plain():
             plain_logits = server.model.predict(resized)
         err = float(np.abs(kernel_logits - plain_logits).max())
-        err_http = float(np.abs(http32 - plain_logits).max())
+        err_http = float(np.abs(http_big - plain_logits).max())
         max_logit = float(np.abs(plain_logits).max())
         _say(f"logits {arch} kernel vs plain: max abs err {err:.5f} "
              f"(http {err_http:.5f}), max |logit| {max_logit:.4f}, argmax "
              f"agree "
              f"{int((kernel_logits.argmax(1) == plain_logits.argmax(1)).sum())}"
-             f"/32")
+             f"/{big}")
         limit = logits_tol * (max_logit if relative else 1.0)
         if not max(err, err_http) <= limit:
             raise AssertionError(f"served logits differ from the plain "
@@ -977,30 +1037,30 @@ def serve_end_to_end(workdir: str, arch: str, image_size: int,
                                  f"{limit}")
 
         # predict time per bucket, uint8 in, logits out, host clock; the
-        # 32 bucket gives the served img/s
+        # largest bucket gives the served img/s
         predict_ms = {}
-        for bs in (1, 8, 32):
+        for bs in sizes:
             t0 = time.perf_counter()
             for _ in range(20):
-                server.model.predict(batch32[:bs])
+                server.model.predict(batch[:bs])
             predict_ms[bs] = 1e3 * (time.perf_counter() - t0) / 20
-        x = torch.from_numpy(batch32).to(server.model.device)
+        x = torch.from_numpy(batch).to(server.model.device)
         with torch.inference_mode():
             fwd_ms = _time_ms(lambda: server.model.model(
                 (x.to(server.model.mean.dtype) / 255.0 - server.model.mean)
                 / server.model.std), iters=10)
         _say(json.dumps({
             "serve": {"arch": arch, "image_size": image_size, "depth": depth,
-                      "bucket": 32,
-                      "predict_img_per_s": 32e3 / predict_ms[32],
+                      "bucket": big,
+                      "predict_img_per_s": big * 1e3 / predict_ms[big],
                       "predict_ms_by_bucket": predict_ms,
                       "forward_ms_cuda_events": fwd_ms,
-                      "forward_img_per_s": 32e3 / fwd_ms,
-                      "forward_tflop_per_s": 32 * flops_per_image / fwd_ms
+                      "forward_img_per_s": big * 1e3 / fwd_ms,
+                      "forward_tflop_per_s": big * flops_per_image / fwd_ms
                       / 1e9,
                       "stats": stats, "logits_max_abs_err": err,
                       "max_abs_logit": max_logit}}))
-        _say(json.dumps({"profile": profile_predict(server.model, batch32)}))
+        _say(json.dumps({"profile": profile_predict(server.model, batch)}))
         return launches
     finally:
         server.shutdown()
@@ -1013,6 +1073,7 @@ def _plain_attention():
 
 def _counters():
     """Every kernel wrapper, by the name it has in the kernels line."""
+    from vit_torch_tpu_torch.ops import attn_block as ab
     from vit_torch_tpu_torch.ops import flash_attention as fa
     from vit_torch_tpu_torch.ops import talking_heads as th
     from vit_torch_tpu_torch.ops import window_attention as wa
@@ -1023,7 +1084,9 @@ def _counters():
             "window_attention_bwd": wa.window_attention_bwd,
             "window_block_spatial": wb.window_block_spatial,
             "window_block_full_spatial": wb.window_block_full_spatial,
-            "talking_heads": th.talking_heads_attention}
+            "talking_heads": th.talking_heads_attention,
+            "attention_block": ab.attention_block,
+            "attention_block_packed": ab.attention_block_packed}
 
 
 def _reset_counts():
@@ -1309,14 +1372,19 @@ def steady_state_swin_lineareval(iters: int = 12):
     return row
 
 
-def compare_step_with_plain(bs: int = 8):
+def compare_step_with_plain(bs: int = 8, arch: str = ARCH,
+                            image_size: int = IMAGE_SIZE, env=None,
+                            plain=_plain_attention, want=None,
+                            name: str = "step_vs_plain"):
     """Loss and gradients of one bs8 finetune step (dropout-free model,
     eval-normalised batch, no optimizer step) on the kernel path and on
-    the plain attention, same weights and batch."""
+    the plain versions (``plain()`` patches them in), same weights and
+    batch, under the environment ``env``; the kernel step's launches must
+    be ``want`` when given."""
     import torch
-    from vit_torch_tpu_torch.ops import attention as attention_mod
     from vit_torch_tpu_torch.train.steps import cross_entropy_loss
-    zm, trainer, (images, labels, mask) = _train_setup(bs, seed=1)
+    zm, trainer, (images, labels, mask) = _train_setup(
+        bs, seed=1, arch=arch, image_size=image_size)
     model = zm.model
     model.train()
     x = trainer.eval_transform(images)
@@ -1328,27 +1396,32 @@ def compare_step_with_plain(bs: int = 8):
         return loss.item(), {n: p.grad.detach().clone()
                              for n, p in model.named_parameters()}
 
-    _reset_counts()
-    loss_k, grads_k = loss_and_grads()
-    counts = _read_counts()
-    with mock.patch.object(attention_mod, "flash_attention_qkv",
-                           _plain_qkv):
-        loss_p, grads_p = loss_and_grads()
+    with mock.patch.dict(os.environ, env or {}):
+        _reset_counts()
+        loss_k, grads_k = loss_and_grads()
+        counts = _read_counts()
+        with plain():
+            loss_p, grads_p = loss_and_grads()
     if _read_counts() != counts:
         raise AssertionError("the plain step launched a kernel")
+    if want is not None and counts != want:
+        raise AssertionError(f"{name}: launches in the kernel step {counts} "
+                             f"!= {want}")
     rel = {n: ((grads_k[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
            for n, g in grads_p.items()}
     worst = max(rel, key=rel.get)
-    row = {"bs": bs, "loss_kernel": loss_k, "loss_plain": loss_p,
+    row = {"arch": arch, "image_size": image_size, "env": env or {},
+           "bs": bs, "loss_kernel": loss_k, "loss_plain": loss_p,
            "loss_abs_diff": abs(loss_k - loss_p),
            "max_grad_rel_err": rel[worst], "worst_param": worst,
            "median_grad_rel_err": float(np.median(list(rel.values()))),
            "launches": counts}
-    _say(json.dumps({"step_vs_plain": row}))
+    _say(json.dumps({name: row}))
     if not (np.isfinite(loss_k) and row["loss_abs_diff"] <= STEP_LOSS_ATOL
             and rel[worst] <= STEP_GRAD_RTOL):
-        raise AssertionError(f"kernel step vs plain step: {row} (limits "
-                             f"loss {STEP_LOSS_ATOL}, grad {STEP_GRAD_RTOL})")
+        raise AssertionError(f"{name}: kernel step vs plain step: {row} "
+                             f"(limits loss {STEP_LOSS_ATOL}, grad "
+                             f"{STEP_GRAD_RTOL})")
     return row
 
 
@@ -1544,6 +1617,289 @@ def compare_cait_step_with_plain(bs: int = 8):
     return row
 
 
+def _ab_inputs(B, N, C, seed):
+    """A bf16 (B, N, C) block of std 1, bf16 weights in nn.Linear layout of
+    std 1/sqrt(C) and biases of std 0.1, on the card."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(7000 + seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    return (rnd(B, N, C), rnd(3 * C, C, scale=C ** -0.5),
+            rnd(3 * C, scale=0.1), rnd(C, C, scale=C ** -0.5),
+            rnd(C, scale=0.1))
+
+
+def _port_path(x, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale):
+    """The port's unfused attention block on the card (``Attention``'s
+    third route): cuBLAS qkv product, the flash kernel, cuBLAS proj."""
+    import torch.nn.functional as F
+    from vit_torch_tpu_torch.ops.flash_attention import flash_attention_qkv
+    B, N, C = x.shape
+    qkv = F.linear(x, w_qkv, b_qkv).view(B, N, 3, num_heads, -1)
+    o = flash_attention_qkv(qkv, scale=scale).reshape(B, N, C)
+    return F.linear(o, w_proj, b_proj)
+
+
+def _library_block(x, w_qkv, b_qkv, w_proj, b_proj, num_heads, scale):
+    """The same function through PyTorch's own calls: cuBLAS products
+    around ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    B, N, C = x.shape
+    qkv = F.linear(x, w_qkv, b_qkv).view(B, N, 3, num_heads, -1)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+    return F.linear(o.transpose(1, 2).reshape(B, N, C), w_proj, b_proj)
+
+
+def _ab_bound_ms(B, N, C, packed):
+    """8·B·N·C² + 4·B·N²·C operations; x read and the output written
+    once, the bf16 weights and biases, and B4's qkv written."""
+    from vit_torch_tpu_torch.ops.attn_block import attention_block_flops
+    nbytes = (2 * B * N * C + 4 * C * C + 4 * C) * 2
+    if packed:
+        nbytes += 3 * B * N * C * 2
+    return _bound(attention_block_flops(B, N, C), nbytes)
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def check_attention_block(shape, seed, packed: bool = False):
+    """B3 (row 3) or B4 (row 4, with its qkv output) vs the plain version on
+    one (B, N, C, heads) shape; times the chain on CUDA events and its two
+    kernels' device time from the profiler, the plain version, the port's
+    unfused path (cuBLAS + flash + cuBLAS) and the library's (cuBLAS +
+    SDPA)."""
+    import torch
+    from vit_torch_tpu_torch.ops import attn_block as ab
+    B, N, C, H = shape
+    args = _ab_inputs(B, N, C, seed)
+    scale = (C // H) ** -0.5
+    if packed:
+        def run():
+            return ab.attention_block_packed_fwd(*args, num_heads=H)
+
+        def plain():
+            return ab.attention_block_packed_reference(*args, num_heads=H)
+        out, qkv = run()
+        torch.cuda.synchronize()
+        ref, ref_qkv = plain()
+        qkv_rel = _rel_err(qkv, ref_qkv)
+    else:
+        def run():
+            return ab.attention_block(*args, num_heads=H)
+
+        def plain():
+            return ab.attention_block_reference(*args, num_heads=H)
+        out = run()
+        torch.cuda.synchronize()
+        ref, qkv_rel = plain(), 0.0
+    abs_err = (out.float() - ref.float()).abs().max().item()
+    rel = _rel_err(out, ref)
+    name = "attention_block_packed" if packed else "attention_block"
+    if not (torch.isfinite(out).all() and rel <= ATTN_BLOCK_RTOL
+            and qkv_rel <= ATTN_BLOCK_RTOL):
+        raise AssertionError(f"{name} {shape}: max abs err relative to "
+                             f"max|plain| {rel}, qkv {qkv_rel} (limit "
+                             f"{ATTN_BLOCK_RTOL})")
+    del out, ref
+    ms = _time_ms(run, iters=50)
+    device_ms = _device_ms(run, ("attn_block_kernel", "window_gemm_kernel"))
+    attn_device_ms = _device_ms(run, "attn_block_kernel")
+    plain_ms = _time_ms(plain, iters=5)
+    port_ms = _time_ms(lambda: _port_path(*args, H, scale), iters=50)
+    library_ms = _time_ms(lambda: _library_block(*args, H, scale), iters=50)
+    bound_ms, bound_by = _ab_bound_ms(B, N, C, packed)
+    row = {"shape": list(shape), "max_abs_err": abs_err, "max_rel_err": rel,
+           "qkv_max_rel_err": qkv_rel if packed else None, "ms": ms,
+           "device_ms": device_ms, "attn_kernel_device_ms": attn_device_ms,
+           "plain_ms": plain_ms, "port_path_ms": port_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    _say(f"kernel check {name}", json.dumps(row))
+    return row
+
+
+def check_attention_block_grads(shape, seed, packed: bool = False):
+    """All five gradients of B3 or B4 through their autograd Functions vs
+    autograd through the plain versions on one shape; times a forward and
+    backward of each and of the port's unfused path."""
+    import torch
+    from vit_torch_tpu_torch.ops import attn_block as ab
+    from vit_torch_tpu_torch.ops import flash_attention as fa
+    B, N, C, H = shape
+    leaves = [t.requires_grad_(True) for t in _ab_inputs(B, N, C, seed)]
+    gen = torch.Generator(device="cuda").manual_seed(8000 + seed)
+    dout = torch.randn((B, N, C), generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    scale = (C // H) ** -0.5
+    if packed:
+        fn = ab.attention_block_packed
+
+        def ref_fn(*a, num_heads):
+            return ab.attention_block_packed_reference(
+                *a, num_heads=num_heads)[0]
+    else:
+        fn, ref_fn = ab.attention_block, ab.attention_block_reference
+    before = fa.flash_attention_bwd.launches
+    got = torch.autograd.grad(fn(*leaves, num_heads=H), leaves, dout)
+    torch.cuda.synchronize()
+    bwd = fa.flash_attention_bwd.launches - before
+    if bwd != (0 if packed else 1):
+        raise AssertionError(f"{fn.__name__} grad launched the flash "
+                             f"backward {bwd} times")
+    want = torch.autograd.grad(ref_fn(*leaves, num_heads=H), leaves, dout)
+    rel = [_rel_err(g, w) for g, w in zip(got, want)]
+    finite = all(torch.isfinite(g).all().item() for g in got)
+    del got, want
+    if not (finite and max(rel) <= ATTN_BLOCK_GRAD_RTOL):
+        raise AssertionError(f"{fn.__name__} grads {shape}: error relative "
+                             f"to max|plain| {rel} (limit "
+                             f"{ATTN_BLOCK_GRAD_RTOL})")
+    ms = _time_ms(lambda: torch.autograd.grad(fn(*leaves, num_heads=H),
+                                              leaves, dout), iters=10)
+    port_ms = _time_ms(lambda: torch.autograd.grad(
+        _port_path(*leaves, H, scale), leaves, dout), iters=10)
+    row = {"shape": list(shape), "grad_rel_err": rel, "fwd_bwd_ms": ms,
+           "port_path_fwd_bwd_ms": port_ms}
+    _say(f"grad check {fn.__name__}", json.dumps(row))
+    return row
+
+
+def _plain_attention_block():
+    """B3 and B4 on their plain versions (autograd through them, no
+    kernel), patched in for the kernel-vs-plain comparisons."""
+    import contextlib
+    from vit_torch_tpu_torch.ops import attn_block as ab
+
+    def packed(*args, **kw):
+        return ab.attention_block_packed_reference(*args, **kw)[0]
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(ab, "attention_block",
+                                          ab.attention_block_reference))
+    stack.enter_context(mock.patch.object(ab, "attention_block_packed",
+                                          packed))
+    return stack
+
+
+def attention_block_through_cli(workdir: str, mode: str):
+    """dino_vits16 @224 bs64 through ``cli.main`` with B3 on
+    (``VITX_FUSED_ATTN=1``): ``lineareval`` (train steps under no_grad),
+    ``lineareval_cached`` (the backbone once over each split) and
+    ``finetune``; or ``small_finetune``, dino_vitb8 @32 bs128 with B4 on
+    (``VITX_PACKED_ATTN=1``).  Every backbone forward launches the block's
+    kernel once per block; a B3 fine-tune step's backward recomputes each
+    block through the flash kernels (one forward and one backward launch
+    each), B4's is analytic; no plain block version runs."""
+    from vit_torch_tpu_torch.cli import main as cli_main
+    from vit_torch_tpu_torch.ops import attn_block as ab
+    plain = (ab.attention_block_reference, ab.attention_block_packed_reference)
+    for fn in plain:
+        fn.calls = 0
+    if mode == "small_finetune":
+        steps = SYNTHETIC_N // SMALL_BS
+        argv, env = SMALL_TRAIN_ARGS, {"VITX_PACKED_ATTN": "1"}
+        want = _want(attention_block_packed=12 * 2 * steps)
+    else:
+        steps = SYNTHETIC_N // VITS_BS
+        extra = {"lineareval": ["--lineareval"],
+                 "lineareval_cached": ["--lineareval", "--cache_features"],
+                 "finetune": []}[mode]
+        argv, env = VITS_TRAIN_ARGS + extra, {"VITX_FUSED_ATTN": "1"}
+        recompute = VITS_DEPTH * steps if mode == "finetune" else 0
+        want = _want(attention_block=VITS_DEPTH * 2 * steps,
+                     flash_attention_fwd=recompute,
+                     flash_attention_bwd=recompute)
+    with mock.patch.dict(os.environ, env):
+        counts = _run_cli(cli_main.main, argv, f"{workdir}/ab_{mode}.json",
+                          f"attention_block_{mode}", want)
+    if any(fn.calls for fn in plain):
+        raise AssertionError(f"{mode}: the plain attention blocks ran "
+                             f"{[fn.calls for fn in plain]} times")
+    return counts
+
+
+def _time_flags(trainer, batch, flag: str, iters: int, eval_x=None):
+    """Steady-state steps (and, with ``eval_x``, the eval forward) with the
+    block's flag off, on, on, off, so that drift falls on both sides:
+    step ms and launches per step of each run, the profile of the first
+    run with the kernel on."""
+    import torch
+    runs = {"0": [], "1": []}
+    for value in ("0", "1", "1", "0"):
+        with mock.patch.dict(os.environ, {flag: value}):
+            t = _time_train_steps(trainer, batch, iters)
+            row = {"step_ms": t["step_ms"], "host_step_ms": t["host_step_ms"],
+                   "launches_per_step": t["launches_per_step"],
+                   "peak_mem_gb": t["peak_mem_gb"],
+                   "device_busy_ms": t["profile"]["device_busy_ms"],
+                   "idle_share": t["profile"]["idle_share"]}
+            if value == "1" and not runs["1"]:
+                row["profile"] = t["profile"]
+            if eval_x is not None:
+                trainer.model.eval()
+                with torch.no_grad():
+                    row["eval_forward_ms"] = _time_ms(
+                        lambda: trainer.model(eval_x), iters=10)
+                trainer.model.train()
+            runs[value].append(row)
+    return {"kernel_on": runs["1"], "kernel_off": runs["0"]}
+
+
+def steady_state_attention_block(iters: int = 12):
+    """B3 against the port's unfused path (cuBLAS + flash + cuBLAS) on
+    whole steps of dino_vits16 @224: the linear-eval step and the eval
+    forward at bs64 and bs128, the fine-tune step at bs64; and B4 against
+    it on the dino_vitb8 @32 bs128 fine-tune step.  MFU with ``bench.py``'s
+    FLOPs (1 x forward for linear eval, 3 x for fine-tuning)."""
+    import torch
+    from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, vit_flops
+    rows = {}
+    for name, arch, size, bs, lineareval, flag in (
+            ("vits16_lineareval_bs64", VITS_ARCH, VITS_SIZE, 64, True,
+             "VITX_FUSED_ATTN"),
+            ("vits16_lineareval_bs128", VITS_ARCH, VITS_SIZE, 128, True,
+             "VITX_FUSED_ATTN"),
+            ("vits16_finetune_bs64", VITS_ARCH, VITS_SIZE, 64, False,
+             "VITX_FUSED_ATTN"),
+            ("vitb8_32px_finetune_bs128", ARCH, SMALL_SIZE, SMALL_BS, False,
+             "VITX_PACKED_ATTN")):
+        zm, trainer, batch = _train_setup(bs, arch=arch, image_size=size,
+                                          lineareval=lineareval)
+        zm.model.train()
+        eval_x = trainer.eval_transform(batch[0]) if lineareval else None
+        row = _time_flags(trainer, batch, flag, iters, eval_x)
+        flops = vit_flops(VIT_CONFIGS[arch], size) * bs
+        step_flops = flops * (1 if lineareval else 3)
+        for run in row["kernel_on"] + row["kernel_off"]:
+            run["img_per_s"] = bs * 1e3 / run["step_ms"]
+            run["mfu"] = step_flops / (run["step_ms"] / 1e3) / H100_BF16_FLOPS
+            if "eval_forward_ms" in run:
+                run["eval_forward_img_per_s"] = bs * 1e3 / run[
+                    "eval_forward_ms"]
+        kernel = ("attention_block_packed" if flag == "VITX_PACKED_ATTN"
+                  else "attention_block")
+        for run in row["kernel_on"]:
+            if run["launches_per_step"][kernel] != 12:
+                raise AssertionError(f"{name}: launches per step "
+                                     f"{run['launches_per_step']}")
+        for run in row["kernel_off"]:
+            if run["launches_per_step"][kernel]:
+                raise AssertionError(f"{name}: the kernel ran with {flag}=0")
+        rows[name] = dict(row, arch=arch, image_size=size, bs=bs,
+                          flag=flag, step_tflop=step_flops / 1e12)
+        del zm, trainer, batch, eval_x
+        torch.cuda.empty_cache()
+    _say(json.dumps({"attention_block_steady_state": rows}))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1588,6 +1944,13 @@ def main() -> int:
                for i, shape in enumerate(TH_SHAPES)]
     th_rows.append(check_talking_heads(TH_SHAPES[0], seed=len(TH_SHAPES),
                                        bnc=True))
+    ab_rows = [check_attention_block(shape, seed=i)
+               for i, shape in enumerate(AB_SHAPES)]
+    abp_rows = [check_attention_block(shape, seed=i, packed=True)
+                for i, shape in enumerate(AB_PACKED_SHAPES)]
+    ab_grads = [check_attention_block_grads(AB_SHAPES[0], seed=0),
+                check_attention_block_grads(AB_PACKED_SHAPES[0], seed=1,
+                                            packed=True)]
 
     from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, swin_flops
     from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, vit_flops
@@ -1626,6 +1989,29 @@ def main() -> int:
             cait_paths[mode] = cait_through_cli(workdir, mode)
     cait_steps = steady_state_cait()
     compare_cait_step_with_plain()
+
+    with tempfile.TemporaryDirectory() as workdir:
+        with mock.patch.dict(os.environ, {"VITX_FUSED_ATTN": "1"}):
+            ab_paths = {"serve": serve_end_to_end(
+                workdir, VITS_ARCH, VITS_SIZE, ("attention_block",),
+                _plain_attention_block,
+                vit_flops(VIT_CONFIGS[VITS_ARCH], VITS_SIZE),
+                VITS_LOGITS_RTOL, relative=True, buckets=VITS_BUCKETS)}
+        for mode in ("lineareval", "lineareval_cached", "finetune",
+                     "small_finetune"):
+            ab_paths[mode] = attention_block_through_cli(workdir, mode)
+    ab_steps = steady_state_attention_block()
+    compare_step_with_plain(
+        arch=VITS_ARCH, image_size=VITS_SIZE, env={"VITX_FUSED_ATTN": "1"},
+        plain=_plain_attention_block,
+        want=_want(attention_block=VITS_DEPTH, flash_attention_fwd=VITS_DEPTH,
+                   flash_attention_bwd=VITS_DEPTH),
+        name="vits16_step_vs_plain")
+    compare_step_with_plain(
+        image_size=SMALL_SIZE, env={"VITX_PACKED_ATTN": "1"},
+        plain=_plain_attention_block,
+        want=_want(attention_block_packed=VIT_CONFIGS[ARCH].depth),
+        name="vitb8_32px_step_vs_plain")
 
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -1730,6 +2116,42 @@ def main() -> int:
         "finetune_step_ms": cait_steps["finetune"]["step_ms"],
         "lineareval_step_ms": cait_steps["lineareval"]["step_ms"],
         "eval_forward_ms": cait_steps["eval_forward"]["ms"]})
+    # the fused attention blocks: numbers at the headline shapes
+    # (dino_vits16 @224 bs64 for B3, dino_vitb8 @32 bs128 for B4), every
+    # shape beside them; launches from the linear-eval run (B3) and the
+    # fine-tune run (B4), every path beside them; whole steps with the
+    # kernel on and off
+    for kernel, by_shape, grads, line, paths, step_names in (
+            ("attention_block", ab_rows, ab_grads[0], 132,
+             ("lineareval", "serve", "lineareval_cached", "finetune"),
+             ("vits16_lineareval_bs64", "vits16_lineareval_bs128",
+              "vits16_finetune_bs64")),
+            ("attention_block_packed", abp_rows, ab_grads[1], 282,
+             ("small_finetune",), ("vitb8_32px_finetune_bs128",))):
+        head = by_shape[0]
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": "vit_torch_tpu_torch/csrc/attn_block.cu",
+            "replaces": f"vit_torch_tpu/ops/attn_block.py:{line}",
+            "launches": ab_paths[paths[0]][kernel],
+            "max_abs_err": max(r["max_abs_err"] for r in by_shape),
+            "max_rel_err": max(r["max_rel_err"] for r in by_shape),
+            "ms": head["ms"], "device_ms": head["device_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "port_path_ms": head["port_path_ms"], "shape": head["shape"],
+            "launches_by_path": {p: ab_paths[p][kernel] for p in paths},
+            "ms_device_plain_port_library_bound_by_shape": [
+                [r["shape"], r["ms"], r["device_ms"], r["plain_ms"],
+                 r["port_path_ms"], r["library_ms"], r["bound_ms"]]
+                for r in by_shape],
+            "grad_max_rel_err": max(grads["grad_rel_err"]),
+            "fwd_bwd_ms": grads["fwd_bwd_ms"],
+            "port_path_fwd_bwd_ms": grads["port_path_fwd_bwd_ms"],
+            "step_ms_kernel_on_off": {
+                n: [[r["step_ms"] for r in ab_steps[n]["kernel_on"]],
+                    [r["step_ms"] for r in ab_steps[n]["kernel_off"]]]
+                for n in step_names}})
     _say(json.dumps({"kernels": kernels}))
     _say(smi)
     _say(json.dumps({"ok": True, "device": {

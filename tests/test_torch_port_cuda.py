@@ -8,7 +8,9 @@ on the card against the CPU, and a Swin fine-tune step that runs the
 window-attention backward once per block; the CaiT talking-heads kernel
 against its plain version through its three entry points, its refusals,
 a small CaiT on the card against the CPU, and a CaiT fine-tune step that
-launches the kernel once per talking-heads block.
+launches the kernel once per talking-heads block; the fused attention
+blocks (B3 and B4) against their plain versions, with gradients, their
+refusals, and a dino-shaped ViT step with B3 forced on against the CPU.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere.  They
 import neither JAX nor the JAX package, so they run on a machine without
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from vit_torch_tpu_torch.ops import attn_block as ab
 from vit_torch_tpu_torch.ops import flash_attention as fa
 from vit_torch_tpu_torch.ops import talking_heads as th
 from vit_torch_tpu_torch.ops import window_attention as wa
@@ -533,3 +536,158 @@ def test_cait_finetune_step_launches_the_kernel_per_block(cuda):
     assert counts() == (before[0] + 2, before[1] + 2, *before[2:])
     assert torch.isfinite(m["loss_sum"]).item()
     assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+# fused attention blocks: max |kernel - plain| relative to max |plain|.
+# Both round qkv, P and each head's output to bf16 at the same points, but
+# fp32 sums in another order (and the kernel's online softmax past 64 keys)
+# can move one of them by one bf16 ulp (2^-8), which the projection carries
+# (see chip_smoke.py ATTN_BLOCK_RTOL)
+AB_RTOL = 3e-2
+
+
+def _ab_inputs(B, N, C, device, seed=0, bias=True):
+    """A bf16 (B, N, C) block of std 1 and bf16 weights in nn.Linear
+    layout of std 1/sqrt(C), biases of std 0.1 (or None)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(torch.bfloat16)
+
+    return (rnd(B, N, C), rnd(3 * C, C, scale=C ** -0.5),
+            rnd(3 * C, scale=0.1) if bias else None,
+            rnd(C, C, scale=C ** -0.5), rnd(C, scale=0.1) if bias else None)
+
+
+# (B, N, C, heads): dino_vits16 @224 (shrunk batch), a ragged N over two
+# query tiles, head dim 32, one token, no biases
+AB_SHAPES = [(2, 197, 384, 6), (3, 37, 128, 2), (2, 130, 256, 8),
+             (2, 1, 128, 2)]
+
+
+@pytest.mark.parametrize("shape", AB_SHAPES, ids=str)
+def test_attention_block_kernel_matches_plain(cuda, shape):
+    B, N, C, H = shape
+    args = _ab_inputs(B, N, C, cuda, seed=N, bias=N != 1)
+    before = (ab.attention_block.launches, ab.attention_block_reference.calls)
+    got = ab.attention_block(*args, num_heads=H)
+    torch.cuda.synchronize()
+    assert (ab.attention_block.launches,
+            ab.attention_block_reference.calls) == (before[0] + 1, before[1])
+    ref = ab.attention_block_reference(*args, num_heads=H)
+    assert got.shape == (B, N, C) and torch.isfinite(got).all()
+    assert _rel_err(got, ref) <= AB_RTOL
+
+
+# (B, N, C, heads): dino_vitb8 @32 (shrunk batch), a ragged pack of 12
+# images per tile, the largest N, head dim 32
+AB_PACKED_SHAPES = [(9, 17, 768, 12), (7, 5, 128, 4), (3, 48, 128, 2),
+                    (13, 9, 256, 8)]
+
+
+@pytest.mark.parametrize("shape", AB_PACKED_SHAPES, ids=str)
+def test_attention_block_packed_kernel_matches_plain(cuda, shape):
+    """The packed kernel's output and its qkv projection (the backward's
+    residual) against the plain version's."""
+    B, N, C, H = shape
+    args = _ab_inputs(B, N, C, cuda, seed=B)
+    before = (ab.attention_block_packed.launches,
+              ab.attention_block_packed_reference.calls)
+    out, qkv = ab.attention_block_packed_fwd(*args, num_heads=H)
+    torch.cuda.synchronize()
+    assert (ab.attention_block_packed.launches,
+            ab.attention_block_packed_reference.calls) == (before[0] + 1,
+                                                           before[1])
+    ref_out, ref_qkv = ab.attention_block_packed_reference(*args,
+                                                           num_heads=H)
+    assert out.shape == (B, N, C) and qkv.shape == (B, N, 3 * C)
+    assert torch.isfinite(out).all()
+    assert _rel_err(out, ref_out) <= AB_RTOL
+    assert _rel_err(qkv, ref_qkv) <= AB_RTOL
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["b3", "b4"])
+def test_attention_block_grads_match_plain(cuda, packed):
+    """Gradients of all five inputs through the Functions (B3: the flash
+    recompute, one flash backward launch; B4: the analytic backward over
+    the saved qkv) against autograd through the plain versions."""
+    B, N, C, H = (6, 17, 384, 6) if packed else (2, 197, 384, 6)
+    leaves = [t.requires_grad_(True)
+              for t in _ab_inputs(B, N, C, cuda, seed=3)]
+    dout = torch.randn((B, N, C), device=cuda, dtype=torch.bfloat16)
+    fn = ab.attention_block_packed if packed else ab.attention_block
+
+    def ref_fn(*a, num_heads):
+        if packed:
+            return ab.attention_block_packed_reference(
+                *a, num_heads=num_heads)[0]
+        return ab.attention_block_reference(*a, num_heads=num_heads)
+
+    bwd = fa.flash_attention_bwd.launches
+    got = torch.autograd.grad(fn(*leaves, num_heads=H), leaves, dout)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == bwd + (0 if packed else 1)
+    want = torch.autograd.grad(ref_fn(*leaves, num_heads=H), leaves, dout)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert _rel_err(g, w) <= 5e-2
+
+
+def test_attention_block_refuses_what_it_does_not_take(cuda):
+    x, wq, bq, wp, bp = _ab_inputs(2, 17, 384, cuda)
+    with pytest.raises(TypeError):
+        ab.attention_block(x.float(), wq, bq, wp, bp, num_heads=6)
+    with pytest.raises(TypeError):
+        ab.attention_block(x.transpose(0, 1), wq, bq, wp, bp, num_heads=6)
+    with pytest.raises(ValueError, match="fits"):
+        ab.attention_block(x, wq, bq, wp, bp, num_heads=8)      # head dim 48
+    with pytest.raises(ValueError, match="w_qkv"):
+        ab.attention_block(x, wq.float(), bq, wp, bp, num_heads=6)
+    with pytest.raises(ValueError, match="b_proj"):
+        ab.attention_block(x, wq, bq, wp, bp[:64], num_heads=6)
+    odd = torch.empty(2 * 17 * 384 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        ab.attention_block(odd[1:].view(2, 17, 384), wq, bq, wp, bp,
+                           num_heads=6)
+    long = torch.zeros((1, 49, 384), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="fits_packed"):
+        ab.attention_block_packed(long, wq, bq, wp, bp, num_heads=6)
+
+
+def test_dino_shaped_vit_step_with_b3_on_cuda_matches_cpu(cuda, monkeypatch):
+    """One bf16 fine-tune step (loss and gradients, no optimizer step) of a
+    depth-2 ViT with dino_vits16's widths (C 384, 6 heads of 64) at 64 px
+    and B3 forced on: every block through the kernel on the card, through
+    the plain version on the CPU."""
+    from vit_torch_tpu_torch.models.layers import ClassifierHead, init_weights
+    from vit_torch_tpu_torch.models.vit import ViTConfig, VisionTransformer
+    from vit_torch_tpu_torch.models.zoo import Classifier
+    from vit_torch_tpu_torch.train.steps import cross_entropy_loss
+    monkeypatch.setenv("VITX_FUSED_ATTN", "1")
+    cfg = ViTConfig(patch_size=16, embed_dim=384, depth=2, num_heads=6)
+    model = Classifier(VisionTransformer(cfg, image_size=64),
+                       ClassifierHead(384, [10]))
+    init_weights(model, torch.Generator().manual_seed(0))
+    x = torch.randn((4, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    labels, mask = torch.arange(4), torch.ones(4)
+    results = []
+    for dev in ("cpu", cuda):
+        m = model.to(dev).train()
+        m.zero_grad(set_to_none=True)
+        before = (ab.attention_block.launches,
+                  ab.attention_block_reference.calls)
+        loss = cross_entropy_loss(m(x.to(dev)), labels.to(dev),
+                                  mask.to(dev))
+        loss.backward()
+        launched = (ab.attention_block.launches - before[0],
+                    ab.attention_block_reference.calls - before[1])
+        assert launched == ((0, 2) if dev == "cpu" else (2, 0))
+        # copies: moving the model to the card moves its gradients too
+        results.append((loss.item(), {n: p.grad.float().cpu().clone()
+                                      for n, p in m.named_parameters()}))
+    (loss_c, grads_c), (loss_g, grads_g) = results
+    assert abs(loss_c - loss_g) <= 2e-2
+    for n, g in grads_c.items():
+        err = ((grads_g[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+        assert err <= 5e-2, (n, err)

@@ -16,12 +16,14 @@ Parameter names follow torch/timm/DINO (``patch_embed.proj.weight`` as a
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vit_torch_tpu_torch.ops import attn_block
 from vit_torch_tpu_torch.ops.attention import qkv_attention
 
 
@@ -142,13 +144,55 @@ class Mlp(nn.Module):
         return self.drop(self.fc2(x))
 
 
+# B3 is opt-in on CUDA, as B4 is.  chip_smoke.py's
+# steady_state_attention_block times whole dino_vits16 @224 steps with B3
+# on and off in turns; on an H100 80GB HBM3 at 700 W (two runs of each
+# side in each of two calls) the chain kept the card busier than cuBLAS +
+# flash + cuBLAS at every shape timed:
+# - bs64 linear-eval step: device busy 4.715-4.780 ms against
+#   3.969-4.030; the step 7.84-17.32 ms against 10.46-19.22, a gain on the
+#   host only (the chain issues fewer launches) and within the spread
+#   between the two calls; the eval forward 4.69-9.56 ms against
+#   5.93-12.14, the same;
+# - bs128 linear-eval step: device busy 9.302-9.643 ms against
+#   7.825-7.847;
+# - bs64 fine-tune step (the backward recomputes through the flash
+#   kernels): 40.08-60.66 ms against 27.46-47.32, device busy
+#   15.98-16.20 ms against 13.78-13.83.
+# The serving buckets 1 and 8 and C = 768 were never timed with B3 off.
+
+
+def _fused_attention(x: torch.Tensor, num_heads: int) -> bool:
+    """Whether the attention block takes the fused kernel
+    (:func:`.attn_block.attention_block`, B3): ``VITX_FUSED_ATTN=1``, read
+    per call as the JAX package reads it, for the shapes the kernel takes.
+    Without the flag (or with ``=0``) it is off on every device."""
+    if os.environ.get("VITX_FUSED_ATTN", "") != "1":
+        return False
+    _, N, C = x.shape
+    return attn_block.fits(N, C, num_heads)
+
+
+def _packed_attention(x: torch.Tensor, num_heads: int) -> bool:
+    """Whether the attention block takes the packed kernel
+    (:func:`.attn_block.attention_block_packed`, B4): opt-in through
+    ``VITX_PACKED_ATTN=1``, for N <= 32, as in the JAX package."""
+    if os.environ.get("VITX_PACKED_ATTN", "") != "1":
+        return False
+    B, N, C = x.shape
+    return N <= 32 and attn_block.fits_packed(N, C, num_heads)
+
+
 class Attention(nn.Module):
     """Multi-head self-attention with one fused qkv projection whose
-    outputs are ordered (3, H, D).  q, k and v stay views into the qkv
-    output; on CUDA the flash kernel reads them through their strides.
+    outputs are ordered (3, H, D).
 
-    ``attn_drop`` is kept for config parity; like the JAX module, no
-    dropout is applied to the attention weights."""
+    The JAX module's dispatch order: the packed kernel (B4), then the
+    fused kernel (B3), then the qkv product, :func:`.qkv_attention` (q, k
+    and v stay views into the qkv output; on CUDA the flash kernel reads
+    them through their strides) and the output product.  ``attn_drop`` is
+    kept for config parity; like the JAX module, no dropout is applied to
+    the attention weights."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, attn_drop: float = 0.0,
@@ -160,12 +204,27 @@ class Attention(nn.Module):
         self.proj = Linear(dim, dim)
         self.proj_drop = Dropout(proj_drop)
 
+    def _weights(self, dtype: torch.dtype):
+        """The qkv and proj weights and biases in the activation dtype; the
+        fp32 parameters get their gradients through the cast."""
+        return tuple(None if t is None else t.to(dtype) for t in (
+            self.qkv.weight, self.qkv.bias, self.proj.weight,
+            self.proj.bias))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
-        qkv = self.qkv(x).view(B, N, 3, H, C // H)
-        out = qkv_attention(qkv, scale=self.scale)
-        return self.proj_drop(self.proj(out.reshape(B, N, C)))
+        if _packed_attention(x, H):
+            out = attn_block.attention_block_packed(
+                x, *self._weights(x.dtype), num_heads=H, scale=self.scale)
+        elif _fused_attention(x, H):
+            out = attn_block.attention_block(
+                x, *self._weights(x.dtype), num_heads=H, scale=self.scale)
+        else:
+            qkv = self.qkv(x).view(B, N, 3, H, C // H)
+            out = self.proj(qkv_attention(qkv, scale=self.scale)
+                            .reshape(B, N, C))
+        return self.proj_drop(out)
 
 
 class Block(nn.Module):

@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from vit_torch_tpu_torch.ops import _build
+from vit_torch_tpu_torch.ops.gemm import needs_grad
 
 HEAD_DIM = 32          # every Swin config has head dim 32
 MAX_TOKENS = 144       # N = w^2 up to window 12
@@ -352,12 +353,6 @@ class _WindowAttentionQKV(torch.autograd.Function):
             *qkv.unbind(2), bias, mask, _rows(dout), scale=ctx.scale,
             **dict(zip(("dq", "dk", "dv"), dqkv.unbind(2))))
         return dqkv, dbias, None, None
-
-
-def needs_grad(*xs) -> bool:
-    """True when autograd records and an input requires grad."""
-    return torch.is_grad_enabled() and any(
-        x is not None and x.requires_grad for x in xs)
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

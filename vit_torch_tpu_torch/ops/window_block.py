@@ -66,13 +66,14 @@ import torch
 import torch.nn.functional as F
 
 from vit_torch_tpu_torch.ops import _build
+from vit_torch_tpu_torch.ops.gemm import (
+    EPI_BIAS, EPI_BIAS16_RES, EPI_BIAS_RES, EPI_GELU, check, dense_f32, gemm,
+    linear, needs_grad)
 from vit_torch_tpu_torch.ops.window_attention import (
-    HEAD_DIM, MAX_TOKENS, launch_window_attention, needs_grad,
-    window_attention_bwd, window_attention_qkv, window_attention_reference)
+    HEAD_DIM, MAX_TOKENS, launch_window_attention, window_attention_bwd,
+    window_attention_qkv, window_attention_reference)
 
 LN_EPS = 1e-5
-# window_gemm.cu epilogues
-_EPI_BIAS, _EPI_BIAS_RES, _EPI_GELU, _EPI_BIAS16_RES = 0, 1, 2, 3
 
 Pair = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
@@ -100,13 +101,6 @@ def window_reverse(windows: torch.Tensor, w: int, H: int,
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
-
-def _dense_f32(x: torch.Tensor, w: torch.Tensor,
-               b: Optional[torch.Tensor]) -> torch.Tensor:
-    """fp32-accumulated ``x @ w.T (+ b)`` of values in their own dtypes."""
-    y = torch.matmul(x.float(), w.float().t())
-    return y if b is None else y + b.float()
-
 
 def _layer_norm_f32(x: torch.Tensor, weight: torch.Tensor,
                     bias: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
@@ -138,9 +132,9 @@ def _attention_core_reference(t, w_qkv, b_qkv, bias, mask, w_proj, b_proj,
     output."""
     Bn, N, C = t.shape
     dt = t.dtype
-    qkv = _dense_f32(t, w_qkv, b_qkv).to(dt).view(Bn, N, 3, num_heads, -1)
+    qkv = dense_f32(t, w_qkv, b_qkv).to(dt).view(Bn, N, 3, num_heads, -1)
     o = _plain_core(qkv, bias, mask, scale).reshape(Bn, N, C)
-    return _dense_f32(o, w_proj, b_proj), qkv, o
+    return dense_f32(o, w_proj, b_proj), qkv, o
 
 
 def _roll(x: torch.Tensor, shift: int) -> torch.Tensor:
@@ -196,11 +190,11 @@ def window_block_full_spatial_reference(
                                             num_heads, scale)
         h = x + window_reverse(a.to(dt), window, H, W)
         u = _layer_norm_f32(h, *ln2).to(dt)
-        hid = _dense_f32(u, fc1[0], None).to(dt)
+        hid = dense_f32(u, fc1[0], None).to(dt)
         if fc1[1] is not None:
             hid = hid + fc1[1].to(dt)
         g = F.gelu(hid.float()).to(dt)
-        m = _dense_f32(g, fc2[0], None).to(dt)
+        m = dense_f32(g, fc2[0], None).to(dt)
         if fc2[1] is not None:
             m = m + fc2[1].to(dt)
         return h + m
@@ -213,18 +207,6 @@ def window_block_full_spatial_reference(
 # --------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _gemm_fn():
-    """window_gemm.cu's product entry point, built and loaded on first
-    use."""
-    fn = _build.load("window_gemm").window_gemm_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
 def _layer_norm_fn():
     """window_gemm.cu's LayerNorm entry point."""
     fn = _build.load("window_gemm").window_layer_norm_bf16
@@ -234,37 +216,14 @@ def _layer_norm_fn():
     return fn
 
 
-def _ptr(x: Optional[torch.Tensor]):
-    return None if x is None else x.data_ptr()
-
-
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
-
-
-def _gemm(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-          out: torch.Tensor, *, epilogue: int, geom, gather: bool = False,
-          scatter: bool = False, res: Optional[torch.Tensor] = None) -> None:
-    """One launch of window_gemm.cu's product over all T = out.numel() /
-    Nout rows; ``x``, ``out`` and ``res`` are contiguous with rows along
-    the last axis; ``geom`` = (Hm, Wm, window, shift) of the map."""
-    K, Nout = x.shape[-1], w.shape[0]
-    T = out.numel() // Nout
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _check(_gemm_fn()(x.data_ptr(), w.data_ptr(), _ptr(b), _ptr(res),
-                      out.data_ptr(), T, K, Nout, K, Nout, int(gather),
-                      int(scatter), *geom, epilogue, stream), "window_gemm")
-
-
 def _layer_norm(x: torch.Tensor, ln: Pair) -> torch.Tensor:
     """window_gemm.cu's LayerNorm over the rows of a contiguous map."""
     out = torch.empty_like(x)
     C = x.shape[-1]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _check(_layer_norm_fn()(x.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(),
-                            out.data_ptr(), x.numel() // C, C, LN_EPS,
-                            stream), "window_layer_norm")
+    check(_layer_norm_fn()(x.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(),
+                           out.data_ptr(), x.numel() // C, C, LN_EPS,
+                           stream), "window_layer_norm")
     return out
 
 
@@ -317,8 +276,8 @@ def _attention_chain(src: torch.Tensor, w_qkv, b_qkv, bias, mask, geom,
     Bn = B * (H // window) * (W // window)
     qkv = torch.empty((Bn, N, 3, num_heads, HEAD_DIM), dtype=src.dtype,
                       device=src.device)
-    _gemm(src, w_qkv, b_qkv, qkv, epilogue=_EPI_BIAS, geom=geom,
-          gather=True)
+    gemm(src, w_qkv, b_qkv, qkv, epilogue=EPI_BIAS, geom=geom,
+         gather=True)
     attn = torch.empty((Bn, N, C), dtype=src.dtype, device=src.device)
     launch_window_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], bias,
                             mask, attn.view(Bn, N, num_heads, HEAD_DIM),
@@ -346,8 +305,8 @@ def _spatial_parts(y, w_qkv, b_qkv, bias, mask, w_proj, b_proj, num_heads,
     qkv, attn = _attention_chain(y, w_qkv, b_qkv, bias, mask, geom,
                                  num_heads, scale)
     out = torch.empty_like(y)
-    _gemm(attn, w_proj, b_proj, out, epilogue=_EPI_BIAS, geom=geom,
-          scatter=True)
+    gemm(attn, w_proj, b_proj, out, epilogue=EPI_BIAS, geom=geom,
+         scatter=True)
     window_block_spatial.launches += 1
     return out, qkv, attn
 
@@ -435,14 +394,6 @@ def window_block_spatial(y: torch.Tensor, w_qkv: torch.Tensor,
 window_block_spatial.launches = 0
 
 
-def _linear(x: torch.Tensor, w: torch.Tensor,
-            b: Optional[torch.Tensor]) -> torch.Tensor:
-    """``x @ w.T`` rounded to x's dtype, then ``+ b`` in that dtype: the
-    rounding of the JAX backward's recomputed XLA dots."""
-    y = torch.matmul(x, w.t())
-    return y if b is None else y + b.to(x.dtype)
-
-
 def _full_spatial_graph(x, ln1w, ln1b, w_qkv, b_qkv, bias, mask, w_proj,
                         b_proj, ln2w, ln2b, w1, b1, w2, b2, num_heads,
                         window, scale, shift):
@@ -455,13 +406,13 @@ def _full_spatial_graph(x, ln1w, ln1b, w_qkv, b_qkv, bias, mask, w_proj,
         dt = x.dtype
         t = window_partition(_layer_norm_f32(x, ln1w, ln1b).to(dt), window)
         Bn, N, _ = t.shape
-        qkv = _linear(t, w_qkv, b_qkv).view(Bn, N, 3, num_heads, -1)
+        qkv = linear(t, w_qkv, b_qkv).view(Bn, N, 3, num_heads, -1)
         o = window_attention_qkv(qkv, bias, mask, scale=scale)
-        a = _linear(o.reshape(Bn, N, C), w_proj, b_proj)
+        a = linear(o.reshape(Bn, N, C), w_proj, b_proj)
         h = x + window_reverse(a, window, H, W)
         u = _layer_norm_f32(h, ln2w, ln2b).to(dt)
-        g = F.gelu(_linear(u, w1, b1).float()).to(dt)
-        return h + _linear(g, w2, b2)
+        g = F.gelu(linear(u, w1, b1).float()).to(dt)
+        return h + linear(g, w2, b2)
 
     return _rolled(f, x, shift)
 
@@ -494,12 +445,12 @@ def _full_spatial_forward(x, ln1w, ln1b, w_qkv, b_qkv, bias, mask, w_proj,
     _, attn = _attention_chain(_layer_norm(x, ln1), *qkv, bias, mask, geom,
                                num_heads, scale)
     h = torch.empty_like(x)
-    _gemm(attn, *proj, h, epilogue=_EPI_BIAS_RES, geom=geom, scatter=True,
-          res=x)
+    gemm(attn, *proj, h, epilogue=EPI_BIAS_RES, geom=geom, scatter=True,
+         res=x)
     hid = torch.empty((B, H, W, hidden), dtype=x.dtype, device=x.device)
-    _gemm(_layer_norm(h, ln2), *fc1, hid, epilogue=_EPI_GELU, geom=geom)
+    gemm(_layer_norm(h, ln2), *fc1, hid, epilogue=EPI_GELU, geom=geom)
     out = torch.empty_like(x)
-    _gemm(hid, *fc2, out, epilogue=_EPI_BIAS16_RES, geom=geom, res=h)
+    gemm(hid, *fc2, out, epilogue=EPI_BIAS16_RES, geom=geom, res=h)
     window_block_full_spatial.launches += 1
     return out
 
