@@ -5,8 +5,8 @@
 1. prints the device and its power limit;
 2. builds every CUDA kernel (``_build.KERNELS``: the flash-attention
    forward and backward, the Swin window-attention core forward and
-   backward, the window GEMM, talking heads and the fused attention
-   block) from the sources in the checkout
+   backward, the window GEMM, talking heads, the fused attention block
+   and the fused MLP) from the sources in the checkout
    (``nvcc``, ``sm_90a``, one process per source, all started together)
    and prints each kernel's registers, shared memory and spills;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -21,7 +21,10 @@
    shapes; the talking-heads kernel (rows 10 and 11) at the attention
    shapes of cait_s24_224 bs32, xxs24, s24_384, m36_384, m48_448 and a
    ragged one through the model's qkv entry, and the headline through
-   the (B, N, C) entry;
+   the (B, N, C) entry; the fused MLP (row 12) at DeiT-base, dino_vitb8
+   and cait_s24_224 bs32, swin_base_384 stage 1 and a ragged shape, with
+   its gradients at the headline; the flat window block (row 7) at the
+   Swin block cases, with its gradients at the headline;
 4. exports a full-width dino_vitb8 @224 classifier with seeded weights
    through ``vit_torch_tpu_torch.cli.export``, serves it with
    ``BundleServer`` on the card, sends concurrent HTTP requests, checks the
@@ -72,7 +75,18 @@
    kernels); fine-tunes dino_vitb8 @32 bs128 (bench config 3) with B4
    on; times the steady-state steps and the eval forward with each kernel
    on and off, and holds one bs8 step of each against the plain versions;
-10. prints one JSON line with each kernel's numbers, then the card's name
+10. DeiT with the fused MLP on (``VITX_FUSED_MLP=1``): exports and serves
+   deit_base_distilled_patch16_224 @224 over HTTP (launches of the fused
+   MLP and the flash forward = 12 x dispatches, logits held against the
+   plain versions); linear-evaluates (plain and cached) and fine-tunes it
+   at bs32 through ``cli.main`` (8 + 8 steps; the cached run features
+   both whole splits); then, with ``VITX_FUSED_SPATIAL=0``,
+   linear-evaluates swin_base_384 through ``cli.main_swin`` (4 + 4
+   steps: 23 flat window-block launches per train step, B9 for block 0
+   and the eval steps, no B8); times the DeiT linear-eval step, the eval
+   forward and the fine-tune step with the fused MLP off, on, on, off,
+   and holds one bs8 DeiT step against the plain versions;
+11. prints one JSON line with each kernel's numbers, then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -239,6 +253,37 @@ ATTN_BLOCK_GRAD_RTOL = 5e-2
 # the final LayerNorm and the head; relative to max |plain logit| (the
 # seeded head's logits are small)
 VITS_LOGITS_RTOL = 5e-2
+# the fused MLP (row 12): deit_base_distilled_patch16_224 @224 bs32 (C 768,
+# 12 heads of 64, N = 198, hidden 3072) through its serving, linear-eval
+# (plain and cached) and fine-tune paths with VITX_FUSED_MLP=1: 12 launches
+# per backbone forward.  The CLI runs take 8 + 8 steps (--scan 0 with
+# limits); the cached run features both whole splits (16 + 16 forwards)
+DEIT_ARCH, DEIT_SIZE, DEIT_DEPTH = "deit_base_distilled_patch16_224", 224, 12
+DEIT_SAMPLES = 256
+DEIT_TRAIN_ARGS = ["--dataset", "synthetic", "--arch", DEIT_ARCH,
+                   "--image_size", str(DEIT_SIZE), "--bs", str(TRAIN_BS),
+                   "--epoch", "1", "--opt", "adamw", "--lr", "1e-4", "--fc",
+                   "512", "--scan", "0", "--limit_train", str(DEIT_SAMPLES),
+                   "--limit_test", str(DEIT_SAMPLES)]
+# (T, C, hidden, out, biases) of the B12 checks: DeiT-base bs32 (the
+# headline), dino_vitb8 @224 bs32, cait_s24_224 bs32, swin_base_384 stage 1
+# bs32 (the byte-bound case) and a ragged T with out != C and no biases
+MLP_SHAPES = [(6336, 768, 3072, 768, True), (25120, 768, 3072, 768, True),
+              (6272, 384, 1536, 384, True), (294912, 128, 512, 128, True),
+              (1000, 256, 1024, 520, False)]
+# B12 vs its plain version, max |kernel - plain| relative to max |plain|:
+# both round the hidden activation once and sum in fp32 in another order,
+# so a hidden value can land one bf16 ulp (2^-8) away, which fc2 carries;
+# its gradients (the recompute through cuBLAS) as BLOCK_GRAD_RTOL
+MLP_RTOL = 3e-2
+MLP_GRAD_RTOL = 5e-2
+# served DeiT logits, B12 and flash vs their plain versions through the same
+# bf16 model: one-ulp differences in 12 blocks through the residual stream,
+# the final LayerNorm and the head; relative to max |plain logit|
+DEIT_LOGITS_RTOL = 5e-2
+# the Swin linear eval with the flat window block (B7,
+# VITX_FUSED_SPATIAL=0): 4 + 4 steps
+SWIN_FLAT_SAMPLES = 128
 SWIN_BLOCKS = [(32, 96, 96, 128, 12, 6), (32, 96, 96, 128, 12, 0),
                (32, 48, 48, 256, 12, 6), (32, 48, 48, 256, 12, 0),
                (32, 24, 24, 512, 12, 6), (32, 24, 24, 512, 12, 0),
@@ -868,6 +913,8 @@ def _kernel_group(name: str) -> str:
         return "attention_block"    # B3 / B4 attention and projection
     if "talking_heads_fwd_kernel" in name:
         return "talking_heads"
+    if "fused_mlp_kernel" in name:
+        return "fused_mlp"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
         return "matmul"
     if "layer_norm" in low or "gammabetabackward" in low:
@@ -1075,6 +1122,7 @@ def _counters():
     """Every kernel wrapper, by the name it has in the kernels line."""
     from vit_torch_tpu_torch.ops import attn_block as ab
     from vit_torch_tpu_torch.ops import flash_attention as fa
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
     from vit_torch_tpu_torch.ops import talking_heads as th
     from vit_torch_tpu_torch.ops import window_attention as wa
     from vit_torch_tpu_torch.ops import window_block as wb
@@ -1086,7 +1134,9 @@ def _counters():
             "window_block_full_spatial": wb.window_block_full_spatial,
             "talking_heads": th.talking_heads_attention,
             "attention_block": ab.attention_block,
-            "attention_block_packed": ab.attention_block_packed}
+            "attention_block_packed": ab.attention_block_packed,
+            "fused_mlp": fm.fused_mlp,
+            "window_block": wb.window_block}
 
 
 def _reset_counts():
@@ -1103,9 +1153,11 @@ def _want(**launches):
     return {name: launches.get(name, 0) for name in _counters()}
 
 
-def _run_cli(main_fn, argv, fp: str, mode: str, want):
-    """One epoch of the synthetic data through a port CLI on the card;
-    checks the stats JSON and the kernels' launch counts."""
+def _run_cli(main_fn, argv, fp: str, mode: str, want,
+             samples: int = SYNTHETIC_N):
+    """One epoch of the synthetic data (``samples`` of each split) through
+    a port CLI on the card; checks the stats JSON and the kernels' launch
+    counts."""
     _reset_counts()
     t0 = time.perf_counter()
     main_fn(argv + ["--stats_fp", fp])
@@ -1123,9 +1175,9 @@ def _run_cli(main_fn, argv, fp: str, mode: str, want):
     for split, r in rows.items():
         if len(r) != 1 or not all(np.isfinite(x["loss"]) for x in r):
             raise AssertionError(f"{mode}: bad {split} rows {r}")
-        if r[0]["sample"] != SYNTHETIC_N:
+        if r[0]["sample"] != samples:
             raise AssertionError(f"{mode}: {split} saw {r[0]['sample']} "
-                                 f"samples, not {SYNTHETIC_N}")
+                                 f"samples, not {samples}")
     return counts
 
 
@@ -1900,6 +1952,295 @@ def steady_state_attention_block(iters: int = 12):
     return rows
 
 
+def _mlp_inputs(T, C, Hd, Co, seed, bias=True):
+    """bf16 tokens of std 1, bf16 weights in nn.Linear layout of std
+    1/sqrt(fan in) and biases of std 0.1 (or None), on the card."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(9000 + seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    return (rnd(T, C), rnd(Hd, C, scale=C ** -0.5),
+            rnd(Hd, scale=0.1) if bias else None,
+            rnd(Co, Hd, scale=Hd ** -0.5),
+            rnd(Co, scale=0.1) if bias else None)
+
+
+def _library_mlp(x, w1, b1, w2, b2):
+    """The port's default MLP on the card: cuBLAS fc1, PyTorch's GELU,
+    cuBLAS fc2."""
+    import torch.nn.functional as F
+    return F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
+
+
+def _mlp_bound_ms(T, C, Hd, Co):
+    """2·T·Hd·(C + Co) operations; x read and the output written once, the
+    bf16 weights and biases."""
+    from vit_torch_tpu_torch.ops.fused_mlp import mlp_flops
+    return _bound(mlp_flops(T, C, Hd, Co),
+                  (T * C + T * Co + Hd * C + Co * Hd + Hd + Co) * 2)
+
+
+def check_fused_mlp(shape, seed):
+    """B12 (row 12) vs its plain version on one (T, C, hidden, out) shape;
+    times the kernel on CUDA events and its device time from the profiler,
+    the plain version and the port's default MLP (cuBLAS + GELU +
+    cuBLAS)."""
+    import torch
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
+    T, C, Hd, Co, bias = shape
+    args = _mlp_inputs(T, C, Hd, Co, seed, bias)
+    before = fm.fused_mlp.launches
+    out = fm.fused_mlp(*args)
+    torch.cuda.synchronize()
+    if fm.fused_mlp.launches != before + 1:
+        raise AssertionError(f"fused_mlp {shape} did not launch once")
+    ref = fm.fused_mlp_reference(*args)
+    abs_err = (out.float() - ref.float()).abs().max().item()
+    rel = _rel_err(out, ref)
+    if not (torch.isfinite(out).all() and rel <= MLP_RTOL):
+        raise AssertionError(f"fused_mlp {shape}: max abs err relative to "
+                             f"max|plain| {rel} > {MLP_RTOL}")
+    del out, ref
+    ms = _time_ms(lambda: fm.fused_mlp(*args), iters=20)
+    device_ms = _device_ms(lambda: fm.fused_mlp(*args), "fused_mlp_kernel")
+    plain_ms = _time_ms(lambda: fm.fused_mlp_reference(*args), iters=3)
+    library_ms = _time_ms(lambda: _library_mlp(*args), iters=20)
+    bound_ms, bound_by = _mlp_bound_ms(T, C, Hd, Co)
+    row = {"shape": [T, C, Hd, Co], "biases": bias, "max_abs_err": abs_err,
+           "max_rel_err": rel, "ms": ms, "device_ms": device_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "slabs": -(-Co // 384)}
+    _say("kernel check fused_mlp", json.dumps(row))
+    return row
+
+
+def check_fused_mlp_grads(shape, seed):
+    """All five gradients of B12 through its autograd Function (one kernel
+    launch forward, the backward a recompute through cuBLAS) vs autograd
+    through the plain version; times a forward and backward of each and of
+    the port's default MLP."""
+    import torch
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
+    T, C, Hd, Co, bias = shape
+    leaves = [t.requires_grad_(True)
+              for t in _mlp_inputs(T, C, Hd, Co, seed, bias)]
+    gen = torch.Generator(device="cuda").manual_seed(9500 + seed)
+    dout = torch.randn((T, Co), generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    before = fm.fused_mlp.launches
+    got = torch.autograd.grad(fm.fused_mlp(*leaves), leaves, dout)
+    torch.cuda.synchronize()
+    if fm.fused_mlp.launches != before + 1:
+        raise AssertionError("fused_mlp grad: not one forward launch")
+    want = torch.autograd.grad(fm.fused_mlp_reference(*leaves), leaves, dout)
+    rel = [_rel_err(g, w) for g, w in zip(got, want)]
+    finite = all(torch.isfinite(g).all().item() for g in got)
+    del got, want
+    if not (finite and max(rel) <= MLP_GRAD_RTOL):
+        raise AssertionError(f"fused_mlp grads {shape}: error relative to "
+                             f"max|plain| {rel} (limit {MLP_GRAD_RTOL})")
+    ms = _time_ms(lambda: torch.autograd.grad(fm.fused_mlp(*leaves), leaves,
+                                              dout), iters=10)
+    library_ms = _time_ms(lambda: torch.autograd.grad(
+        _library_mlp(*leaves), leaves, dout), iters=10)
+    row = {"shape": [T, C, Hd, Co], "grad_rel_err": rel, "fwd_bwd_ms": ms,
+           "library_fwd_bwd_ms": library_ms}
+    _say("grad check fused_mlp", json.dumps(row))
+    return row
+
+
+def _flat_windows(case, d):
+    """The block case's map rolled by -shift and partitioned into
+    (Bn, N, C) windows on the card, as the Swin block feeds B7."""
+    import torch
+    from vit_torch_tpu_torch.ops import window_block as wb
+    _, _, _, _, w, shift = case
+    x = torch.roll(d["x"], (-shift, -shift), dims=(1, 2)) if shift else d["x"]
+    return wb.window_partition(x, w)
+
+
+def check_window_block_flat(case, seed):
+    """B7 (``window_block``, row 7) vs its plain version on the windows of
+    one block case; times the chain on CUDA events and its kernels' device
+    time, and the plain version; B8's bound (the same function)."""
+    import torch
+    from vit_torch_tpu_torch.ops import window_block as wb
+    B, H, W, C, w, shift = case
+    d = _block_inputs(case, seed)
+    args = (_flat_windows(case, d), *d["qkv"], d["bias"], d["mask"],
+            *d["proj"])
+    heads = C // 32
+    out = wb.window_block(*args, num_heads=heads)
+    torch.cuda.synchronize()
+    ref = wb.window_block_reference(*args, num_heads=heads)
+    abs_err = (out.float() - ref.float()).abs().max().item()
+    rel = _rel_err(out, ref)
+    del ref
+    if not (torch.isfinite(out).all() and rel <= BLOCK_RTOL):
+        raise AssertionError(f"window_block {case}: max abs err relative to "
+                             f"max|plain| {rel} > {BLOCK_RTOL}")
+
+    def run():
+        return wb.window_block(*args, num_heads=heads)
+
+    ms = _time_ms(run, iters=20)
+    device_ms = _device_ms(run, ("window_gemm_kernel",
+                                 "window_attn_fwd_kernel"))
+    plain_ms = _time_ms(lambda: wb.window_block_reference(
+        *args, num_heads=heads), iters=3)
+    bound_ms, bound_by = _block_bound_ms(case, False)
+    row = {"case": list(case), "shape": list(args[0].shape),
+           "max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
+           "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    _say("kernel check window_block", json.dumps(row))
+    return row
+
+
+def check_window_block_flat_grads(case, seed):
+    """The gradients of B7 through its autograd Function (the chain
+    forward, B6 in the backward) vs autograd through its plain version,
+    every input but the mask; times one forward and backward."""
+    import torch
+    from vit_torch_tpu_torch.ops import window_attention as wa
+    from vit_torch_tpu_torch.ops import window_block as wb
+    B, H, W, C, w, shift = case
+    d = _block_inputs(case, seed)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (
+        _flat_windows(case, d), *d["qkv"], d["bias"], *d["proj"])]
+    x, wq, bq, bias, wp, bp = leaves
+    args = (x, wq, bq, bias, d["mask"], wp, bp)
+    gen = torch.Generator(device="cuda").manual_seed(5500 + seed)
+    dout = torch.randn(x.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    before = wa.window_attention_bwd.launches
+    got = torch.autograd.grad(wb.window_block(*args, num_heads=C // 32),
+                              leaves, dout)
+    torch.cuda.synchronize()
+    if wa.window_attention_bwd.launches != before + 1:
+        raise AssertionError("window_block grad did not launch B6 once")
+    want = torch.autograd.grad(wb.window_block_reference(
+        *args, num_heads=C // 32), leaves, dout)
+    rel = [_rel_err(g, r) for g, r in zip(got, want)]
+    finite = all(torch.isfinite(g).all().item() for g in got)
+    del got, want
+    if not (finite and max(rel) <= BLOCK_GRAD_RTOL):
+        raise AssertionError(f"window_block grads {case}: error relative to "
+                             f"max|plain| {rel} (limit {BLOCK_GRAD_RTOL})")
+    ms = _time_ms(lambda: torch.autograd.grad(
+        wb.window_block(*args, num_heads=C // 32), leaves, dout), iters=5)
+    row = {"case": list(case), "grad_rel_err": rel, "fwd_bwd_ms": ms}
+    _say("grad check window_block", json.dumps(row))
+    return row
+
+
+def _plain_deit():
+    """The DeiT blocks' kernels, B12 and the flash attention, on their
+    plain versions (autograd through them, no kernel), patched in for the
+    kernel-vs-plain comparisons."""
+    import contextlib
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
+    stack = contextlib.ExitStack()
+    stack.enter_context(_plain_attention())
+    stack.enter_context(mock.patch.object(fm, "fused_mlp",
+                                          fm.fused_mlp_reference))
+    return stack
+
+
+def deit_through_cli(workdir: str, mode: str):
+    """deit_base_distilled_patch16_224 @224 bs32 through ``cli.main`` with
+    B12 on (``VITX_FUSED_MLP=1``): ``lineareval`` (train steps under
+    no_grad), ``lineareval_cached`` (the backbone once over each whole
+    split) and ``finetune``.  Every backbone forward launches B12 and the
+    flash forward once per block; the fine-tune's backward recomputes each
+    MLP through cuBLAS (no B12 launch) and runs the flash backward once
+    per block; no plain MLP runs."""
+    from vit_torch_tpu_torch.cli import main as cli_main
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
+    extra = {"lineareval": ["--lineareval"],
+             "lineareval_cached": ["--lineareval", "--cache_features"],
+             "finetune": []}[mode]
+    samples = SYNTHETIC_N if mode == "lineareval_cached" else DEIT_SAMPLES
+    steps = samples // TRAIN_BS
+    forwards = DEIT_DEPTH * 2 * steps
+    want = _want(fused_mlp=forwards, flash_attention_fwd=forwards,
+                 flash_attention_bwd=DEIT_DEPTH * steps
+                 if mode == "finetune" else 0)
+    fm.fused_mlp_reference.calls = 0
+    with mock.patch.dict(os.environ, {"VITX_FUSED_MLP": "1"}):
+        counts = _run_cli(cli_main.main, DEIT_TRAIN_ARGS + extra,
+                          f"{workdir}/deit_{mode}.json", f"deit_{mode}",
+                          want, samples=samples)
+    if fm.fused_mlp_reference.calls:
+        raise AssertionError(f"deit_{mode}: the plain MLP ran "
+                             f"{fm.fused_mlp_reference.calls} times")
+    return counts
+
+
+def steady_state_deit(iters: int = 12):
+    """B12 against the port's default MLP (cuBLAS + GELU + cuBLAS) on whole
+    deit_base_distilled_patch16_224 @224 bs32 steps: the linear-eval step
+    with the eval forward, and the fine-tune step, each with the flag off,
+    on, on, off.  MFU with ``bench.py``'s FLOPs (1 x forward for linear
+    eval, 3 x for fine-tuning)."""
+    import torch
+    from vit_torch_tpu_torch.models.deit import deit_flops
+    rows = {}
+    for name, lineareval in (("deit_lineareval_bs32", True),
+                             ("deit_finetune_bs32", False)):
+        zm, trainer, batch = _train_setup(TRAIN_BS, arch=DEIT_ARCH,
+                                          image_size=DEIT_SIZE,
+                                          lineareval=lineareval)
+        zm.model.train()
+        eval_x = trainer.eval_transform(batch[0]) if lineareval else None
+        row = _time_flags(trainer, batch, "VITX_FUSED_MLP", iters, eval_x)
+        flops = deit_flops(DEIT_ARCH, DEIT_SIZE) * TRAIN_BS
+        step_flops = flops * (1 if lineareval else 3)
+        for run in row["kernel_on"] + row["kernel_off"]:
+            run["img_per_s"] = TRAIN_BS * 1e3 / run["step_ms"]
+            run["mfu"] = step_flops / (run["step_ms"] / 1e3) / H100_BF16_FLOPS
+            if "eval_forward_ms" in run:
+                run["eval_forward_img_per_s"] = TRAIN_BS * 1e3 / run[
+                    "eval_forward_ms"]
+        for run in row["kernel_on"]:
+            if run["launches_per_step"]["fused_mlp"] != DEIT_DEPTH:
+                raise AssertionError(f"{name}: launches per step "
+                                     f"{run['launches_per_step']}")
+        for run in row["kernel_off"]:
+            if run["launches_per_step"]["fused_mlp"]:
+                raise AssertionError(f"{name}: B12 ran with the flag at 0")
+        rows[name] = dict(row, arch=DEIT_ARCH, image_size=DEIT_SIZE,
+                          bs=TRAIN_BS, flag="VITX_FUSED_MLP",
+                          step_tflop=step_flops / 1e12)
+        del zm, trainer, batch, eval_x
+        torch.cuda.empty_cache()
+    _say(json.dumps({"deit_steady_state": rows}))
+    return rows
+
+
+def swin_flat_through_cli(workdir: str):
+    """swin_base_384 linear eval @384 bs32 through ``cli.main_swin`` with
+    ``VITX_FUSED_SPATIAL=0``, 4 + 4 steps: in a train step block 0 (drop
+    path 0) takes B9 and the 23 others B7 over windows partitioned by
+    PyTorch ops; every eval step takes B9 in all 24 blocks; B8 never
+    runs."""
+    from vit_torch_tpu_torch.cli import main_swin
+    steps = SWIN_FLAT_SAMPLES // TRAIN_BS
+    want = _want(window_attention=SWIN_DEPTH * 2 * steps,
+                 window_block=(SWIN_DEPTH - 1) * steps,
+                 window_block_full_spatial=(1 + SWIN_DEPTH) * steps)
+    with mock.patch.dict(os.environ, {"VITX_FUSED_SPATIAL": "0"}):
+        return _run_cli(main_swin.main, SWIN_TRAIN_ARGS + [
+            "--lineareval", "--scan", "0", "--limit_train",
+            str(SWIN_FLAT_SAMPLES), "--limit_test", str(SWIN_FLAT_SAMPLES)],
+            f"{workdir}/swin_flat_lineareval.json", "swin_flat_lineareval",
+            want, samples=SWIN_FLAT_SAMPLES)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1951,6 +2292,12 @@ def main() -> int:
     ab_grads = [check_attention_block_grads(AB_SHAPES[0], seed=0),
                 check_attention_block_grads(AB_PACKED_SHAPES[0], seed=1,
                                             packed=True)]
+    mlp_rows = [check_fused_mlp(shape, seed=i)
+                for i, shape in enumerate(MLP_SHAPES)]
+    mlp_grads = check_fused_mlp_grads(MLP_SHAPES[0], seed=0)
+    flat_rows = [check_window_block_flat(case, seed=i)
+                 for i, case in enumerate(SWIN_BLOCKS)]
+    flat_grads = check_window_block_flat_grads(SWIN_BLOCKS[0], seed=0)
 
     from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, swin_flops
     from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, vit_flops
@@ -2012,6 +2359,25 @@ def main() -> int:
         plain=_plain_attention_block,
         want=_want(attention_block_packed=VIT_CONFIGS[ARCH].depth),
         name="vitb8_32px_step_vs_plain")
+
+    from vit_torch_tpu_torch.models.deit import deit_flops
+    with tempfile.TemporaryDirectory() as workdir:
+        with mock.patch.dict(os.environ, {"VITX_FUSED_MLP": "1"}):
+            deit_paths = {"serve": serve_end_to_end(
+                workdir, DEIT_ARCH, DEIT_SIZE,
+                ("fused_mlp", "flash_attention_fwd"), _plain_deit,
+                deit_flops(DEIT_ARCH, DEIT_SIZE), DEIT_LOGITS_RTOL,
+                relative=True)}
+        for mode in ("lineareval", "lineareval_cached", "finetune"):
+            deit_paths[mode] = deit_through_cli(workdir, mode)
+        swin_flat = swin_flat_through_cli(workdir)
+    deit_steps = steady_state_deit()
+    compare_step_with_plain(
+        arch=DEIT_ARCH, image_size=DEIT_SIZE, env={"VITX_FUSED_MLP": "1"},
+        plain=_plain_deit,
+        want=_want(fused_mlp=DEIT_DEPTH, flash_attention_fwd=DEIT_DEPTH,
+                   flash_attention_bwd=DEIT_DEPTH),
+        name="deit_step_vs_plain")
 
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -2152,6 +2518,61 @@ def main() -> int:
                 n: [[r["step_ms"] for r in ab_steps[n]["kernel_on"]],
                     [r["step_ms"] for r in ab_steps[n]["kernel_off"]]]
                 for n in step_names}})
+    # the fused MLP: numbers at the headline shape (DeiT-base bs32), every
+    # shape beside them; launches from the fine-tune run (the slice's
+    # headline path), every path beside them; whole steps with B12 on and
+    # off.  Its library_ms is the port's default MLP: cuBLAS fc1, GELU,
+    # cuBLAS fc2 (no one PyTorch call computes the MLP)
+    head = mlp_rows[0]
+    kernels.append({
+        "name": "fused_mlp", "route": "cuda",
+        "source": "vit_torch_tpu_torch/csrc/fused_mlp.cu",
+        "replaces": "vit_torch_tpu/ops/fused_mlp.py:92",
+        "launches": deit_paths["finetune"]["fused_mlp"],
+        "max_abs_err": max(r["max_abs_err"] for r in mlp_rows),
+        "max_rel_err": max(r["max_rel_err"] for r in mlp_rows),
+        "ms": head["ms"], "device_ms": head["device_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "library": "F.linear -> F.gelu -> F.linear (cuBLAS)",
+        "shape": head["shape"],
+        "launches_by_path": {p: c["fused_mlp"] for p, c in deit_paths.items()},
+        "ms_device_plain_library_bound_by_shape": [
+            [r["shape"], r["ms"], r["device_ms"], r["plain_ms"],
+             r["library_ms"], r["bound_ms"]] for r in mlp_rows],
+        "grad_max_rel_err": max(mlp_grads["grad_rel_err"]),
+        "fwd_bwd_ms": mlp_grads["fwd_bwd_ms"],
+        "library_fwd_bwd_ms": mlp_grads["library_fwd_bwd_ms"],
+        "step_ms_kernel_on_off": {
+            n: [[r["step_ms"] for r in row["kernel_on"]],
+                [r["step_ms"] for r in row["kernel_off"]]]
+            for n, row in deit_steps.items()},
+        "eval_forward_ms_kernel_on_off": [
+            [r["eval_forward_ms"] for r in deit_steps[
+                "deit_lineareval_bs32"][side]]
+            for side in ("kernel_on", "kernel_off")]})
+    # the flat window block: numbers at the headline case (swin_base_384
+    # bs32 stage 1, shifted), every case beside them; launches from the
+    # Swin linear eval with VITX_FUSED_SPATIAL=0
+    head = flat_rows[0]
+    kernels.append({
+        "name": "window_block", "route": "cuda",
+        "source": "vit_torch_tpu_torch/csrc/window_gemm.cu",
+        "replaces": "vit_torch_tpu/ops/window_block.py:200",
+        "launches": swin_flat["window_block"],
+        "max_abs_err": max(r["max_abs_err"] for r in flat_rows),
+        "max_rel_err": max(r["max_rel_err"] for r in flat_rows),
+        "ms": head["ms"], "device_ms": head["device_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None,
+        "case": head["case"],
+        "launches_by_path": {"swin_flat_lineareval": swin_flat[
+            "window_block"]},
+        "ms_device_plain_bound_by_case": [
+            [r["case"], r["ms"], r["device_ms"], r["plain_ms"],
+             r["bound_ms"]] for r in flat_rows],
+        "grad_max_rel_err": max(flat_grads["grad_rel_err"]),
+        "fwd_bwd_ms": flat_grads["fwd_bwd_ms"]})
     _say(json.dumps({"kernels": kernels}))
     _say(smi)
     _say(json.dumps({"ok": True, "device": {

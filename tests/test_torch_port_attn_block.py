@@ -281,13 +281,15 @@ with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 @pytest.mark.parametrize("name", ["dino_vitb8", "dino_vits16", "cait_s24_224",
-                                  "swin_base_patch4_window12_384_22k"])
+                                  "swin_base_patch4_window12_384_22k",
+                                  "deit_base_distilled_patch16_224"])
 def test_importer_loads_the_published_layout(name, tmp_path, monkeypatch):
     """A full-size backbone on the meta device takes a state dict of the
     published checkpoint's keys and shapes (zeros backed by calloc, in
     the file's own wrapping and prefix) through the port's loader: every
     key the backbone needs is there with its shape, and the keys it
-    leaves are the classifier head and Swin's computed buffers only."""
+    leaves are the classifier heads (DeiT's two) and Swin's computed
+    buffers only."""
     man = MANIFESTS[name]
     zm = VisionModelZoo.get_model(name, image_size=man["image_size"],
                                   device="meta")
@@ -305,5 +307,5 @@ def test_importer_loads_the_published_layout(name, tmp_path, monkeypatch):
     for k, v in needed.items():
         assert tuple(man["keys"][k][0]) == tuple(v.shape), k
     left = set(man["keys"]) - set(needed)
-    assert all(k.startswith("head.") or k.endswith(
+    assert all(k.startswith(("head.", "head_dist.")) or k.endswith(
         ("relative_position_index", "attn_mask")) for k in left), left

@@ -10,7 +10,10 @@ against its plain version through its three entry points, its refusals,
 a small CaiT on the card against the CPU, and a CaiT fine-tune step that
 launches the kernel once per talking-heads block; the fused attention
 blocks (B3 and B4) against their plain versions, with gradients, their
-refusals, and a dino-shaped ViT step with B3 forced on against the CPU.
+refusals, and a dino-shaped ViT step with B3 forced on against the CPU;
+the fused MLP (B12) against its plain version, with gradients, its
+refusals, and a DeiT-shaped step with it on against the CPU; the flat
+window block (B7) against its plain version, with gradients.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere.  They
 import neither JAX nor the JAX package, so they run on a machine without
@@ -684,6 +687,152 @@ def test_dino_shaped_vit_step_with_b3_on_cuda_matches_cpu(cuda, monkeypatch):
                     ab.attention_block_reference.calls - before[1])
         assert launched == ((0, 2) if dev == "cpu" else (2, 0))
         # copies: moving the model to the card moves its gradients too
+        results.append((loss.item(), {n: p.grad.float().cpu().clone()
+                                      for n, p in m.named_parameters()}))
+    (loss_c, grads_c), (loss_g, grads_g) = results
+    assert abs(loss_c - loss_g) <= 2e-2
+    for n, g in grads_c.items():
+        err = ((grads_g[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+        assert err <= 5e-2, (n, err)
+
+
+# --------------------------------------------------------------------------
+# the fused MLP (B12) and the flat window block (B7)
+
+# (T, C, hidden, out): DeiT-base (shrunk T), CaiT's C = 384 (one 384-wide
+# output slab), Swin stage 1 (C = 128, the smallest C), a ragged T with
+# out != C over two slabs, a ragged T at C = 192 (three k-steps)
+MLP_SHAPES = [(198, 768, 3072, 768), (131, 384, 1536, 384),
+              (300, 128, 512, 128), (77, 256, 1024, 520),
+              (5, 192, 768, 192)]
+
+
+def _mlp_inputs(T, C, Hd, Co, device, seed=0, bias=True):
+    """bf16 tokens of std 1, weights in nn.Linear layout of std
+    1/sqrt(fan in), biases of std 0.1 (or None)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(torch.bfloat16)
+
+    return (rnd(T, C), rnd(Hd, C, scale=C ** -0.5),
+            rnd(Hd, scale=0.1) if bias else None,
+            rnd(Co, Hd, scale=Hd ** -0.5),
+            rnd(Co, scale=0.1) if bias else None)
+
+
+@pytest.mark.parametrize("shape", MLP_SHAPES, ids=str)
+def test_fused_mlp_kernel_matches_plain(cuda, shape):
+    """One launch against the plain version (the rounding points of the
+    Pallas kernel): max |kernel - plain| within BLOCK_RTOL of max |plain|
+    (a one-ulp hidden value carried through fc2)."""
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
+    T, C, Hd, Co = shape
+    args = _mlp_inputs(T, C, Hd, Co, cuda, seed=T, bias=Co != 520)
+    before = (fm.fused_mlp.launches, fm.fused_mlp_reference.calls)
+    got = fm.fused_mlp(*args)
+    torch.cuda.synchronize()
+    assert (fm.fused_mlp.launches, fm.fused_mlp_reference.calls) == (
+        before[0] + 1, before[1])
+    ref = fm.fused_mlp_reference(*args)
+    assert got.shape == (T, Co) and torch.isfinite(got).all()
+    assert _rel_err(got, ref) <= BLOCK_RTOL
+
+
+def test_fused_mlp_grads_match_plain(cuda):
+    """All five gradients through the Function (the recompute of the XLA
+    composition, cuBLAS) against autograd through the plain version; the
+    forward is one kernel launch and the backward none."""
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
+    leaves = [t.requires_grad_(True)
+              for t in _mlp_inputs(2 * 198, 768, 3072, 768, cuda, seed=3)]
+    dout = torch.randn((2 * 198, 768), device=cuda, dtype=torch.bfloat16)
+    before = fm.fused_mlp.launches
+    got = torch.autograd.grad(fm.fused_mlp(*leaves), leaves, dout)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp.launches == before + 1
+    want = torch.autograd.grad(fm.fused_mlp_reference(*leaves), leaves, dout)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert _rel_err(g, w) <= 5e-2
+
+
+def test_fused_mlp_refuses_what_it_does_not_take(cuda):
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
+    x, w1, b1, w2, b2 = _mlp_inputs(8, 128, 512, 128, cuda)
+    with pytest.raises(TypeError):
+        fm.fused_mlp(x.float(), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="w1"):
+        fm.fused_mlp(x, w1.float(), b1, w2, b2)
+    with pytest.raises(ValueError, match="b2"):
+        fm.fused_mlp(x, w1, b1, w2, b2[:64])
+    with pytest.raises(ValueError, match="hidden"):
+        fm.fused_mlp(x, w1[:96], b1[:96], w2[:, :96].contiguous(), b2)
+
+
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=str)
+def test_window_block_flat_matches_plain_with_grads(cuda, case):
+    """B7 over the block case's windows, partitioned (and rolled) on the
+    card: one chain launch (one core launch) against the plain version,
+    and its gradients through the Function (one B6 launch) against
+    autograd through the plain version."""
+    d = _block_inputs(case, cuda)
+    rolled = torch.roll(d["x"], (-d["shift"],) * 2, dims=(1, 2))
+    wins = wb.window_partition(rolled, d["w"])
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (wins, *d["qkv"], d["bias"], *d["proj"])]
+    x, wq, bq, bias, wp, bp = leaves
+    args = (x, wq, bq, bias, d["mask"], wp, bp)
+    counts = (wb.window_block.launches, wa.window_attention.launches,
+              wa.window_attention_bwd.launches)
+    with torch.no_grad():
+        got = wb.window_block(*args, num_heads=d["heads"])
+    dout = torch.randn_like(wins)
+    grads = torch.autograd.grad(wb.window_block(*args, num_heads=d["heads"]),
+                                leaves, dout)
+    torch.cuda.synchronize()
+    assert (wb.window_block.launches, wa.window_attention.launches,
+            wa.window_attention_bwd.launches) == (
+        counts[0] + 2, counts[1] + 2, counts[2] + 1)
+    ref = wb.window_block_reference(*args, num_heads=d["heads"])
+    assert got.shape == wins.shape and _rel_err(got, ref) <= BLOCK_RTOL
+    want = torch.autograd.grad(
+        wb.window_block_reference(*args, num_heads=d["heads"]), leaves, dout)
+    for g, w in zip(grads, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert _rel_err(g, w) <= BLOCK_RTOL
+
+
+def test_deit_step_with_b12_on_cuda_matches_cpu(cuda, monkeypatch):
+    """One bf16 fine-tune step (loss and gradients, no optimizer step) of a
+    depth-2 distilled DeiT with DeiT-base's widths (C 768, 12 heads,
+    hidden 3072) at 64 px with ``VITX_FUSED_MLP=1``: every MLP through the
+    kernel on the card, through the plain version on the CPU."""
+    from vit_torch_tpu_torch.models.deit import DistilledVisionTransformer
+    from vit_torch_tpu_torch.models.layers import ClassifierHead, init_weights
+    from vit_torch_tpu_torch.models.vit import ViTConfig
+    from vit_torch_tpu_torch.models.zoo import Classifier
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
+    from vit_torch_tpu_torch.train.steps import cross_entropy_loss
+    monkeypatch.setenv("VITX_FUSED_MLP", "1")
+    cfg = ViTConfig(patch_size=16, embed_dim=768, depth=2, num_heads=12)
+    model = Classifier(DistilledVisionTransformer(cfg, image_size=64),
+                       ClassifierHead(768, [10]))
+    init_weights(model, torch.Generator().manual_seed(0))
+    x = torch.randn((4, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    labels, mask = torch.arange(4), torch.ones(4)
+    results = []
+    for dev in ("cpu", cuda):
+        m = model.to(dev).train()
+        m.zero_grad(set_to_none=True)
+        before = (fm.fused_mlp.launches, fm.fused_mlp_reference.calls)
+        loss = cross_entropy_loss(m(x.to(dev)), labels.to(dev),
+                                  mask.to(dev))
+        loss.backward()
+        launched = (fm.fused_mlp.launches - before[0],
+                    fm.fused_mlp_reference.calls - before[1])
+        assert launched == ((0, 2) if dev == "cpu" else (2, 0))
         results.append((loss.item(), {n: p.grad.float().cpu().clone()
                                       for n, p in m.named_parameters()}))
     (loss_c, grads_c), (loss_g, grads_g) = results

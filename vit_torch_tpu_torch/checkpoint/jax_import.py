@@ -17,8 +17,9 @@ in the port:
 - CaiT's head mixes ``attn.proj_l_kernel`` / ``attn.proj_l_bias`` (and
   ``proj_w``) become the ``Linear(H, H)`` ``attn.proj_l.weight``
   (transposed) / ``attn.proj_l.bias``;
-- Swin's ``relative_position_bias_table`` and CaiT's ``gamma_1``,
-  ``gamma_2``, ``cls_token`` and ``pos_embed`` are kept as they are.
+- Swin's ``relative_position_bias_table``, CaiT's ``gamma_1`` and
+  ``gamma_2``, and the ``cls_token``, ``pos_embed`` and DeiT's
+  ``dist_token`` leaves are kept as they are.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
 
 def state_dict_from_jax(params: Mapping[str, Any], image_channels: int = 3
                         ) -> Dict[str, torch.Tensor]:
-    """Map a flax ViT, Swin or CaiT classifier tree (``{"backbone": ...,
+    """Map a flax ViT, DeiT, Swin or CaiT classifier tree (``{"backbone": ...,
     "head": ...}``, or a bare backbone tree) of numpy-convertible arrays to
     a state dict."""
     out: Dict[str, torch.Tensor] = {}

@@ -1,8 +1,9 @@
 """Torch checkpoints into the port's models, counterpart of the serving
 part of ``vit_torch_tpu/checkpoint/torch_import.py``.
 
-The port's parameter names are DINO's, Facebook CaiT's and Microsoft
-Swin's, so a DINO/timm ViT, a CaiT or a Swin state dict loads as it is
+The port's parameter names are DINO's, timm/Facebook DeiT's and CaiT's and
+Microsoft Swin's, so a DINO/timm ViT, a DeiT, a CaiT or a Swin state dict
+loads as it is
 (CaiT's ``module.`` prefix is stripped); what remains is unwrapping the
 published checkpoint variants, skipping Swin's computed buffers, and
 bicubic interpolation of the position table to the model's grid, with the
@@ -95,12 +96,15 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 def load_backbone_state_dict(path: str, model: nn.Module,
                              image_size: int) -> None:
-    """Load a DINO/timm ViT, Facebook/timm CaiT or Microsoft Swin checkpoint
-    into ``model.backbone`` in place.  For a ViT or CaiT the position table
-    is interpolated to the ``image_size`` grid (CaiT's table has no CLS
-    slot: the backbone's ``num_prefix_tokens`` is 0); a Swin checkpoint
-    goes through :func:`load_swin_state_dict`.  Keys the backbone lacks (a
-    ``head.*``) are ignored; keys it needs and the file lacks raise."""
+    """Load a DINO/timm ViT, Facebook/timm DeiT or CaiT, or Microsoft Swin
+    checkpoint into ``model.backbone`` in place.  For a ViT, DeiT or CaiT
+    the position table is interpolated to the ``image_size`` grid, its
+    first ``num_prefix_tokens`` rows kept as they are (the backbone's: 1
+    for the CLS token, 2 for a distilled DeiT's CLS and distillation
+    tokens, 0 for CaiT's table); a Swin checkpoint goes through
+    :func:`load_swin_state_dict`.  Keys the backbone lacks (``head.*``,
+    DeiT's ``head_dist.*``) are ignored; keys it needs and the file lacks
+    raise."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     backbone = model.backbone

@@ -7,8 +7,9 @@ writes a bundle (``serving/export.py``: manifest + weights) that
 ``python -m vit_torch_tpu_torch.cli.serve --bundle /tmp/bundle`` serves.
 Without ``--torch_ckpt`` the weights are seeded random ones (pipeline
 smoke and speed only); with it the backbone comes from a DINO/timm torch
-checkpoint or a Facebook CaiT checkpoint (``--arch cait_*``), its
-position table interpolated to ``--image_size``, or from a Microsoft Swin
+checkpoint or a Facebook DeiT (``--arch deit_*``, the distilled ones
+with both tokens) or CaiT checkpoint (``--arch cait_*``), its position
+table interpolated to ``--image_size``, or from a Microsoft Swin
 checkpoint (``--arch swin_base_patch4_window12_384_22k`` and the other
 Swin archs).
 """
@@ -36,7 +37,9 @@ def _norm_for(norm_values, dataset: str):
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--arch", required=True)
+    p.add_argument("--arch", required=True,
+                   help="a ported zoo arch: dino_*/vit_*, deit_*, cait_*, "
+                        "swin_*")
     p.add_argument("--classifier", default="10",
                    help="comma-separated head units incl. class count, "
                         "e.g. 512,10 (reference [*fc, num_labels])")

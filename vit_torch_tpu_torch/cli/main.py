@@ -6,6 +6,8 @@ zoo → trainer → fit → stats JSON.  Runs on CUDA unless ``--device cpu``.
         --arch dino_vitb8 --image_size 224 --bs 32 --epoch 1 --opt adamw \\
         --lr 1e-4 --fc 512
 
+``--arch`` takes the ported families (dino/vit, deit, cait, swin);
+``VITX_FUSED_MLP=1`` sends every block's MLP through the fused kernel.
 ``--lineareval`` freezes the backbone; ``--lineareval --cache_features``
 runs the backbone once and trains the head on cached features.  Flags of
 slices that are not ported yet raise (``utils/args.py:check_ported``).

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vit_torch_tpu_torch.ops import attn_block
+from vit_torch_tpu_torch.ops import attn_block, fused_mlp
 from vit_torch_tpu_torch.ops.attention import qkv_attention
 
 
@@ -129,8 +129,36 @@ def set_generator(model: nn.Module,
             mod.generator = generator
 
 
+# B12 is opt-in on CUDA too.  chip_smoke.py's steady_state_deit times
+# whole deit_base_distilled_patch16_224 @224 bs32 steps with it off, on,
+# on, off; on an H100 80GB HBM3 at 700 W (two runs) the kernel (0.89-0.90
+# ms of device time per MLP against 0.12 ms for cuBLAS + GELU + cuBLAS)
+# lost at every shape timed: the linear-eval step 15.27-15.58 ms against
+# 12.31-14.77, the eval forward 13.78-13.87 against 5.51-9.24, the
+# fine-tune step 42.02-49.58 against 28.92-38.55 (its peak memory 2.93 GB
+# against 3.89: the backward recomputes the hidden activation instead of
+# keeping it).
+
+
+def _fused_mlp(x: torch.Tensor, mlp: "Mlp") -> bool:
+    """Whether the MLP takes the fused kernel (:func:`.fused_mlp.fused_mlp`,
+    B12): ``VITX_FUSED_MLP=1``, read per call as the JAX package reads it,
+    with dropout inactive, for the shapes the kernel takes.  Without the
+    flag (or with ``=0``) it is off on every device.  The JAX dispatch puts
+    its W8A8 serving path first; the port has no W8A8 yet (ROADMAP A9)."""
+    if os.environ.get("VITX_FUSED_MLP", "") != "1":
+        return False
+    if mlp.drop.training and mlp.drop.rate > 0.0:
+        return False
+    C = x.shape[-1]
+    return fused_mlp.fits(x.numel() // C, C, mlp.fc1.out_features,
+                          mlp.fc2.out_features)
+
+
 class Mlp(nn.Module):
-    """Transformer MLP: Linear → exact GELU → Linear (+dropout)."""
+    """Transformer MLP: Linear → exact GELU → Linear (+dropout); under
+    ``VITX_FUSED_MLP=1`` the fused kernel (B12), as the JAX module
+    dispatches it."""
 
     def __init__(self, dim: int, hidden_dim: int,
                  out_dim: Optional[int] = None, dropout: float = 0.0):
@@ -140,6 +168,11 @@ class Mlp(nn.Module):
         self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _fused_mlp(x, self):
+            dt = x.dtype
+            return fused_mlp.fused_mlp(
+                x, self.fc1.weight.to(dt), self.fc1.bias.to(dt),
+                self.fc2.weight.to(dt), self.fc2.bias.to(dt))
         x = self.drop(gelu_exact(self.fc1(x)))
         return self.drop(self.fc2(x))
 

@@ -20,17 +20,24 @@ DropPath is inactive (eval, or rate 0) runs the whole-block kernel
 (B9); every other block runs PyTorch ops around the window-block kernel
 :func:`~vit_torch_tpu_torch.ops.window_block.window_block_spatial` (B8):
 LN1, pad, B8 (with the cyclic shift folded in), crop, DropPath, residual,
-LN2, MLP, DropPath, residual.  With grad, both routes go through the
-block functions' autograd Functions, whose attention backward is the
-window-attention backward kernel (B6); the bias table's gradient flows
-through the autograd gather of :meth:`WindowAttention.gathered_bias`.  On
-the CPU the same dispatch runs the kernels' plain versions.
+LN2, MLP, DropPath, residual.  With ``VITX_FUSED_SPATIAL=0`` (read per
+call) those blocks take the flat window block
+:func:`~vit_torch_tpu_torch.ops.window_block.window_block` (B7) in B8's
+place, as the JAX dispatch does when its spatial route is off: roll,
+window partition, B7, window reverse, roll back.  The MLP there is
+:class:`Mlp`, the fused kernel (B12) under ``VITX_FUSED_MLP=1``.  With
+grad, every route goes through the block functions' autograd Functions,
+whose attention backward is the window-attention backward kernel (B6);
+the bias table's gradient flows through the autograd gather of
+:meth:`WindowAttention.gathered_bias`.  On the CPU the same dispatch runs
+the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -267,9 +274,16 @@ class SwinBlock(nn.Module):
         y = self.norm1(x)
         if pad_b or pad_r:
             y = F.pad(y, (0, 0, 0, pad_r, 0, pad_b))
-        y = wb.window_block_spatial(y, *qkv, bias, mask, *proj,
-                                    num_heads=attn.num_heads, window=w,
-                                    scale=attn.scale, shift=shift)
+        if os.environ.get("VITX_FUSED_SPATIAL", "") == "0":
+            y = torch.roll(y, (-shift, -shift), dims=(1, 2)) if shift else y
+            y = window_reverse(wb.window_block(
+                window_partition(y, w), *qkv, bias, mask, *proj,
+                num_heads=attn.num_heads, scale=attn.scale), w, Hp, Wp)
+            y = torch.roll(y, (shift, shift), dims=(1, 2)) if shift else y
+        else:
+            y = wb.window_block_spatial(y, *qkv, bias, mask, *proj,
+                                        num_heads=attn.num_heads, window=w,
+                                        scale=attn.scale, shift=shift)
         if pad_b or pad_r:
             y = y[:, :H, :W]
         x = x + self.drop_path(y)

@@ -80,16 +80,23 @@ class VisionTransformer(nn.Module):
     def feature_dim(self) -> int:
         return self.config.embed_dim
 
+    def _prefix_tokens(self, B: int):
+        """The tokens before the patches: the CLS token."""
+        return [self.cls_token.to(self.dtype).expand(B, -1, -1)]
+
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+        """The features of the normed tokens: the CLS token's."""
+        return x if self.return_all_tokens else x[:, 0]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         x = self.patch_embed(x.to(dt))
-        cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        x = torch.cat([*self._prefix_tokens(x.shape[0]), x], dim=1) \
+            + self.pos_embed.to(dt)
         x = self.pos_drop(x)
         for blk in self.blocks:
             x = blk(x)
-        x = self.norm(x)
-        return x if self.return_all_tokens else x[:, 0]
+        return self._pool(self.norm(x))
 
 
 def vit_flops(config: ViTConfig, image_size: int,

@@ -2,9 +2,9 @@
 
 ``VisionModelZoo.get_model(arch, ...)`` returns a :class:`ZooModel` whose
 ``model`` is a :class:`Classifier` (backbone + optional MLP head) with
-seeded weights on the requested device.  The dino/vit, swin and cait
-families are ported; the other families raise until their slice lands
-(ROADMAP.md).
+seeded weights on the requested device.  The dino/vit, swin, cait and
+deit families are ported; the other families raise until their slice
+lands (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from torch import nn
 
 from vit_torch_tpu_torch.device import resolve_device
 from vit_torch_tpu_torch.models.cait import CAIT_CONFIGS, CaiT
+from vit_torch_tpu_torch.models.deit import DEIT_CONFIGS, build_deit
 from vit_torch_tpu_torch.models.layers import ClassifierHead, init_weights
 from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, SwinTransformer
 from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, VisionTransformer
@@ -75,10 +76,13 @@ def arch_family(arch: str) -> str:
                      f"{sorted(set(f for _, f in _ARCH_FAMILIES))}")
 
 
-# family → (its configs, its backbone class), for the families ported
+# family → (its configs, the function that makes its backbone from a
+# config), for the families ported; a DeiT config is a (ViTConfig,
+# distilled) pair
 _PORTED = {"dino": (VIT_CONFIGS, VisionTransformer),
            "swin": (SWIN_CONFIGS, SwinTransformer),
-           "cait": (CAIT_CONFIGS, CaiT)}
+           "cait": (CAIT_CONFIGS, CaiT),
+           "deit": (DEIT_CONFIGS, build_deit)}
 
 
 def reset_buffers(model: nn.Module,
@@ -123,7 +127,7 @@ class VisionModelZoo:
             raise NotImplementedError(
                 f"model family {family!r} (arch {arch!r}) is not ported yet; "
                 f"see ROADMAP.md for the order of the port")
-        configs, backbone_cls = _PORTED[family]
+        configs, build = _PORTED[family]
         if arch not in configs:
             raise ValueError(f"unknown {family} arch {arch!r}; have "
                              f"{sorted(configs)}")
@@ -131,9 +135,8 @@ class VisionModelZoo:
             image_size = getattr(configs[arch], "default_image_size",
                                  384 if "384" in arch else 224)
         with torch.device("meta"):
-            backbone = backbone_cls(configs[arch], image_size=image_size,
-                                    image_channels=image_channels,
-                                    dtype=dtype)
+            backbone = build(configs[arch], image_size=image_size,
+                             image_channels=image_channels, dtype=dtype)
             head = (ClassifierHead(backbone.feature_dim, classifier)
                     if classifier else None)
             model = Classifier(backbone, head)
@@ -149,4 +152,4 @@ class VisionModelZoo:
                         feature_dim=backbone.feature_dim,
                         image_size=image_size,
                         classifier=list(classifier) if classifier else None,
-                        patch_size=configs[arch].patch_size)
+                        patch_size=backbone.config.patch_size)

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
            "window_attention_fwd", "window_attention_bwd", "window_gemm",
-           "talking_heads", "attn_block")
+           "talking_heads", "attn_block", "fused_mlp")
 LOGS: Dict[str, str] = {}
 
 _lock = threading.Lock()

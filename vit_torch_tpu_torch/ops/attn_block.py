@@ -62,7 +62,8 @@ from vit_torch_tpu_torch.ops import _build
 from vit_torch_tpu_torch.ops.flash_attention import (
     flash_attention_bhnd_reference, flash_attention_qkv)
 from vit_torch_tpu_torch.ops.gemm import (
-    EPI_BIAS, check, dense_f32, gemm, linear, needs_grad, ptr)
+    EPI_BIAS, FLAT, check, dense_f32, gemm, linear, needs_grad, ptr,
+    recompute_grads)
 
 HEAD_DIMS = (32, 64)
 # the projections run over 64-column tiles; the query tile and the heads'
@@ -199,7 +200,7 @@ def _launch(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int, scale: float,
     _check_inputs(x, w_qkv, b_qkv, w_proj, b_proj, num_heads, packed)
     B, N, C = x.shape
     qkv = torch.empty((B, N, 3 * C), dtype=x.dtype, device=x.device)
-    gemm(x, w_qkv, b_qkv, qkv, epilogue=EPI_BIAS, geom=(1, 1, 1, 0))
+    gemm(x, w_qkv, b_qkv, qkv, epilogue=EPI_BIAS, geom=FLAT)
     out = torch.empty_like(x)
     group = _TILE_ROWS // N if packed else 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -269,17 +270,7 @@ class _AttentionBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        need = ctx.needs_input_grad
-        leaves = [t if t is None else t.detach().requires_grad_(need[i])
-                  for i, t in enumerate(ctx.saved_tensors)]
-        wrt = [i for i, t in enumerate(leaves) if t is not None and need[i]]
-        with torch.enable_grad():
-            out = _recompute(*leaves, *ctx.meta)
-        grads = torch.autograd.grad(out, [leaves[i] for i in wrt], dout)
-        res = [None] * len(need)
-        for i, g in zip(wrt, grads):
-            res[i] = g
-        return tuple(res)
+        return recompute_grads(ctx, _recompute, dout, *ctx.meta)
 
 
 def _core(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:

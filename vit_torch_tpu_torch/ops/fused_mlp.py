@@ -1,0 +1,173 @@
+"""The fused transformer MLP: a hand-written CUDA kernel for Hopper, its
+plain PyTorch version, and gradients.
+
+Counterpart of ``vit_torch_tpu/ops/fused_mlp.py``: :func:`fused_mlp`
+replaces the Pallas ``_kernel`` (ROADMAP B12), fc1 → exact GELU → fc2 over
+``(..., C)`` tokens with the ``(T, Hd)`` hidden activation kept on chip.
+On CUDA it is one launch of ``csrc/fused_mlp.cu`` (64 token rows and one
+output slab per block, the hidden dimension walked in chunks of 64; the
+source note gives the design, the fc1 recompute per slab and the bound).
+The TPU's token blocks, lane-of-128 rule and VMEM budget are tilings of
+the same function and have no counterpart here: :func:`fits` states what
+the CUDA kernel takes.
+
+Rounding points follow ``_kernel`` (``:92-99``): x·w1 accumulates in fp32,
+b1 is added in fp32, GELU runs in fp32 (the exact erf form), the hidden
+activation is rounded once to x's dtype; h·w2 accumulates in fp32, b2 is
+added in fp32, one rounding.  The JAX package's XLA path (``_ref_forward``
+``:124``, what the backward differentiates) rounds each product before
+adding its bias in x's dtype instead; :func:`_recompute` keeps that form.
+
+Gradients, as ``_mlp_bwd`` (``:141``) takes them: when an input requires
+grad the call goes through a ``torch.autograd.Function`` whose forward is
+the kernel (the plain version on CPU tensors) and whose backward
+recomputes ``_ref_forward`` with ``torch.matmul`` (the JAX backward leaves
+these products to XLA too) and differentiates it: dx, dw1, db1, dw2, db2.
+
+Weights come in ``nn.Linear`` layout, ``w1`` ``(Hd, C)`` and ``w2``
+``(Co, Hd)``, in the activation dtype; biases may be None.  Dispatch is by
+the tensors' device: CPU tensors run the plain version; CUDA tensors
+launch the kernel or raise, with no fallback.  ``fused_mlp.launches``
+counts kernel launches and ``fused_mlp_reference.calls`` plain forwards.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from vit_torch_tpu_torch.ops import _build
+from vit_torch_tpu_torch.ops.gemm import (check, dense_f32, linear,
+                                          needs_grad, ptr, recompute_grads)
+
+# csrc/fused_mlp.cu's shapes: fc1 runs over k-steps of 64 (at least two),
+# the hidden dimension in chunks of 64, the output in 16-byte rows
+_K_STEP, _HIDDEN_CHUNK, _OUT_ALIGN = 64, 64, 8
+
+
+def fits(T: int, C: int, hidden: int, out_dim: Optional[int] = None) -> bool:
+    """True when the CUDA kernel takes these shapes: C a multiple of 64 and
+    at least 128, the hidden width a multiple of 64, the output width a
+    multiple of 8, at least one token."""
+    Co = C if out_dim is None else out_dim
+    return (T >= 1 and C >= 2 * _K_STEP and C % _K_STEP == 0
+            and hidden >= _HIDDEN_CHUNK and hidden % _HIDDEN_CHUNK == 0
+            and Co >= _OUT_ALIGN and Co % _OUT_ALIGN == 0)
+
+
+def fused_mlp_reference(x: torch.Tensor, w1: torch.Tensor,
+                        b1: Optional[torch.Tensor], w2: torch.Tensor,
+                        b2: Optional[torch.Tensor]) -> torch.Tensor:
+    """Plain version of :func:`fused_mlp` with ``_kernel``'s rounding points,
+    differentiable through autograd."""
+    fused_mlp_reference.calls += 1
+    dt = x.dtype
+    h = F.gelu(dense_f32(x, w1, b1)).to(dt)
+    return dense_f32(h, w2, b2).to(dt)
+
+
+fused_mlp_reference.calls = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_fn():
+    """fused_mlp.cu's entry point, built and loaded on first use."""
+    fn = _build.load("fused_mlp").fused_mlp_bf16
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_inputs(x, w1, b1, w2, b2) -> None:
+    """What the kernel takes: a contiguous, 16-byte aligned bf16 ``(T, C)``
+    token matrix whose shapes :func:`fits`, and contiguous, aligned bf16
+    weights and biases on its device."""
+    if x.dim() != 2 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise TypeError(f"the CUDA kernel takes contiguous bfloat16 (T, C) "
+                        f"tokens, got {x.dtype} {tuple(x.shape)}")
+    if x.data_ptr() % 16:
+        raise ValueError("the tokens must be 16-byte aligned")
+    T, C = x.shape
+    Hd, Co = w1.shape[0], w2.shape[0]
+    if not fits(T, C, Hd, Co):
+        raise ValueError(f"T = {T}, C = {C}, hidden {Hd}, out {Co}: the "
+                         f"kernel takes C a multiple of 64 (>= 128), hidden "
+                         f"a multiple of 64, out a multiple of 8")
+    for name, t, shape in (("w1", w1, (Hd, C)), ("b1", b1, (Hd,)),
+                           ("w2", w2, (Co, Hd)), ("b2", b2, (Co,))):
+        if t is None:
+            continue
+        if (t.shape != shape or t.dtype != torch.bfloat16
+                or not t.is_contiguous() or t.device != x.device
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"bfloat16 {shape} tensor on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _forward(x, w1, b1, w2, b2) -> torch.Tensor:
+    """B12 over (T, C) tokens without autograd: the plain version on CPU
+    tensors, one kernel launch on CUDA tensors."""
+    if x.device.type == "cpu":
+        return fused_mlp_reference(x, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused MLP for device {x.device}")
+    _check_inputs(x, w1, b1, w2, b2)
+    T, C = x.shape
+    out = torch.empty((T, w2.shape[0]), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    check(_mlp_fn()(x.data_ptr(), w1.data_ptr(), ptr(b1), w2.data_ptr(),
+                    ptr(b2), out.data_ptr(), T, C, w1.shape[0], w2.shape[0],
+                    stream), "fused_mlp")
+    fused_mlp.launches += 1
+    return out
+
+
+def _recompute(x, w1, b1, w2, b2) -> torch.Tensor:
+    """``_ref_forward``, the composition ``_mlp_bwd`` differentiates: each
+    product rounded to x's dtype, then its bias added in it; GELU in fp32."""
+    h = F.gelu(linear(x, w1, b1).float()).to(x.dtype)
+    return linear(h, w2, b2)
+
+
+class _FusedMlp(torch.autograd.Function):
+    """B12 with gradients (``_mlp_fwd`` / ``_mlp_bwd``): the forward is the
+    kernel; the backward recomputes :func:`_recompute` under autograd."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _forward(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return recompute_grads(ctx, _recompute, dout)
+
+
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
+              w2: torch.Tensor, b2: Optional[torch.Tensor]) -> torch.Tensor:
+    """Fused fc1 → exact GELU → fc2 over ``(..., C)`` tokens (B12);
+    ``(..., Co)`` out.  ``w1`` ``(Hd, C)``, ``w2`` ``(Co, Hd)``; biases may
+    be None.  Differentiable in every tensor input.  Call :func:`fits`
+    with ``T = prod(leading dims)`` first."""
+    lead, C = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, C)
+    if needs_grad(x, w1, b1, w2, b2):
+        out = _FusedMlp.apply(x2, w1, b1, w2, b2)
+    else:
+        out = _forward(x2, w1, b1, w2, b2)
+    return out.reshape(*lead, w2.shape[0])
+
+
+fused_mlp.launches = 0
+
+
+def mlp_flops(T: int, C: int, hidden: int, out_dim: int) -> int:
+    """Operations of the function (not of the kernel's per-slab fc1
+    recompute): 2·T·C·Hd for fc1 and 2·T·Hd·Co for fc2."""
+    return 2 * T * hidden * (C + out_dim)

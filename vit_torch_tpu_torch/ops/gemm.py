@@ -21,12 +21,32 @@ from vit_torch_tpu_torch.ops import _build
 
 # window_gemm.cu's epilogues (the source note gives their rounding)
 EPI_BIAS, EPI_BIAS_RES, EPI_GELU, EPI_BIAS16_RES = 0, 1, 2, 3
+# the identity row map: a plain row-major product
+FLAT = (1, 1, 1, 0)
 
 
 def needs_grad(*xs) -> bool:
     """True when autograd records and an input requires grad."""
     return torch.is_grad_enabled() and any(
         x is not None and x.requires_grad for x in xs)
+
+
+def recompute_grads(ctx, fn, dout, *meta):
+    """The backward of a Function that saved its tensor inputs (None where
+    an input was None) and recomputes: ``fn(*inputs, *meta)`` runs again
+    under autograd and is differentiated with respect to every input that
+    needs a gradient; the others get None."""
+    need = ctx.needs_input_grad
+    leaves = [t if t is None else t.detach().requires_grad_(need[i])
+              for i, t in enumerate(ctx.saved_tensors)]
+    wrt = [i for i, t in enumerate(leaves) if t is not None and need[i]]
+    with torch.enable_grad():
+        out = fn(*leaves, *meta)
+    grads = torch.autograd.grad(out, [leaves[i] for i in wrt], dout)
+    res = [None] * len(need)
+    for i, g in zip(wrt, grads):
+        res[i] = g
+    return tuple(res)
 
 
 def dense_f32(x: torch.Tensor, w: torch.Tensor,

@@ -1,8 +1,11 @@
-"""Swin window blocks on the spatial map: hand-written CUDA kernels for
-Hopper and their plain PyTorch versions, with gradients.
+"""Swin window blocks: hand-written CUDA kernels for Hopper and their
+plain PyTorch versions, with gradients.
 
 Counterpart of ``vit_torch_tpu/ops/window_block.py``:
 
+- :func:`window_block` replaces the Pallas ``_fwd_kernel`` (ROADMAP B7):
+  ``proj(attn(qkv(x)))`` over ``(Bn, N, C)`` windows already
+  partitioned;
 - :func:`window_block_spatial` replaces the Pallas ``_fwd_kernel_spatial``
   (ROADMAP B8): ``window_reverse(proj(attn(qkv(window_partition(y)))))``
   on the padded, already-rolled ``(B, Hp, Wp, C)`` map;
@@ -14,18 +17,20 @@ On CUDA each forward is a short chain of launches of two hand-written
 sources: ``csrc/window_gemm.cu`` (the products, with the window
 partition/reverse folded into their row addressing and the fused
 epilogues, and the LayerNorm) and ``csrc/window_attention_fwd.cu`` (the
-attention core, the kernel of :mod:`.window_attention`).  B8 is qkv → core
-→ proj; B9 is LN1 → qkv → core → proj+residual → LN2 → fc1+GELU →
-fc2+residual.  The source notes give the design and the bounds.  The TPU's
-window-chunk pickers, head-split groups and VMEM budgets are tilings of the
-same functions and have no counterpart here.
+attention core, the kernel of :mod:`.window_attention`).  B7 and B8 are
+qkv → core → proj (B7's products over plain rows); B9 is LN1 → qkv →
+core → proj+residual → LN2 → fc1+GELU → fc2+residual.  The source notes
+give the design and the bounds.  The TPU's window-chunk pickers,
+head-split groups and VMEM budgets are tilings of the same functions and
+have no counterpart here.
 
 Rounding points follow the TPU kernels (``_block_compute`` and
-``_fwd_kernel_spatial_full``): products accumulate in fp32; qkv and B8's
-projection add their bias in fp32 and round once; each head's attention
-output is rounded; B9's projection rounds, then adds the residual in
-bf16; fc1 and fc2 round, then add their bias in bf16; GELU runs in fp32;
-LayerNorm takes flax's fast-variance fp32 statistics, eps 1e-5.
+``_fwd_kernel_spatial_full``): products accumulate in fp32; qkv and
+B7's and B8's projections add their bias in fp32 and round once; each
+head's attention output is rounded; B9's projection rounds, then adds
+the residual in bf16; fc1 and fc2 round, then add their bias in bf16;
+GELU runs in fp32; LayerNorm takes flax's fast-variance fp32 statistics,
+eps 1e-5.
 
 Weights come in ``nn.Linear`` layout ``(out, in)``, as the port's modules
 hold them, in the activation dtype; LayerNorm weights stay fp32.
@@ -35,25 +40,25 @@ un-rolled and the function is ``roll(+s) ∘ f ∘ roll(-s)``, the shifted
 Swin block's order; the kernels fold the roll into their addressing, the
 plain versions roll.
 
-Gradients, as the JAX package's custom VJPs (``_wbs_bwd``, ``_wbsf_bwd``)
-take them: when an input requires grad, each entry point goes through a
-``torch.autograd.Function`` whose forward is the chain above (the plain
-version on CPU tensors) and whose attention backward is the window
-attention backward (B6, ``csrc/window_attention_bwd.cu``).  B8's keeps the
-window-major qkv projection and attention output of its forward and
-computes the products' gradients with ``torch.matmul`` (the JAX backward
-leaves them to XLA dots too).  B9's recomputes the composition of
-``_wbsf_bwd`` (LN1 → qkv → core → proj → residual → LN2 → fc1 → GELU → fc2
-→ residual) under autograd, its core through
-:func:`.window_attention_qkv` (B5 once more, then B6).  The mask gets no
-gradient.
+Gradients, as the JAX package's custom VJPs (``_wb_bwd``, ``_wbs_bwd``,
+``_wbsf_bwd``) take them: when an input requires grad, each entry point
+goes through a ``torch.autograd.Function`` whose forward is the chain
+above (the plain version on CPU tensors) and whose attention backward is
+the window attention backward (B6, ``csrc/window_attention_bwd.cu``).
+B7's and B8's keep the window-major qkv projection and attention output
+of their forward and compute the products' gradients with
+``torch.matmul`` (the JAX backward leaves them to XLA dots too).  B9's
+recomputes the composition of ``_wbsf_bwd`` (LN1 → qkv → core → proj →
+residual → LN2 → fc1 → GELU → fc2 → residual) under autograd, its core
+through :func:`.window_attention_qkv` (B5 once more, then B6).  The mask
+gets no gradient.
 
 Dispatch is by the tensors' device, as in :mod:`.window_attention`: CPU
 tensors run the plain versions (differentiable through autograd, their
 attention through :func:`.window_attention_qkv`, so the plain B6 backward
 runs there too); CUDA tensors launch the kernels or raise.
-``window_block_spatial.launches`` and ``window_block_full_spatial.launches``
-count kernel chains launched.
+``window_block.launches``, ``window_block_spatial.launches`` and
+``window_block_full_spatial.launches`` count kernel chains launched.
 """
 
 from __future__ import annotations
@@ -67,8 +72,8 @@ import torch.nn.functional as F
 
 from vit_torch_tpu_torch.ops import _build
 from vit_torch_tpu_torch.ops.gemm import (
-    EPI_BIAS, EPI_BIAS16_RES, EPI_BIAS_RES, EPI_GELU, check, dense_f32, gemm,
-    linear, needs_grad)
+    EPI_BIAS, EPI_BIAS16_RES, EPI_BIAS_RES, EPI_GELU, FLAT, check, dense_f32,
+    gemm, linear, needs_grad, recompute_grads)
 from vit_torch_tpu_torch.ops.window_attention import (
     HEAD_DIM, MAX_TOKENS, launch_window_attention, window_attention_bwd,
     window_attention_qkv, window_attention_reference)
@@ -227,24 +232,32 @@ def _layer_norm(x: torch.Tensor, ln: Pair) -> torch.Tensor:
     return out
 
 
-def _check_inputs(x: torch.Tensor, window: int, num_heads: int,
+def _check_inputs(x: torch.Tensor, window: Optional[int], num_heads: int,
                   weights: Sequence[Tuple[str, Optional[torch.Tensor],
                                           Tuple[int, ...]]],
                   lns: Sequence[Tuple[str, Pair]] = ()) -> None:
     """What the CUDA chains take: a contiguous bf16 (B, H, W, C) map with
-    H and W multiples of the window, head dim 32, N = w^2 <= 144, bf16
-    contiguous weights and biases of the named shapes (16-byte aligned:
-    the kernels read them 16 and 4 bytes at a time), fp32 LN weights."""
-    if x.dim() != 4 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+    H and W multiples of the window (or, for ``window=None``, (Bn, N, C)
+    windows), head dim 32, N = w^2 <= 144, bf16 contiguous weights and
+    biases of the named shapes (16-byte aligned: the kernels read them 16
+    and 4 bytes at a time), fp32 LN weights."""
+    if (x.dim() != (3 if window is None else 4)
+            or x.dtype != torch.bfloat16 or not x.is_contiguous()):
         raise TypeError(f"the CUDA kernels take a contiguous bfloat16 "
-                        f"(B, H, W, C) map, got {x.dtype} "
-                        f"{tuple(x.shape)}")
+                        f"(B, H, W, C) map or (Bn, N, C) windows, got "
+                        f"{x.dtype} {tuple(x.shape)}")
     if x.data_ptr() % 16:
         raise ValueError("the map must be 16-byte aligned")
-    B, H, W, C = x.shape
-    if window < 1 or H % window or W % window or window * window > MAX_TOKENS:
-        raise ValueError(f"map {H}x{W} is not tiled by window {window} (or "
-                         f"the window exceeds {MAX_TOKENS} tokens)")
+    C = x.shape[-1]
+    if window is None:
+        if x.shape[1] > MAX_TOKENS:
+            raise ValueError(f"windows of {x.shape[1]} tokens exceed "
+                             f"{MAX_TOKENS}")
+    elif (window < 1 or x.shape[1] % window or x.shape[2] % window
+          or window * window > MAX_TOKENS):
+        raise ValueError(f"map {x.shape[1]}x{x.shape[2]} is not tiled by "
+                         f"window {window} (or the window exceeds "
+                         f"{MAX_TOKENS} tokens)")
     if C % num_heads or C // num_heads != HEAD_DIM:
         raise ValueError(f"C = {C} with {num_heads} heads: the kernels take "
                          f"head dim {HEAD_DIM}")
@@ -267,17 +280,23 @@ def _check_inputs(x: torch.Tensor, window: int, num_heads: int,
 
 def _attention_chain(src: torch.Tensor, w_qkv, b_qkv, bias, mask, geom,
                      num_heads: int, scale: float):
-    """qkv product (rows gathered window-major from the map) → attention
-    core; returns the (Bn, N, 3, H, D) window-major qkv projection and the
-    (Bn, N, C) attention output."""
-    B, H, W, C = src.shape
-    window = geom[2]
-    N = window * window
-    Bn = B * (H // window) * (W // window)
+    """qkv product → attention core over the windows of ``src``: a map whose
+    rows the product gathers window-major (``geom`` its geometry), or
+    (Bn, N, C) windows already partitioned (``geom=None``).  Returns the
+    (Bn, N, 3, H, D) window-major qkv projection and the (Bn, N, C)
+    attention output."""
+    C = src.shape[-1]
+    if geom is None:
+        Bn, N = src.shape[:2]
+    else:
+        B, H, W, _ = src.shape
+        window = geom[2]
+        N = window * window
+        Bn = B * (H // window) * (W // window)
     qkv = torch.empty((Bn, N, 3, num_heads, HEAD_DIM), dtype=src.dtype,
                       device=src.device)
-    gemm(src, w_qkv, b_qkv, qkv, epilogue=EPI_BIAS, geom=geom,
-         gather=True)
+    gemm(src, w_qkv, b_qkv, qkv, epilogue=EPI_BIAS, geom=geom or FLAT,
+         gather=geom is not None)
     attn = torch.empty((Bn, N, C), dtype=src.dtype, device=src.device)
     launch_window_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], bias,
                             mask, attn.view(Bn, N, num_heads, HEAD_DIM),
@@ -322,13 +341,37 @@ def _window_order(Hp: int, Wp: int, window: int, shift: int,
     return order.to(device), torch.argsort(order).to(device)
 
 
+def _block_grads(x_rows, do, qkv, attn, w_qkv, w_proj, bias, mask, scale,
+                 need):
+    """The gradients of qkv product → core → proj product over window-major
+    rows, as ``_wb_bwd`` and ``_wbs_bwd`` take them: ``x_rows`` (T, C) the
+    block's input rows (None when w_qkv needs no gradient), ``do`` (T, C)
+    the output gradient in the same order, ``qkv`` and ``attn`` the
+    forward's.  The proj product's gradients, the attention backward (B6)
+    into one dqkv, the qkv product's gradients; ``need`` is the Function's
+    ``needs_input_grad`` over (x, w_qkv, b_qkv, bias, mask, w_proj,
+    b_proj).  Returns those seven gradients, x's as (T, C) rows."""
+    C = do.shape[-1]
+    dw_proj = do.t() @ attn.reshape(-1, C) if need[5] else None
+    db_proj = do.sum(dim=0) if need[6] else None
+    dqkv = torch.empty_like(qkv)
+    _, _, _, dbias = window_attention_bwd(
+        *qkv.unbind(2), bias, mask,
+        (do @ w_proj).view(attn.shape[0], -1, *qkv.shape[3:]), scale=scale,
+        **dict(zip(("dq", "dk", "dv"), dqkv.unbind(2))))
+    dqkv = dqkv.view(-1, 3 * C)
+    return (dqkv @ w_qkv if need[0] else None,
+            dqkv.t() @ x_rows if need[1] else None,
+            dqkv.sum(dim=0) if need[2] else None,
+            dbias if need[3] else None, None, dw_proj, db_proj)
+
+
 class _WindowBlockSpatial(torch.autograd.Function):
     """B8 with gradients (``_wbs_fwd`` / ``_wbs_bwd``).  The forward keeps
     the window-major qkv projection and attention output; the backward
     gathers the output gradient into window-major rows (one gather: the
-    roll and the partition), runs the proj product's gradients, the
-    attention backward (B6) into one dqkv, the qkv product's gradients,
-    and gathers dy back into map order."""
+    roll and the partition), runs :func:`_block_grads` and gathers dy back
+    into map order."""
 
     @staticmethod
     def forward(ctx, y, w_qkv, b_qkv, bias, mask, w_proj, b_proj, num_heads,
@@ -351,23 +394,12 @@ class _WindowBlockSpatial(torch.autograd.Function):
         def rows(m):                          # map → (T, C) window-major
             return m.reshape(B, Hp * Wp, C)[:, order].view(-1, C)
 
-        do = rows(dout)
-        dw_proj = do.t() @ attn.reshape(-1, C) if need[5] else None
-        db_proj = do.sum(dim=0) if need[6] else None
-        dqkv = torch.empty_like(qkv)
-        _, _, _, dbias = window_attention_bwd(
-            *qkv.unbind(2), bias, mask, (do @ w_proj).view(attn.shape[0], -1,
-                                                           *qkv.shape[3:]),
-            scale=scale, **dict(zip(("dq", "dk", "dv"), dqkv.unbind(2))))
-        dqkv = dqkv.view(-1, 3 * C)
-        dw_qkv = dqkv.t() @ rows(y) if need[1] else None
-        db_qkv = dqkv.sum(dim=0) if need[2] else None
-        dy = None
-        if need[0]:
-            dx = (dqkv @ w_qkv).view(B, Hp * Wp, C)
-            dy = dx[:, inverse].view(B, Hp, Wp, C)
-        return (dy, dw_qkv, db_qkv, dbias if need[3] else None, None,
-                dw_proj, db_proj, None, None, None, None)
+        dx, *grads = _block_grads(rows(y) if need[1] else None, rows(dout),
+                                  qkv, attn, w_qkv, w_proj, bias, mask,
+                                  scale, need)
+        dy = None if dx is None else \
+            dx.view(B, Hp * Wp, C)[:, inverse].view(B, Hp, Wp, C)
+        return (dy, *grads, None, None, None, None)
 
 
 def window_block_spatial(y: torch.Tensor, w_qkv: torch.Tensor,
@@ -392,6 +424,98 @@ def window_block_spatial(y: torch.Tensor, w_qkv: torch.Tensor,
 
 
 window_block_spatial.launches = 0
+
+
+# --------------------------------------------------------------------------
+# B7: the block over windows already partitioned
+# --------------------------------------------------------------------------
+
+def window_block_reference(x: torch.Tensor, w_qkv: torch.Tensor,
+                           b_qkv: Optional[torch.Tensor], bias: torch.Tensor,
+                           mask: Optional[torch.Tensor], w_proj: torch.Tensor,
+                           b_proj: Optional[torch.Tensor], *, num_heads: int,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of :func:`window_block` (B7)."""
+    if scale is None:
+        scale = (x.shape[-1] // num_heads) ** -0.5
+    return _attention_core_reference(x, w_qkv, b_qkv, bias, mask, w_proj,
+                                     b_proj, num_heads, scale)[0].to(x.dtype)
+
+
+def _flat_parts(x, w_qkv, b_qkv, bias, mask, w_proj, b_proj, num_heads,
+                scale):
+    """B7 without autograd: (out, qkv projection, attention output), from
+    the plain version on CPU tensors and the kernel chain on CUDA
+    tensors: the qkv product over plain rows, the core, the proj
+    product."""
+    if x.device.type == "cpu":
+        out, qkv, attn = _attention_core_reference(
+            x, w_qkv, b_qkv, bias, mask, w_proj, b_proj, num_heads, scale)
+        return out.to(x.dtype), qkv, attn
+    if x.device.type != "cuda":
+        raise ValueError(f"no window block for device {x.device}")
+    C = x.shape[-1]
+    _check_inputs(x, None, num_heads, [
+        ("w_qkv", w_qkv, (3 * C, C)), ("b_qkv", b_qkv, (3 * C,)),
+        ("w_proj", w_proj, (C, C)), ("b_proj", b_proj, (C,))])
+    qkv, attn = _attention_chain(x, w_qkv, b_qkv, bias, mask, None,
+                                 num_heads, scale)
+    out = torch.empty_like(x)
+    gemm(attn, w_proj, b_proj, out, epilogue=EPI_BIAS, geom=FLAT)
+    window_block.launches += 1
+    return out, qkv, attn
+
+
+class _WindowBlock(torch.autograd.Function):
+    """B7 with gradients (``_wb_fwd`` / ``_wb_bwd``): the forward keeps the
+    qkv projection and the attention output; the backward is
+    :func:`_block_grads` over the windows' rows."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, b_qkv, bias, mask, w_proj, b_proj, num_heads,
+                scale):
+        out, qkv, attn = _flat_parts(x, w_qkv, b_qkv, bias, mask, w_proj,
+                                     b_proj, num_heads, scale)
+        ctx.save_for_backward(x, w_qkv, bias, mask, w_proj, qkv, attn)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w_qkv, bias, mask, w_proj, qkv, attn = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        C = x.shape[-1]
+        dx, *grads = _block_grads(x.reshape(-1, C) if need[1] else None,
+                                  dout.reshape(-1, C), qkv, attn, w_qkv,
+                                  w_proj, bias, mask, ctx.scale, need)
+        return (None if dx is None else dx.view(x.shape), *grads, None,
+                None)
+
+
+def window_block(x: torch.Tensor, w_qkv: torch.Tensor,
+                 b_qkv: Optional[torch.Tensor], bias: torch.Tensor,
+                 mask: Optional[torch.Tensor], w_proj: torch.Tensor,
+                 b_proj: Optional[torch.Tensor], *, num_heads: int,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """Window attention block (qkv → attention → proj) over ``(Bn, N, C)``
+    windows already partitioned (B7); ``(Bn, N, C)`` out.  Differentiable
+    in every input but the mask.
+
+    ``bias`` (H, N, N) and ``mask`` (nW, N, N), window ``i`` taking mask
+    row ``i mod nW``, as :func:`.window_attention` takes them; ``w_qkv``
+    (3C, C), ``w_proj`` (C, C).  Any N up to 144 runs as it is (the JAX
+    wrapper pads N = 49 to 64 for the TPU's layout, with the padded keys
+    masked: the same function)."""
+    if scale is None:
+        scale = (x.shape[-1] // num_heads) ** -0.5
+    args = (x, w_qkv, b_qkv, bias, mask, w_proj, b_proj, num_heads,
+            float(scale))
+    if needs_grad(x, w_qkv, b_qkv, bias, w_proj, b_proj):
+        return _WindowBlock.apply(*args)
+    return _flat_parts(*args)[0]
+
+
+window_block.launches = 0
 
 
 def _full_spatial_graph(x, ln1w, ln1b, w_qkv, b_qkv, bias, mask, w_proj,
@@ -471,17 +595,7 @@ class _WindowBlockFullSpatial(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        need = ctx.needs_input_grad
-        leaves = [t if t is None else t.detach().requires_grad_(need[i])
-                  for i, t in enumerate(ctx.saved_tensors)]
-        wrt = [i for i, t in enumerate(leaves) if t is not None and need[i]]
-        with torch.enable_grad():
-            out = _full_spatial_graph(*leaves, *ctx.meta)
-        grads = torch.autograd.grad(out, [leaves[i] for i in wrt], dout)
-        res = [None] * len(need)
-        for i, g in zip(wrt, grads):
-            res[i] = g
-        return tuple(res)
+        return recompute_grads(ctx, _full_spatial_graph, dout, *ctx.meta)
 
 
 def window_block_full_spatial(x: torch.Tensor, ln1: Pair, qkv: Pair,
