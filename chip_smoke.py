@@ -22,9 +22,13 @@
    shapes of cait_s24_224 bs32, xxs24, s24_384, m36_384, m48_448 and a
    ragged one through the model's qkv entry, and the headline through
    the (B, N, C) entry; the fused MLP (row 12) at DeiT-base, dino_vitb8
-   and cait_s24_224 bs32, swin_base_384 stage 1 and a ragged shape, with
-   its gradients at the headline; the flat window block (row 7) at the
-   Swin block cases, with its gradients at the headline;
+   and cait_s24_224 bs32, swin_base_384 stages 1 and 4, a ragged shape
+   and T < 64, with its launch plan, TFLOP/s, bound share and ptxas
+   report (no spills, no serialised wgmma), its two row layouts timed
+   against each other at swin_base_384 stages 1 and 2, and its
+   gradients at the headline; the flat
+   window block (row 7) at the Swin block cases, with its gradients at
+   the headline;
 4. exports a full-width dino_vitb8 @224 classifier with seeded weights
    through ``vit_torch_tpu_torch.cli.export``, serves it with
    ``BundleServer`` on the card, sends concurrent HTTP requests, checks the
@@ -101,6 +105,7 @@ import http.client
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -267,10 +272,19 @@ DEIT_TRAIN_ARGS = ["--dataset", "synthetic", "--arch", DEIT_ARCH,
                    "--limit_test", str(DEIT_SAMPLES)]
 # (T, C, hidden, out, biases) of the B12 checks: DeiT-base bs32 (the
 # headline), dino_vitb8 @224 bs32, cait_s24_224 bs32, swin_base_384 stage 1
-# bs32 (the byte-bound case) and a ragged T with out != C and no biases
+# bs32 (the byte-bound case), a ragged T with out != C and no biases,
+# swin_base_384 stage 4 bs32 (C = 1024: two output slabs, the one plan that
+# recomputes fc1) and T < 64 (one partly empty row tile)
 MLP_SHAPES = [(6336, 768, 3072, 768, True), (25120, 768, 3072, 768, True),
               (6272, 384, 1536, 384, True), (294912, 128, 512, 128, True),
-              (1000, 256, 1024, 520, False)]
+              (1000, 256, 1024, 520, False), (4608, 1024, 4096, 1024, True),
+              (40, 384, 1536, 384, True)]
+# (T, C, hidden, out) at which B12's two row layouts are timed against
+# each other: swin_base_384 stages 1 and 2 at bs32, where launch_plan
+# takes 128-row tiles (they fill the card), and stage 2 at bs1, where it
+# takes 64-row tiles (twice the blocks)
+MLP_LAYOUT_SHAPES = [(294912, 128, 512, 128), (73728, 256, 1024, 256),
+                     (2304, 256, 1024, 256)]
 # B12 vs its plain version, max |kernel - plain| relative to max |plain|:
 # both round the hidden activation once and sum in fp32 in another order,
 # so a hidden value can land one bf16 ulp (2^-8) away, which fc2 carries;
@@ -1983,6 +1997,29 @@ def _mlp_bound_ms(T, C, Hd, Co):
                   (T * C + T * Co + Hd * C + Co * Hd + Hd + Co) * 2)
 
 
+def _ptxas_lines(log: str):
+    """The ``ptxas -v`` lines of one build log that name a kernel or give
+    its registers, shared memory and spills."""
+    return [line.split(":", 1)[-1].strip() for line in log.splitlines()
+            if "Compiling entry" in line or "registers" in line
+            or "spill" in line or "Potential Performance Loss" in line]
+
+
+def fused_mlp_ptxas(log: str):
+    """The fused-MLP kernel's ``ptxas -v`` lines; raises unless the log
+    reports its spills and every instance spills nothing and keeps its
+    wgmma asynchronous (ptxas's C7512 "Potential Performance Loss" note
+    says it serialised them for want of registers)."""
+    lines = _ptxas_lines(log)
+    spills = [int(n) for line in lines
+              for n in re.findall(r"(\d+) bytes spill", line)]
+    if (not spills or any(spills)
+            or any("Potential Performance Loss" in line for line in lines)):
+        raise AssertionError("fused_mlp: no ptxas report, spills or "
+                             "serialised wgmma: " + " | ".join(lines))
+    return lines
+
+
 def check_fused_mlp(shape, seed):
     """B12 (row 12) vs its plain version on one (T, C, hidden, out) shape;
     times the kernel on CUDA events and its device time from the profiler,
@@ -2009,12 +2046,52 @@ def check_fused_mlp(shape, seed):
     plain_ms = _time_ms(lambda: fm.fused_mlp_reference(*args), iters=3)
     library_ms = _time_ms(lambda: _library_mlp(*args), iters=20)
     bound_ms, bound_by = _mlp_bound_ms(T, C, Hd, Co)
+    # the plan the wrapper passes to the kernel: one block per row tile
+    # and slab; each slab past the first recomputes fc1
+    plan = fm.launch_plan(
+        T, C, Hd, Co,
+        torch.cuda.get_device_properties(0).multi_processor_count)._asdict()
+    plan["grid"] = "one block per (row tile, slab)"
+    flops = fm.mlp_flops(T, C, Hd, Co)
     row = {"shape": [T, C, Hd, Co], "biases": bias, "max_abs_err": abs_err,
            "max_rel_err": rel, "ms": ms, "device_ms": device_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "slabs": -(-Co // 384)}
+           "bound_ms": bound_ms, "bound_by": bound_by, "plan": plan,
+           "tflops": flops / device_ms / 1e9,
+           "library_tflops": flops / library_ms / 1e9,
+           "bound_share": bound_ms / device_ms}
     _say("kernel check fused_mlp", json.dumps(row))
+    return row
+
+
+def compare_fused_mlp_layouts(shape, seed):
+    """B12 with each row layout forced on one shape, both against the plain
+    version; CUDA-event times of each, twice, in the order 64, 128, 128,
+    64 rows, beside the layout launch_plan takes on this card."""
+    import torch
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
+    T, C, Hd, Co = shape
+    args = _mlp_inputs(T, C, Hd, Co, seed)
+    ref = fm.fused_mlp_reference(*args)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row = {"shape": list(shape), "sms": sms,
+           "chosen_rows": fm.launch_plan(T, C, Hd, Co, sms).block_rows,
+           "max_rel_err": {}, "ms": {64: [], 128: []}}
+    plans = {rows: fm.launch_plan(T, C, Hd, Co, block_rows=rows)
+             for rows in (64, 128)}
+    for rows, plan in plans.items():
+        out = fm.launch(*args, plan)
+        rel = _rel_err(out, ref)
+        if not (torch.isfinite(out).all() and rel <= MLP_RTOL):
+            raise AssertionError(f"fused_mlp {shape} at {rows} rows: max "
+                                 f"abs err relative to max|plain| {rel} > "
+                                 f"{MLP_RTOL}")
+        row["max_rel_err"][rows] = rel
+    del out, ref
+    for rows in (64, 128, 128, 64):
+        row["ms"][rows].append(
+            _time_ms(lambda: fm.launch(*args, plans[rows]), iters=20))
+    _say("kernel check fused_mlp layouts", json.dumps(row))
     return row
 
 
@@ -2260,10 +2337,8 @@ def main() -> int:
 
     _say(f"build seconds {_build.build():.2f} ({', '.join(_build.KERNELS)})")
     for kernel, log in _build.LOGS.items():   # registers, smem, spills
-        _say(f"ptxas {kernel}: " + " | ".join(
-            line.split(":", 1)[-1].strip() for line in log.splitlines()
-            if "Compiling entry" in line or "registers" in line
-            or "spill" in line))
+        _say(f"ptxas {kernel}: " + " | ".join(_ptxas_lines(log)))
+    mlp_ptxas = fused_mlp_ptxas(_build.LOGS.get("fused_mlp", ""))
 
     rows = [check_flash_kernel(shape, seed=i)
             for i, shape in enumerate(ATTN_SHAPES)]
@@ -2294,6 +2369,8 @@ def main() -> int:
                                             packed=True)]
     mlp_rows = [check_fused_mlp(shape, seed=i)
                 for i, shape in enumerate(MLP_SHAPES)]
+    mlp_layouts = [compare_fused_mlp_layouts(shape, seed=i)
+                   for i, shape in enumerate(MLP_LAYOUT_SHAPES)]
     mlp_grads = check_fused_mlp_grads(MLP_SHAPES[0], seed=0)
     flat_rows = [check_window_block_flat(case, seed=i)
                  for i, case in enumerate(SWIN_BLOCKS)]
@@ -2540,6 +2617,12 @@ def main() -> int:
         "ms_device_plain_library_bound_by_shape": [
             [r["shape"], r["ms"], r["device_ms"], r["plain_ms"],
              r["library_ms"], r["bound_ms"]] for r in mlp_rows],
+        "plan_tflops_bound_share_by_shape": [
+            [r["shape"], r["plan"], r["tflops"], r["library_tflops"],
+             r["bound_share"]] for r in mlp_rows],
+        "ptxas": mlp_ptxas,
+        "layouts_chosen_rows_ms_by_rows": [
+            [r["shape"], r["chosen_rows"], r["ms"]] for r in mlp_layouts],
         "grad_max_rel_err": max(mlp_grads["grad_rel_err"]),
         "fwd_bwd_ms": mlp_grads["fwd_bwd_ms"],
         "library_fwd_bwd_ms": mlp_grads["library_fwd_bwd_ms"],

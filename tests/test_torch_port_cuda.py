@@ -699,12 +699,15 @@ def test_dino_shaped_vit_step_with_b3_on_cuda_matches_cpu(cuda, monkeypatch):
 # --------------------------------------------------------------------------
 # the fused MLP (B12) and the flat window block (B7)
 
-# (T, C, hidden, out): DeiT-base (shrunk T), CaiT's C = 384 (one 384-wide
-# output slab), Swin stage 1 (C = 128, the smallest C), a ragged T with
-# out != C over two slabs, a ragged T at C = 192 (three k-steps)
+# (T, C, hidden, out): DeiT-base (shrunk T; 64-row blocks, 384 columns a
+# warpgroup), CaiT's C = 384, Swin stage 1 (C = 128, the smallest C), a
+# ragged T with out != C (a masked slab), a ragged T at C = 192 (three
+# k-steps), Swin stage 4 bs32 (C = 1024: two slabs, the one shape that
+# recomputes fc1) and T < 64 (one partly empty row tile)
 MLP_SHAPES = [(198, 768, 3072, 768), (131, 384, 1536, 384),
               (300, 128, 512, 128), (77, 256, 1024, 520),
-              (5, 192, 768, 192)]
+              (5, 192, 768, 192), (4608, 1024, 4096, 1024),
+              (40, 384, 1536, 384)]
 
 
 def _mlp_inputs(T, C, Hd, Co, device, seed=0, bias=True):
@@ -735,6 +738,23 @@ def test_fused_mlp_kernel_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert (fm.fused_mlp.launches, fm.fused_mlp_reference.calls) == (
         before[0] + 1, before[1])
+    ref = fm.fused_mlp_reference(*args)
+    assert got.shape == (T, Co) and torch.isfinite(got).all()
+    assert _rel_err(got, ref) <= BLOCK_RTOL
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("shape", [(300, 128, 512, 128), (5, 192, 768, 192),
+                                   (77, 256, 1024, 256)], ids=str)
+def test_fused_mlp_row_layouts_match_plain(cuda, shape, rows):
+    """Each row layout of the kernel, forced through ``launch``, at the
+    narrow widths where launch_plan chooses between them (ragged T),
+    against the plain version within BLOCK_RTOL."""
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
+    T, C, Hd, Co = shape
+    args = _mlp_inputs(T, C, Hd, Co, cuda, seed=T)
+    got = fm.launch(*args, fm.launch_plan(T, C, Hd, Co, block_rows=rows))
+    torch.cuda.synchronize()
     ref = fm.fused_mlp_reference(*args)
     assert got.shape == (T, Co) and torch.isfinite(got).all()
     assert _rel_err(got, ref) <= BLOCK_RTOL

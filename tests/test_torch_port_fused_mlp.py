@@ -199,6 +199,52 @@ def test_fits_states_the_kernels_shapes(T, C, Hd, Co, ok):
     assert fm.fits(T, C, Hd, Co) == ok
 
 
+# (T, C, hidden, out) -> (rows a block, columns a fc2 warpgroup, slabs,
+# blocks) on 132 SMs: csrc/fused_mlp.cu's instances are rows 128 with 128,
+# 192 or 256 columns (taken where 128-row tiles fill a wave) and rows 64
+# with 64 to 384
+@pytest.mark.parametrize("shape,plan", [
+    ((6336, 768, 3072, 768), (64, 384, 1, 99)),       # DeiT-base bs32
+    ((25120, 768, 3072, 768), (64, 384, 1, 393)),     # dino_vitb8 bs32
+    ((6272, 384, 1536, 384), (64, 192, 1, 98)),       # cait_s24_224 bs32
+    ((294912, 128, 512, 128), (128, 128, 1, 2304)),   # Swin stage 1
+    ((18432, 256, 1024, 256), (128, 256, 1, 144)),    # Swin stage 2 bs8
+    ((4608, 512, 2048, 512), (64, 256, 1, 72)),       # Swin stage 3 bs8
+    ((4608, 1024, 4096, 1024), (64, 256, 2, 144)),    # Swin stage 4
+    ((10, 1536, 6144, 1536), (64, 384, 2, 2)),        # Swin-L stage 4
+    ((5, 192, 768, 192), (64, 128, 1, 1)),            # ragged T
+    ((1000, 256, 1024, 520), (64, 384, 1, 16)),       # out != C
+    ((40, 384, 1536, 384), (64, 192, 1, 1)),          # T < 64
+    ((2304, 256, 1024, 256), (64, 128, 1, 36)),       # Swin stage 2 bs1
+    ((16896, 128, 512, 128), (128, 128, 1, 132)),     # one full wave
+    ((16768, 128, 512, 128), (64, 64, 1, 262)),       # one block short
+], ids=str)
+def test_launch_plan_keeps_rows_whole_up_to_768(shape, plan):
+    """One output slab (no fc1 recompute) for every out width up to 768,
+    as few slabs as fit 768 columns above it; the slabs cover the output
+    row; one block per row tile and slab."""
+    got = fm.launch_plan(*shape)
+    assert tuple(got) == plan
+    T, C, Hd, Co = shape
+    assert (got.slabs == 1) == (Co <= 768)
+    assert got.slabs == -(-Co // 768)
+    slab_cols = got.warpgroup_cols * (1 if got.block_rows == 128 else 2)
+    assert slab_cols * got.slabs >= Co
+    assert got.blocks == -(-T // got.block_rows) * got.slabs
+
+
+def test_launch_plan_follows_the_card_and_a_forced_layout():
+    """128-row tiles once they fill the given SMs; a forced row layout
+    where the kernel has it, and a refusal where it has not."""
+    assert fm.launch_plan(2304, 256, 1024, 256, sms=16) == (128, 256, 1, 18)
+    assert fm.launch_plan(294912, 128, 512, 128, block_rows=64) == (
+        64, 64, 1, 4608)
+    assert fm.launch_plan(2304, 256, 1024, 256, block_rows=128) == (
+        128, 256, 1, 18)
+    with pytest.raises(ValueError):
+        fm.launch_plan(6272, 384, 1536, 384, block_rows=128)
+
+
 def test_cuda_tensor_never_takes_the_plain_version():
     """A tensor off the CPU reaches the kernel's checks, never the plain
     version: on the meta device the wrapper raises."""

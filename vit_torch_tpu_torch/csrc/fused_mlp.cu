@@ -6,340 +6,393 @@
 // ("B12").  Rounding points are _kernel's: x W1 accumulates in fp32, b1 is
 // added in fp32, GELU runs in fp32 (the exact erf form), h is rounded once
 // to bf16; h W2 accumulates in fp32, b2 is added in fp32, one rounding.
-// GELU uses erff, which differs from the TPU kernel's Abramowitz-Stegun
-// polynomial (|err| <= 1.5e-7) far below bf16 resolution (2^-8).
+// GELU evaluates the TPU kernel's own erf polynomial (Abramowitz-Stegun
+// 7.1.26, |err| <= 1.5e-7, far below bf16 resolution 2^-8).
 //
-// The TPU kernel held W1 and W2 resident in VMEM (9.4 MB at C = 768,
-// Hd = 3072) and the whole (tb, Hd) hidden tile beside them.  An SM holds
-// neither, so on Hopper a block owns BM = 64 token rows and one output
-// slab of BN columns (BN = 128, 256 or 384, from Co) and walks the hidden
-// dimension in chunks of 64:
-//   1. h = x[rows] W1[chunk]^T over k-steps of 64, x and W1 tiles through
-//      a 3-stage cp.async ring, mma.sync.m16n8k16 bf16 -> fp32;
-//   2. h = bf16(gelu(h + b1)) into shared memory (64 x 64);
-//   3. acc += h W2[slab, chunk]^T, the W2 tile (BN x 64) double-buffered
-//      and fetched with the ring's cp.async groups one chunk ahead;
-// then out[rows, slab] = bf16(acc + b2), each output element written once.
-// Where Co needs more than one slab (Co > 384), every slab recomputes fc1
-// for its rows: the recompute factor is ceil(Co / 384) on fc1 (2 at
-// DeiT-base, C = Co = 768), so the kernel does (slabs + 1) / 2 times the
-// function's operations (1.5x at DeiT-base).  The accumulator of a 384-wide
-// slab is 96 fp32 registers a thread; a whole Co = 768 row would not fit.
-//
-// Bound: 2 T C Hd + 2 T Hd Co operations against x and out once, W1 and
-// W2 once.  At DeiT-base bs32 (T = 6336, C = Co = 768, Hd = 3072) that is
+// Bound: 2 T Hd (C + Co) operations against x and out once, W1 and W2
+// once.  At DeiT-base bs32 (T = 6336, C = Co = 768, Hd = 3072) that is
 // 59.8 GFLOP against 28.9 MB: bound by operations, 60 us at 989 TFLOP/s.
-// At Swin stage 1 (C = 128) it is nearer the byte bound.  This version has
-// no TMA, wgmma or warp specialisation: 8 warps a block, one block an SM
-// at BN = 384 (171 KB of shared memory).
+// Swin stage 1 (C = 128) is the nearest to its byte bound.
+//
+// Design.  The TPU kernel kept W1 and W2 resident in VMEM beside a whole
+// (tb, Hd) hidden tile; an SM holds neither.  Here a block owns a tile of
+// token rows and a whole output row (one "slab" of columns, up to 768) and
+// walks the hidden dimension in chunks of HC = 128 (64 at 384 columns a
+// warpgroup, below):
+//   1. fc1: h = x[rows] W1[chunk]^T over k-steps of 64, wgmma m64nN1k16
+//      (bf16 in, fp32 in registers), both operands from shared memory;
+//   2. h = bf16(gelu(h + b1)) into a double-buffered shared tile, written
+//      in the 128-byte swizzle that wgmma reads;
+//   3. fc2: acc += h W2[slab, chunk]^T, wgmma m64nPRk16 with h as A;
+// then out = bf16(acc + b2), each output element written once.
+// Warp specialisation: warpgroups 0 and 1 compute (setmaxnreg 240), the
+// first thread of warpgroup 2 issues every copy (setmaxnreg 24).  All
+// tiles arrive by TMA (cp.async.bulk.tensor, 128-byte swizzle, out-of-
+// bounds rows zero-filled) into one ring of stages, each completing on a
+// "full" mbarrier; the 8 consumer warps release a stage on its "empty"
+// mbarrier once the wgmma that read it has retired (wgmma.wait_group 1
+// keeps one group in flight).  A stage holds either the x tile and the W1
+// tile of one fc1 k-step or one W2 piece (PR rows x 64 of the chunk); the
+// chunk's b1 slice rides on its first fc1 stage (cp.async.bulk), so GELU
+// reads b1 from shared memory.  x is streamed with W1, so any C that is a
+// multiple of 64 fits.
+//
+// Two row layouts, chosen by the host plan (ops/fused_mlp.py:launch_plan):
+//   rows 128 (slab <= 256 columns, at least one wave of blocks): each
+//     consumer warpgroup owns 64 rows and the whole slab, computes its own
+//     rows' fc1 for the whole chunk (N1 = 128) and reads its own rows of
+//     h; W1 and W2 tiles serve 128 rows, half the operand bytes a row of
+//     the 64-row layout, which is what the narrow, many-row Swin stages
+//     need.  Registers: 64 (fc1) + NW / 2 <= 128 (fc2) accumulators.
+//   rows 64 (every other shape): both warpgroups share 64 rows; each
+//     computes half of the chunk's fc1 (N1 = HC / 2), the two halves of h
+//     meet in shared memory (named barrier), and each accumulates half of
+//     the slab (NW = 64 to 384 columns); twice the blocks of rows 128,
+//     for a T too small to fill the card with 128-row tiles.  At C = Co =
+//     768 the fc2 accumulator of a 64 x 768 row tile is 49,152 fp32
+//     registers, three quarters of the SM's 65,536: 192 a consumer thread,
+//     which holds 240 (256 x 240 + 128 x 24 = 64,512).  With N1 = 64 on top
+//     (224) ptxas spills and serialises wgmma, so that instance takes
+//     HC = 64 and N1 = 32: 192 + 16 accumulators, no spills.
+// Co above 768 (Swin stage 4 at 1024) takes ceil(Co / 768) slabs, each of
+// which recomputes fc1 for its rows; at Co <= 768 there is one slab and
+// the kernel does exactly the function's operations.
+// Shared memory: ring stages of max((BM + HC) x 128, PR x 128) bytes
+// (32 KB x 5 at rows 128, 24 KB x 8 at rows 64) plus two h buffers
+// (BM x HC bf16 each: 16-64 KB together) and 4 b1 slices, <= 227 KB; one
+// block of 384 threads per SM.  Waves: DeiT-base bs32 launches 99 blocks
+// of 64 rows on 132 SMs (three quarters of the card); dino_vitb8 bs32
+// 393, Swin stage 1 2304 blocks of 128 rows.
+// What bounds it, timed with clock64 around each phase: at C = 768 most
+// of a block's cycles go to issuing wgmma, fc1 at n32 being limited by
+// shared-memory operand reads, then to waiting for fc1's x and W1 tiles
+// and to GELU, during which the tensor cores idle because both warpgroups
+// reach it together; at C = 128, GELU takes half of them.
+//
+// This replaces the port's first design: 8 warps of mma.sync.m16n8k16 on
+// ldmatrix fragments, a 3-stage cp.async ring filled by every warp, one
+// output slab of at most 384 columns per block and fc1 recomputed per slab
+// (1.5x the operations at C = 768).  Its times on an H100 80GB HBM3 at
+// 700 W (chip_smoke): DeiT-base bs32 0.899-0.907 ms, dino_vitb8 bs32
+// 2.628-2.683, cait_s24_224 bs32 0.157, Swin stage 1 0.534-0.560.
 //
 // C entry point (ctypes): fused_mlp_bf16(...) returns the cudaError_t of
 // the launch; it launches on the given stream, does not synchronise and
 // allocates nothing.  x (T, C), W1 (Hd, C), W2 (Co, Hd) are row-major
-// (nn.Linear layout), b1 (Hd) and b2 (Co) may be null, out (T, Co).
-// C must be a multiple of 64 and at least 128 (two k-steps: the W2 tile
-// of chunk j + 1 is fetched while chunk j's fc1 runs), Hd a multiple of
-// 64, Co a multiple of 8; every pointer 16-byte aligned.
+// (nn.Linear layout), b1 (Hd) and b2 (Co) may be null, out (T, Co); every
+// pointer 16-byte aligned.  C and Hd are multiples of 64, Co of 8.
+// (block_rows, wg_cols, slabs) is the host's plan; a plan with no kernel
+// instance below is refused.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kBM = 64;             // token rows per block
-constexpr int kHC = 64;             // hidden columns per chunk
-constexpr int kBK = 64;             // fc1 k-step
-constexpr int kStages = 3;          // fc1 ring depth
-constexpr int kLd = kBK + 8;        // ring row stride (16 bytes of padding)
-constexpr int kLdH = kHC + 8;       // h and W2 tile row stride
-constexpr int kThreads = 256;       // 8 warps: 2 along M x 4 along N
-constexpr int kRingTile = kBM * kLd;          // x or W1 tile, one stage
-constexpr int kRingElems = kStages * 2 * kRingTile;
-constexpr int kHElems = kBM * kLdH;
+constexpr int kThreads = 384;         // 2 consumer warpgroups + producer
+constexpr int kSmemMax = 232448;      // 227 KB a block may use
+constexpr int kB1Slots = 4;           // b1 slices in flight (chunk % 4)
 
-constexpr int smem_bytes(int bn) {
-  return (kRingElems + kHElems + 2 * bn * kLdH) * 2;
-}
+template <bool kRows128, int kNW, int kPR, int kHC>
+struct Cfg {
+  static constexpr int BM = kRows128 ? 128 : 64;     // token rows a block
+  static constexpr int N1 = kRows128 ? kHC : kHC / 2;  // fc1 width a WG
+  static constexpr int NQ = kNW / kPR;               // W2 pieces a WG
+  static constexpr int PIECES = kRows128 ? NQ : 2 * NQ;  // per 64 of K
+  static constexpr int SW = kRows128 ? kNW : 2 * kNW;    // slab width
+  static constexpr int FC1_BYTES = (BM + kHC) * 128;     // x + W1 tiles
+  static constexpr int PIECE_BYTES = kPR * 128;
+  static constexpr int STAGE =
+      FC1_BYTES > PIECE_BYTES ? FC1_BYTES : PIECE_BYTES;
+  static constexpr int H_TILE = BM * 128;    // one 64-column tile of h
+  static constexpr int H_BYTES = BM * kHC * 2;   // one h buffer
+  static constexpr int B1_BYTES = kB1Slots * kHC * 2;  // b1 slices
+  static constexpr int FIT =
+      (kSmemMax - 1024 - 2 * H_BYTES - B1_BYTES - 256) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * H_BYTES +
+                              B1_BYTES + 2 * STAGES * 8;
+  static_assert(kNW % kPR == 0 && kPR <= 256, "pieces tile the slab");
+  static_assert(STAGES >= 3 && SMEM <= kSmemMax, "shared memory");
+};
 
 struct Params {
-  const __nv_bfloat16* x;     // (T, C)
-  const __nv_bfloat16* w1;    // (Hd, C)
   const __nv_bfloat16* b1;    // (Hd) or null
-  const __nv_bfloat16* w2;    // (Co, Hd)
   const __nv_bfloat16* b2;    // (Co) or null
   __nv_bfloat16* out;         // (T, Co)
   int T, C, Hd, Co, slabs;
 };
 
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16-byte global -> shared copy; zero-fills the destination when !pred
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
+// GELU with the Pallas kernel's own erf (Abramowitz-Stegun 7.1.26,
+// |err| <= 1.5e-7): gelu(x) = relu(x) - |x| / 2 * poly(t) * exp(-x^2 / 2)
+// with t = 1 / (1 + p |x| / sqrt 2); one reciprocal and one exp2 on the
+// SFU (approx.ftz: 1-2 ulp, far below the polynomial's error) and seven
+// FMAs, cheaper than erff where GELU is a large share (C = 128)
 __device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
+  const float ax = fabsf(x) * 0.70710678118654752f;
+  float t, e;
+  asm("rcp.approx.ftz.f32 %0, %1;\n"
+      : "=f"(t)
+      : "f"(fmaf(0.3275911f, ax, 1.f)));
+  asm("ex2.approx.ftz.f32 %0, %1;\n"
+      : "=f"(e)
+      : "f"(-1.44269504088896341f * ax * ax));
+  const float poly =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f),
+                               1.421413741f),
+                       -0.284496736f),
+               0.254829592f);
+  return fmaxf(x, 0.f) - 0.70710678118654752f * ax * poly * e;
 }
 
-// A fragments of one 16 x 16 tile of a row-major [m][k] operand
-__device__ __forceinline__ void load_a(uint32_t af[4],
-                                       const __nv_bfloat16* base, int ld,
-                                       int row0, int k0, int lane) {
-  ldmatrix_x4(af, base + (row0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+__device__ __forceinline__ float2 pair(const __nv_bfloat16* p, int i,
+                                       bool ok) {
+  if (p == nullptr || !ok) return make_float2(0.f, 0.f);
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p + i);
+  return make_float2(__low2float(v), __high2float(v));
 }
 
-// B fragments of two 8-column tiles (16 n x 16 k) of an operand stored
-// [n][k], row-major
-__device__ __forceinline__ void load_b(uint32_t bf[2][2],
-                                       const __nv_bfloat16* base, int ld,
-                                       int n0, int k0, int lane) {
-  uint32_t r[4];
-  ldmatrix_x4(r, base + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
-                     ((lane >> 3) & 1) * 8);
-  bf[0][0] = r[0];
-  bf[0][1] = r[1];
-  bf[1][0] = r[2];
-  bf[1][1] = r[3];
-}
-
-// NT: 8-column tiles of the output slab per warp (BN = 32 NT)
-template <int NT>
+template <bool kRows128, int kNW, int kPR, int kHC>
 __global__ void __launch_bounds__(kThreads, 1)
-    fused_mlp_kernel(const Params p) {
-  constexpr int BN = 32 * NT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* hs = ring + kRingElems;       // bf16 h, kBM x kLdH
-  __nv_bfloat16* w2s = hs + kHElems;           // 2 x BN x kLdH
+    fused_mlp_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_w1,
+                     const __grid_constant__ CUtensorMap tm_w2,
+                     const Params p) {
+  using K = Cfg<kRows128, kNW, kPR, kHC>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* hbuf = ring + K::STAGES * K::STAGE;
+  __nv_bfloat16* b1s =
+      reinterpret_cast<__nv_bfloat16*>(hbuf + 2 * K::H_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(hbuf + 2 * K::H_BYTES +
+                                               K::B1_BYTES);
+  uint64_t* empty = full + K::STAGES;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
   const int rb = blockIdx.x / p.slabs;
-  const int slab = blockIdx.x - rb * p.slabs;
-  const int m0 = rb * kBM;
-  const int n0 = slab * BN;
-  const int ksteps = p.C / kBK;
-  const int nchunks = p.Hd / kHC;
-  const int steps = ksteps * nchunks;
+  const int m0 = rb * K::BM;
+  const int n0 = (blockIdx.x - rb * p.slabs) * K::SW;
+  const int ksteps = p.C / 64;
+  const int nchunks = (p.Hd + kHC - 1) / kHC;
 
-  // ring loads: thread copies rows tid / 8 and tid / 8 + 32, 16 bytes at
-  // column (tid % 8) 8, of the x tile and of the W1 tile
-  const int lrow = tid >> 3;
-  const int lcol = (tid & 7) * 8;
-  bool xok[2];
-  const __nv_bfloat16* xrow[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    xok[i] = m0 + lrow + 32 * i < p.T;
-    xrow[i] = xok[i] ? p.x + static_cast<long long>(m0 + lrow + 32 * i) * p.C
-                     : p.x;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < K::STAGES; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, 8);   // one arrival per consumer warp
+    }
+    sm90::mbar_init_fence();
   }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
 
-  // stage s: k-step s % ksteps of hidden chunk s / ksteps; the first
-  // k-step of a chunk also fetches the chunk's W2 tile into buffer
-  // chunk % 2 (the group is waited for before the chunk's fc1 starts)
-  auto load_stage = [&](int s) {
-    const int chunk = s / ksteps;
-    const int ks = s - chunk * ksteps;
-    __nv_bfloat16* sa = ring + (s % kStages) * 2 * kRingTile;
-    __nv_bfloat16* sb = sa + kRingTile;
-    const int k0 = ks * kBK + lcol;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = lrow + 32 * i;
-      cp_async16(sa + r * kLd + lcol, xrow[i] + (xok[i] ? k0 : 0), xok[i]);
-      cp_async16(sb + r * kLd + lcol,
-                 p.w1 + static_cast<long long>(chunk * kHC + r) * p.C + k0,
-                 true);
-    }
-    if (ks == 0) {
-      __nv_bfloat16* dst = w2s + (chunk & 1) * BN * kLdH;
-#pragma unroll
-      for (int i = 0; i < BN * (kHC / 8) / kThreads; ++i) {
-        const int idx = tid + kThreads * i;
-        const int r = idx >> 3;
-        const int c = (idx & 7) * 8;
-        const bool ok = n0 + r < p.Co;
-        cp_async16(dst + r * kLdH + c,
-                   ok ? p.w2 + static_cast<long long>(n0 + r) * p.Hd +
-                            chunk * kHC + c
-                      : p.w2,
-                   ok);
-      }
-    }
-  };
-
-  // fc1 warp tile: 32 rows x 16 hidden columns; fc2 warp tile: 32 rows x
-  // BN / 4 output columns
-  const int wm = (warp >> 2) * 32;
-  const int wn1 = (warp & 3) * 16;
-  const int wn2 = (warp & 3) * (BN / 4);
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-    }
-  }
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) load_stage(s);
-    cp_async_commit();
-  }
-  for (int chunk = 0; chunk < nchunks; ++chunk) {
-    float h[2][2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        h[mt][nt][0] = h[mt][nt][1] = h[mt][nt][2] = h[mt][nt][3] = 0.f;
-      }
-    }
-    for (int ks = 0; ks < ksteps; ++ks) {
-      const int s = chunk * ksteps + ks;
-      cp_async_wait<kStages - 2>();   // stage s has landed
-      __syncthreads();                // and everyone is done with s - 1
-      if (s + kStages - 1 < steps) load_stage(s + kStages - 1);
-      cp_async_commit();
-      const __nv_bfloat16* sa = ring + (s % kStages) * 2 * kRingTile;
-      const __nv_bfloat16* sb = sa + kRingTile;
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        uint32_t af[2][4];
-        load_a(af[0], sa, kLd, wm, kk * 16, lane);
-        load_a(af[1], sa, kLd, wm + 16, kk * 16, lane);
-        uint32_t bf[2][2];
-        load_b(bf, sb, kLd, wn1, kk * 16, lane);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma16816(h[mt][0], af[mt], bf[0][0], bf[0][1]);
-          mma16816(h[mt][1], af[mt], bf[1][0], bf[1][1]);
+  if (wg == 2) {
+    // ---- producer: one thread issues every tile copy, in the order the
+    // consumers read the ring
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      sm90::tma_prefetch_desc(&tm_x);
+      sm90::tma_prefetch_desc(&tm_w1);
+      sm90::tma_prefetch_desc(&tm_w2);
+      int stage = 0;
+      uint32_t phase = 0;
+#pragma unroll 1
+      for (int j = 0; j < nchunks; ++j) {
+#pragma unroll 1
+        for (int kk = 0; kk < ksteps; ++kk) {
+          sm90::mbar_wait(empty + stage, phase ^ 1);
+          uint8_t* st = ring + stage * K::STAGE;
+          // the chunk's b1 slice rides on its first fc1 stage; slot
+          // j % 4 was last read four chunks ago
+          const int b1_bytes =
+              kk == 0 && p.b1 != nullptr ? 2 * min(kHC, p.Hd - j * kHC) : 0;
+          sm90::mbar_arrive_expect_tx(full + stage, K::FC1_BYTES + b1_bytes);
+          if (b1_bytes) {
+            sm90::bulk_load(b1s + (j % kB1Slots) * kHC, p.b1 + j * kHC,
+                            b1_bytes, full + stage);
+          }
+          sm90::tma_load_2d(st, &tm_x, full + stage, kk * 64, m0);
+          sm90::tma_load_2d(st + K::BM * 128, &tm_w1, full + stage, kk * 64,
+                            j * kHC);
+          if (++stage == K::STAGES) { stage = 0; phase ^= 1; }
+        }
+#pragma unroll 1
+        for (int kc = 0; kc < kHC / 64; ++kc) {
+#pragma unroll 1
+          for (int pc = 0; pc < K::PIECES; ++pc) {
+            sm90::mbar_wait(empty + stage, phase ^ 1);
+            sm90::mbar_arrive_expect_tx(full + stage, K::PIECE_BYTES);
+            sm90::tma_load_2d(ring + stage * K::STAGE, &tm_w2, full + stage,
+                              j * kHC + kc * 64, n0 + pc * kPR);
+            if (++stage == K::STAGES) { stage = 0; phase ^= 1; }
+          }
         }
       }
     }
-    // h = bf16(gelu(h + b1)) into shared memory.  Every warp passed this
-    // chunk's ring barriers after reading hs for the previous chunk's fc2.
+  } else {
+    // ---- consumers
+    sm90::setmaxnreg_inc<240>();
+    const int t = threadIdx.x & 127;
+    const int lane = t & 31;
+    const int r0 = 16 * (t >> 5) + (lane >> 2);   // row in the WG's 64
+    const int c0 = 2 * (lane & 3);
+    const int own_rows = kRows128 ? wg * 64 : 0;  // WG's rows in the block
+    const int own_h = kRows128 ? 0 : wg * K::N1;  // WG's fc1 columns
+
+    float acc[K::NQ][kPR / 2];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int c = wn1 + nt * 8 + 2 * t;
-      float b[2] = {0.f, 0.f};
-      if (p.b1 != nullptr) {
-        const __nv_bfloat162 bv = *reinterpret_cast<const __nv_bfloat162*>(
-            p.b1 + chunk * kHC + c);
-        b[0] = __low2float(bv);
-        b[1] = __high2float(bv);
+    for (int q = 0; q < K::NQ; ++q) {
+#pragma unroll
+      for (int i = 0; i < kPR / 2; ++i) acc[q][i] = 0.f;
+    }
+    float h[K::N1 / 2];
+
+    int stage = 0;
+    uint32_t phase = 0;
+#pragma unroll 1
+    for (int j = 0; j < nchunks; ++j) {
+      // 1. fc1 over the k-steps; the stage read by the previous group is
+      // released once that group has retired
+      int prev = -1;
+#pragma unroll 1
+      for (int kk = 0; kk < ksteps; ++kk) {
+        sm90::mbar_wait(full + stage, phase);
+        const uint8_t* st = ring + stage * K::STAGE;
+        const uint64_t da = sm90::make_desc(st + own_rows * 128);
+        const uint64_t db = sm90::make_desc(st + K::BM * 128 + own_h * 128);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          sm90::Wgmma<K::N1>::mma(h, da + 2 * k, db + 2 * k,
+                                  (kk | k) != 0);
+        }
+        sm90::wgmma_commit();
+        if (prev >= 0) {
+          sm90::wgmma_wait<1>();
+          if (lane == 0) sm90::mbar_arrive(empty + prev);
+        }
+        prev = stage;
+        if (++stage == K::STAGES) { stage = 0; phase ^= 1; }
       }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(h);
+      if (lane == 0) sm90::mbar_arrive(empty + prev);
+
+      // 2. h = bf16(gelu(h + b1)) into buffer j % 2, 128-byte swizzled:
+      // 16-byte chunk c of row r of a 64-column tile sits at c ^ (r % 8)
+      uint8_t* hb = hbuf + (j & 1) * K::H_BYTES;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int i = 0; i < K::N1 / 8; ++i) {
+        const int cc = own_h + 8 * i + c0;        // column in the chunk
+        const float2 b = pair(p.b1 ? b1s + (j % kB1Slots) * kHC : nullptr,
+                              cc, j * kHC + cc < p.Hd);
+        const int tile = cc >> 6;
+        const int col = cc & 63;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int r = wm + mt * 16 + g + 8 * half;
-          *reinterpret_cast<__nv_bfloat162*>(hs + r * kLdH + c) =
-              __floats2bfloat162_rn(gelu_erf(h[mt][nt][2 * half] + b[0]),
-                                    gelu_erf(h[mt][nt][2 * half + 1] + b[1]));
+          const int rr = own_rows + r0 + 8 * half;
+          const int off = tile * K::H_TILE + rr * 128 +
+                          ((((col >> 3) ^ (rr & 7))) << 4) + (col & 7) * 2;
+          *reinterpret_cast<__nv_bfloat162*>(hb + off) =
+              __floats2bfloat162_rn(gelu_erf(h[4 * i + 2 * half] + b.x),
+                                    gelu_erf(h[4 * i + 2 * half + 1] + b.y));
         }
       }
-    }
-    __syncthreads();   // h is in shared memory; W2 tile `chunk` has landed
-    const __nv_bfloat16* w2t = w2s + (chunk & 1) * BN * kLdH;
-#pragma unroll
-    for (int kk = 0; kk < kHC / 16; ++kk) {
-      uint32_t af[2][4];
-      load_a(af[0], hs, kLdH, wm, kk * 16, lane);
-      load_a(af[1], hs, kLdH, wm + 16, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bf[2][2];
-        load_b(bf, w2t, kLdH, wn2 + np * 16, kk * 16, lane);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma16816(acc[mt][2 * np], af[mt], bf[0][0], bf[0][1]);
-          mma16816(acc[mt][2 * np + 1], af[mt], bf[1][0], bf[1][1]);
-        }
+      sm90::fence_proxy_async();   // st.shared -> wgmma operand reads
+      if (kRows128) {
+        sm90::named_barrier(1 + wg, 128);
+      } else {
+        sm90::named_barrier(1, 256);   // both halves of h are written
       }
-    }
-  }
-  cp_async_wait<0>();
 
-  // out = bf16(acc + b2): rows g and g + 8 of each 16-row tile, columns
-  // 2t and 2t + 1 of each 8-column tile
+      // 3. fc2: the chunk's 64-column tiles of h against the W2 pieces;
+      // a piece of the other warpgroup's columns is released unread
+      prev = -1;
+#pragma unroll 1
+      for (int kc = 0; kc < kHC / 64; ++kc) {
+        const uint64_t da =
+            sm90::make_desc(hb + kc * K::H_TILE + own_rows * 128);
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = n0 + wn2 + nt * 8 + 2 * t;
-    if (c >= p.Co) continue;
-    float b[2] = {0.f, 0.f};
-    if (p.b2 != nullptr) {
-      const __nv_bfloat162 bv =
-          *reinterpret_cast<const __nv_bfloat162*>(p.b2 + c);
-      b[0] = __low2float(bv);
-      b[1] = __high2float(bv);
+        for (int pc = 0; pc < K::PIECES; ++pc) {
+          sm90::mbar_wait(full + stage, phase);
+          if (kRows128 || pc / K::NQ == wg) {
+            const uint64_t db = sm90::make_desc(ring + stage * K::STAGE);
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              sm90::Wgmma<kPR>::mma(acc[pc % K::NQ], da + 2 * k, db + 2 * k,
+                                    1);
+            }
+            sm90::wgmma_commit();
+            if (prev >= 0) {
+              sm90::wgmma_wait<1>();
+              if (lane == 0) sm90::mbar_arrive(empty + prev);
+            }
+            prev = stage;
+          } else if (lane == 0) {
+            sm90::mbar_arrive(empty + stage);
+          }
+          if (++stage == K::STAGES) { stage = 0; phase ^= 1; }
+        }
+      }
+      sm90::wgmma_wait<0>();
+      if (lane == 0 && prev >= 0) sm90::mbar_arrive(empty + prev);
     }
+
+    // out = bf16(acc + b2)
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
+    for (int q = 0; q < K::NQ; ++q) {
+      sm90::fence_regs(acc[q]);
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + wm + mt * 16 + g + 8 * half;
-        if (r >= p.T) continue;
-        *reinterpret_cast<__nv_bfloat162*>(
-            p.out + static_cast<long long>(r) * p.Co + c) =
-            __floats2bfloat162_rn(acc[mt][nt][2 * half] + b[0],
-                                  acc[mt][nt][2 * half + 1] + b[1]);
+      for (int i = 0; i < kPR / 8; ++i) {
+        const int col = n0 + (kRows128 ? 0 : wg * kNW) + q * kPR + 8 * i + c0;
+        if (col >= p.Co) continue;
+        const float2 b = pair(p.b2, col, true);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = m0 + own_rows + r0 + 8 * half;
+          if (row >= p.T) continue;
+          *reinterpret_cast<__nv_bfloat162*>(
+              p.out + static_cast<long long>(row) * p.Co + col) =
+              __floats2bfloat162_rn(acc[q][4 * i + 2 * half] + b.x,
+                                    acc[q][4 * i + 2 * half + 1] + b.y);
+        }
       }
     }
   }
 }
 
-template <int NT>
-cudaError_t launch(const Params& p, cudaStream_t s) {
-  constexpr int bytes = smem_bytes(32 * NT);
+template <bool kRows128, int kNW, int kPR, int kHC>
+cudaError_t launch(const Params& p, const void* x, const void* w1,
+                   const void* w2, cudaStream_t s) {
+  using K = Cfg<kRows128, kNW, kPR, kHC>;
+  auto kernel = fused_mlp_kernel<kRows128, kNW, kPR, kHC>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_mlp_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
     if (err != cudaSuccess) return err;
     configured = true;
   }
+  // x changes from call to call and is encoded each time; the weights'
+  // maps are cached by pointer and shape
+  CUtensorMap mx, m1, m2;
+  if (!sm90::encode_bf16_2d(&mx, x, p.T, p.C, K::BM) ||
+      !sm90::cached_bf16_2d(&m1, w1, p.Hd, p.C, kHC) ||
+      !sm90::cached_bf16_2d(&m2, w2, p.Co, p.Hd, kPR)) {
+    return cudaErrorInvalidValue;
+  }
   const long long blocks =
-      static_cast<long long>((p.T + kBM - 1) / kBM) * p.slabs;
-  fused_mlp_kernel<NT><<<static_cast<unsigned>(blocks), kThreads, bytes, s>>>(
-      p);
+      static_cast<long long>((p.T + K::BM - 1) / K::BM) * p.slabs;
+  if (blocks > 0x7fffffffLL ||
+      static_cast<long long>(p.slabs) * K::SW < p.Co) {
+    return cudaErrorInvalidValue;
+  }
+  kernel<<<static_cast<unsigned>(blocks), kThreads, K::SMEM, s>>>(mx, m1, m2,
+                                                                   p);
   return cudaGetLastError();
 }
 
@@ -347,23 +400,14 @@ cudaError_t launch(const Params& p, cudaStream_t s) {
 
 extern "C" int fused_mlp_bf16(const void* x, const void* w1, const void* b1,
                               const void* w2, const void* b2, void* out,
-                              int T, int C, int Hd, int Co, void* stream) {
-  if (T < 1 || C < 2 * kBK || C % kBK || Hd < kHC || Hd % kHC || Co < 8 ||
-      Co % 8) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // the fewest slabs of at most 384 columns, each rounded up to 128
-  const int slabs = (Co + 383) / 384;
-  const int per = (Co + slabs - 1) / slabs;
-  const int bn = (per + 127) / 128 * 128;
-  if (static_cast<long long>((T + kBM - 1) / kBM) * slabs > 0x7fffffffLL) {
+                              int T, int C, int Hd, int Co, int block_rows,
+                              int wg_cols, int slabs, void* stream) {
+  if (T < 1 || C < 64 || C % 64 || Hd < 64 || Hd % 64 || Co < 8 || Co % 8 ||
+      slabs < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.w1 = static_cast<const __nv_bfloat16*>(w1);
   p.b1 = static_cast<const __nv_bfloat16*>(b1);
-  p.w2 = static_cast<const __nv_bfloat16*>(w2);
   p.b2 = static_cast<const __nv_bfloat16*>(b2);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.T = T;
@@ -372,9 +416,25 @@ extern "C" int fused_mlp_bf16(const void* x, const void* w1, const void* b1,
   p.Co = Co;
   p.slabs = slabs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bn) {
-    case 128: return static_cast<int>(launch<4>(p, s));
-    case 256: return static_cast<int>(launch<8>(p, s));
-    default: return static_cast<int>(launch<12>(p, s));
+  // (rows a block, columns a consumer warpgroup) -> (W2 piece rows,
+  // hidden chunk): the instances launch_plan() chooses from.  At 384
+  // columns a warpgroup the chunk is 64 (fc1 n32) to stay in registers.
+  using Launch = cudaError_t (*)(const Params&, const void*, const void*,
+                                 const void*, cudaStream_t);
+  Launch fn = nullptr;
+  if (block_rows == 128) {
+    fn = wg_cols == 128   ? launch<true, 128, 128, 128>
+         : wg_cols == 192 ? launch<true, 192, 192, 128>
+         : wg_cols == 256 ? launch<true, 256, 256, 128>
+                          : nullptr;
+  } else if (block_rows == 64) {
+    fn = wg_cols == 64    ? launch<false, 64, 64, 128>
+         : wg_cols == 128 ? launch<false, 128, 128, 128>
+         : wg_cols == 192 ? launch<false, 192, 192, 128>
+         : wg_cols == 256 ? launch<false, 256, 128, 128>
+         : wg_cols == 384 ? launch<false, 384, 192, 64>
+                          : nullptr;
   }
+  if (fn != nullptr) return static_cast<int>(fn(p, x, w1, w2, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

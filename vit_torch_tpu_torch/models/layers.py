@@ -131,13 +131,15 @@ def set_generator(model: nn.Module,
 
 # B12 is opt-in on CUDA too.  chip_smoke.py's steady_state_deit times
 # whole deit_base_distilled_patch16_224 @224 bs32 steps with it off, on,
-# on, off; on an H100 80GB HBM3 at 700 W (two runs) the kernel (0.89-0.90
-# ms of device time per MLP against 0.12 ms for cuBLAS + GELU + cuBLAS)
-# lost at every shape timed: the linear-eval step 15.27-15.58 ms against
-# 12.31-14.77, the eval forward 13.78-13.87 against 5.51-9.24, the
-# fine-tune step 42.02-49.58 against 28.92-38.55 (its peak memory 2.93 GB
-# against 3.89: the backward recomputes the hidden activation instead of
-# keeping it).
+# on, off.  On an H100 80GB HBM3 at 700 W (two runs) the kernel takes
+# 0.20 ms of device time per MLP against 0.12 ms for cuBLAS + GELU +
+# cuBLAS (it ties at cait_s24_224's shape and wins at Swin stage 1's, not
+# at ViT-B's), so each step's device time grows: the linear-eval step's
+# busy time 5.48-5.58 ms against 4.37-4.46, the fine-tune step's
+# 21.91-22.80 against 16.07-16.31 (its backward recomputes the hidden
+# activation through cuBLAS; its peak memory 2.93 GB against 3.89).  The
+# eval forward, 7.06-10.99 ms against 6.32-9.33, is inside the host's
+# spread.
 
 
 def _fused_mlp(x: torch.Tensor, mlp: "Mlp") -> bool:

@@ -6,8 +6,9 @@ use with ``nvcc`` for ``sm_90a`` into a shared library under
 ``ctypes``.  The library's file name carries a hash of the source, the
 shared headers (``csrc/*.cuh``) and the flags, so an edited source is
 rebuilt and a stale library is never loaded.  ``ptxas -v`` reports each
-kernel's registers, shared memory and spills; the report of the last build
-of each kernel is kept in :data:`LOGS`.
+kernel's registers, shared memory and spills; each build's report is kept
+beside its library (``lib<name>-<hash>.log``) and read into :data:`LOGS`
+whenever the library is built or found built.
 Nothing here runs when the module is imported.
 """
 
@@ -56,10 +57,18 @@ def _library_path(name: str) -> Path:
 
 
 def build(names: Optional[Iterable[str]] = None) -> float:
-    """Compile every missing kernel library, one ``nvcc`` per source, all
-    started together.  Returns the seconds spent."""
+    """Compile every missing kernel library (or one without its ptxas
+    report), one ``nvcc`` per source, all started together.  Returns the
+    seconds spent."""
     t0 = time.perf_counter()
-    todo = [n for n in (names or KERNELS) if not _library_path(n).exists()]
+    todo = []
+    for name in names or KERNELS:
+        lib = _library_path(name)
+        log = lib.with_suffix(".log")
+        if lib.exists() and log.exists():
+            LOGS[name] = log.read_text(errors="replace")
+        else:
+            todo.append(name)
     if not todo:
         return time.perf_counter() - t0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -77,7 +86,10 @@ def build(names: Optional[Iterable[str]] = None) -> float:
         LOGS[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
-        else:
+        else:   # the report first: a library found built has its log
+            tmp_log = tmp.with_suffix(".logtmp")
+            tmp_log.write_text(log)
+            os.replace(tmp_log, out.with_suffix(".log"))
             os.replace(tmp, out)   # atomic: concurrent builders agree
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

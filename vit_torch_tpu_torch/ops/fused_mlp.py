@@ -4,12 +4,16 @@ plain PyTorch version, and gradients.
 Counterpart of ``vit_torch_tpu/ops/fused_mlp.py``: :func:`fused_mlp`
 replaces the Pallas ``_kernel`` (ROADMAP B12), fc1 → exact GELU → fc2 over
 ``(..., C)`` tokens with the ``(T, Hd)`` hidden activation kept on chip.
-On CUDA it is one launch of ``csrc/fused_mlp.cu`` (64 token rows and one
-output slab per block, the hidden dimension walked in chunks of 64; the
-source note gives the design, the fc1 recompute per slab and the bound).
-The TPU's token blocks, lane-of-128 rule and VMEM budget are tilings of
-the same function and have no counterpart here: :func:`fits` states what
-the CUDA kernel takes.
+On CUDA it is one launch of ``csrc/fused_mlp.cu``: a warp-specialised
+``wgmma`` kernel fed by TMA, each block holding a tile of token rows and a
+whole output row (up to 768 columns) in registers, so fc1 runs once per
+row; :func:`launch_plan` chooses the row tile (128 rows where the slab
+is narrow and the grid fills the card, else 64), the columns of each
+consumer warpgroup and the slabs (more than one only above 768 output
+columns), and the source note gives the register, shared-memory and wave
+arithmetic and the bound.  The TPU's token blocks, lane-of-128 rule and
+VMEM budget are tilings of the same function and have no counterpart
+here: :func:`fits` states what the CUDA kernel takes.
 
 Rounding points follow ``_kernel`` (``:92-99``): x·w1 accumulates in fp32,
 b1 is added in fp32, GELU runs in fp32 (the exact erf form), the hidden
@@ -35,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,9 +48,13 @@ from vit_torch_tpu_torch.ops import _build
 from vit_torch_tpu_torch.ops.gemm import (check, dense_f32, linear,
                                           needs_grad, ptr, recompute_grads)
 
-# csrc/fused_mlp.cu's shapes: fc1 runs over k-steps of 64 (at least two),
-# the hidden dimension in chunks of 64, the output in 16-byte rows
+# csrc/fused_mlp.cu's shapes: fc1 runs over k-steps of 64, the hidden
+# dimension in TMA tiles of 64, the output in 16-byte rows.  fits() keeps
+# C >= 128, the JAX dispatch's smallest lane-aligned width
 _K_STEP, _HIDDEN_CHUNK, _OUT_ALIGN = 64, 64, 8
+# the widest output row one block holds in registers (two warpgroups of
+# 384 fp32 columns); wider rows are cut into slabs
+_ROW_COLS = 768
 
 
 def fits(T: int, C: int, hidden: int, out_dim: Optional[int] = None) -> bool:
@@ -57,6 +65,59 @@ def fits(T: int, C: int, hidden: int, out_dim: Optional[int] = None) -> bool:
     return (T >= 1 and C >= 2 * _K_STEP and C % _K_STEP == 0
             and hidden >= _HIDDEN_CHUNK and hidden % _HIDDEN_CHUNK == 0
             and Co >= _OUT_ALIGN and Co % _OUT_ALIGN == 0)
+
+
+class Plan(NamedTuple):
+    """How ``csrc/fused_mlp.cu`` is launched for one shape: token rows a
+    block (128: each consumer warpgroup owns 64 rows and the whole slab;
+    64: the two share the rows and split the slab's columns), output
+    columns a consumer warpgroup accumulates, output slabs (each recomputes
+    fc1 for its rows), and blocks in the grid (one per row tile and slab)."""
+    block_rows: int
+    warpgroup_cols: int
+    slabs: int
+    blocks: int
+
+
+# csrc/fused_mlp.cu's instances: columns a warpgroup for each row layout
+_WG_COLS = {128: (128, 192, 256), 64: (64, 128, 192, 256, 384)}
+# the H100 SXM's SMs, launch_plan's default
+_H100_SMS = 132
+
+
+def launch_plan(T: int, C: int, hidden: int, out_dim: Optional[int] = None,
+                sms: int = _H100_SMS,
+                block_rows: Optional[int] = None) -> Plan:
+    """The kernel's launch plan for these shapes (the one the wrapper
+    passes to the C entry point): as few slabs as the registers allow (one
+    up to 768 output columns); 128-row blocks, which stream each weight
+    tile once for twice the rows, where a slab is at most 256 columns and
+    their row tiles fill at least one wave of ``sms`` SMs; else 64-row
+    blocks, twice as many, whose two warpgroups split the slab.
+    ``block_rows`` forces the row layout (128 takes at most 256 columns a
+    slab)."""
+    Co = C if out_dim is None else out_dim
+    slabs = -(-Co // _ROW_COLS)
+    per = -(-Co // slabs)
+    if block_rows is None:
+        block_rows = 128 if per <= 256 and -(-T // 128) >= sms else 64
+    if block_rows == 128 and per <= 256:
+        cols = _round_up(per, _WG_COLS[128])
+    elif block_rows == 64:
+        cols = _round_up(-(-per // 2), _WG_COLS[64])
+    else:
+        raise ValueError(f"no {block_rows}-row layout for {per} columns a "
+                         f"slab")
+    return Plan(block_rows, cols, slabs, -(-T // block_rows) * slabs)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _round_up(n: int, widths) -> int:
+    return next(w for w in widths if n <= w)
 
 
 def fused_mlp_reference(x: torch.Tensor, w1: torch.Tensor,
@@ -77,7 +138,7 @@ fused_mlp_reference.calls = 0
 def _mlp_fn():
     """fused_mlp.cu's entry point, built and loaded on first use."""
     fn = _build.load("fused_mlp").fused_mlp_bf16
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -117,13 +178,22 @@ def _forward(x, w1, b1, w2, b2) -> torch.Tensor:
         return fused_mlp_reference(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"no fused MLP for device {x.device}")
+    return launch(x, w1, b1, w2, b2, launch_plan(
+        x.shape[0], x.shape[-1], w1.shape[0], w2.shape[0], _sms(x.device)))
+
+
+def launch(x, w1, b1, w2, b2, plan: Plan) -> torch.Tensor:
+    """One launch of the kernel on CUDA (T, C) tokens with this plan (the
+    wrapper passes :func:`launch_plan`'s); raises on inputs or a plan the
+    kernel does not take."""
     _check_inputs(x, w1, b1, w2, b2)
     T, C = x.shape
-    out = torch.empty((T, w2.shape[0]), dtype=x.dtype, device=x.device)
+    Hd, Co = w1.shape[0], w2.shape[0]
+    out = torch.empty((T, Co), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     check(_mlp_fn()(x.data_ptr(), w1.data_ptr(), ptr(b1), w2.data_ptr(),
-                    ptr(b2), out.data_ptr(), T, C, w1.shape[0], w2.shape[0],
-                    stream), "fused_mlp")
+                    ptr(b2), out.data_ptr(), T, C, Hd, Co, plan.block_rows,
+                    plan.warpgroup_cols, plan.slabs, stream), "fused_mlp")
     fused_mlp.launches += 1
     return out
 
@@ -168,6 +238,7 @@ fused_mlp.launches = 0
 
 
 def mlp_flops(T: int, C: int, hidden: int, out_dim: int) -> int:
-    """Operations of the function (not of the kernel's per-slab fc1
-    recompute): 2·T·C·Hd for fc1 and 2·T·Hd·Co for fc2."""
+    """Operations of the function: 2·T·C·Hd for fc1 and 2·T·Hd·Co for fc2.
+    The kernel does as many where :func:`launch_plan` gives one slab; each
+    further slab adds one fc1."""
     return 2 * T * hidden * (C + out_dim)
