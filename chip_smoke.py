@@ -71,8 +71,11 @@
    versions at dino_vits16 @224 bs64 and bs128, dino_vitb8 @224 bs32, the
    dino_vitb8 @32 bs128 pack and ragged shapes, their gradients at the
    headline shapes, and times each beside the port's unfused path (cuBLAS
-   + flash + cuBLAS) and cuBLAS + SDPA; exports and serves dino_vits16
-   @224 over HTTP with B3 on (buckets 1/8/64, launches = 12 x
+   + flash + cuBLAS) and cuBLAS + SDPA, with the qkv product's and the
+   attention kernel's own device times from one profiler pass, the
+   library's device time, the plan and the card's clocks and power read
+   around the timing; exports and serves
+   dino_vits16 @224 over HTTP with B3 on (buckets 1/8/64, launches = 12 x
    dispatches); linear-evaluates (plain and cached) and fine-tunes it at
    bs64 through ``cli.main`` with B3 on (12 launches per backbone
    forward; the fine-tune's backward recomputes through the flash
@@ -529,12 +532,14 @@ def _library_backend(fn) -> str:
     return max(evs, key=lambda e: e.self_device_time_total).key[:80]
 
 
-def _device_ms(fn, kernel, iters: int = 10) -> float:
-    """Mean device time per call of ``fn`` spent in the kernels whose name
-    holds ``kernel`` (a name, or a tuple of names), from torch.profiler:
-    the kernel's own time where the CUDA-event time of a loop of calls is
-    set by the host's launch rate."""
-    names = (kernel,) if isinstance(kernel, str) else kernel
+def _device_times(fn, kernels, iters: int = 10):
+    """One torch.profiler pass over ``iters`` calls of ``fn``: for each
+    entry of ``kernels`` (a name, or a tuple of names), the mean device
+    time per call spent in the kernels whose name holds it and the
+    launches of them the profiler recorded per call.  The kernels' own
+    time, where the CUDA-event time of a loop of calls is set by the
+    host's launch rate; entries read from one pass add up to the time of
+    all of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -543,9 +548,21 @@ def _device_ms(fn, kernel, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and any(n in e.key for n in names)) / 1e3 / iters
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    times = []
+    for kernel in kernels:
+        names = (kernel,) if isinstance(kernel, str) else kernel
+        hits = [e for e in events if any(n in e.key for n in names)]
+        times.append((sum(e.self_device_time_total for e in hits) / 1e3
+                      / iters, sum(e.count for e in hits) / iters))
+    return times
+
+
+def _device_ms(fn, kernel, iters: int = 10) -> float:
+    """Mean device time per call of ``fn`` spent in the kernels whose name
+    holds ``kernel`` (a name, or a tuple of names)."""
+    return _device_times(fn, (kernel,), iters)[0][0]
 
 
 def check_window_attention_bwd(case, seed):
@@ -922,7 +939,9 @@ def _kernel_group(name: str) -> str:
     if "window_attn_bwd_kernel" in name or "dbias_reduce_kernel" in name:
         return "window_attention_bwd"
     if "window_gemm_kernel" in name:
-        return "window_gemm"        # the B8 / B9 products, B3 / B4's qkv
+        return "window_gemm"        # the B7 / B8 / B9 products
+    if "attn_block_qkv_kernel" in name:
+        return "attention_block_qkv"   # B3 / B4's qkv product
     if "attn_block_kernel" in name:
         return "attention_block"    # B3 / B4 attention and projection
     if "talking_heads_fwd_kernel" in name:
@@ -1735,12 +1754,29 @@ def _rel_err(got, want) -> float:
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
+def _smi_sample():
+    """The card's SM clock (MHz), power draw (W) and temperature (C) from
+    one nvidia-smi query, or None where it reads "[N/A]" or fails."""
+    query = ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader,nounits"]
+    try:
+        out = subprocess.run(query, capture_output=True, text=True,
+                             timeout=10).stdout.splitlines()[0]
+        return dict(zip(("sm_mhz", "power_w", "temp_c"),
+                        (float(v) for v in out.split(","))))
+    except (IndexError, ValueError, OSError, subprocess.SubprocessError):
+        return None
+
+
 def check_attention_block(shape, seed, packed: bool = False):
     """B3 (row 3) or B4 (row 4, with its qkv output) vs the plain version on
-    one (B, N, C, heads) shape; times the chain on CUDA events and its two
-    kernels' device time from the profiler, the plain version, the port's
-    unfused path (cuBLAS + flash + cuBLAS) and the library's (cuBLAS +
-    SDPA)."""
+    one (B, N, C, heads) shape; times the chain on CUDA events (the card's
+    clocks and power read just before and just after, with the host
+    otherwise idle) and, from one profiler pass, each of its two kernels'
+    device time (the qkv product, attention and projection; the chain's
+    is their sum) and launches; the plain version, the port's unfused
+    path (cuBLAS + flash + cuBLAS) and the library's (cuBLAS + SDPA) on
+    events and on the device."""
     import torch
     from vit_torch_tpu_torch.ops import attn_block as ab
     B, N, C, H = shape
@@ -1774,19 +1810,36 @@ def check_attention_block(shape, seed, packed: bool = False):
                              f"max|plain| {rel}, qkv {qkv_rel} (limit "
                              f"{ATTN_BLOCK_RTOL})")
     del out, ref
-    ms = _time_ms(run, iters=50)
-    device_ms = _device_ms(run, ("attn_block_kernel", "window_gemm_kernel"))
-    attn_device_ms = _device_ms(run, "attn_block_kernel")
+
+    def library():
+        return _library_block(*args, H, scale)
+
+    smi = [_smi_sample()]
+    ms = _time_ms(run, iters=200)
+    smi.append(_smi_sample())
+    (attn_device_ms, attn_seen), (qkv_device_ms, qkv_seen) = _device_times(
+        run, ("attn_block_kernel", "attn_block_qkv_kernel"), iters=20)
+    device_ms = attn_device_ms + qkv_device_ms
+    if not (attn_device_ms > 0 and qkv_device_ms > 0):
+        raise AssertionError(f"{name} {shape}: the profiler saw no kernel "
+                             f"of the chain ({attn_device_ms}, "
+                             f"{qkv_device_ms} ms)")
     plain_ms = _time_ms(plain, iters=5)
     port_ms = _time_ms(lambda: _port_path(*args, H, scale), iters=50)
-    library_ms = _time_ms(lambda: _library_block(*args, H, scale), iters=50)
+    library_ms = _time_ms(library, iters=50)
+    library_device_ms = _device_ms(library, "")   # every kernel it runs
     bound_ms, bound_by = _ab_bound_ms(B, N, C, packed)
+    plan = ab.launch_plan(B, N, C, H, packed=packed)._asdict()
     row = {"shape": list(shape), "max_abs_err": abs_err, "max_rel_err": rel,
            "qkv_max_rel_err": qkv_rel if packed else None, "ms": ms,
            "device_ms": device_ms, "attn_kernel_device_ms": attn_device_ms,
+           "qkv_device_ms": qkv_device_ms,
+           "qkv_tflops": 6 * B * N * C * C / qkv_device_ms / 1e9,
            "plain_ms": plain_ms, "port_path_ms": port_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by}
+           "library_ms": library_ms, "library_device_ms": library_device_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "plan": plan,
+           "profiled_launches_per_call": [attn_seen, qkv_seen],
+           "smi_before_after_events": smi}
     _say(f"kernel check {name}", json.dumps(row))
     return row
 
@@ -2005,8 +2058,8 @@ def _ptxas_lines(log: str):
             or "spill" in line or "Potential Performance Loss" in line]
 
 
-def fused_mlp_ptxas(log: str):
-    """The fused-MLP kernel's ``ptxas -v`` lines; raises unless the log
+def ptxas_gate(kernel: str, log: str):
+    """One kernel library's ``ptxas -v`` lines; raises unless the log
     reports its spills and every instance spills nothing and keeps its
     wgmma asynchronous (ptxas's C7512 "Potential Performance Loss" note
     says it serialised them for want of registers)."""
@@ -2015,7 +2068,7 @@ def fused_mlp_ptxas(log: str):
               for n in re.findall(r"(\d+) bytes spill", line)]
     if (not spills or any(spills)
             or any("Potential Performance Loss" in line for line in lines)):
-        raise AssertionError("fused_mlp: no ptxas report, spills or "
+        raise AssertionError(f"{kernel}: no ptxas report, spills or "
                              "serialised wgmma: " + " | ".join(lines))
     return lines
 
@@ -2338,7 +2391,9 @@ def main() -> int:
     _say(f"build seconds {_build.build():.2f} ({', '.join(_build.KERNELS)})")
     for kernel, log in _build.LOGS.items():   # registers, smem, spills
         _say(f"ptxas {kernel}: " + " | ".join(_ptxas_lines(log)))
-    mlp_ptxas = fused_mlp_ptxas(_build.LOGS.get("fused_mlp", ""))
+    # the wgmma kernels: no spill, no serialised wgmma
+    mlp_ptxas = ptxas_gate("fused_mlp", _build.LOGS.get("fused_mlp", ""))
+    ab_ptxas = ptxas_gate("attn_block", _build.LOGS.get("attn_block", ""))
 
     rows = [check_flash_kernel(shape, seed=i)
             for i, shape in enumerate(ATTN_SHAPES)]
@@ -2583,11 +2638,17 @@ def main() -> int:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "port_path_ms": head["port_path_ms"], "shape": head["shape"],
+            "qkv_device_ms": head["qkv_device_ms"],
+            "attn_kernel_device_ms": head["attn_kernel_device_ms"],
+            "library_device_ms": head["library_device_ms"],
+            "plan": head["plan"], "ptxas": ab_ptxas,
             "launches_by_path": {p: ab_paths[p][kernel] for p in paths},
-            "ms_device_plain_port_library_bound_by_shape": [
-                [r["shape"], r["ms"], r["device_ms"], r["plain_ms"],
-                 r["port_path_ms"], r["library_ms"], r["bound_ms"]]
-                for r in by_shape],
+            "ms_device_qkv_attn_plain_port_library_libdevice_bound_by_shape":
+                [[r["shape"], r["ms"], r["device_ms"], r["qkv_device_ms"],
+                  r["attn_kernel_device_ms"], r["plain_ms"],
+                  r["port_path_ms"], r["library_ms"],
+                  r["library_device_ms"], r["bound_ms"]]
+                 for r in by_shape],
             "grad_max_rel_err": max(grads["grad_rel_err"]),
             "fwd_bwd_ms": grads["fwd_bwd_ms"],
             "port_path_fwd_bwd_ms": grads["port_path_fwd_bwd_ms"],

@@ -309,3 +309,87 @@ def test_importer_loads_the_published_layout(name, tmp_path, monkeypatch):
     left = set(man["keys"]) - set(needed)
     assert all(k.startswith(("head.", "head_dist.")) or k.endswith(
         ("relative_position_index", "attn_mask")) for k in left), left
+
+
+# (B, N, C, heads, packed) -> (columns a warpgroup projects in one pass,
+# passes, blocks): csrc/attn_block.cu's blocks take 64 query rows (B3) or
+# a pack of 64 // N images (B4); the two warpgroups take half the columns
+# each, in passes of at most 384
+@pytest.mark.parametrize("shape,plan", [
+    ((64, 197, 384, 6, False), (192, 1, 256)),    # dino_vits16 bs64
+    ((128, 197, 384, 6, False), (192, 1, 512)),   # bs128
+    ((32, 785, 768, 12, False), (384, 1, 416)),   # dino_vitb8 @224
+    ((3, 37, 128, 2, False), (128, 1, 3)),        # ragged
+    ((128, 17, 768, 12, True), (384, 1, 43)),     # B4: dino_vitb8 @32
+    ((7, 5, 128, 4, True), (128, 1, 1)),          # B4: ragged pack
+    ((2, 130, 256, 8, False), (128, 1, 6)),       # head dim 32
+    ((13, 9, 256, 8, True), (128, 1, 2)),         # B4, head dim 32
+    ((2, 197, 1024, 16, False), (256, 2, 8)),     # ViT-L: two passes
+    ((2, 65, 64, 1, False), (128, 1, 4)),         # one head: WG 1 idles
+    ((2, 70, 448, 7, False), (256, 1, 4)),        # odd head count
+    ((5, 48, 128, 2, True), (128, 1, 5)),         # B4: one image a pack
+], ids=str)
+def test_launch_plan_covers_the_columns(shape, plan):
+    """The passes of the two warpgroups cover the columns, a pass at most
+    384 of them; one block per 64-row tile (B3) or pack (B4)."""
+    B, N, C, H, packed = shape
+    got = ab.launch_plan(B, N, C, H, packed=packed)
+    assert tuple(got) == plan
+    assert 2 * got.passes * got.pass_cols >= C
+    assert got.pass_cols <= 384
+
+
+@pytest.mark.parametrize("shape,packed", [
+    ((2, 17, 384, 8), False),      # head dim 48
+    ((2, 17, 96, 3), False),       # C not a multiple of 64
+    ((2, 17, 1280, 20), False),    # C over MAX_CHANNELS
+    ((2, 49, 128, 2), True),       # a pack takes N <= 48
+], ids=str)
+def test_launch_plan_refuses_shapes_the_kernel_does_not_take(shape, packed):
+    with pytest.raises(ValueError):
+        ab.launch_plan(*shape, packed=packed)
+
+
+class _OnCard:
+    """Stands in for a CUDA token block where there is no card: the entry
+    points read only its shape and device before they launch."""
+    shape = (2, 17, 128)
+    device = torch.device("cuda")
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["b3", "b4"])
+def test_cuda_tensor_never_takes_the_plain_version(packed, monkeypatch):
+    """A CUDA block goes to the kernel chain (``_launch``), never to the
+    plain version."""
+    launched = []
+
+    def launch(x, *args, packed):
+        launched.append(packed)
+        return "out", "qkv"
+
+    def plain(*args):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(ab, "_launch", launch)
+    monkeypatch.setattr(ab, "_reference_parts", plain)
+    fn = ab.attention_block_packed if packed else ab.attention_block
+    wq, wp = torch.empty((384, 128)), torch.empty((128, 128))
+    with torch.no_grad():
+        assert fn(_OnCard(), wq, None, wp, None, num_heads=2) == "out"
+    assert launched == [packed]
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["b3", "b4"])
+def test_other_devices_raise_without_the_plain_version(packed):
+    """A tensor neither on the CPU nor on CUDA raises, and the plain
+    version does not run."""
+    x = torch.empty((2, 17, 128), device="meta")
+    wq, bq = torch.empty((384, 128), device="meta"), None
+    wp = torch.empty((128, 128), device="meta")
+    ref = (ab.attention_block_packed_reference if packed
+           else ab.attention_block_reference)
+    calls = ref.calls
+    fn = ab.attention_block_packed if packed else ab.attention_block
+    with pytest.raises(ValueError, match="no attention block"):
+        fn(x, wq, bq, wp, None, num_heads=2)
+    assert ref.calls == calls

@@ -1,9 +1,10 @@
 """The kernels' build cache, on the CPU: a build keeps its ``ptxas -v``
 report beside the library, a library found built brings that report back
 into ``_build.LOGS`` without running ``nvcc``, and one found without its
-report is built again; and chip_smoke's gate on the fused-MLP report.  A
-stand-in ``nvcc`` (a Python script that writes the library, prints a
-report and counts its calls) takes the compiler's place."""
+report is built again; and chip_smoke's gate on the fused-MLP and
+attention-block reports.  A stand-in ``nvcc`` (a Python script that
+writes the library, prints a report and counts its calls) takes the
+compiler's place."""
 
 import importlib.util
 import os
@@ -87,18 +88,32 @@ def _chip_smoke():
     return module
 
 
-@pytest.mark.parametrize("log,ok", [
+GATE_CASES = pytest.mark.parametrize("log,ok", [
     (REPORT.format(spill=0) * 2, True),
     (REPORT.format(spill=0) + REPORT.format(spill=8), False),
     (REPORT.format(spill=0) + SERIALISED, False),
     ("", False),
 ], ids=["clean", "spills", "serialised-wgmma", "no-report"])
+
+
+def _gate(kernel, log, ok):
+    gate = _chip_smoke().ptxas_gate
+    if ok:
+        assert any("Used 168 registers" in line for line in gate(kernel, log))
+    else:
+        with pytest.raises(AssertionError, match=kernel):
+            gate(kernel, log)
+
+
+@GATE_CASES
 def test_chip_smoke_gates_the_fused_mlp_report(log, ok):
     """chip_smoke fails unless every instance's report is there, spills
     nothing and keeps its wgmma asynchronous."""
-    gate = _chip_smoke().fused_mlp_ptxas
-    if ok:
-        assert any("Used 168 registers" in line for line in gate(log))
-    else:
-        with pytest.raises(AssertionError):
-            gate(log)
+    _gate("fused_mlp", log, ok)
+
+
+@GATE_CASES
+def test_chip_smoke_gates_the_attn_block_report(log, ok):
+    """The same gate on the attention block's two kernels (every head-dim
+    and pass-width instance of the attention kernel)."""
+    _gate("attn_block", log, ok)

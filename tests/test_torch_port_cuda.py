@@ -637,6 +637,24 @@ def test_attention_block_grads_match_plain(cuda, packed):
         assert _rel_err(g, w) <= 5e-2
 
 
+@pytest.mark.parametrize("shape", [(2, 100, 768, 12), (2, 65, 1024, 16),
+                                   (2, 65, 64, 1),
+                                   (2, 70, 448, 7), (2, 40, 768, 24)],
+                         ids=str)
+def test_attention_block_wide_plans_match_plain(cuda, shape):
+    """The projection's wider plans: one pass of 384 columns a warpgroup
+    (C = 768), two of 256 (C = 1024); one head (the second warpgroup
+    idles through the attention and projects no column), an odd head
+    count (it idles on the last head), head dim 32."""
+    B, N, C, H = shape
+    args = _ab_inputs(B, N, C, cuda, seed=C)
+    got = ab.attention_block(*args, num_heads=H)
+    torch.cuda.synchronize()
+    ref = ab.attention_block_reference(*args, num_heads=H)
+    assert got.shape == (B, N, C) and torch.isfinite(got).all()
+    assert _rel_err(got, ref) <= AB_RTOL
+
+
 def test_attention_block_refuses_what_it_does_not_take(cuda):
     x, wq, bq, wp, bp = _ab_inputs(2, 17, 384, cuda)
     with pytest.raises(TypeError):

@@ -149,13 +149,6 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return fmaxf(x, 0.f) - 0.70710678118654752f * ax * poly * e;
 }
 
-__device__ __forceinline__ float2 pair(const __nv_bfloat16* p, int i,
-                                       bool ok) {
-  if (p == nullptr || !ok) return make_float2(0.f, 0.f);
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p + i);
-  return make_float2(__low2float(v), __high2float(v));
-}
-
 template <bool kRows128, int kNW, int kPR, int kHC>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_mlp_kernel(const __grid_constant__ CUtensorMap tm_x,
@@ -197,37 +190,38 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::tma_prefetch_desc(&tm_x);
       sm90::tma_prefetch_desc(&tm_w1);
       sm90::tma_prefetch_desc(&tm_w2);
-      int stage = 0;
-      uint32_t phase = 0;
+      sm90::RingPos rp;
 #pragma unroll 1
       for (int j = 0; j < nchunks; ++j) {
 #pragma unroll 1
         for (int kk = 0; kk < ksteps; ++kk) {
-          sm90::mbar_wait(empty + stage, phase ^ 1);
-          uint8_t* st = ring + stage * K::STAGE;
+          sm90::mbar_wait(empty + rp.stage, rp.phase ^ 1);
+          uint8_t* st = ring + rp.stage * K::STAGE;
           // the chunk's b1 slice rides on its first fc1 stage; slot
           // j % 4 was last read four chunks ago
           const int b1_bytes =
               kk == 0 && p.b1 != nullptr ? 2 * min(kHC, p.Hd - j * kHC) : 0;
-          sm90::mbar_arrive_expect_tx(full + stage, K::FC1_BYTES + b1_bytes);
+          sm90::mbar_arrive_expect_tx(full + rp.stage,
+                                      K::FC1_BYTES + b1_bytes);
           if (b1_bytes) {
             sm90::bulk_load(b1s + (j % kB1Slots) * kHC, p.b1 + j * kHC,
-                            b1_bytes, full + stage);
+                            b1_bytes, full + rp.stage);
           }
-          sm90::tma_load_2d(st, &tm_x, full + stage, kk * 64, m0);
-          sm90::tma_load_2d(st + K::BM * 128, &tm_w1, full + stage, kk * 64,
-                            j * kHC);
-          if (++stage == K::STAGES) { stage = 0; phase ^= 1; }
+          sm90::tma_load_2d(st, &tm_x, full + rp.stage, kk * 64, m0);
+          sm90::tma_load_2d(st + K::BM * 128, &tm_w1, full + rp.stage,
+                            kk * 64, j * kHC);
+          rp.advance(K::STAGES);
         }
 #pragma unroll 1
         for (int kc = 0; kc < kHC / 64; ++kc) {
 #pragma unroll 1
           for (int pc = 0; pc < K::PIECES; ++pc) {
-            sm90::mbar_wait(empty + stage, phase ^ 1);
-            sm90::mbar_arrive_expect_tx(full + stage, K::PIECE_BYTES);
-            sm90::tma_load_2d(ring + stage * K::STAGE, &tm_w2, full + stage,
-                              j * kHC + kc * 64, n0 + pc * kPR);
-            if (++stage == K::STAGES) { stage = 0; phase ^= 1; }
+            sm90::mbar_wait(empty + rp.stage, rp.phase ^ 1);
+            sm90::mbar_arrive_expect_tx(full + rp.stage, K::PIECE_BYTES);
+            sm90::tma_load_2d(ring + rp.stage * K::STAGE, &tm_w2,
+                              full + rp.stage, j * kHC + kc * 64,
+                              n0 + pc * kPR);
+            rp.advance(K::STAGES);
           }
         }
       }
@@ -250,8 +244,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     float h[K::N1 / 2];
 
-    int stage = 0;
-    uint32_t phase = 0;
+    sm90::RingPos rp;
 #pragma unroll 1
     for (int j = 0; j < nchunks; ++j) {
       // 1. fc1 over the k-steps; the stage read by the previous group is
@@ -259,8 +252,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       int prev = -1;
 #pragma unroll 1
       for (int kk = 0; kk < ksteps; ++kk) {
-        sm90::mbar_wait(full + stage, phase);
-        const uint8_t* st = ring + stage * K::STAGE;
+        sm90::mbar_wait(full + rp.stage, rp.phase);
+        const uint8_t* st = ring + rp.stage * K::STAGE;
         const uint64_t da = sm90::make_desc(st + own_rows * 128);
         const uint64_t db = sm90::make_desc(st + K::BM * 128 + own_h * 128);
         sm90::wgmma_fence();
@@ -274,8 +267,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           sm90::wgmma_wait<1>();
           if (lane == 0) sm90::mbar_arrive(empty + prev);
         }
-        prev = stage;
-        if (++stage == K::STAGES) { stage = 0; phase ^= 1; }
+        prev = rp.stage;
+        rp.advance(K::STAGES);
       }
       sm90::wgmma_wait<0>();
       sm90::fence_regs(h);
@@ -287,15 +280,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < K::N1 / 8; ++i) {
         const int cc = own_h + 8 * i + c0;        // column in the chunk
-        const float2 b = pair(p.b1 ? b1s + (j % kB1Slots) * kHC : nullptr,
-                              cc, j * kHC + cc < p.Hd);
+        const float2 b = sm90::bf16_pair(
+            p.b1 ? b1s + (j % kB1Slots) * kHC : nullptr, cc,
+            j * kHC + cc < p.Hd);
         const int tile = cc >> 6;
         const int col = cc & 63;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int rr = own_rows + r0 + 8 * half;
-          const int off = tile * K::H_TILE + rr * 128 +
-                          ((((col >> 3) ^ (rr & 7))) << 4) + (col & 7) * 2;
+          const int off = tile * K::H_TILE + sm90::swizzle128(rr, col);
           *reinterpret_cast<__nv_bfloat162*>(hb + off) =
               __floats2bfloat162_rn(gelu_erf(h[4 * i + 2 * half] + b.x),
                                     gelu_erf(h[4 * i + 2 * half + 1] + b.y));
@@ -317,9 +310,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             sm90::make_desc(hb + kc * K::H_TILE + own_rows * 128);
 #pragma unroll
         for (int pc = 0; pc < K::PIECES; ++pc) {
-          sm90::mbar_wait(full + stage, phase);
+          sm90::mbar_wait(full + rp.stage, rp.phase);
           if (kRows128 || pc / K::NQ == wg) {
-            const uint64_t db = sm90::make_desc(ring + stage * K::STAGE);
+            const uint64_t db = sm90::make_desc(ring + rp.stage * K::STAGE);
             sm90::wgmma_fence();
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
@@ -331,11 +324,11 @@ __global__ void __launch_bounds__(kThreads, 1)
               sm90::wgmma_wait<1>();
               if (lane == 0) sm90::mbar_arrive(empty + prev);
             }
-            prev = stage;
+            prev = rp.stage;
           } else if (lane == 0) {
-            sm90::mbar_arrive(empty + stage);
+            sm90::mbar_arrive(empty + rp.stage);
           }
-          if (++stage == K::STAGES) { stage = 0; phase ^= 1; }
+          rp.advance(K::STAGES);
         }
       }
       sm90::wgmma_wait<0>();
@@ -350,7 +343,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < kPR / 8; ++i) {
         const int col = n0 + (kRows128 ? 0 : wg * kNW) + q * kPR + 8 * i + c0;
         if (col >= p.Co) continue;
-        const float2 b = pair(p.b2, col, true);
+        const float2 b = sm90::bf16_pair(p.b2, col, true);
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int row = m0 + own_rows + r0 + 8 * half;

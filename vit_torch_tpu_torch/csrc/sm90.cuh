@@ -1,15 +1,21 @@
-// Hopper (sm_90a) primitives shared by the port's kernels: mbarriers, TMA
-// tile loads and their tensor maps, bulk copies, the wgmma shared-memory descriptor,
-// wgmma issue and ordering, named barriers and setmaxnreg.  Every helper
-// is a thin wrapper over one PTX instruction (or the driver's tensor-map
-// encoder) so that a kernel reads as the PTX it issues.
+// Hopper (sm_90a) primitives shared by the port's kernels: mbarriers and
+// a position in a ring of them, TMA tile loads and their tensor maps, bulk
+// copies, the wgmma shared-memory descriptors, wgmma issue and ordering,
+// named barriers, setmaxnreg, and the 128-byte swizzle's element offsets
+// for tiles that the consumers write themselves.  Every helper is a thin
+// wrapper over one PTX instruction (or the driver's tensor-map encoder) so
+// that a kernel reads as the PTX it issues.
 //
 // Layout convention: an operand tile in shared memory is K-major, 64 bf16
 // (128 bytes) of K per row, rows consecutive, written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B (16-byte chunk c of row r lands at chunk
 // c ^ (r % 8)) and 1024-byte aligned.  A K range wider than 64 is several
 // such tiles.  make_desc() describes one tile for wgmma; stepping K by 16
-// inside it adds 32 bytes to the start address (desc + 2).
+// inside it adds 32 bytes to the start address (desc + 2).  A K range of 32
+// may instead be one tile of 64-byte rows in the 64-byte swizzle
+// (make_desc_sw64).  An operand stored with N contiguous (the value tile
+// of attention, B of P V) is MN-major: make_desc_mn() and the
+// transposed-B wgmma (WgmmaRS, A from registers).
 //
 // Kernels built with this header need `-gencode arch=compute_90a,...`:
 // wgmma and setmaxnreg do not exist on plain sm_90.
@@ -17,6 +23,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
@@ -100,6 +107,35 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// 2-D tile store: shared memory (in the map's swizzle) to the box at
+// (column c0, row c1); out-of-bounds elements are not written.  Completes
+// as a bulk group of the issuing thread (bulk_commit / bulk_wait_read)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until at most N of this thread's bulk groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_desc(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -126,23 +162,33 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 row-major (rows, cols) matrix read in boxes of box_rows x 64 with
-// the 128-byte swizzle; out-of-bounds elements read as zero.  Returns false
-// when the driver refuses it.
-inline bool encode_bf16_2d(CUtensorMap* map, const void* base, int rows,
-                           int cols, int box_rows) {
+// A bf16 row-major (rows, cols) matrix read in boxes of box_rows x
+// box_cols, box_cols * 2 bytes being the swizzle span (64 columns with the
+// 128-byte swizzle, 32 with the 64-byte one); out-of-bounds elements read as
+// zero.  Returns false when the driver refuses it.
+inline bool encode_bf16_box(CUtensorMap* map, const void* base, int rows,
+                            int cols, int box_cols, int box_rows) {
   const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || (box_cols != 64 && box_cols != 32)) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
             const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// boxes of box_rows x 64 with the 128-byte swizzle (the layout note)
+inline bool encode_bf16_2d(CUtensorMap* map, const void* base, int rows,
+                           int cols, int box_rows) {
+  return encode_bf16_box(map, base, rows, cols, 64, box_rows);
 }
 
 // Tensor maps by (base, rows, cols, box_rows): weights keep their pointer
@@ -184,6 +230,65 @@ __device__ __forceinline__ uint64_t make_desc(const void* tile) {
          (1ull << 62);
 }
 
+// the same for a K-major tile of 64-byte rows (32 bf16 of K) written with
+// CU_TENSOR_MAP_SWIZZLE_64B: 8-row groups 512 bytes apart, swizzle mode 2
+__device__ __forceinline__ uint64_t make_desc_sw64(const void* tile) {
+  const uint64_t addr = smem_addr(tile);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) |
+         (2ull << 62);
+}
+
+// Descriptor of an MN-major B operand: a (K x N) tile stored with N
+// contiguous, K rows of kSpan bytes (N = kSpan / 2 bf16, one swizzle atom
+// wide), written by TMA with the kSpan-byte swizzle (128 or 64).  Used with
+// the transposed-B flag (Wgmma*::mma_tb).  For MN-major layouts the
+// leading offset is the stride between swizzle atoms along N and the
+// stride offset the stride between 8-row groups along K; with N one atom
+// wide only the second is read, and both fields are set to it (8 rows x
+// kSpan bytes) so that the descriptor does not depend on which of the two
+// the hardware takes for which.  Stepping K by 16 adds 16 * kSpan bytes.
+// New in the attention kernel and, with the register-A wgmma below, the
+// primitive most likely to be wrong: attn_block.cu's PV product is its
+// only user, and chip_smoke holds that product against the plain version.
+template <int kSpan>
+__device__ __forceinline__ uint64_t make_desc_mn(const void* tile) {
+  static_assert(kSpan == 128 || kSpan == 64, "128- or 64-byte swizzle");
+  constexpr uint64_t off = 8 * kSpan / 16;
+  const uint64_t addr = smem_addr(tile);
+  return ((addr & 0x3FFFF) >> 4) | (off << 16) | (off << 32) |
+         ((kSpan == 128 ? 1ull : 2ull) << 62);
+}
+
+// byte offset of element (row, col) in a tile of 64-column (128-byte) rows
+// written in the 128-byte swizzle: 16-byte chunk c of row r sits at
+// chunk c ^ (r % 8)
+__device__ __forceinline__ int swizzle128(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ (row & 7))) << 4) + (col & 7) * 2;
+}
+
+// elements i and i + 1 of a bf16 vector as floats; zeros when p is null or
+// !ok (a missing bias, a column past the end)
+__device__ __forceinline__ float2 bf16_pair(const __nv_bfloat16* p, int i,
+                                            bool ok) {
+  if (p == nullptr || !ok) return make_float2(0.f, 0.f);
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p + i);
+  return make_float2(__low2float(v), __high2float(v));
+}
+
+// one slot of a ring of mbarrier-guarded stages: the stage and the phase
+// parity to wait for; advance() steps to the next stage, flipping the
+// parity on wrap-around
+struct RingPos {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance(int stages) {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -214,6 +319,34 @@ __device__ __forceinline__ void fence_proxy_async() {
 // barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrives at barrier `id` without waiting (the other side bar.syncs)
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// copies accumulator registers that a retired wgmma wrote while later
+// wgmmas of the same pipeline still run: a volatile move stays after the
+// wgmma_wait that retired them and, unlike fence_regs, does not redefine
+// them (a non-wgmma definition of a pipelined wgmma's registers serialises
+// the pipeline: ptxas C7513)
+template <int R>
+__device__ __forceinline__ void read_regs(float (&dst)[R],
+                                          const float (&src)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    asm volatile("mov.b32 %0, %1;\n" : "=f"(dst[i]) : "f"(src[i]));
+  }
+}
+
+// the same fence as fence_regs for a register-A operand (bf16 pairs):
+// after the wait that retires its wgmma, it keeps the compiler from
+// reusing the registers, which the wgmma reads asynchronously
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 template <int R>
@@ -356,4 +489,55 @@ struct Wgmma<256> {
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };
+
+// D (64 x N, fp32) (+)= A (64 x 16, bf16, in registers) B (16 x N, bf16, an
+// MN-major tile in shared memory, make_desc_mn), the transposed-B form
+// (the last immediate, imm-trans-b, is 1).  Thread t of the warpgroup
+// holds A's rows and columns as it holds an accumulator's (see Wgmma):
+// a[0] = (row r, columns 2 (t % 4) + {0, 1}), a[1] = row r + 8, a[2] and
+// a[3] the same eight columns on, r = 16 (t / 32) + (t % 32) / 4, each
+// register two bf16 with the lower column in the low half.  So the fp32
+// accumulator of a 64 x 16 k-slice of a previous product, columns 16 kk to
+// 16 kk + 15, becomes this operand as pack(d[8 kk + 0, 1]), pack(d[8 kk +
+// 2, 3]), pack(d[8 kk + 4, 5]), pack(d[8 kk + 6, 7]).  New in the attention
+// kernel, with make_desc_mn the primitive most likely to be wrong (see
+// there).
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaRS<32> {
+  static __device__ __forceinline__ void mma_tb(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<64> {
+  static __device__ __forceinline__ void mma_tb(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
 }  // namespace sm90

@@ -182,19 +182,21 @@ class Mlp(nn.Module):
 # B3 is opt-in on CUDA, as B4 is.  chip_smoke.py's
 # steady_state_attention_block times whole dino_vits16 @224 steps with B3
 # on and off in turns; on an H100 80GB HBM3 at 700 W (two runs of each
-# side in each of two calls) the chain kept the card busier than cuBLAS +
-# flash + cuBLAS at every shape timed:
-# - bs64 linear-eval step: device busy 4.715-4.780 ms against
-#   3.969-4.030; the step 7.84-17.32 ms against 10.46-19.22, a gain on the
-#   host only (the chain issues fewer launches) and within the spread
-#   between the two calls; the eval forward 4.69-9.56 ms against
-#   5.93-12.14, the same;
-# - bs128 linear-eval step: device busy 9.302-9.643 ms against
-#   7.825-7.847;
+# side in each of two calls), with the Hopper redesign of
+# csrc/attn_block.cu:
+# - bs64 linear-eval step: device busy 3.876-3.931 ms with B3 against
+#   4.005-4.034 without; the step 8.22-12.37 ms against 9.13-15.41 and
+#   the eval forward 4.40-8.09 against 5.54-8.91, gains within the
+#   host's spread between calls (the chain issues fewer launches);
+# - bs128 linear-eval step: device busy 7.232-7.707 ms against
+#   7.834-7.869;
 # - bs64 fine-tune step (the backward recomputes through the flash
-#   kernels): 40.08-60.66 ms against 27.46-47.32, device busy
-#   15.98-16.20 ms against 13.78-13.83.
-# The serving buckets 1 and 8 and C = 768 were never timed with B3 off.
+#   kernels): 33.55-44.22 ms against 28.00-37.09, device busy
+#   15.32-15.36 ms against 13.71-13.86.
+# Without grad B3 saves little device time and with grad it adds some, so
+# it stays off by default until the port's bench cells (ROADMAP A3) can
+# judge on and off on a ledger line.  The serving buckets 1 and 8 and
+# C = 768 were never timed with B3 off.
 
 
 def _fused_attention(x: torch.Tensor, num_heads: int) -> bool:

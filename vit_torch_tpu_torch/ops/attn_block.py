@@ -11,17 +11,20 @@ Counterpart of ``vit_torch_tpu/ops/attn_block.py``:
   under a block-diagonal mask; its forward also keeps qkv for the
   analytic backward.
 
-On CUDA each is a chain of two launches.  :func:`.gemm.gemm`
-(``csrc/window_gemm.cu``'s product: identity row map, bias epilogue)
-writes the qkv projection ``(B, N, 3C)`` in the ``(3, H, D)`` column
-order; ``csrc/attn_block.cu`` then takes 64 query rows per block (the rows
-of one image, or whole images packed), runs the exact online softmax of
-every head against its image's keys, keeps the heads' outputs in shared
-memory and projects them with the output weight streamed through shared
-memory, writing each output row once.  The source note gives the design
-and the bound.  The TPU's 128-row chunks, pack width and VMEM budgets are
-tilings of the same function and have no counterpart here; :func:`fits`
-and :func:`fits_packed` state what the CUDA kernel takes.
+On CUDA each is a chain of two launches of ``csrc/attn_block.cu``'s
+warp-specialised ``wgmma`` kernels fed by TMA: the qkv product
+(``bf16(x W_qkvᵀ + b)``, columns in the ``(3, H, D)`` order) and the
+attention-and-projection kernel, which loads a block's q rows once into
+a head-output tile in shared memory, runs the exact online softmax of
+every head against its image's keys, writes each head's output over its
+q columns there and projects the tile with the output weight streamed
+through shared memory, writing each output row once.  A block takes 64
+query rows; its two consumer warpgroups take alternate heads and then
+split the projection's columns, whose passes :func:`launch_plan` gives;
+the source note gives the design, the budgets and the bound.  The TPU's
+128-row chunks, pack width and VMEM budgets are tilings of the same
+function and have no counterpart here; :func:`fits` and
+:func:`fits_packed` state what the CUDA kernels take.
 
 Rounding points follow ``_kernel``: q, k and v take their bias in fp32
 and round once; scores and softmax statistics are fp32; the unnormalised
@@ -54,7 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,17 +65,19 @@ from vit_torch_tpu_torch.ops import _build
 from vit_torch_tpu_torch.ops.flash_attention import (
     flash_attention_bhnd_reference, flash_attention_qkv)
 from vit_torch_tpu_torch.ops.gemm import (
-    EPI_BIAS, FLAT, check, dense_f32, gemm, linear, needs_grad, ptr,
-    recompute_grads)
+    check, dense_f32, linear, needs_grad, ptr, recompute_grads, sm_count)
 
 HEAD_DIMS = (32, 64)
-# the projections run over 64-column tiles; the query tile and the heads'
-# outputs, 64 x C bf16, sit in shared memory beside the key/value ring
+# the products run over 64-column k-tiles; the query rows and the heads'
+# outputs, rows x C bf16, sit in shared memory beside the ring
 MAX_CHANNELS = 1024
 # the packed form takes whole images into one 64-row tile
 MAX_PACKED_TOKENS = 48
 _TILE_ROWS = 64
 _MAX_GRID_Y = 65535
+# csrc/attn_block.cu's projection instances: columns a consumer warpgroup
+# projects in one pass (at most 384: 192 fp32 accumulators a thread)
+_PASS_COLS = (128, 192, 256, 384)
 
 
 def fits(N: int, C: int, num_heads: int) -> bool:
@@ -86,6 +91,40 @@ def fits(N: int, C: int, num_heads: int) -> bool:
 def fits_packed(N: int, C: int, num_heads: int) -> bool:
     """:func:`fits`, for sequences of at most :data:`MAX_PACKED_TOKENS`."""
     return N <= MAX_PACKED_TOKENS and fits(N, C, num_heads)
+
+
+class Plan(NamedTuple):
+    """How ``csrc/attn_block.cu``'s attention-and-projection kernel is
+    launched for one shape: the output columns a consumer warpgroup
+    projects in one pass (the two warpgroups take half the columns each),
+    the passes, and the 64-row blocks in the grid."""
+    pass_cols: int
+    passes: int
+    blocks: int
+
+
+def _round_up(n: int, widths) -> int:
+    return next(w for w in widths if n <= w)
+
+
+def launch_plan(B: int, N: int, C: int, num_heads: int, *,
+                packed: bool = False) -> Plan:
+    """The kernel's launch plan for these shapes (the one the wrapper
+    passes to the C entry point): each consumer warpgroup projects half
+    the C columns in the fewest passes of at most 384.  B3 blocks take 64
+    rows of one image; B4 (``packed``) blocks take whole images, 64 // N
+    of them.  Shapes the kernel does not take raise."""
+    if not (fits_packed if packed else fits)(N, C, num_heads):
+        raise ValueError(f"no attention block kernel for N = {N}, C = {C}, "
+                         f"{num_heads} heads")
+    half = -(-C // 2)
+    passes = -(-half // _PASS_COLS[-1])
+    cols = _round_up(-(-half // passes), _PASS_COLS)
+    if packed:
+        blocks = -(-B // (_TILE_ROWS // N))
+    else:
+        blocks = -(-N // _TILE_ROWS) * B
+    return Plan(cols, passes, blocks)
 
 
 # --------------------------------------------------------------------------
@@ -150,13 +189,19 @@ attention_block_packed_reference.calls = 0
 # --------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _attn_fn():
-    """attn_block.cu's entry point, built and loaded on first use."""
-    fn = _build.load("attn_block").attn_block_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+def _fns():
+    """attn_block.cu's two entry points, built and loaded on first use:
+    ``(qkv product, attention and projection)``."""
+    lib = _build.load("attn_block")
+    qkv = lib.attn_block_qkv_bf16
+    qkv.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    qkv.restype = ctypes.c_int
+    attn = lib.attn_block_bf16
+    attn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    attn.restype = ctypes.c_int
+    return qkv, attn
 
 
 def _check_inputs(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
@@ -195,18 +240,23 @@ def _check_inputs(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int,
 
 def _launch(x, w_qkv, b_qkv, w_proj, b_proj, num_heads: int, scale: float,
             packed: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The qkv product, then the attention + projection kernel: returns
-    ``(out, qkv)``."""
+    """The two launches on CUDA tensors: the qkv product, then the
+    attention and projection kernel with :func:`launch_plan`'s plan.
+    Returns ``(out, qkv)``; raises on inputs the kernels do not take."""
     _check_inputs(x, w_qkv, b_qkv, w_proj, b_proj, num_heads, packed)
     B, N, C = x.shape
+    plan = launch_plan(B, N, C, num_heads, packed=packed)
+    qkv_fn, attn_fn = _fns()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     qkv = torch.empty((B, N, 3 * C), dtype=x.dtype, device=x.device)
-    gemm(x, w_qkv, b_qkv, qkv, epilogue=EPI_BIAS, geom=FLAT)
+    check(qkv_fn(x.data_ptr(), w_qkv.data_ptr(), ptr(b_qkv), qkv.data_ptr(),
+                 B * N, C, sm_count(x.device), stream), "attn_block qkv")
     out = torch.empty_like(x)
     group = _TILE_ROWS // N if packed else 0
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    check(_attn_fn()(qkv.data_ptr(), w_proj.data_ptr(), ptr(b_proj),
-                     out.data_ptr(), B, N, C, num_heads, group, float(scale),
-                     stream), "attn_block")
+    check(attn_fn(qkv.data_ptr(), w_proj.data_ptr(), ptr(b_proj),
+                  out.data_ptr(), B, N, C, num_heads, group,
+                  plan.pass_cols, plan.passes, float(scale), stream),
+          "attn_block")
     return out, qkv
 
 

@@ -46,7 +46,8 @@ import torch.nn.functional as F
 
 from vit_torch_tpu_torch.ops import _build
 from vit_torch_tpu_torch.ops.gemm import (check, dense_f32, linear,
-                                          needs_grad, ptr, recompute_grads)
+                                          needs_grad, ptr, recompute_grads,
+                                          sm_count)
 
 # csrc/fused_mlp.cu's shapes: fc1 runs over k-steps of 64, the hidden
 # dimension in TMA tiles of 64, the output in 16-byte rows.  fits() keeps
@@ -109,11 +110,6 @@ def launch_plan(T: int, C: int, hidden: int, out_dim: Optional[int] = None,
         raise ValueError(f"no {block_rows}-row layout for {per} columns a "
                          f"slab")
     return Plan(block_rows, cols, slabs, -(-T // block_rows) * slabs)
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _round_up(n: int, widths) -> int:
@@ -179,7 +175,7 @@ def _forward(x, w1, b1, w2, b2) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"no fused MLP for device {x.device}")
     return launch(x, w1, b1, w2, b2, launch_plan(
-        x.shape[0], x.shape[-1], w1.shape[0], w2.shape[0], _sms(x.device)))
+        x.shape[0], x.shape[-1], w1.shape[0], w2.shape[0], sm_count(x.device)))
 
 
 def launch(x, w1, b1, w2, b2, plan: Plan) -> torch.Tensor:

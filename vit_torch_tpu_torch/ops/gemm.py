@@ -1,12 +1,12 @@
-"""The hand-written product the fused blocks share, and the helpers their
-plain versions and autograd Functions share.
+"""The hand-written product of the Swin window blocks, and the helpers the
+fused blocks' plain versions and autograd Functions share.
 
 :func:`gemm` launches ``csrc/window_gemm.cu``'s product: ``out = x @ w.T``
 over bf16 rows with fp32 accumulation and one of the fused epilogues
 below.  Its row addressing can gather the rows of a Swin map window-major
 and scatter them back (the Swin blocks, :mod:`.window_block`); with the
 identity map ``geom = (1, 1, 1, 0)`` it is a plain row-major product
-(the ViT attention block's qkv projection, :mod:`.attn_block`).
+(the flat window block's projections).
 """
 
 from __future__ import annotations
@@ -74,6 +74,12 @@ def _gemm_fn():
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (the kernels' grid sizes)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(x: Optional[torch.Tensor]):
