@@ -12,7 +12,10 @@
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes the serving and training paths give it, and times kernel, plain
    version and the PyTorch library call that computes the same function
-   (where there is one): the flash kernels at the dino_vitb8 shapes; the
+   (where there is one): the flash kernels at the dino_vitb8, DeiT-base
+   and dino_vits16 shapes, with their launch plans, each launch's device
+   time from the profiler, SDPA's device time and backend, and the card's
+   clocks before and after the timing; the
    window-attention core (row 5), its backward (row 6) and the window
    blocks B8 and B9 (rows 8 and 9) at all four stages of swin_base_384
    bs32, shifted and unshifted, at swin_tiny's window-7 stage 1 and at a
@@ -198,12 +201,18 @@ TRAIN_BS, SYNTHETIC_N = 32, 512
 TRAIN_ARGS = ["--dataset", "synthetic", "--arch", ARCH, "--image_size",
               str(IMAGE_SIZE), "--bs", str(TRAIN_BS), "--epoch", "1",
               "--opt", "adamw", "--lr", "1e-4", "--fc", "512"]
+# the flash shapes: dino_vitb8 @224 bs32 (the headline), then the
+# default attention of DeiT-base bs32 and dino_vits16 @224 bs64
 ATTN_SHAPES = [(32, 12, 785, 64), (8, 12, 197, 64), (2, 2, 65, 32),
-               (1, 1, 1, 64)]
-# the dino_vitb8 finetune shapes at 224 px bs32 and 32 px bs128, and small
-# ragged ones
+               (1, 1, 1, 64), (32, 12, 197, 64), (64, 6, 197, 64)]
+# the dino_vitb8 finetune shapes at 224 px bs32 and 32 px bs128, small
+# ragged ones, DeiT-base bs32 and dino_vits16 @224 bs64
 BWD_SHAPES = [(32, 12, 785, 64), (128, 12, 17, 64), (8, 12, 197, 64),
-              (2, 2, 65, 32), (1, 1, 1, 64)]
+              (2, 2, 65, 32), (1, 1, 1, 64), (32, 12, 197, 64),
+              (64, 6, 197, 64)]
+# the backward's three launches, in order, as the profiler names them
+FLASH_BWD_KERNELS = ("flash_bwd_preprocess_kernel", "flash_bwd_kernel",
+                     "flash_bwd_convert_kernel")
 SWIN_ARCH, SWIN_SIZE, SWIN_DEPTH = "swin_base_patch4_window12_384_22k", 384, 24
 SWIN_TRAIN_ARGS = ["--dataset", "synthetic", "--arch", SWIN_ARCH,
                    "--image_size", str(SWIN_SIZE), "--bs", str(TRAIN_BS),
@@ -355,8 +364,11 @@ def check_flash_bwd_kernel(shape, seed):
     feeds it: q, k, v strided views into one (B, N, 3, H, D) qkv tensor,
     through ``flash_attention_qkv``'s autograd Function, whose backward
     writes one (B, N, 3, H, D) gradient.  Also holds the forward's LSE
-    against the plain logsumexp, and times the backward kernel, the plain
-    backward, SDPA's backward and the forward with the LSE written."""
+    against the plain logsumexp; times the backward on CUDA events (the
+    card's clocks read just before and after) and each of its three
+    launches' device time from one profiler pass (preprocess, main,
+    convert), the plain backward, SDPA's backward (events, device time,
+    the backend it took) and the forward with the LSE written."""
     import torch
     import torch.nn.functional as F
     from vit_torch_tpu_torch.ops import flash_attention as fa
@@ -396,27 +408,48 @@ def check_flash_bwd_kernel(shape, seed):
                              f"(limit {LSE_ATOL})")
     big = B * H * N * N > 1e8
     dq, dk, dv = (x.transpose(1, 2) for x in dqkv.unbind(2))
-    ms = _time_ms(lambda: fa.flash_attention_bwd(
-        q, k, v, o, lse, do, scale=scale, dq=dq, dk=dk, dv=dv),
-        iters=20 if big else 100)
+
+    def run():
+        fa.flash_attention_bwd(q, k, v, o, lse, do, scale=scale, dq=dq,
+                               dk=dk, dv=dv)
+
+    smi = [_smi_sample()]
+    ms = _time_ms(run, iters=20 if big else 100)
+    smi.append(_smi_sample())
+    split = _device_times(run, FLASH_BWD_KERNELS)
+    if not all(t > 0 and n == 1 for t, n in split):
+        raise AssertionError(f"flash_attention_bwd {shape}: the profiler "
+                             f"did not see each launch once a call: "
+                             f"{split}")
     plain_ms = _time_ms(lambda: fa.flash_attention_bwd_reference(
         q, k, v, do, scale=scale), iters=3 if big else 20)
     qs, ks, vs = (x.contiguous().requires_grad_(True) for x in (q, k, v))
     dos = do.contiguous()
     o_lib = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
-    library_ms = _time_ms(lambda: torch.autograd.grad(
-        o_lib, (qs, ks, vs), dos, retain_graph=True),
-        iters=20 if big else 100)
+
+    def library():
+        return torch.autograd.grad(o_lib, (qs, ks, vs), dos,
+                                   retain_graph=True)
+
+    library_ms = _time_ms(library, iters=20 if big else 100)
+    library_device_ms = _device_ms(library, "")   # every kernel it runs
     fwd_lse_ms = _time_ms(lambda: fa.flash_attention_fwd(
         q, k, v, scale=scale, out=o, return_lse=True),
         iters=20 if big else 100)
     bound_ms, bound_by = _bwd_bound_ms(B, H, N, D)
     row = {"shape": list(shape), "rel_err_dq_dk_dv": errs,
            "max_abs_err": abs_err,
-           "max_abs_err_lse": lse_err, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "fwd_with_lse_ms": fwd_lse_ms,
-           "fwd_bound_ms": _attention_bound_ms(B, H, N, D)[0]}
+           "max_abs_err_lse": lse_err, "ms": ms,
+           "device_ms": sum(t for t, _ in split),
+           "device_ms_preprocess_main_convert": [t for t, _ in split],
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_device_ms": library_device_ms,
+           "library_backend": _library_backend(library),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "plan": fa.launch_plan(B, H, N, D, backward=True)._asdict(),
+           "fwd_with_lse_ms": fwd_lse_ms,
+           "fwd_bound_ms": _attention_bound_ms(B, H, N, D)[0],
+           "smi_before_after_events": smi}
     _say("kernel check flash_attention_bwd", json.dumps(row))
     return row
 
@@ -425,7 +458,10 @@ def check_flash_kernel(shape, seed):
     """Kernel vs plain version on one shape, through both entries: the
     (B, N, H, D) one fed as the model feeds it (q, k, v strided views into
     one (B, N, 3, H, D) qkv tensor) and the (B, H, N, D) one on contiguous
-    inputs.  Times the first, as the serving path calls it."""
+    inputs.  Times the first, as the serving path calls it, on CUDA events
+    (the card's clocks read just before and after) and its device time
+    from the profiler; the plain version; SDPA on events and on the
+    device, with the backend it took."""
     import torch
     import torch.nn.functional as F
     from vit_torch_tpu_torch.ops import flash_attention as fa
@@ -448,16 +484,32 @@ def check_flash_kernel(shape, seed):
         raise AssertionError(f"flash_attention_fwd {shape}: max abs err "
                              f"{err} > {KERNEL_ATOL}")
     big = B * H * N * N > 1e8
-    ms = _time_ms(lambda: fa.flash_attention(q, k, v, scale=scale),
-                  iters=20 if big else 100)
+
+    def run():
+        return fa.flash_attention(q, k, v, scale=scale)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+    smi = [_smi_sample()]
+    ms = _time_ms(run, iters=20 if big else 100)
+    smi.append(_smi_sample())
+    ((device_ms, seen),) = _device_times(run, ("flash_fwd_kernel",))
+    if not (device_ms > 0 and seen == 1):
+        raise AssertionError(f"flash_attention_fwd {shape}: the profiler "
+                             f"saw {seen} launches a call, {device_ms} ms")
     plain_ms = _time_ms(lambda: fa.flash_attention_bhnd_reference(
         qt, kt, vt, scale=scale), iters=5 if big else 20)
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, scale=scale), iters=20 if big else 100)
+    library_ms = _time_ms(library, iters=20 if big else 100)
     bound_ms, bound_by = _attention_bound_ms(B, H, N, D)
     row = {"shape": list(shape), "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "device_ms": device_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library_device_ms": _device_ms(library, ""),
+           "library_backend": _library_backend(library),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "plan": fa.launch_plan(B, H, N, D)._asdict(),
+           "smi_before_after_events": smi}
     _say("kernel check flash_attention_fwd", json.dumps(row))
     return row
 
@@ -517,16 +569,33 @@ def check_window_attention(case, seed):
     return row
 
 
+def _cuda_events(fn, iters: int, tries: int = 3):
+    """The CUDA kernel events of one torch.profiler pass over ``iters``
+    calls of ``fn`` (after one call outside it).  The card's profiler now
+    and then records no kernel at all in a short pass (SDPA's backend has
+    read "not measured", a flash check has seen no launch, of kernels that
+    ran); a pass that recorded none is made again, up to ``tries``
+    passes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+    return []
+
+
 def _library_backend(fn) -> str:
     """The kernel that takes most device time in one call of ``fn``: the
     backend PyTorch picked."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    evs = _cuda_events(fn, iters=1)
     if not evs:
         return "not measured"
     return max(evs, key=lambda e: e.self_device_time_total).key[:80]
@@ -540,16 +609,7 @@ def _device_times(fn, kernels, iters: int = 10):
     time, where the CUDA-event time of a loop of calls is set by the
     host's launch rate; entries read from one pass add up to the time of
     all of them."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = _cuda_events(fn, iters)
     times = []
     for kernel in kernels:
         names = (kernel,) if isinstance(kernel, str) else kernel
@@ -2394,6 +2454,8 @@ def main() -> int:
     # the wgmma kernels: no spill, no serialised wgmma
     mlp_ptxas = ptxas_gate("fused_mlp", _build.LOGS.get("fused_mlp", ""))
     ab_ptxas = ptxas_gate("attn_block", _build.LOGS.get("attn_block", ""))
+    flash_ptxas = {k: ptxas_gate(k, _build.LOGS.get(k, ""))
+                   for k in ("flash_attention_fwd", "flash_attention_bwd")}
 
     rows = [check_flash_kernel(shape, seed=i)
             for i, shape in enumerate(ATTN_SHAPES)]
@@ -2527,7 +2589,16 @@ def main() -> int:
             "finetune": finetune["flash_attention_fwd"],
             "lineareval": lineareval["flash_attention_fwd"]},
         "ms_with_lse": train_row["fwd_with_lse_ms"],
-        "max_abs_err_lse": max(r["max_abs_err_lse"] for r in bwd_rows)}, {
+        "max_abs_err_lse": max(r["max_abs_err_lse"] for r in bwd_rows),
+        "device_ms": serving_row["device_ms"],
+        "library_device_ms": serving_row["library_device_ms"],
+        "library_backend": serving_row["library_backend"],
+        "plan": serving_row["plan"],
+        "ptxas": flash_ptxas["flash_attention_fwd"],
+        "ms_device_plain_library_libdevice_bound_by_shape": [
+            [r["shape"], r["ms"], r["device_ms"], r["plain_ms"],
+             r["library_ms"], r["library_device_ms"], r["bound_ms"]]
+            for r in rows]}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "vit_torch_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "vit_torch_tpu/ops/flash_attention.py:292",
@@ -2543,7 +2614,19 @@ def main() -> int:
             "finetune": finetune["flash_attention_bwd"],
             "lineareval": lineareval["flash_attention_bwd"]},
         "ms_32px_bs128": bwd_rows[1]["ms"],
-        "bound_ms_32px_bs128": bwd_rows[1]["bound_ms"]}]
+        "bound_ms_32px_bs128": bwd_rows[1]["bound_ms"],
+        "device_ms": train_row["device_ms"],
+        "device_ms_preprocess_main_convert":
+            train_row["device_ms_preprocess_main_convert"],
+        "library_device_ms": train_row["library_device_ms"],
+        "library_backend": train_row["library_backend"],
+        "plan": train_row["plan"],
+        "ptxas": flash_ptxas["flash_attention_bwd"],
+        "ms_device_split_plain_library_libdevice_bound_by_shape": [
+            [r["shape"], r["ms"], r["device_ms"],
+             r["device_ms_preprocess_main_convert"], r["plain_ms"],
+             r["library_ms"], r["library_device_ms"], r["bound_ms"]]
+            for r in bwd_rows]}]
     # the Swin rows: numbers at the headline shape (swin_base_384 bs32
     # stage 1, shifted), the other shapes beside them; launches of the
     # forward kernels from the linear-eval run (slice 3's main path, bench

@@ -1,10 +1,10 @@
 """The kernels' build cache, on the CPU: a build keeps its ``ptxas -v``
 report beside the library, a library found built brings that report back
 into ``_build.LOGS`` without running ``nvcc``, and one found without its
-report is built again; and chip_smoke's gate on the fused-MLP and
-attention-block reports.  A stand-in ``nvcc`` (a Python script that
-writes the library, prints a report and counts its calls) takes the
-compiler's place."""
+report is built again; and chip_smoke's gate on the fused-MLP,
+attention-block and flash-attention reports.  A stand-in ``nvcc`` (a
+Python script that writes the library, prints a report and counts its
+calls) takes the compiler's place."""
 
 import importlib.util
 import os
@@ -117,3 +117,12 @@ def test_chip_smoke_gates_the_attn_block_report(log, ok):
     """The same gate on the attention block's two kernels (every head-dim
     and pass-width instance of the attention kernel)."""
     _gate("attn_block", log, ok)
+
+
+@GATE_CASES
+@pytest.mark.parametrize("kernel", ["flash_attention_fwd",
+                                    "flash_attention_bwd"])
+def test_chip_smoke_gates_the_flash_reports(kernel, log, ok):
+    """The same gate on the flash forward's ping-pong kernel and the
+    backward's three kernels (each head-dim instance)."""
+    _gate(kernel, log, ok)

@@ -61,8 +61,14 @@ def _qkv(shape, seed, device):
                         dtype=torch.bfloat16) for _ in range(3)]
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 1, 64), (2, 3, 65, 64),
-                                   (1, 2, 130, 32), (3, 2, 257, 64)])
+# small ragged shapes; DeiT-base bs32 and dino_vits16 @224 bs64 (N = 197);
+# a ragged D = 32 shape whose last 128-row block has one live warpgroup
+FLASH_SHAPES = [(2, 3, 1, 64), (2, 3, 65, 64), (1, 2, 130, 32),
+                (3, 2, 257, 64), (32, 12, 197, 64), (64, 6, 197, 64),
+                (3, 5, 211, 32)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
 def test_kernel_matches_plain(cuda, shape):
     q, k, v = _qkv(shape, seed=shape[2], device=cuda)
     ref = fa.flash_attention_bhnd_reference(q, k, v).float()
@@ -93,8 +99,7 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention_bwd(q, k, v, o, lse, o.float())
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 1, 64), (2, 3, 65, 64),
-                                   (1, 2, 130, 32), (3, 2, 257, 64)])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
 def test_bwd_kernel_matches_plain(cuda, shape):
     """Gradients through the packed-qkv entry, as the model calls it,
     against the plain backward; one backward launch per call."""
@@ -114,6 +119,40 @@ def test_bwd_kernel_matches_plain(cuda, shape):
         err = (got.transpose(1, 2).float() - want.float()).abs().max().item()
         assert err <= BWD_RTOL * max(want.float().abs().max().item(),
                                      BWD_FLOOR)
+
+
+def test_bwd_kernel_writes_one_dqkv_through_strides(cuda):
+    """dq, dk and dv as views into one (B, N, 3, H, D) gradient (the qkv
+    Function's layout), filled with NaN first: every element is written,
+    each against the plain backward, and dq, which sums by atomics, agrees
+    with itself between two runs to one bf16 rounding."""
+    B, H, N, D = 4, 6, 197, 64
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qkv, dout = (torch.randn(shape, generator=gen, device=cuda,
+                             dtype=torch.bfloat16)
+                 for shape in ((B, N, 3, H, D), (B, N, H, D)))
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    do = dout.transpose(1, 2)
+    o, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    grads = []
+    for _ in range(2):
+        dqkv = torch.full((B, N, 3, H, D), float("nan"), device=cuda,
+                          dtype=torch.bfloat16)
+        views = [x.transpose(1, 2) for x in dqkv.unbind(2)]
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, dq=views[0],
+                                     dk=views[1], dv=views[2])
+        assert all(g.data_ptr() == w.data_ptr() for g, w in zip(got, views))
+        grads.append(dqkv)
+    torch.cuda.synchronize()
+    assert torch.isfinite(grads[0]).all()
+    ref = fa.flash_attention_bwd_reference(q, k, v, do)
+    for got, want in zip(grads[0].unbind(2), ref):
+        err = (got.transpose(1, 2).float() - want.float()).abs().max().item()
+        assert err <= BWD_RTOL * max(want.float().abs().max().item(),
+                                     BWD_FLOOR)
+    assert torch.equal(grads[0][:, :, 1:], grads[1][:, :, 1:])
+    dq0, dq1 = (g[:, :, 0].float() for g in grads)
+    assert ((dq0 - dq1).abs() <= 2 ** -7 * dq0.abs().clamp_min(1e-3)).all()
 
 
 def test_launch_count(cuda):

@@ -2,17 +2,22 @@
 which the wrapper runs for CPU tensors) against the JAX package's Pallas
 flash kernel in interpret mode, and the port's attention dispatcher against
 the JAX ``_xla_attention``.  Inputs are made with numpy from a seed; fp32
-on both sides, so the tolerance only covers summation order."""
+on both sides, so the tolerance only covers summation order.  Also the
+forward kernel's launch plan at the shapes the card checks, the shapes
+both plans refuse, and the dispatch of a tensor on the card to the
+forward's and the backward's launchers."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from vit_torch_tpu.ops.attention import _xla_attention
 from vit_torch_tpu.ops.flash_attention import (
     flash_attention as jax_flash_attention,
     flash_attention_bhnd as jax_flash_attention_bhnd)
+from vit_torch_tpu_torch.ops import flash_attention as fa
 from vit_torch_tpu_torch.ops.attention import dot_product_attention
 from vit_torch_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bhnd, flash_attention_bhnd_reference)
@@ -75,3 +80,123 @@ def test_reference_rounds_p_like_the_kernel():
     assert got.dtype == torch.bfloat16
     exact = flash_attention_bhnd_reference(tq.float(), tk.float(), tv.float())
     np.testing.assert_allclose(got.float().numpy(), exact.numpy(), atol=2e-2)
+
+
+# (B, H, N, D): chip_smoke's ATTN_SHAPES (dino_vitb8 @224 bs32, DeiT-base
+# and dino_vits16 @224, small ragged ones) and the headline at D = 32
+PLAN_SHAPES = [(32, 12, 785, 64), (8, 12, 197, 64), (2, 2, 65, 32),
+               (1, 1, 1, 64), (32, 12, 197, 64), (64, 6, 197, 64),
+               (32, 12, 785, 32), (128, 12, 17, 64)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_forward_launch_plan(shape):
+    """Items of 128 query rows, one persistent block per SM or per item
+    where there are fewer, 64-key tiles, as many ring stages as key tiles
+    up to 8, shared memory inside the SM's 227 KB; the products cover
+    ceil(N / 64) * 64 keys."""
+    B, H, N, D = shape
+    plan = fa.launch_plan(B, H, N, D)
+    assert (plan.block_q, plan.block_k, plan.dq_rows) == (128, 64, 0)
+    assert plan.grid == (min(132, -(-N // 128) * B * H), 1)
+    assert plan.stages == min(8, -(-N // 64))
+    tile = 64 * D * 2
+    assert plan.smem_bytes == 1024 + (4 + 2 * plan.stages) * tile + 160
+    assert plan.smem_bytes <= 232448
+    assert fa.launch_plan(B, H, N, D, sms=1).grid == (1, 1)
+
+
+def test_forward_launch_plan_at_the_headline():
+    assert fa.launch_plan(32, 12, 785, 64) == fa.Plan(
+        128, 64, 8, (132, 1), 165024, 0)
+
+
+@pytest.mark.parametrize("shape,backward,match", [
+    ((2, 2, 65, 48), False, "head dim"), ((2, 2, 65, 128), True, "head dim"),
+    ((2, 2, 0, 64), False, "no flash"), ((0, 2, 16, 64), True, "no flash"),
+    ((65536, 1, 16, 64), True, "exceeds 65535"),
+    ((2 ** 24, 128, 16, 64), False, "items")])
+def test_launch_plan_refuses_what_the_kernels_do_not_take(shape, backward,
+                                                          match):
+    """The backward's grid holds B * H in y; the forward's persistent
+    blocks number their items in an int, and take B * H = 65536."""
+    with pytest.raises(ValueError, match=match):
+        fa.launch_plan(*shape, backward=backward)
+    assert fa.launch_plan(65536, 1, 16, 64).grid == (132, 1)
+
+
+class _OnCard(torch.Tensor):
+    """A meta tensor that says it lies on the card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+class _CardOnMeta(TorchFunctionMode):
+    """Allocations asked for on the card become meta tensors that say they
+    lie on the card, so that the wrappers' CUDA branch runs without a
+    card."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        dev = kwargs.get("device")
+        if dev is not None and torch.device(dev).type == "cuda":
+            kwargs["device"] = "meta"
+        out = func(*args, **kwargs)
+        if (isinstance(out, torch.Tensor) and out.is_meta
+                and not isinstance(out, _OnCard)):
+            out = out.as_subclass(_OnCard)
+        return out
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("a tensor on the card took the plain version")
+
+
+def test_forward_on_the_card_calls_the_launcher(monkeypatch):
+    """Both forward entries send a tensor on the card to the kernel's
+    launcher, never to the plain version."""
+    calls = []
+    monkeypatch.setattr(fa, "_launch_fwd",
+                        lambda *args: calls.append([a is None or a.device.type
+                                                    for a in args[:5]]))
+    monkeypatch.setattr(fa, "flash_attention_bhnd_reference", _refuse)
+    with _CardOnMeta():
+        q, k, v = (torch.empty((2, 3, 40, 64), dtype=torch.bfloat16,
+                               device="cuda") for _ in range(3))
+        out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+        fa.flash_attention_fwd(q, k, v)
+        bnhd = fa.flash_attention(*(x.transpose(1, 2) for x in (q, k, v)))
+    assert calls == [["cuda"] * 5, ["cuda"] * 4 + [True],
+                     ["cuda"] * 4 + [True]]
+    assert out.device.type == "cuda" and out.shape == (2, 3, 40, 64)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 3, 40)
+    assert bnhd.shape == (2, 40, 3, 64) and bnhd.is_contiguous()
+
+
+def test_backward_on_the_card_calls_the_launcher(monkeypatch):
+    """The backward entry sends tensors on the card to the kernel's
+    launcher with the gradients it allocated, or with the caller's views,
+    never to the plain version."""
+    calls = []
+    monkeypatch.setattr(fa, "_launch_bwd",
+                        lambda *args: calls.append(args))
+    monkeypatch.setattr(fa, "flash_attention_bwd_reference", _refuse)
+    with _CardOnMeta():
+        q, k, v, o, do = (torch.empty((2, 3, 40, 32), dtype=torch.bfloat16,
+                                      device="cuda") for _ in range(5))
+        lse = torch.empty((2, 3, 40), dtype=torch.float32, device="cuda")
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, scale=0.5)
+        dqkv = torch.empty((2, 40, 3, 3, 32), dtype=torch.bfloat16,
+                           device="cuda")
+        views = [x.transpose(1, 2) for x in dqkv.unbind(2)]
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, dq=views[0],
+                                     dk=views[1], dv=views[2])
+    assert len(calls) == 2
+    first, second = calls
+    assert all(x.device.type == "cuda" for x in first[:9])
+    assert first[6:9] == (dq, dk, dv) and first[9] == 0.5
+    assert dq.shape == dk.shape == dv.shape == (2, 3, 40, 32)
+    assert second[6:9] == tuple(views) == got
+    assert second[9] == 32 ** -0.5

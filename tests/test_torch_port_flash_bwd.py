@@ -11,6 +11,8 @@ and the packed-qkv entry the model calls.
 Inputs are made with numpy from a seed.  Everything is fp32 on both sides,
 so the tolerance covers summation order only: gradients of order 1–10 for
 standard-normal inputs agree to ~1e-6 relative.
+
+Also the backward kernel's launch plan at the shapes the card checks.
 """
 
 import jax
@@ -125,3 +127,34 @@ def test_bwd_reference_rounds_like_the_kernel():
         assert g.dtype == torch.bfloat16
         scale = e.abs().max().item()
         assert (g.float() - e).abs().max().item() <= 3e-2 * scale
+
+
+# (B, H, N, D): chip_smoke's BWD_SHAPES (dino_vitb8 @224 bs32 and @32
+# bs128, DeiT-base and dino_vits16 @224, small ragged ones) and the
+# headline at D = 32
+PLAN_SHAPES = [(32, 12, 785, 64), (128, 12, 17, 64), (8, 12, 197, 64),
+               (2, 2, 65, 32), (1, 1, 1, 64), (32, 12, 197, 64),
+               (64, 6, 197, 64), (32, 12, 785, 32)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_backward_launch_plan(shape):
+    """128 keys a block, 64-query tiles, as many ring stages as query
+    tiles up to 4, one block per (key block, b * h), a dQ accumulator of
+    ceil(N / 64) * 64 rows, shared memory inside the SM's 227 KB."""
+    B, H, N, D = shape
+    plan = fa.launch_plan(B, H, N, D, backward=True)
+    assert (plan.block_q, plan.block_k) == (64, 128)
+    assert plan.grid == (-(-N // 128), B * H)
+    assert plan.dq_rows == -(-N // 64) * 64 and plan.dq_rows - N < 64
+    assert plan.stages == min(4, -(-N // 64))
+    tile = 64 * D * 2
+    stage = -(-(2 * tile + 512) // 1024) * 1024
+    assert plan.smem_bytes == (1024 + 4 * tile + 2 * 128 * 64 * 2
+                               + plan.stages * stage + 72)
+    assert plan.smem_bytes <= 232448
+
+
+def test_backward_launch_plan_at_the_headline():
+    assert fa.launch_plan(32, 12, 785, 64, backward=True) == fa.Plan(
+        64, 128, 4, (7, 384), 136264, 832)

@@ -76,7 +76,9 @@
 //    defines before its wait (C7513) or whose wgmma sits under a branch
 //    it cannot prove uniform (C7520): S is read, not rewritten, while P V
 //    runs, P is handed over in fp32 and packed after the wait, and the
-//    first and last tiles are peeled off the loop.
+//    first and last tiles are peeled off the loop.  The loop is
+//    csrc/attention_sm90.cuh's head_pingpong, which the flash-attention
+//    forward runs too.
 //    Then out = HO W_proj^T + b: W_proj (nn.Linear layout, already
 //    K-major) streamed in pieces of PR rows x 64 through the same ring;
 //    the warpgroups split the output columns, each accumulating at most
@@ -126,6 +128,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_sm90.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -133,12 +136,6 @@ namespace {
 constexpr int kThreads = 384;        // 2 consumer warpgroups + producer
 constexpr int kSmemMax = 232448;     // 227 KB a block may use
 constexpr int kMaxC = 1024;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
 
 // Every thread of the block copies a bias vector (n bf16, n a multiple of
 // 8; zeros for a null bias) into shared memory before the roles split, so
@@ -178,7 +175,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap tm_out,
                           const QkvParams p) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* ring = align1024(smem_raw);
+  uint8_t* ring = sm90::align1024(smem_raw);
   // the output slices, one of 64 rows x 64 columns a consumer warpgroup
   uint8_t* otile = ring + kQkvStages * kQkvStage;
   __nv_bfloat16* bias = reinterpret_cast<__nv_bfloat16*>(otile + kQkvOut);
@@ -291,7 +288,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- 2. attention and projection ----------------------------------------
 
-constexpr int kKeys = 64;         // keys a tile
+using attn::kKeys;                // keys a tile
 constexpr int kTurn = 3;          // named barriers 3 and 4: the turns
 constexpr int kMaxStages = 8;
 constexpr int kQTiles = kMaxC / 64;
@@ -317,84 +314,6 @@ __device__ __forceinline__ int piece_col(const Params& p, int w, int pass,
   return w * p.passes * kPW + pass * kPW + q * kPR;
 }
 
-// 2^x on the SFU (ex2.approx.ftz: 2 ulp, far below bf16's resolution);
-// exp2f without fast math adds range handling around the same instruction
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The masks and one step of the online softmax in base 2 over a 64 x 64
-// score tile in wgmma's accumulator layout (thread t holds rows r and
-// r + 8, columns 8 i + c0 + {0, 1}): scores of keys outside the row's
-// image [key_lo, key_hi) are dropped; the running max m and sum l of each
-// row advance (l adds the unrounded exp), alpha rescales the previous O,
-// and pe = exp2(scale s - m), unrounded, is what pack_p rounds for P V.
-// s is read once, after the wait that retired its wgmma (read_regs: the
-// P V wgmma may still run).  The scale is positive, so the row max is
-// taken over the raw scores and scaled once; a tile whose 64 keys all lie
-// in both rows' ranges (every tile of B3 but an image's last) skips the
-// per-column tests.
-__device__ __forceinline__ void softmax_tile(
-    const float (&s)[32], int k0, const int (&key_lo)[2],
-    const int (&key_hi)[2], int c0, float scale_log2, float (&m_run)[2],
-    float (&l_run)[2], float (&alpha)[2], float (&pe)[32]) {
-  float x[32];
-  sm90::read_regs(x, s);
-  const bool whole = k0 >= key_lo[0] && k0 + 64 <= key_hi[0] &&
-                     k0 >= key_lo[1] && k0 + 64 <= key_hi[1];
-  if (!whole) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int col = k0 + 8 * (i >> 2) + c0 + (i & 1);
-      const int r = (i >> 1) & 1;
-      if (col < key_lo[r] || col >= key_hi[r]) x[i] = -INFINITY;
-    }
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x[i]);
-  }
-  float m_use[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    // the 4 threads of a quad share a row
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m_run[r], mx[r] * scale_log2);
-    // a row with no key yet keeps P = 0 instead of exp(-inf + inf)
-    m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-    alpha[r] = exp2_approx(m_run[r] - m_use[r]);
-    m_run[r] = m_new;
-    l_run[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int r = (i >> 1) & 1;
-    pe[i] = exp2_approx(fmaf(x[i], scale_log2, -m_use[r]));
-    l_run[r] += pe[i];
-  }
-}
-
-// P rounded to bf16 and packed as the register A of the P V product:
-// k-step kk is the tile's columns 16 kk to 16 kk + 15 (sm90::WgmmaRS).
-// Called only once the previous P V has retired: packing into registers
-// that a wgmma may still read serialises the pipeline (ptxas C7513), which
-// is why the softmax hands over fp32 pe.
-__device__ __forceinline__ void pack_p(const float (&pe)[32],
-                                       uint32_t (&pa)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(pe[4 * i], pe[4 * i + 1]);
-    const __nv_bfloat162 hi =
-        __floats2bfloat162_rn(pe[4 * i + 2], pe[4 * i + 3]);
-    pa[i >> 1][2 * (i & 1)] = *reinterpret_cast<const uint32_t*>(&lo);
-    pa[i >> 1][2 * (i & 1) + 1] = *reinterpret_cast<const uint32_t*>(&hi);
-  }
-}
-
 template <int D, int kPW>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_block_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -409,7 +328,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int C = p.C;
   const int N = p.N;
   constexpr int q_tile = 64 * 128;                   // one HO tile
-  uint8_t* ho = align1024(smem_raw);
+  uint8_t* ho = sm90::align1024(smem_raw);
   uint8_t* ring = ho + (C / 64) * q_tile;
   uint64_t* full =
       reinterpret_cast<uint64_t*>(ring + p.stages * p.stage_bytes);
@@ -524,113 +443,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int qcol = h * D;      // the head's columns in HO
       const uint64_t dq = sm90::make_desc(ho + (qcol >> 6) * q_tile) +
                           (((qcol & 63) * 2) >> 4);
-      if (!mine) {   // with H odd: release the last pair's stages
-#pragma unroll 1
-        for (int kt = 0; kt <= n_kt; ++kt) {   // and keep the turns
-          if (kt < n_kt) sm90::mbar_wait(full + rp.stage, rp.phase);
-          sm90::named_barrier(kTurn + wg, 256);
-          sm90::named_barrier_arrive(kTurn + 1 - wg, 256);
-          if (kt < n_kt) {
-            if (lane == 0) sm90::mbar_arrive(empty + rp.stage);
-            rp.advance(p.stages);
-          }
-        }
+      const attn::KvRing kv{ring, p.stage_bytes, p.stages, full, empty};
+      if (!mine) {   // with H odd: release the last pair's stages and keep
+        attn::head_idle(kv, rp, n_kt, lane, kTurn, wg);   // the turns
         continue;
       }
       sm90::mbar_wait(qbar + (qcol >> 6), 0);
-      const int kv_off = 2 * wg * kKV;    // the WG's head in the stage
-      // S = Q_h K_h^T of the key tile in stage `st`: 64 rows x 64 keys
-      auto issue_s = [&](float (&s)[32], int st) {
-        const uint8_t* k_tile = ring + st * p.stage_bytes + kv_off;
-        const uint64_t dk = D == 64 ? sm90::make_desc(k_tile)
-                                    : sm90::make_desc_sw64(k_tile);
-#pragma unroll
-        for (int k = 0; k < D / 16; ++k) {
-          sm90::Wgmma<64>::mma(s, dq + 2 * k, dk + 2 * k, k != 0);
-        }
-      };
-      float o[D / 2];
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-      float m_run[2] = {-INFINITY, -INFINITY};
-      float l_run[2] = {0.f, 0.f};
-      float s[32], alpha[2], pe[32];
-      uint32_t pa[4][4];
-      // O += P V_h of the key/value tile in stage `st`: 16 keys a k-step,
-      // 16 rows of 2 D bytes of V
-      auto issue_pv = [&](int st) {
-        const uint64_t dv = sm90::make_desc_mn<2 * D>(
-            ring + st * p.stage_bytes + kv_off + kKV);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          sm90::WgmmaRS<D>::mma_tb(o, pa[kk], dv + kk * (2 * D), 1);
-        }
-      };
-      auto rescale_o = [&]() {
-#pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
-          o[4 * i] *= alpha[0];
-          o[4 * i + 1] *= alpha[0];
-          o[4 * i + 2] *= alpha[1];
-          o[4 * i + 3] *= alpha[1];
-        }
-      };
-      // Ping-pong (the consumer warpgroups take turns, on named barriers
-      // kTurn + wg, to issue their wgmmas, so that one's softmax on the
-      // SFU overlaps the other's products on the tensor cores) over a
-      // software pipeline (S of tile kt + 1 is issued with P V of tile kt,
-      // and the softmax of kt + 1 runs while P V of kt is in flight).
-      // Each head takes n_kt + 1 turns in either warpgroup.  Every wgmma
-      // is issued on a path all of the warpgroup takes (a wgmma under a
-      // branch ptxas cannot prove uniform is serialised: C7520), so the
-      // first and last tiles are peeled off the loop.
-      sm90::mbar_wait(full + rp.stage, rp.phase);
-      sm90::named_barrier(kTurn + wg, 256);
-      sm90::wgmma_fence();
-      issue_s(s, rp.stage);
-      sm90::wgmma_commit();
-      sm90::named_barrier_arrive(kTurn + 1 - wg, 256);
-      sm90::wgmma_wait<0>();
-      softmax_tile(s, k_lo, key_lo, key_hi, c0, p.scale_log2, m_run, l_run,
-                   alpha, pe);
-      pack_p(pe, pa);
-#pragma unroll 1
-      for (int kt = 0; kt + 1 < n_kt; ++kt) {
-        sm90::RingPos nxt = rp;
-        nxt.advance(p.stages);
-        rescale_o();
-        sm90::mbar_wait(full + nxt.stage, nxt.phase);
-        sm90::named_barrier(kTurn + wg, 256);
-        sm90::wgmma_fence();
-        issue_s(s, nxt.stage);
-        sm90::wgmma_commit();
-        issue_pv(rp.stage);
-        sm90::wgmma_commit();
-        sm90::named_barrier_arrive(kTurn + 1 - wg, 256);
-        sm90::wgmma_wait<1>();   // S of tile kt + 1 (P V may still run)
-        softmax_tile(s, k_lo + (kt + 1) * kKeys, key_lo, key_hi, c0,
-                     p.scale_log2, m_run, l_run, alpha, pe);
-        sm90::wgmma_wait<0>();
-        // o, S's accumulator and P's registers stay reserved up to here,
-        // so that the softmax's registers do not take theirs
-        sm90::fence_regs(o);
-        sm90::fence_regs(s);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) sm90::fence_regs(pa[a]);
-        if (lane == 0) sm90::mbar_arrive(empty + rp.stage);
-        pack_p(pe, pa);
-        rp = nxt;
-      }
-      rescale_o();
-      sm90::named_barrier(kTurn + wg, 256);
-      sm90::wgmma_fence();
-      issue_pv(rp.stage);
-      sm90::wgmma_commit();
-      sm90::named_barrier_arrive(kTurn + 1 - wg, 256);
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(o);
-      if (lane == 0) sm90::mbar_arrive(empty + rp.stage);
-      rp.advance(p.stages);
+      float o[D / 2], m_run[2], l_run[2];
+      attn::head_pingpong<D>(dq, kv, 2 * wg * kKV, rp, n_kt, k_lo, key_lo,
+                             key_hi, c0, lane, p.scale_log2, kTurn, wg, o,
+                             m_run, l_run);
       // the head's output, normalised and rounded, over its q columns
       float inv[2];
 #pragma unroll
@@ -828,7 +650,7 @@ extern "C" int attn_block_bf16(const void* qkv, const void* w,
   p.passes = passes;
   p.stage_bytes = stage;
   p.stages = stages;
-  p.scale_log2 = scale * kLog2e;
+  p.scale_log2 = scale * attn::kLog2e;
   const dim3 grid = group > 0 ? dim3((B + group - 1) / group, 1)
                               : dim3((N + 63) / 64, B);
   const int smem = fixed + stages * stage;

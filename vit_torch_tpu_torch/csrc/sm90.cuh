@@ -15,7 +15,9 @@
 // may instead be one tile of 64-byte rows in the 64-byte swizzle
 // (make_desc_sw64).  An operand stored with N contiguous (the value tile
 // of attention, B of P V) is MN-major: make_desc_mn() and the
-// transposed-B wgmma (WgmmaRS, A from registers).
+// transposed-B wgmma (WgmmaRS, A from registers); an A stored with M
+// contiguous (dS^T in the flash backward) takes the transposed-A form
+// (WgmmaTT, both operands MN-major).
 //
 // Kernels built with this header need `-gencode arch=compute_90a,...`:
 // wgmma and setmaxnreg do not exist on plain sm_90.
@@ -34,6 +36,13 @@ namespace sm90 {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the first 1024-byte boundary at or after p (the 128-byte swizzle's
+// alignment), for the start of a block's dynamic shared memory
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
 // ---- mbarrier --------------------------------------------------------
@@ -93,6 +102,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// 4-D tile load: the box at (c0, c1, c2, c3) of the tensor map (for the
+// attention kernels: column, row, head, image), completing on the barrier
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -181,6 +203,35 @@ inline bool encode_bf16_box(CUtensorMap* map, const void* base, int rows,
             CU_TENSOR_MAP_INTERLEAVE_NONE,
             box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                            : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 (B, H, N, D) tensor addressed by element strides (image, head,
+// row; unit stride along D, each stride a multiple of 8, the base 16-byte
+// aligned), read in boxes of box_rows rows of one head of one image: a
+// 4-D map over (D, N, H, B), D = 64 in the 128-byte swizzle, D = 32 in the
+// 64-byte one; rows at or past N read as zero, so each image's ragged
+// edge needs no mask on the load.  The strides need not be ordered: views
+// into a fused (B, N, 3, H, D) projection take the same map.
+inline bool encode_bf16_bhnd(CUtensorMap* map, const void* base, int B, int H,
+                             int N, int D, long long s_b, long long s_h,
+                             long long s_n, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || (D != 64 && D != 32)) return false;
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N),
+      static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_n) * 2,
+                                 static_cast<cuuint64_t>(s_h) * 2,
+                                 static_cast<cuuint64_t>(s_b) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(D),
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -486,6 +537,51 @@ struct Wgmma<256> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// D (64 x N, fp32) (+)= A (64 x 16) B (16 x N), bf16, both operands
+// MN-major tiles in shared memory (make_desc_mn): A stored with its 64 rows
+// contiguous, 16 k-rows of 128 bytes a k-step (the transposed-A flag,
+// imm-trans-a = 1), B as in WgmmaRS::mma_tb (imm-trans-b = 1).  It takes
+// the transpose of a tile that the consumers wrote row by row: the flash
+// backward's dQ = dS K reads dS^T, written as keys x queries, as A.  New in
+// the flash backward, and of the sm90 primitives the one most likely to be
+// wrong (no other kernel issues it): chip_smoke holds dQ against the plain
+// version at every flash shape.
+template <int N>
+struct WgmmaTT;
+
+template <>
+struct WgmmaTT<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTT<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };

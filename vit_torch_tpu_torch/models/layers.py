@@ -182,19 +182,19 @@ class Mlp(nn.Module):
 # B3 is opt-in on CUDA, as B4 is.  chip_smoke.py's
 # steady_state_attention_block times whole dino_vits16 @224 steps with B3
 # on and off in turns; on an H100 80GB HBM3 at 700 W (two runs of each
-# side in each of two calls), with the Hopper redesign of
-# csrc/attn_block.cu:
-# - bs64 linear-eval step: device busy 3.876-3.931 ms with B3 against
-#   4.005-4.034 without; the step 8.22-12.37 ms against 9.13-15.41 and
-#   the eval forward 4.40-8.09 against 5.54-8.91, gains within the
-#   host's spread between calls (the chain issues fewer launches);
-# - bs128 linear-eval step: device busy 7.232-7.707 ms against
-#   7.834-7.869;
-# - bs64 fine-tune step (the backward recomputes through the flash
-#   kernels): 33.55-44.22 ms against 28.00-37.09, device busy
-#   15.32-15.36 ms against 13.71-13.86.
-# Without grad B3 saves little device time and with grad it adds some, so
-# it stays off by default until the port's bench cells (ROADMAP A3) can
+# side in each of two calls), with B3's wgmma kernels and the wgmma flash
+# kernels the unfused path (off) takes:
+# - bs64 linear-eval step: device busy 3.877-3.949 ms with B3 against
+#   3.820-3.965 without; the step 10.32-13.99 ms against 13.83-19.10, a
+#   gain within the host's spread between calls (the chain issues fewer
+#   launches);
+# - bs128 linear-eval step: device busy 7.727-7.852 ms against
+#   7.402-7.735;
+# - bs64 fine-tune step (B3's backward recomputes through the flash
+#   kernels): 45.27-63.22 ms against 36.45-55.56, device busy
+#   14.24-14.43 ms against 12.80-12.93.
+# Without grad B3 saves no device time and with grad it adds some, so it
+# stays off by default until the port's bench cells (ROADMAP A3) can
 # judge on and off on a ledger line.  The serving buckets 1 and 8 and
 # C = 768 were never timed with B3 off.
 

@@ -3,11 +3,20 @@ backward, and their plain PyTorch versions.
 
 Counterpart of ``vit_torch_tpu/ops/flash_attention.py``: the forward
 kernel ``csrc/flash_attention_fwd.cu`` replaces the Pallas ``_fwd_kernel``
-and ``_fwd_kernel_hb``; the backward kernel ``csrc/flash_attention_bwd.cu``
-replaces ``_bwd_fused_kernel_hb``, ``_bwd_fused_kernel``,
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.  Their source notes give the
-designs and the bounds.  The TPU's ``block_q`` and head-blocking knobs are
-tilings of the same functions and have no counterpart here.
+and ``_fwd_kernel_hb``; the backward kernels ``csrc/flash_attention_bwd.cu``
+replace ``_bwd_fused_kernel_hb``, ``_bwd_fused_kernel``,
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.  Both are warp-specialised
+``wgmma`` kernels fed by TMA on ``csrc/sm90.cuh``: the forward's
+persistent blocks run B3's ping-pong attention loop
+(``csrc/attention_sm90.cuh``) over items of 128 query rows; the backward
+is one pass over the query tiles for each block of 128 keys (5 products,
+one exp per score), between a preprocess launch
+(Di, the statistics, a zeroed fp32 dQ accumulator) and a convert launch
+(dq in bf16).  :func:`launch_plan` gives the tiles, stages, grid, shared
+bytes and dQ accumulator rows the C entry points take; their source notes
+give the designs, the ragged-edge waste and the bounds.  The TPU's
+``block_q`` and head-blocking knobs are tilings of the same functions and
+have no counterpart here.
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version
 (:func:`flash_attention_bhnd_reference`, :func:`flash_attention_bwd_reference`);
@@ -26,15 +35,93 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from vit_torch_tpu_torch.ops import _build
+from vit_torch_tpu_torch.ops.gemm import sm_count
 
-# (B * H) rides in gridDim.y
-_MAX_BH = 65535
+# (B * H) rides in the backward's gridDim.y; the forward numbers its items
+# (128 rows of one head) in an int
+_MAX_BH, _MAX_ITEMS = 65535, 2 ** 31 - 1
 _HEAD_DIMS = (32, 64)
+# csrc/flash_attention_fwd.cu: 64 query rows a consumer warpgroup, two an
+# item; 64-key tiles; at most 8 ring stages
+_FWD_Q, _FWD_K, _FWD_STAGES = 128, 64, 8
+# the H100 SXM's SMs: launch_plan's default for the forward's persistent
+# blocks
+_H100_SMS = 132
+# csrc/flash_attention_bwd.cu: 64-query tiles stream past 128 keys a block
+# (64 a consumer warpgroup); at most 4 ring stages; 512 bytes of LSE and
+# Di a stage
+_BWD_Q, _BWD_K, _BWD_STAGES, _BWD_STATS = 64, 128, 4, 512
+# a block's shared memory: 227 KB, 1 KB of it kept for alignment
+_SMEM_MAX, _ALIGN = 232448, 1024
+
+
+class Plan(NamedTuple):
+    """A flash kernel's launch: query rows an item (forward) or a step
+    (backward), keys a tile (forward) or a block (backward), ring stages,
+    the grid (forward: persistent blocks, 1; backward: key blocks,
+    B * H), dynamic shared bytes, and the rows of the backward's fp32 dQ
+    accumulator (0 for the forward)."""
+    block_q: int
+    block_k: int
+    stages: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+    dq_rows: int
+
+
+def launch_plan(B: int, H: int, N: int, D: int, *,
+                backward: bool = False, sms: int = _H100_SMS) -> Plan:
+    """The kernels' launch plan for ``(B, H, N, D)`` (the one the wrappers
+    pass to the C entry points).  Forward: items of 128 query rows of one
+    head (a warpgroup with no row before N takes no products), walked by
+    one persistent block per SM (``sms``) or per item where there are
+    fewer; 64-key tiles (the last one masked), as many stages as key
+    tiles up to 8.  Backward: blocks of 128 keys (a warpgroup with no key
+    before N takes no products), 64-query tiles, as many stages as query
+    tiles up to 4, and a dQ accumulator of ``ceil(N / 64) * 64`` rows.
+    Both pad the products to ``ceil(N / 64) * 64`` rows and keys.  Shapes
+    the kernels do not take raise."""
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {_HEAD_DIMS}")
+    if B < 1 or H < 1 or N < 1:
+        raise ValueError(f"no flash attention launch for B, H, N = "
+                         f"{B}, {H}, {N}")
+    if backward and B * H > _MAX_BH:
+        raise ValueError(f"B*H = {B * H} exceeds {_MAX_BH}")
+    tile = 64 * D * 2                       # 64 rows of one operand
+    if backward:
+        n_qt = -(-N // _BWD_Q)
+        stages = min(_BWD_STAGES, n_qt)
+        stage = -(-(2 * tile + _BWD_STATS) // _ALIGN) * _ALIGN
+        # K and V of 128 keys, two dS^T buffers (128 x 64 bf16), barriers
+        smem = (_ALIGN + 4 * tile + 2 * _BWD_K * _BWD_Q * 2
+                + stages * stage + (2 * _BWD_STAGES + 1) * 8)
+        plan = Plan(_BWD_Q, _BWD_K, stages, (-(-N // _BWD_K), B * H), smem,
+                    n_qt * _BWD_Q)
+    else:
+        stages = min(_FWD_STAGES, -(-N // _FWD_K))
+        # two slots of two Q tiles, stages of a K and a V tile, barriers
+        smem = (_ALIGN + 4 * tile + stages * 2 * tile
+                + (2 * _FWD_STAGES + 4) * 8)
+        items = -(-N // _FWD_Q) * B * H
+        if items > _MAX_ITEMS:
+            raise ValueError(f"{items} items of 128 rows exceed "
+                             f"{_MAX_ITEMS}")
+        plan = Plan(_FWD_Q, _FWD_K, stages, (min(items, sms), 1), smem, 0)
+    if plan.smem_bytes > _SMEM_MAX:
+        raise ValueError(f"the flash plan needs {plan.smem_bytes} bytes of "
+                         f"shared memory, more than {_SMEM_MAX}")
+    return plan
+
+
+def _plan_arg(plan: Plan):
+    return (ctypes.c_int * 7)(plan.block_q, plan.block_k, plan.stages,
+                              *plan.grid, plan.smem_bytes, plan.dq_rows)
 
 
 def flash_attention_bhnd_reference(q: torch.Tensor, k: torch.Tensor,
@@ -86,7 +173,7 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
 
 def _check(*named):
     """What both kernels take: bf16 CUDA tensors of one (B, H, N, D)
-    shape, D in {32, 64}."""
+    shape (launch_plan checks D)."""
     shape, dev = named[0][1].shape, named[0][1].device
     for name, x in named:
         if x.shape != shape or x.dim() != 4:
@@ -97,11 +184,6 @@ def _check(*named):
         if x.dtype != torch.bfloat16:
             raise TypeError(f"the CUDA kernel takes bfloat16, {name} is "
                             f"{x.dtype}")
-    B, H, N, D = shape
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {_HEAD_DIMS}")
-    if B * H > _MAX_BH:
-        raise ValueError(f"B*H = {B * H} exceeds {_MAX_BH}")
 
 
 def _takes_rows(x: torch.Tensor) -> bool:
@@ -136,7 +218,7 @@ def _fwd_fn():
     """The forward's C entry point, built and loaded on first use."""
     fn = _build.load("flash_attention_fwd").flash_attention_fwd_bf16
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -145,16 +227,17 @@ def _fwd_fn():
 def _bwd_fn():
     """The backward's C entry point, built and loaded on first use."""
     fn = _build.load("flash_attention_bwd").flash_attention_bwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch_fwd(q, k, v, o, lse, scale: float) -> None:
-    """Launch the forward kernel on the current stream; ``o`` may be any
-    view with unit stride along D (e.g. into a (B, N, H, D) buffer);
-    ``lse`` is a contiguous fp32 (B, H, N) buffer or None."""
+    """Launch the forward kernel on the current stream with
+    :func:`launch_plan`'s plan; ``o`` may be any view with unit stride
+    along D (e.g. into a (B, N, H, D) buffer); ``lse`` is a contiguous
+    fp32 (B, H, N) buffer or None."""
     _check(("q", q), ("k", k), ("v", v), ("o", o))
     if lse is not None:
         _check_lse(lse, q)
@@ -162,16 +245,52 @@ def _launch_fwd(q, k, v, o, lse, scale: float) -> None:
     if not B * H * N:
         return
     strides = _strides(("q", q), ("k", k), ("v", v), ("o", o))
+    plan = _plan_arg(launch_plan(B, H, N, D, sms=sm_count(q.device)))
     fn = _fwd_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  None if lse is None else lse.data_ptr(), B, H, N, D,
-                 ctypes.cast(strides, ctypes.c_void_p), float(scale), stream)
+                 ctypes.cast(strides, ctypes.c_void_p),
+                 ctypes.cast(plan, ctypes.c_void_p), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{err}")
     flash_attention_bhnd.launches += 1
+
+
+def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float) -> None:
+    """Launch the backward's three kernels on the current stream with
+    :func:`launch_plan`'s plan: the fp32 scratch (log2(e) LSE and Di, the
+    dQ accumulator) comes from the caching allocator; dq, dk and dv may be
+    any views with unit stride along D."""
+    named = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
+             ("dq", dq), ("dk", dk), ("dv", dv))
+    _check(*named)
+    _check_lse(lse, q)
+    B, H, N, D = q.shape
+    if not B * H * N:
+        return
+    strides = _strides(*named)
+    plan = launch_plan(B, H, N, D, backward=True)
+    stats = torch.empty((B * H, 2, plan.dq_rows), dtype=torch.float32,
+                        device=q.device)
+    dq_acc = torch.empty((B * H, plan.dq_rows, D), dtype=torch.float32,
+                         device=q.device)
+    fn = _bwd_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), stats.data_ptr(),
+                 dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), B, H, N, D,
+                 ctypes.cast(strides, ctypes.c_void_p),
+                 ctypes.cast(_plan_arg(plan), ctypes.c_void_p), float(scale),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{err}")
+    flash_attention_bwd.launches += 1
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -224,26 +343,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty(q.shape, dtype=x.dtype, device=x.device)
                   if buf is None else buf
                   for x, buf in ((q, dq), (k, dk), (v, dv)))
-    named = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
-             ("dq", dq), ("dk", dk), ("dv", dv))
-    _check(*named)
-    _check_lse(lse, q)
-    B, H, N, D = q.shape
-    if not B * H * N:
-        return dq, dk, dv
-    strides = _strides(*named)
-    di = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    fn = _bwd_fn()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), B, H, N, D,
-                 ctypes.cast(strides, ctypes.c_void_p), float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
-                           f"{err}")
-    flash_attention_bwd.launches += 1
+    _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, scale)
     return dq, dk, dv
 
 
