@@ -16,15 +16,20 @@
    and dino_vits16 shapes, with their launch plans, each launch's device
    time from the profiler, SDPA's device time and backend, and the card's
    clocks before and after the timing; the
-   window-attention core (row 5), its backward (row 6) and the window
-   blocks B8 and B9 (rows 8 and 9) at all four stages of swin_base_384
-   bs32, shifted and unshifted, at swin_tiny's window-7 stage 1 and at a
-   ragged small shape; the gradients of B8 and B9 against autograd
-   through their plain versions at the headline, window-7 and ragged
-   shapes; the talking-heads kernel (rows 10 and 11) at the attention
-   shapes of cait_s24_224 bs32, xxs24, s24_384, m36_384, m48_448 and a
-   ragged one through the model's qkv entry, and the headline through
-   the (B, N, C) entry; the fused MLP (row 12) at DeiT-base, dino_vitb8
+   window-attention core (row 5, with its device time, plan and bound),
+   its backward (row 6) and the window blocks B8 and B9 (rows 8 and 9,
+   each launch of their chains with its own device time from one
+   profiler pass, and B9's four window-GEMM launches each held alone
+   against its plain composition, with TFLOP/s, bound share, cuBLAS's
+   time for the same product and index_select + linear) at all four
+   stages of swin_base_384 bs32, shifted and unshifted, at swin_tiny's
+   window-7 stage 1 and at a ragged small shape (the window GEMM and the
+   core pass the same ptxas gate as B12); the gradients of B8 and B9
+   against autograd through their plain versions at the headline,
+   window-7 and ragged shapes; the talking-heads kernel (rows 10 and 11)
+   at the attention shapes of cait_s24_224 bs32, xxs24, s24_384,
+   m36_384, m48_448 and a ragged one through the model's qkv entry, and
+   the headline through the (B, N, C) entry; the fused MLP (row 12) at DeiT-base, dino_vitb8
    and cait_s24_224 bs32, swin_base_384 stages 1 and 4, a ragged shape
    and T < 64, with its launch plan, TFLOP/s, bound share and ptxas
    report (no spills, no serialised wgmma), its two row layouts timed
@@ -551,20 +556,39 @@ def check_window_attention(case, seed):
         raise AssertionError(f"window_attention {case}: max abs err {err} > "
                              f"{WINDOW_ATOL}")
     del ref
-    ms = _time_ms(lambda: wa.window_attention(q, k, v, bias, mask), iters=20)
+    def run():
+        return wa.window_attention(q, k, v, bias, mask)
+
+    smi = [_smi_sample()]
+    ms = _time_ms(run, iters=20)
+    device_ms = _device_ms(run, "window_attn_fwd_kernel")
+    smi.append(_smi_sample())
     plain_ms = _time_ms(lambda: wa.window_attention_reference(
         q, k, v, bias, mask), iters=3)
     qs, ks, vs = (x.reshape(B, nW, N, heads, 32).transpose(2, 3).contiguous()
                   for x in (q, k, v))
     add = bias[None, None] + (0 if mask is None else mask[None, :, None])
     add = add.to(torch.bfloat16).expand(B, nW, heads, N, N)
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=add, scale=32 ** -0.5), iters=20)
-    bound_ms, bound_by = _attention_bound_ms(Bn, heads, N, 32)
+
+    def library():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=add,
+                                              scale=32 ** -0.5)
+
+    library_ms = _time_ms(library, iters=20)
+    # the bound: q, k, v and o once, and the fp32 bias and mask once
+    plan = wa.core_plan(Bn, N, heads, 1 if mask is None else nW)
+    bound_ms, bound_by = _bound(
+        4 * Bn * heads * N * N * 32,
+        4 * Bn * N * heads * 32 * 2
+        + (heads + (0 if mask is None else nW)) * N * N * 4)
     row = {"case": list(case), "shape": [Bn, N, heads, 32],
            "masked": mask is not None, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "device_ms": device_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library_device_ms": _device_ms(library, ""),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_share": bound_ms / device_ms, "plan": plan._asdict(),
+           "smi_before_after": smi}
     _say("kernel check window_attention", json.dumps(row))
     return row
 
@@ -617,6 +641,34 @@ def _device_times(fn, kernels, iters: int = 10):
         times.append((sum(e.self_device_time_total for e in hits) / 1e3
                       / iters, sum(e.count for e in hits) / iters))
     return times
+
+
+def _launch_times(fn, launches: int, iters: int = 10, tries: int = 3):
+    """One torch.profiler pass over ``iters`` calls of ``fn``, which
+    launches ``launches`` kernels a call in a fixed order: each launch's
+    kernel name and mean device ms, in order (the chain's launches one by
+    one, where several share a kernel's name).  A pass that recorded
+    another number of kernels is made again, up to ``tries`` passes; then
+    the times read None ("not measured")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if len(evs) == iters * launches:
+            return [(evs[i].name[:60], sum(
+                evs[k * launches + i].time_range.end
+                - evs[k * launches + i].time_range.start
+                for k in range(iters)) / 1e3 / iters)
+                for i in range(launches)]
+    return [(None, None)] * launches
 
 
 def _device_ms(fn, kernel, iters: int = 10) -> float:
@@ -736,11 +788,19 @@ def _block_bound_ms(case, full):
     return _bound(block_flops(T, C, N, full), nbytes)
 
 
+# the launches of one B8 and one B9 chain, in order
+B8_LAUNCHES = ("qkv", "core", "proj")
+B9_LAUNCHES = ("ln1", "qkv", "core", "proj", "ln2", "fc1", "fc2")
+
+
 def check_window_blocks(case, seed):
     """B8 (``window_block_spatial``, row 8) and B9
     (``window_block_full_spatial``, row 9) vs their plain versions on one
     block case, the shift folded into the kernels' addressing and rolled by
-    the plain versions; times each chain and each plain version."""
+    the plain versions; times each chain and each plain version, and reads
+    each launch's own device time from one profiler pass over the chain.
+    Then the window GEMM's products at this case (``check_window_gemm``,
+    with B9's launch times)."""
     import torch
     from vit_torch_tpu_torch.ops import window_block as wb
     B, H, W, C, w, shift = case
@@ -750,11 +810,12 @@ def check_window_blocks(case, seed):
     b9 = (d["x"], d["ln1"], d["qkv"], d["bias"], d["mask"], d["proj"],
           d["ln2"], d["fc1"], d["fc2"])
     rows = {}
-    for name, fn, ref_fn, args, full in (
+    for name, fn, ref_fn, args, full, launches in (
             ("window_block_spatial", wb.window_block_spatial,
-             wb.window_block_spatial_reference, b8, False),
+             wb.window_block_spatial_reference, b8, False, B8_LAUNCHES),
             ("window_block_full_spatial", wb.window_block_full_spatial,
-             wb.window_block_full_spatial_reference, b9, True)):
+             wb.window_block_full_spatial_reference, b9, True,
+             B9_LAUNCHES)):
         out = fn(*args, **kw)
         torch.cuda.synchronize()
         ref = ref_fn(*args, **kw).float()
@@ -765,14 +826,130 @@ def check_window_blocks(case, seed):
             raise AssertionError(f"{name} {case}: max abs err relative to "
                                  f"max|plain| {rel} > {BLOCK_RTOL}")
         ms = _time_ms(lambda: fn(*args, **kw), iters=20)
+        times = _launch_times(lambda: fn(*args, **kw), len(launches))
+        device = [t for _, t in times]
         plain_ms = _time_ms(lambda: ref_fn(*args, **kw), iters=3)
         bound_ms, bound_by = _block_bound_ms(case, full)
         rows[name] = {"case": list(case), "max_abs_err": abs_err,
-                      "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": None, "bound_ms": bound_ms,
-                      "bound_by": bound_by}
+                      "max_rel_err": rel, "ms": ms,
+                      "device_ms": (None if None in device
+                                    else sum(device)),
+                      "launch_device_ms": dict(zip(launches, device)),
+                      "launch_kernels": [k for k, _ in times],
+                      "plain_ms": plain_ms, "library_ms": None,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
         _say(f"kernel check {name}", json.dumps(rows[name]))
+    rows["window_gemm"] = check_window_gemm(
+        case, d, rows["window_block_full_spatial"]["launch_device_ms"])
     return rows
+
+
+def _gemm_bound_ms(T, K, N, res):
+    """2 T K N operations; A, W and Y (and the residual) once."""
+    return _bound(2 * T * K * N,
+                  (T * K + N * K + T * N * (2 if res else 1)) * 2)
+
+
+def check_window_gemm(case, d, launch_ms):
+    """B9's four window-GEMM launches at one block case, each launched
+    alone with its real options (the gathered qkv, the scattered proj with
+    its residual, fc1 with GELU, fc2 with its residual) and held against
+    its plain composition (dense_f32 and the epilogue's roundings, the
+    rows permuted as the kernel addresses them) within BLOCK_RTOL of max
+    |plain| (one bf16 ulp of an output near 4 is 2^-6 of it: sums in
+    another order can move a rounding by that); its device time from B9's
+    profiler pass (``launch_ms``), TFLOP/s, bound and the bound's share;
+    the library: cuBLAS F.linear at the same (T, K, N) over contiguous
+    rows (events, device time, backend) and, for the gathered qkv and the
+    scattered proj, index_select + F.linear."""
+    import torch
+    import torch.nn.functional as F
+    from vit_torch_tpu_torch.ops import gemm as gm
+    B, H, W, C, w, shift = case
+    T, dev, bf16 = B * H * W, "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(6000 + sum(case))
+    order = ((torch.arange(B, device=dev) * H * W)[:, None]
+             + gm.window_rows(H, W, w, shift, torch.device(dev))[None].long()
+             ).view(-1)
+    inverse = torch.argsort(order)
+    geom = (H, W, w, shift)
+
+    def r16(x):
+        return x.to(bf16).float()
+
+    products = []
+    for name, K, N, epi, gather, scatter in (
+            ("qkv", C, 3 * C, gm.EPI_BIAS, True, False),
+            ("proj", C, C, gm.EPI_BIAS_RES, False, True),
+            ("fc1", C, 4 * C, gm.EPI_GELU, False, False),
+            ("fc2", 4 * C, C, gm.EPI_BIAS16_RES, False, False)):
+        wt, bt = d[name]
+        a = torch.randn((T, K), generator=gen, device=dev).to(bf16)
+        res = (torch.randn((T, N), generator=gen, device=dev).to(bf16)
+               if epi in (gm.EPI_BIAS_RES, gm.EPI_BIAS16_RES) else None)
+        out = torch.empty((T, N), dtype=bf16, device=dev)
+
+        def run():
+            gm.gemm(a, wt, bt, out, epilogue=epi, geom=geom, gather=gather,
+                    scatter=scatter, res=res)
+
+        def plain():
+            src = a[order] if gather else a
+            acc = gm.dense_f32(src, wt, None)
+            if epi == gm.EPI_BIAS:
+                y = r16(acc + bt.float())
+            elif epi == gm.EPI_BIAS_RES:
+                y = r16(r16(acc + bt.float()) + res[order].float())
+            elif epi == gm.EPI_GELU:
+                y = r16(F.gelu(r16(r16(acc) + bt.float())))
+            else:
+                y = r16(res.float() + r16(r16(acc) + bt.float()))
+            return y[inverse] if scatter else y
+
+        run()
+        torch.cuda.synchronize()
+        ref = plain()
+        err = (out.float() - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        if not (torch.isfinite(out).all() and rel <= BLOCK_RTOL):
+            raise AssertionError(f"window_gemm {name} {case}: max abs err "
+                                 f"relative to max|plain| {rel} > "
+                                 f"{BLOCK_RTOL}")
+        del ref
+        plain_ms = _time_ms(plain, iters=3)
+
+        def library():
+            return F.linear(a, wt, bt)
+
+        if gather:
+            def permuted():
+                return F.linear(a.index_select(0, order), wt, bt)
+        elif scatter:
+            def permuted():
+                return F.linear(a, wt, bt).index_select(0, inverse)
+        else:
+            permuted = None
+        ms = launch_ms.get(name)
+        bound_ms, bound_by = _gemm_bound_ms(T, K, N, res is not None)
+        flops = 2 * T * K * N
+        library_device_ms = _device_ms(library, "")
+        products.append({
+            "launch": name, "T": T, "K": K, "N": N,
+            "plan": gm.gemm_plan(T, K, N)._asdict(),
+            "max_abs_err": err, "max_rel_err": rel, "device_ms": ms,
+            "tflops": None if ms is None else flops / ms / 1e9,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": None if ms is None else bound_ms / ms,
+            "plain_ms": plain_ms, "library_ms": _time_ms(library, iters=20),
+            "library_device_ms": library_device_ms,
+            "library_tflops": flops / library_device_ms / 1e9,
+            "library_backend": _library_backend(library),
+            "index_select_linear_ms": (None if permuted is None
+                                       else _time_ms(permuted, iters=20))})
+        del a, res, out
+    row = {"case": list(case), "products": products}
+    _say("kernel check window_gemm", json.dumps(row))
+    return row
 
 
 def check_window_block_grads(case, seed):
@@ -1216,6 +1393,7 @@ def _counters():
     from vit_torch_tpu_torch.ops import attn_block as ab
     from vit_torch_tpu_torch.ops import flash_attention as fa
     from vit_torch_tpu_torch.ops import fused_mlp as fm
+    from vit_torch_tpu_torch.ops import gemm as gm
     from vit_torch_tpu_torch.ops import talking_heads as th
     from vit_torch_tpu_torch.ops import window_attention as wa
     from vit_torch_tpu_torch.ops import window_block as wb
@@ -1229,7 +1407,8 @@ def _counters():
             "attention_block": ab.attention_block,
             "attention_block_packed": ab.attention_block_packed,
             "fused_mlp": fm.fused_mlp,
-            "window_block": wb.window_block}
+            "window_block": wb.window_block,
+            "window_gemm": gm.gemm}
 
 
 def _reset_counts():
@@ -1242,7 +1421,12 @@ def _read_counts():
 
 
 def _want(**launches):
-    """Launch counts with every kernel not named at 0."""
+    """Launch counts with every kernel not named at 0; the window GEMM's,
+    unless named, those of the window blocks' chains: 2 products in B7
+    and B8, 4 in B9."""
+    launches.setdefault("window_gemm", 2 * launches.get("window_block", 0)
+                        + 2 * launches.get("window_block_spatial", 0)
+                        + 4 * launches.get("window_block_full_spatial", 0))
     return {name: launches.get(name, 0) for name in _counters()}
 
 
@@ -1404,19 +1588,25 @@ def _train_setup(bs: int, seed: int = 0, arch: str = ARCH,
     return zm, trainer, batch
 
 
-def profile_train_step(trainer, batch, iters: int = 2):
-    """Device time of the train step by kernel group and the device's idle
-    share of the host-clock window, from torch.profiler."""
+def _profile_calls(fn, iters: int = 2):
+    """Device time of ``fn`` by kernel group and the device's idle share
+    of the host-clock window, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            trainer.train_step(*batch)
+            fn()
         torch.cuda.synchronize()
         window_ms = 1e3 * (time.perf_counter() - t0) / iters
     return _device_groups(prof, iters, window_ms, top_n=10)
+
+
+def profile_train_step(trainer, batch, iters: int = 2):
+    """Device time of the train step by kernel group and the device's idle
+    share of the host-clock window, from torch.profiler."""
+    return _profile_calls(lambda: trainer.train_step(*batch), iters)
 
 
 def _time_train_steps(trainer, batch, iters: int):
@@ -1486,7 +1676,9 @@ def steady_state_swin_lineareval(iters: int = 12):
                                       image_size=SWIN_SIZE, lineareval=True,
                                       lr=1e-3)
     zm.model.train()
+    smi = [_smi_sample()]
     t = _time_train_steps(trainer, batch, iters)
+    smi.append(_smi_sample())
     step_ms, per_step = t["step_ms"], t["launches_per_step"]
     fwd_flops = swin_flops(SWIN_CONFIGS[SWIN_ARCH], SWIN_SIZE) * TRAIN_BS
     zm.model.eval()
@@ -1494,7 +1686,9 @@ def steady_state_swin_lineareval(iters: int = 12):
     _reset_counts()
     with torch.no_grad():
         eval_ms = _time_ms(lambda: zm.model(x), iters=10)
-    eval_counts = _read_counts()
+        smi.append(_smi_sample())
+        eval_counts = _read_counts()
+        eval_profile = _profile_calls(lambda: zm.model(x), iters=3)
     row = {"arch": SWIN_ARCH, "image_size": SWIN_SIZE, "bs": TRAIN_BS,
            "opt": "adamw", "iters": iters, "lineareval_step_ms": step_ms,
            "host_step_ms": t["host_step_ms"],
@@ -1505,6 +1699,8 @@ def steady_state_swin_lineareval(iters: int = 12):
            "eval_forward_ms": eval_ms,
            "eval_forward_img_per_s": TRAIN_BS * 1e3 / eval_ms,
            "eval_forward_mfu": fwd_flops / (eval_ms / 1e3) / H100_BF16_FLOPS,
+           "eval_forward_profile": eval_profile,
+           "smi_before_after_step_after_eval": smi,
            "profile": t["profile"]}
     _say(json.dumps({"swin_lineareval_step": row}))
     if per_step != _want(window_attention=SWIN_DEPTH,
@@ -1581,7 +1777,9 @@ def steady_state_swin_finetune(iters: int = 12):
     zm, trainer, batch = _train_setup(TRAIN_BS, arch=SWIN_ARCH,
                                       image_size=SWIN_SIZE, lr=1e-4)
     zm.model.train()
+    smi = [_smi_sample()]
     t = _time_train_steps(trainer, batch, iters)
+    smi.append(_smi_sample())
     step_ms, per_step = t["step_ms"], t["launches_per_step"]
     step_flops = 3 * swin_flops(SWIN_CONFIGS[SWIN_ARCH], SWIN_SIZE) * TRAIN_BS
     row = {"arch": SWIN_ARCH, "image_size": SWIN_SIZE, "bs": TRAIN_BS,
@@ -1591,7 +1789,7 @@ def steady_state_swin_finetune(iters: int = 12):
            "step_tflop": step_flops / 1e12,
            "mfu": step_flops / (step_ms / 1e3) / H100_BF16_FLOPS,
            "launches_per_step": per_step, "peak_mem_gb": t["peak_mem_gb"],
-           "profile": t["profile"]}
+           "smi_before_after": smi, "profile": t["profile"]}
     _say(json.dumps({"swin_finetune_step": row}))
     if per_step != _want(window_attention=SWIN_DEPTH + 1,
                          window_attention_bwd=SWIN_DEPTH,
@@ -2454,6 +2652,8 @@ def main() -> int:
     # the wgmma kernels: no spill, no serialised wgmma
     mlp_ptxas = ptxas_gate("fused_mlp", _build.LOGS.get("fused_mlp", ""))
     ab_ptxas = ptxas_gate("attn_block", _build.LOGS.get("attn_block", ""))
+    window_ptxas = {k: ptxas_gate(k, _build.LOGS.get(k, ""))
+                    for k in ("window_gemm", "window_attention_fwd")}
     flash_ptxas = {k: ptxas_gate(k, _build.LOGS.get(k, ""))
                    for k in ("flash_attention_fwd", "flash_attention_bwd")}
 
@@ -2655,14 +2855,56 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "case": head["case"],
+            "device_ms": head.get("device_ms"),
             "launches_by_path": {p: c[kernel]
                                  for p, c in swin_paths.items()},
-            "ms_plain_bound_by_case": [
-                [r["case"], r["ms"], r["plain_ms"], r["bound_ms"]]
-                for r in by_case]})
-    kernels[-1]["lineareval_step_ms"] = swin_step["lineareval_step_ms"]
-    kernels[-1]["eval_forward_ms"] = swin_step["eval_forward_ms"]
-    kernels[-1]["finetune_step_ms"] = swin_ft_step["finetune_step_ms"]
+            "ms_device_plain_library_bound_by_case": [
+                [r["case"], r["ms"], r.get("device_ms"), r["plain_ms"],
+                 r["library_ms"], r["bound_ms"]] for r in by_case]})
+        if kernel.startswith("window_block"):
+            kernels[-1]["launch_device_ms_by_case"] = [
+                [r["case"], r["launch_device_ms"]] for r in by_case]
+        if kernel == "window_attention":
+            kernels[-1]["ptxas"] = window_ptxas["window_attention_fwd"]
+            kernels[-1]["plan"] = head["plan"]
+    # the window GEMM's products: numbers at the headline case's gathered
+    # qkv launch (swin_base_384 bs32 stage 1, shifted), every launch of
+    # B9 at every case beside them; launches from the linear-eval run
+    gemm_rows = [r["window_gemm"] for r in block_rows]
+    head = gemm_rows[0]["products"][0]
+    kernels.append({
+        "name": "window_gemm", "route": "cuda",
+        "source": "vit_torch_tpu_torch/csrc/window_gemm.cu",
+        "replaces": "vit_torch_tpu/ops/window_block.py:806, "
+                    "vit_torch_tpu/ops/window_block.py:496, "
+                    "vit_torch_tpu/ops/window_block.py:247",
+        "launches": swin_le["window_gemm"],
+        "max_abs_err": max(p["max_abs_err"] for r in gemm_rows
+                           for p in r["products"]),
+        "max_rel_err": max(p["max_rel_err"] for r in gemm_rows
+                           for p in r["products"]),
+        "ms": head["device_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_device_ms"],
+        "library": "F.linear over contiguous rows (cuBLAS), device time",
+        "library_backend": head["library_backend"],
+        "case": gemm_rows[0]["case"], "launch": head["launch"],
+        "ptxas": window_ptxas["window_gemm"],
+        "launches_by_path": {p: c["window_gemm"]
+                             for p, c in swin_paths.items()},
+        "launch_T_K_N_device_tflops_share_lib_libdevice_indexselect_by_case":
+            [[r["case"], [[p["launch"], p["T"], p["K"], p["N"],
+                           p["device_ms"], p["tflops"], p["bound_share"],
+                           p["library_ms"], p["library_device_ms"],
+                           p["index_select_linear_ms"]]
+                          for p in r["products"]]] for r in gemm_rows]})
+    b9_entry = next(k for k in kernels
+                    if k["name"] == "window_block_full_spatial")
+    b9_entry["lineareval_step_ms"] = swin_step["lineareval_step_ms"]
+    b9_entry["eval_forward_ms"] = swin_step["eval_forward_ms"]
+    b9_entry["eval_forward_busy_ms"] = (
+        swin_step["eval_forward_profile"]["device_busy_ms"])
+    b9_entry["finetune_step_ms"] = swin_ft_step["finetune_step_ms"]
     bwd_entry = next(k for k in kernels
                      if k["name"] == "window_attention_bwd")
     bwd_entry["max_rel_err"] = max(max(r["rel_err_dq_dk_dv"])

@@ -2,9 +2,9 @@
 report beside the library, a library found built brings that report back
 into ``_build.LOGS`` without running ``nvcc``, and one found without its
 report is built again; and chip_smoke's gate on the fused-MLP,
-attention-block and flash-attention reports.  A stand-in ``nvcc`` (a
-Python script that writes the library, prints a report and counts its
-calls) takes the compiler's place."""
+attention-block, flash-attention and Swin window (GEMM and core)
+reports.  A stand-in ``nvcc`` (a Python script that writes the library,
+prints a report and counts its calls) takes the compiler's place."""
 
 import importlib.util
 import os
@@ -125,4 +125,12 @@ def test_chip_smoke_gates_the_attn_block_report(log, ok):
 def test_chip_smoke_gates_the_flash_reports(kernel, log, ok):
     """The same gate on the flash forward's ping-pong kernel and the
     backward's three kernels (each head-dim instance)."""
+    _gate(kernel, log, ok)
+
+
+@GATE_CASES
+@pytest.mark.parametrize("kernel", ["window_gemm", "window_attention_fwd"])
+def test_chip_smoke_gates_the_window_reports(kernel, log, ok):
+    """The same gate on the Swin window GEMM (each tile width) and the
+    window-attention core (each key width)."""
     _gate(kernel, log, ok)

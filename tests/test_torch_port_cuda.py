@@ -13,7 +13,10 @@ blocks (B3 and B4) against their plain versions, with gradients, their
 refusals, and a dino-shaped ViT step with B3 forced on against the CPU;
 the fused MLP (B12) against its plain version, with gradients, its
 refusals, and a DeiT-shaped step with it on against the CPU; the flat
-window block (B7) against its plain version, with gradients.
+window block (B7) against its plain version, with gradients; the window
+GEMM's four launches of B9 and the window-attention core's plans (one
+and 64 mask rows, 25- and 49-token windows) against their plain
+versions.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere.  They
 import neither JAX nor the JAX package, so they run on a machine without
@@ -289,6 +292,86 @@ def test_window_block_kernels_match_plain(cuda, case):
     assert got8.shape == got9.shape == d["x"].shape
     assert _rel_err(got8, ref8) <= BLOCK_RTOL
     assert _rel_err(got9, ref9) <= BLOCK_RTOL
+
+
+# (Bn, N, H, nW): the core's plans at one mask row and at 64 (the swin
+# stage-1 masks), windows of 25 and 49 tokens, a single window
+CORE_CASES = [(6, 144, 2, 1), (128, 144, 2, 64), (12, 25, 2, 6),
+              (128, 49, 3, 64), (1, 49, 1, 1)]
+
+
+@pytest.mark.parametrize("case", CORE_CASES, ids=str)
+def test_window_attention_core_plans_match_plain(cuda, case):
+    """The core over strided q/k/v views of one (Bn, N, 3, H, D) qkv
+    tensor and a -100/0 mask (or none, at nW = 1), against the plain
+    version; the plan's runs of windows and the group tables."""
+    Bn, N, H, nW = case
+    gen = torch.Generator(device=cuda).manual_seed(7 * N + nW)
+    qkv = torch.randn((Bn, N, 3, H, 32), generator=gen, device=cuda,
+                      dtype=torch.bfloat16)
+    bias = torch.randn((H, N, N), generator=gen, device=cuda)
+    mask = (torch.where(torch.rand((nW, N, N), generator=gen, device=cuda)
+                        > 0.7, -100.0, 0.0) if nW > 1 else None)
+    q, k, v = qkv.unbind(2)
+    got = wa.window_attention(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    ref = wa.window_attention_reference(q, k, v, bias, mask).float()
+    assert (got.float() - ref).abs().max().item() <= ATOL
+
+
+# (B, H, W, C, window, shift): K = 96 (swin_tiny, N = 96, 288, 384), K = 64
+# with a ragged T = 300 (not a multiple of the 128-row tile), the stage-4
+# width of swin_base
+GEMM_CASES = [(2, 14, 14, 96, 7, 3), (2, 10, 15, 64, 5, 2),
+              (1, 12, 12, 1024, 12, 0)]
+
+
+@pytest.mark.parametrize("launch", ["qkv", "proj", "fc1", "fc2"])
+@pytest.mark.parametrize("case", GEMM_CASES, ids=str)
+def test_window_gemm_kernel_matches_plain(cuda, case, launch):
+    """One window-GEMM launch as B9 makes it (the gathered qkv, the
+    scattered proj with its residual, fc1 with GELU, fc2 with its
+    residual) against dense_f32 with the epilogue's roundings, the rows
+    permuted as the kernel addresses them; one launch counted."""
+    import torch.nn.functional as F
+    from vit_torch_tpu_torch.ops import gemm as gm
+    B, H, W, C, w, shift = case
+    T = B * H * W
+    K, N, epi = {"qkv": (C, 3 * C, gm.EPI_BIAS),
+                 "proj": (C, C, gm.EPI_BIAS_RES),
+                 "fc1": (C, 4 * C, gm.EPI_GELU),
+                 "fc2": (4 * C, C, gm.EPI_BIAS16_RES)}[launch]
+    gen = torch.Generator(device=cuda).manual_seed(K + N)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda)
+                * scale).to(torch.bfloat16)
+
+    a, wt, bt = rnd(T, K), rnd(N, K, scale=K ** -0.5), rnd(N, scale=0.1)
+    res = rnd(T, N) if epi in (gm.EPI_BIAS_RES, gm.EPI_BIAS16_RES) else None
+    out = torch.empty((T, N), dtype=torch.bfloat16, device=cuda)
+    before = gm.gemm.launches
+    gm.gemm(a, wt, bt, out, epilogue=epi, geom=(H, W, w, shift),
+            gather=launch == "qkv", scatter=launch == "proj", res=res)
+    torch.cuda.synchronize()
+    assert gm.gemm.launches == before + 1
+    order = ((torch.arange(B, device=cuda) * H * W)[:, None]
+             + gm.window_rows(H, W, w, shift, cuda)[None].long()).view(-1)
+
+    def r16(x):
+        return x.to(torch.bfloat16).float()
+
+    acc = gm.dense_f32(a[order] if launch == "qkv" else a, wt, None)
+    if epi == gm.EPI_BIAS:
+        ref = r16(acc + bt.float())
+    elif epi == gm.EPI_BIAS_RES:
+        ref = r16(r16(acc + bt.float()) + res[order].float())
+        ref = ref[torch.argsort(order)]
+    elif epi == gm.EPI_GELU:
+        ref = r16(F.gelu(r16(r16(acc) + bt.float())))
+    else:
+        ref = r16(res.float() + r16(r16(acc) + bt.float()))
+    assert _rel_err(out, ref) <= BLOCK_RTOL
 
 
 def test_window_kernels_refuse_what_they_do_not_take(cuda):

@@ -127,28 +127,6 @@ struct Params {
   int T, C, Hd, Co, slabs;
 };
 
-// GELU with the Pallas kernel's own erf (Abramowitz-Stegun 7.1.26,
-// |err| <= 1.5e-7): gelu(x) = relu(x) - |x| / 2 * poly(t) * exp(-x^2 / 2)
-// with t = 1 / (1 + p |x| / sqrt 2); one reciprocal and one exp2 on the
-// SFU (approx.ftz: 1-2 ulp, far below the polynomial's error) and seven
-// FMAs, cheaper than erff where GELU is a large share (C = 128)
-__device__ __forceinline__ float gelu_erf(float x) {
-  const float ax = fabsf(x) * 0.70710678118654752f;
-  float t, e;
-  asm("rcp.approx.ftz.f32 %0, %1;\n"
-      : "=f"(t)
-      : "f"(fmaf(0.3275911f, ax, 1.f)));
-  asm("ex2.approx.ftz.f32 %0, %1;\n"
-      : "=f"(e)
-      : "f"(-1.44269504088896341f * ax * ax));
-  const float poly =
-      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f),
-                               1.421413741f),
-                       -0.284496736f),
-               0.254829592f);
-  return fmaxf(x, 0.f) - 0.70710678118654752f * ax * poly * e;
-}
-
 template <bool kRows128, int kNW, int kPR, int kHC>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_mlp_kernel(const __grid_constant__ CUtensorMap tm_x,
@@ -290,8 +268,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int rr = own_rows + r0 + 8 * half;
           const int off = tile * K::H_TILE + sm90::swizzle128(rr, col);
           *reinterpret_cast<__nv_bfloat162*>(hb + off) =
-              __floats2bfloat162_rn(gelu_erf(h[4 * i + 2 * half] + b.x),
-                                    gelu_erf(h[4 * i + 2 * half + 1] + b.y));
+              __floats2bfloat162_rn(
+                  sm90::gelu_erf(h[4 * i + 2 * half] + b.x),
+                  sm90::gelu_erf(h[4 * i + 2 * half + 1] + b.y));
         }
       }
       sm90::fence_proxy_async();   // st.shared -> wgmma operand reads

@@ -6,6 +6,12 @@
 // wrapper over one PTX instruction (or the driver's tensor-map encoder) so
 // that a kernel reads as the PTX it issues.
 //
+// A tile that its consumers must gather row by row (the Swin window GEMM's
+// window-major rows of a map) is written by cp.async (cp_async16 into the
+// swizzle's element offsets, completion onto the stage's mbarrier with
+// cp_async_mbar_arrive); cp.async writes in the generic proxy, so its
+// readers fence (fence_proxy_async) before wgmma reads the tile.
+//
 // Layout convention: an operand tile in shared memory is K-major, 64 bf16
 // (128 bytes) of K per row, rows consecutive, written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B (16-byte chunk c of row r lands at chunk
@@ -139,6 +145,20 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
       " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// 4-D tile store: shared memory (in the map's swizzle) to the box at
+// (c0, c1, c2, c3); out-of-bounds elements are not written.  A bulk group
+// of the issuing thread, as tma_store_2d
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -317,6 +337,34 @@ __device__ __forceinline__ int swizzle128(int row, int col) {
   return row * 128 + ((((col >> 3) ^ (row & 7))) << 4) + (col & 7) * 2;
 }
 
+// byte offset of element (row, col) in a tile of 32-column (64-byte) rows
+// written in the 64-byte swizzle: 16-byte chunk c of row r sits at chunk
+// c ^ ((r / 2) % 4)
+__device__ __forceinline__ int swizzle64(int row, int col) {
+  return row * 64 + ((((col >> 3) ^ ((row >> 1) & 3))) << 4) + (col & 7) * 2;
+}
+
+// ---- cp.async onto an mbarrier -------------------------------------------
+
+// 16-byte global -> shared copy by the issuing thread (generic proxy); the
+// destination is zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// one arrival on the barrier once every cp.async this thread issued before
+// has landed; .noinc: the arrival counts against the barrier's expected
+// count (mbar_init counts these threads)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
 // elements i and i + 1 of a bf16 vector as floats; zeros when p is null or
 // !ok (a missing bias, a column past the end)
 __device__ __forceinline__ float2 bf16_pair(const __nv_bfloat16* p, int i,
@@ -324,6 +372,30 @@ __device__ __forceinline__ float2 bf16_pair(const __nv_bfloat16* p, int i,
   if (p == nullptr || !ok) return make_float2(0.f, 0.f);
   const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p + i);
   return make_float2(__low2float(v), __high2float(v));
+}
+
+// GELU with the Pallas kernels' own erf (Abramowitz-Stegun 7.1.26,
+// |err| <= 1.5e-7, far below bf16's 2^-8; vit_torch_tpu/ops/fused_mlp.py
+// _erf, which window_block.py's _gelu_f32 takes too): gelu(x) = relu(x) -
+// |x| / 2 * poly(t) * exp(-x^2 / 2) with t = 1 / (1 + p |x| / sqrt 2);
+// one reciprocal and one exp2 on the SFU (approx.ftz: 1-2 ulp, far below
+// the polynomial's error) and seven FMAs, cheaper than erff.  The
+// epilogues of B12 (fused_mlp.cu) and the window GEMM's fc1 run it.
+__device__ __forceinline__ float gelu_erf(float x) {
+  const float ax = fabsf(x) * 0.70710678118654752f;
+  float t, e;
+  asm("rcp.approx.ftz.f32 %0, %1;\n"
+      : "=f"(t)
+      : "f"(fmaf(0.3275911f, ax, 1.f)));
+  asm("ex2.approx.ftz.f32 %0, %1;\n"
+      : "=f"(e)
+      : "f"(-1.44269504088896341f * ax * ax));
+  const float poly =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f),
+                               1.421413741f),
+                       -0.284496736f),
+               0.254829592f);
+  return fmaxf(x, 0.f) - 0.70710678118654752f * ax * poly * e;
 }
 
 // one slot of a ring of mbarrier-guarded stages: the stage and the phase
@@ -537,6 +609,46 @@ struct Wgmma<256> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<144> {
+  static __device__ __forceinline__ void mma(float (&d)[72], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71"
+        "}, %72, %73, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };

@@ -1,293 +1,453 @@
 // Swin window-attention forward for Hopper (sm_90a), bf16 in / bf16 out.
 //
 // Replaces the Pallas TPU kernel vit_torch_tpu/ops/window_attention.py:
-// _fwd_kernel (reached through _fwd_impl).  Same function, per window i and
-// head h of (Bn, N, H, D) tensors:
+// _fwd_kernel (def :76, pallas_call :164, reached through _fwd_impl).  Same
+// function, per window i and head h of (Bn, N, H, D) tensors:
 //   S = scale * Q K^T + bias[h] + mask[i mod nW]     (fp32)
 //   P = exp(S - rowmax(S))                            (fp32, unnormalised)
 //   O = (bf16(P) V) / rowsum(P)                       (fp32 sum, bf16 out)
-// It is also the attention core of the Swin block kernels (window_gemm.cu
-// composes them), which launch it once per block.
+// It is also the attention core of the Swin block chains (window_gemm.cu's
+// products around it), which launch it once per block.
+//
+// Bound on an H100: 4 Bn N H D * 2 bytes of q, k, v and o at 3.35 TB/s
+// (swin_base_384 bs32: 0.090, 0.045, 0.023 and 0.011 ms at stages 1-4),
+// plus each (head, mask row) table once; the products (4 Bn H N^2 D, 22
+// GFLOP at stage 1) take a quarter of that at the tensor cores' rate.  So
+// the kernel has to stream q, k, v and o at the memory's rate, and keep the
+// per-window work (the bias and mask tables, the softmax's exp on the SFU)
+// off that stream.  The first design read each window-head's fp32 bias[h]
+// and mask[i mod nW] rows from L2: 166 KB against the 37 KB of q, k, v and
+// o it moved, so that stage 1 shifted took 0.630 ms against 0.374
+// unshifted (H100 80GB HBM3, 700 W; chip_smoke).
 //
 // Design.  A window holds at most N = 144 tokens (window 12) and every Swin
-// config has D = 32, so one window-head's Q, K and V are 27 KB of bf16 and
-// its S is 144 x 144 fp32: the whole softmax row fits in registers across
-// the warps of one block.  No online softmax is needed, so the rows are
-// exact, as in the TPU kernel.
+// config has D = 32: a whole softmax row fits in registers, so the rows are
+// exact (no online rescaling), as in the TPU kernel.
+// - Persistent blocks of 384 threads, each owning a group (h, j): head h
+//   and mask row j (unmasked, the group is h alone), and a run of that
+//   group's windows i = j + nW b (ops/window_attention.py:core_plan splits
+//   a group's windows into runs so that the blocks fill the card).  Blocks
+//   that run together take the H heads of the same windows, so that the
+//   L2 lines of a token's qkv row serve all of them.  Before
+//   the first window the consumers stage the group's table in shared
+//   memory once: bias[h] + mask[j] summed in fp32, rows of N padded with
+//   -inf to the keys' width (which excludes keys >= N) and to a stride of
+//   an odd multiple of 8 floats (conflict-free pairs).  Pre-summing moves
+//   the rounding from (s + b) + m to s + (b + m); the two differ only
+//   where the mask is -100, where P is ~e^-100 of the row's largest either
+//   way.  The L2 traffic for the tables falls from 166 KB a window-head to
+//   83 KB a block.
+// - Warpgroup 2's first thread (setmaxnreg 24) streams each window's Q, K
+//   and V by TMA, 4-D maps over the tensors' own (window, row, head)
+//   strides (sm90::encode_bf16_bhnd: q, k and v are views into the
+//   window-major (Bn, N, 3, H, D) qkv), NK rows each, rows at or past N
+//   zero-filled, into a ring of 2-6 mbarrier stages (27 KB a stage at
+//   N = 144, 4 stages).
+// - Warpgroups 0 and 1 (setmaxnreg 240) take alternate windows.  Per 64-row
+//   slice of queries (3 at N = 144; a slice past Q's NK rows reads the
+//   next tile's rows, whose scores are never used): S = Q K^T by wgmma
+//   m64nNKk16 (NK: the keys padded to 16, 32, 64 or 144; 2 k-steps over
+//   D = 32, both operands K-major in the 64-byte swizzle); scale, the
+//   staged table and the row max in fp32 on S's registers, P = exp2((S -
+//   m) log2 e) on the SFU (a warp whose 16 rows all lie at or past N skips
+//   it and takes P = 0: a quarter of the rows at N = 144); P rounded to
+//   bf16 stays in registers as the A operand of O = P V (sm90::WgmmaRS, V
+//   an MN-major tile), the row sum over the fp32 P; O / l rounded into a
+//   64 x 32 slice in the 64-byte swizzle and stored by TMA through o's
+//   strides (rows past N are not written).  Storing O from registers
+//   instead (bf16 pairs), which gives room for a fifth stage, ran a
+//   little slower in development.
+// - Shared memory at N = 144: 1 KB of alignment, 4 stages of 27 KB, 24 KB
+//   of output slices, the 85.5 KB table, the barriers: 223,840 bytes.
 //
-// - One block per (window, head); NT = ceil(N / 16) warps, each owning one
-//   16-row slice of the queries.  Q, K and V are staged in shared memory
-//   with cp.async (rows padded by 16 bytes, so fragment reads are free of
-//   bank conflicts); rows >= N are zero-filled.  N = 49 (window 7) runs as
-//   64 rows with keys >= N excluded.
-// - S = Q K^T and O = P V run on the tensor cores with mma.sync.m16n8k16
-//   bf16 -> fp32.  S's accumulator layout is the A-fragment layout of the
-//   PV product, so P never leaves registers; it is rounded to bf16 for PV
-//   only (the row sum uses the fp32 P).  V's B-fragments come through
-//   ldmatrix.trans.
-// - bias[h] and mask[i mod nW] are fp32 reads of (N, N) tables shared by
-//   all windows and images, so they stay in L2 (the swin_base_384 stage-1
-//   mask is 64 x 83 KB = 5.3 MB).  A thread reads them in the accumulator
-//   layout, two neighbouring columns at once when N is even (8-byte
-//   loads, whole 32-byte sectors per row of a warp).
-// - q, k, v and o are addressed by (window, row, head) strides with unit
-//   stride along D, so q/k/v are views into the window-major
-//   (Bn, N, 3, H, D) qkv projection and O is written as (Bn, N, H * D).
-//
-// Bound at swin_base_384 stage 1, bs32: (Bn, N, H, D) = (2048, 144, 4, 32)
-// is 4 * Bn * H * N^2 * D = 21.7 GFLOP (22 us at 989 TFLOP/s dense bf16)
-// against q, k, v read and o written, 4 * Bn * N * H * D * 2 = 302 MB
-// (90 us at 3.35 TB/s): it is bound by bytes.  Beside those bytes each
-// window-head reads its (N, N) fp32 bias and mask rows from L2, 83 KB
-// each at N = 144, which this version does not share between the blocks
-// that use them.
+// This replaces the port's first design: one block per (window, head),
+// ceil(N / 16) warps on mma.sync.m16n8k16, cp.async loads, the fp32 bias
+// and mask rows read from L2 by every window-head.  Its times on an H100
+// 80GB HBM3 at 700 W (chip_smoke, swin_base_384 bs32): 0.630/0.374 ms at
+// stage 1 shifted/unshifted, 0.325/0.201, 0.175/0.131 and 0.092 at stages
+// 2-4.
 //
 // C entry point (ctypes): window_attention_fwd_bf16(...) returns the
 // cudaError_t of the launch; it launches on the given stream and does not
-// synchronise or allocate.
+// synchronise or allocate.  A plan other than core_plan's is refused.
 
-#include "flash_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "attention_sm90.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-// 16-byte global -> shared copy; zero-fills the destination when !pred
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(pred ? 16 : 0));
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-constexpr int kD = 32;           // head dim of every Swin config
-constexpr int kMaxTiles = 9;     // 16-row tiles: N <= 144
+constexpr int kD = 32;               // head dim of every Swin config
+constexpr int kMaxN = 144;           // N = w^2 up to window 12
+constexpr int kThreads = 384;        // 2 consumer warpgroups + producer
+constexpr int kSmemMax = 232448;     // 227 KB a block may use
+constexpr int kMaxStages = 6;
+constexpr int kSlice = 64 * kD * 2;  // 64 rows of a Q or O tile
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* o;
-  const float* bias;  // (H, N, N)
-  const float* mask;  // (nW, N, N) or null
-  // element strides: [tensor][window, row, head] for tensor in q, k, v, o
-  long long stride[4][3];
-  int N;
-  int nW;
+  const float* bias;   // (H, N, N)
+  const float* mask;   // (nW, N, N) or null
   float scale;
+  int N;
+  int H;
+  int nW;              // groups a head: mask rows, 1 unmasked
+  int windows;         // windows a group: Bn / nW
+  int per_block;       // windows a block walks
+  int stages;
 };
 
-// NT 16-row tiles; EVEN: N is even, so column pairs (2t, 2t + 1) of the
-// bias and mask are 8-byte aligned and both in or both out of range
-template <int NT, bool EVEN>
-__global__ void __launch_bounds__(32 * NT)
-    window_attn_fwd_kernel(const Params p) {
-  constexpr int NP = 16 * NT;        // padded rows and keys
-  constexpr int kThreadsNT = 32 * NT;
-  constexpr int kChunks = kD / 8;    // 16-byte chunks per row
-  __shared__ __align__(16) __nv_bfloat16 sQ[NP][kD + kPad];
-  __shared__ __align__(16) __nv_bfloat16 sK[NP][kD + kPad];
-  __shared__ __align__(16) __nv_bfloat16 sV[NP][kD + kPad];
+// the table's row stride in floats: the keys' width rounded up to an odd
+// multiple of 8, so that the 8 rows of a warp's float2 reads hit 8 distinct
+// groups of 8 banks (two wavefronts, the least for 256 bytes)
+__host__ __device__ constexpr int table_stride(int nk) {
+  return (nk % 32 == 8 || nk % 32 == 24) ? nk : nk + 8;
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+// query rows: 64-row slices (wgmma's M) covering NK
+__host__ __device__ constexpr int query_rows(int nk) {
+  return 64 * ((nk + 63) / 64);
+}
+
+template <int NK>
+__host__ __device__ constexpr int stage_bytes() {
+  return 3 * NK * kD * 2;
+}
+
+template <int NK>
+__host__ __device__ constexpr int fixed_bytes(int n) {
+  return 1024 + 2 * (query_rows(NK) / 64) * kSlice +
+         n * table_stride(NK) * 4 + 2 * kMaxStages * 8;
+}
+
+template <int NK>
+__global__ void __launch_bounds__(kThreads, 1)
+    window_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_o,
+                           const Params p) {
+  constexpr int NQ = query_rows(NK);
+  constexpr int NS = NQ / 64;            // query slices
+  constexpr int kKV = NK * kD * 2;   // a Q, K or V tile of NK rows
+  constexpr int kQ = kKV;
+  constexpr int kStage = 3 * kKV;
+  constexpr int kTs = table_stride(NK);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = sm90::align1024(smem_raw);
+  uint8_t* outs = ring + p.stages * kStage;     // NS slices a warpgroup
+  float* table = reinterpret_cast<float*>(outs + 2 * NS * kSlice);
+  uint64_t* full = reinterpret_cast<uint64_t*>(table + p.N * kTs);
+  uint64_t* empty = full + kMaxStages;
+
   const int N = p.N;
-  const long long win = blockIdx.x;
-  const int h = blockIdx.y;
+  // block x: run c = x / groups, group g = x mod groups = j H + h, so that
+  // blocks that run together take the heads of one window (neighbours in
+  // the qkv rows: their reads share L2 lines, which the tensor maps'
+  // 256-byte L2 promotion fetches whole)
+  const int groups = p.H * p.nW;
+  const int g = blockIdx.x % groups;
+  const int j = g / p.H;
+  const int h = g - j * p.H;
+  const int b0 = (blockIdx.x / groups) * p.per_block;
+  const int items = min(p.per_block, p.windows - b0);
 
-  const __nv_bfloat16* src[3] = {p.q, p.k, p.v};
-  __nv_bfloat16(*dst[3])[kD + kPad] = {sQ, sK, sV};
-#pragma unroll
-  for (int m = 0; m < 3; ++m) {
-    const __nv_bfloat16* base =
-        src[m] + win * p.stride[m][0] + h * p.stride[m][2];
-    for (int c = threadIdx.x; c < NP * kChunks; c += kThreadsNT) {
-      const int r = c / kChunks;
-      const int col = (c % kChunks) * 8;
-      const bool ok = r < N;
-      cp_async16(&dst[m][r][col], base + (ok ? r * p.stride[m][1] : 0) + col,
-                 ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      sm90::mbar_init(full + s, 1);
+      sm90::mbar_init(empty + s, 4);   // the consuming warpgroup's warps
     }
+    sm90::mbar_init_fence();
   }
-  asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
+  const int wg = threadIdx.x / 128;
 
-  // this warp's queries as A-fragments: rows r0 and r0 + 8
-  const int r0 = warp * 16 + g;
-  uint32_t qf[kD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    qf[kk][0] = lds32(&sQ[r0][kk * 16 + 2 * t]);
-    qf[kk][1] = lds32(&sQ[r0 + 8][kk * 16 + 2 * t]);
-    qf[kk][2] = lds32(&sQ[r0][kk * 16 + 8 + 2 * t]);
-    qf[kk][3] = lds32(&sQ[r0 + 8][kk * 16 + 8 + 2 * t]);
-  }
-
-  // S = Q K^T over all NP keys: 2 * NT n-tiles of 8
-  float s[2 * NT][4];
-#pragma unroll
-  for (int nt = 0; nt < 2 * NT; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      const uint32_t b0 = lds32(&sK[nt * 8 + g][kk * 16 + 2 * t]);
-      const uint32_t b1 = lds32(&sK[nt * 8 + g][kk * 16 + 8 + 2 * t]);
-      mma_bf16_16816(s[nt], qf[kk], b0, b1);
+  if (wg == 2) {
+    // ---- producer: window k of the run in stage k mod stages
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      sm90::tma_prefetch_desc(&tm_q);
+      sm90::tma_prefetch_desc(&tm_k);
+      sm90::tma_prefetch_desc(&tm_v);
+      sm90::RingPos rp;
+#pragma unroll 1
+      for (int k = 0; k < items; ++k) {
+        const int win = j + p.nW * (b0 + k);
+        sm90::mbar_wait(empty + rp.stage, rp.phase ^ 1);
+        uint8_t* st = ring + rp.stage * kStage;
+        sm90::mbar_arrive_expect_tx(full + rp.stage, kStage);
+        sm90::tma_load_4d(st, &tm_q, full + rp.stage, 0, 0, h, win);
+        sm90::tma_load_4d(st + kQ, &tm_k, full + rp.stage, 0, 0, h, win);
+        sm90::tma_load_4d(st + kQ + kKV, &tm_v, full + rp.stage, 0, 0, h,
+                          win);
+        rp.advance(p.stages);
+      }
     }
+    return;
   }
 
-  // scale, bias and mask in fp32; keys >= N excluded; row max
-  const float* bias_h = p.bias + static_cast<long long>(h) * N * N;
-  const float* mask_w =
-      p.mask == nullptr ? nullptr
-                        : p.mask + (win % p.nW) * static_cast<long long>(N) * N;
-  const int rows[2] = {r0, r0 + 8};
-  float mx[2] = {-INFINITY, -INFINITY};
+  // ---- consumers
+  sm90::setmaxnreg_inc<240>();
+  const int t = threadIdx.x & 127;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int r0 = 16 * warp + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+
+  // the group's table, bias[h] + mask[j] in fp32, once: 8 loads a thread
+  // in flight (one at a time, each L2 round trip would be paid in turn),
+  // 16 bytes each where the rows allow it; then the -inf columns
+  {
+    const float* bias = p.bias + static_cast<long long>(h) * N * N;
+    const float* mask =
+        p.mask == nullptr ? nullptr
+                          : p.mask + static_cast<long long>(j) * N * N;
+    constexpr int kBatch = 8;
+    const bool wide =
+        N % 4 == 0 && ((reinterpret_cast<uintptr_t>(bias) |
+                        reinterpret_cast<uintptr_t>(mask)) & 15) == 0;
+    if (wide) {
+      const int n4 = N * N / 4;
+      // each block starts at its own place in the table, so that the
+      // blocks of one head (up to 64 at once) do not all ask the same L2
+      // lines at the same time
+      const int rot = (blockIdx.x * 2053) % n4;
+#pragma unroll 1
+      for (int e0 = 0; e0 < n4; e0 += 256 * kBatch) {
+        float4 v[kBatch];
+        int at[kBatch];
 #pragma unroll
-  for (int nt = 0; nt < 2 * NT; ++nt) {
-    const int col = nt * 8 + 2 * t;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = rows[i];
-      float x0 = s[nt][2 * i] * p.scale;
-      float x1 = s[nt][2 * i + 1] * p.scale;
-      if (row < N) {
-        const long long at = static_cast<long long>(row) * N + col;
-        if (EVEN) {
-          if (col < N) {
-            const float2 b = *reinterpret_cast<const float2*>(bias_h + at);
-            x0 += b.x;
-            x1 += b.y;
-            if (mask_w != nullptr) {
-              const float2 m = *reinterpret_cast<const float2*>(mask_w + at);
-              x0 += m.x;
-              x1 += m.y;
+        for (int u = 0; u < kBatch; ++u) {
+          int e = e0 + 256 * u + threadIdx.x;
+          at[u] = -1;
+          if (e < n4) {
+            e = e + rot < n4 ? e + rot : e + rot - n4;
+            at[u] = 4 * e;
+            v[u] = __ldg(reinterpret_cast<const float4*>(bias) + e);
+            if (mask != nullptr) {
+              const float4 m = __ldg(reinterpret_cast<const float4*>(mask) + e);
+              v[u].x += m.x;
+              v[u].y += m.y;
+              v[u].z += m.z;
+              v[u].w += m.w;
             }
           }
-        } else {
-          if (col < N) {
-            x0 += bias_h[at];
-            if (mask_w != nullptr) x0 += mask_w[at];
-          }
-          if (col + 1 < N) {
-            x1 += bias_h[at + 1];
-            if (mask_w != nullptr) x1 += mask_w[at + 1];
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int e = at[u];
+          if (e >= 0) {
+            *reinterpret_cast<float4*>(table + (e / N) * kTs + e % N) = v[u];
           }
         }
       }
-      if (col >= N) x0 = -INFINITY;
-      if (col + 1 >= N) x1 = -INFINITY;
-      s[nt][2 * i] = x0;
-      s[nt][2 * i + 1] = x1;
-      mx[i] = fmaxf(mx[i], fmaxf(x0, x1));
-    }
-  }
+    } else {
+#pragma unroll 1
+      for (int e0 = 0; e0 < N * N; e0 += 256 * kBatch) {
+        float v[kBatch];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {  // the 4 threads of a quad share a row
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-  }
-  float l[2] = {0.f, 0.f};
+        for (int u = 0; u < kBatch; ++u) {
+          const int e = e0 + 256 * u + threadIdx.x;
+          v[u] = 0.f;
+          if (e < N * N) {
+            v[u] = __ldg(bias + e);
+            if (mask != nullptr) v[u] += __ldg(mask + e);
+          }
+        }
 #pragma unroll
-  for (int nt = 0; nt < 2 * NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float pe = exp2f((s[nt][e] - mx[e >> 1]) * kLog2e);
-      s[nt][e] = pe;
-      l[e >> 1] += pe;
-    }
-  }
-
-  // O = P V: k-steps of 16 keys; P's accumulator layout is the A layout
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int i = 0; i < kD / 8; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < NT; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-    a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-    a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    const int row = kk * 16 + (lane & 15);
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; dt += 2) {
-      uint32_t bv[4];
-      ldmatrix_x4_trans(bv, &sV[row][dt * 8 + (lane >> 4) * 8]);
-      mma_bf16_16816(acc[dt], a, bv[0], bv[1]);
-      mma_bf16_16816(acc[dt + 1], a, bv[2], bv[3]);
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    inv[i] = 1.f / l[i];
-  }
-  __nv_bfloat16* og = p.o + win * p.stride[3][0] + h * p.stride[3][2];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (rows[i] < N) {
-        *reinterpret_cast<uint32_t*>(og + rows[i] * p.stride[3][1] + col) =
-            pack_bf16x2(acc[dt][2 * i] * inv[i], acc[dt][2 * i + 1] * inv[i]);
+        for (int u = 0; u < kBatch; ++u) {
+          const int e = e0 + 256 * u + threadIdx.x;
+          if (e < N * N) table[(e / N) * kTs + e % N] = v[u];
+        }
       }
     }
+    for (int e = threadIdx.x; e < N * (kTs - N); e += 256) {
+      table[(e / (kTs - N)) * kTs + N + e % (kTs - N)] = -INFINITY;
+    }
   }
+  sm90::named_barrier(1, 256);
+
+  uint8_t* out = outs + wg * NS * kSlice;
+  float s[NK / 2];
+  float o[kD / 2];
+  uint32_t pa[NK / 16][4];
+#pragma unroll 1
+  for (int k = wg; k < items; k += 2) {
+    const int stage = k % p.stages;
+    const uint32_t phase = (k / p.stages) & 1;
+    const int win = j + p.nW * (b0 + k);
+    sm90::mbar_wait(full + stage, phase);
+    const uint8_t* st = ring + stage * kStage;
+    const uint64_t dk = sm90::make_desc_sw64(st + kQ);
+    const uint64_t dv = sm90::make_desc_mn<2 * kD>(st + kQ + kKV);
+    // this warpgroup's previous stores have read the output slices
+    if (t == 0) sm90::bulk_wait_read<0>();
+    sm90::named_barrier(2 + wg, 128);
+#pragma unroll 1
+    for (int q = 0; q < NS; ++q) {
+      // S = Q K^T over the slice's 64 rows and NK keys
+      const uint64_t dq = sm90::make_desc_sw64(st + q * kSlice);
+      sm90::wgmma_fence();
+      sm90::Wgmma<NK>::mma(s, dq, dk, 0);
+      sm90::Wgmma<NK>::mma(s, dq + 2, dk + 2, 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+
+      // scale, table, row max, P = exp(S - m) and its fp32 row sum
+      float l[2] = {0.f, 0.f};
+      if (64 * q + 16 * warp < N) {   // a row of this warp lies before N
+        const float* ta = table + min(64 * q + r0, N - 1) * kTs;
+        const float* tb = table + min(64 * q + r0 + 8, N - 1) * kTs;
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < NK / 8; ++i) {
+          const float2 a = *reinterpret_cast<const float2*>(ta + 8 * i + c0);
+          const float2 b = *reinterpret_cast<const float2*>(tb + 8 * i + c0);
+          s[4 * i] = fmaf(s[4 * i], p.scale, a.x);
+          s[4 * i + 1] = fmaf(s[4 * i + 1], p.scale, a.y);
+          s[4 * i + 2] = fmaf(s[4 * i + 2], p.scale, b.x);
+          s[4 * i + 3] = fmaf(s[4 * i + 3], p.scale, b.y);
+          mx[0] = fmaxf(mx[0], fmaxf(s[4 * i], s[4 * i + 1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[4 * i + 2], s[4 * i + 3]));
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {   // the 4 threads of a quad share a row
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        }
+        const float mlog[2] = {-mx[0] * attn::kLog2e, -mx[1] * attn::kLog2e};
+#pragma unroll
+        for (int i = 0; i < NK / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          s[i] = attn::exp2_approx(fmaf(s[i], attn::kLog2e, mlog[r]));
+          l[r] += s[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < NK / 2; ++i) s[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < NK / 8; ++i) {   // bf16(P) as wgmma's register A
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(s[4 * i], s[4 * i + 1]);
+        const __nv_bfloat162 hi =
+            __floats2bfloat162_rn(s[4 * i + 2], s[4 * i + 3]);
+        pa[i >> 1][2 * (i & 1)] = *reinterpret_cast<const uint32_t*>(&lo);
+        pa[i >> 1][2 * (i & 1) + 1] = *reinterpret_cast<const uint32_t*>(&hi);
+      }
+
+      // O = bf16(P) V: 16 keys a k-step
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK / 16; ++kk) {
+        sm90::WgmmaRS<kD>::mma_tb(o, pa[kk], dv + kk * (2 * kD), kk != 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+#pragma unroll
+      for (int a = 0; a < NK / 16; ++a) sm90::fence_regs(pa[a]);
+
+      // O / l, rounded, into the slice; one TMA store of its 64 rows
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+      }
+      uint8_t* slice = out + q * kSlice;
+#pragma unroll
+      for (int i = 0; i < kD / 8; ++i) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              slice + sm90::swizzle64(r0 + 8 * r, 8 * i + c0)) =
+              __floats2bfloat162_rn(o[4 * i + 2 * r] * inv[r],
+                                    o[4 * i + 2 * r + 1] * inv[r]);
+        }
+      }
+      sm90::fence_proxy_async();   // st.shared -> the TMA store's reads
+      sm90::named_barrier(2 + wg, 128);
+      if (t == 0) {
+        sm90::tma_store_4d(&tm_o, slice, 0, 64 * q, h, win);
+        sm90::bulk_commit();
+      }
+    }
+    if (lane == 0) sm90::mbar_arrive(empty + stage);
+  }
+  if (t == 0) sm90::bulk_wait<0>();
 }
 
-template <int NT>
-cudaError_t launch(const Params& p, int Bn, int H, cudaStream_t s) {
-  if (p.N % 2 == 0) {
-    window_attn_fwd_kernel<NT, true><<<dim3(Bn, H), 32 * NT, 0, s>>>(p);
-  } else {
-    window_attn_fwd_kernel<NT, false><<<dim3(Bn, H), 32 * NT, 0, s>>>(p);
+template <int NK>
+cudaError_t launch(const Params& p, const CUtensorMap (&maps)[4], int blocks,
+                   cudaStream_t s) {
+  auto kernel = window_attn_fwd_kernel<NK>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return err;
+    configured = true;
   }
+  const int smem = fixed_bytes<NK>(p.N) + p.stages * stage_bytes<NK>();
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  kernel<<<blocks, kThreads, smem, s>>>(maps[0], maps[1], maps[2], maps[3],
+                                        p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// q, k, v, o: (Bn, N, H, D) views by element strides (strides[3 t + 0..2]
+// = window, row, head of tensor t in q, k, v, o); bias (H, N, N) fp32;
+// mask (nW, N, N) fp32 or null (then nW = 1); the plan (keys, per_block,
+// stages) is ops/window_attention.py:core_plan's
 extern "C" int window_attention_fwd_bf16(const void* q, const void* k,
                                          const void* v, void* o,
                                          const void* bias, const void* mask,
                                          int Bn, int H, int N, int D, int nW,
                                          const long long* strides, float scale,
+                                         int keys, int per_block, int stages,
                                          void* stream) {
-  if (D != kD || N < 1 || N > 16 * kMaxTiles || nW < 1) {
+  const int nk = N <= 16 ? 16 : N <= 32 ? 32 : N <= 64 ? 64 : 144;
+  if (D != kD || N < 1 || N > kMaxN || H < 1 || Bn < 1 || nW < 1 ||
+      Bn % nW || (mask == nullptr && nW != 1) || keys != nk ||
+      per_block < 1 || stages < 2 || stages > kMaxStages) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
   p.bias = static_cast<const float*>(bias);
   p.mask = static_cast<const float*>(mask);
-  for (int i = 0; i < 4; ++i) {
-    for (int j = 0; j < 3; ++j) p.stride[i][j] = strides[3 * i + j];
-  }
-  p.N = N;
-  p.nW = nW;
   p.scale = scale;
+  p.N = N;
+  p.H = H;
+  p.nW = nW;
+  p.windows = Bn / nW;
+  p.per_block = per_block;
+  p.stages = stages;
+  const long long blocks = static_cast<long long>(H) * nW *
+                           ((p.windows + per_block - 1) / per_block);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const void* base[4] = {q, k, v, o};
+  const int rows[4] = {nk, nk, nk, 64};
+  CUtensorMap maps[4];
+  for (int t = 0; t < 4; ++t) {
+    const long long* st = strides + 3 * t;
+    if (!sm90::encode_bf16_bhnd(&maps[t], base[t], Bn, H, N, kD, st[0], st[2],
+                                st[1], rows[t])) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((N + 15) / 16) {
-    case 1: return static_cast<int>(launch<1>(p, Bn, H, s));
-    case 2: return static_cast<int>(launch<2>(p, Bn, H, s));
-    case 3: return static_cast<int>(launch<3>(p, Bn, H, s));
-    case 4: return static_cast<int>(launch<4>(p, Bn, H, s));
-    case 5: return static_cast<int>(launch<5>(p, Bn, H, s));
-    case 6: return static_cast<int>(launch<6>(p, Bn, H, s));
-    case 7: return static_cast<int>(launch<7>(p, Bn, H, s));
-    case 8: return static_cast<int>(launch<8>(p, Bn, H, s));
-    case 9: return static_cast<int>(launch<9>(p, Bn, H, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = static_cast<int>(blocks);
+  switch (nk) {
+    case 16: return static_cast<int>(launch<16>(p, maps, nb, s));
+    case 32: return static_cast<int>(launch<32>(p, maps, nb, s));
+    case 64: return static_cast<int>(launch<64>(p, maps, nb, s));
+    default: return static_cast<int>(launch<144>(p, maps, nb, s));
   }
 }

@@ -4,315 +4,444 @@
 //   Y = bf16(LayerNorm(X)) over rows, fp32 statistics.
 //
 // Together with window_attention_fwd.cu (the attention core) this replaces
-// the Pallas TPU kernels vit_torch_tpu/ops/window_block.py:
-// _fwd_kernel_spatial (window_block_spatial, "B8") and
-// _fwd_kernel_spatial_full (window_block_full_spatial, "B9"):
-//   B8 = qkv product -> core -> proj product,
+// the products that the Pallas TPU kernels of
+// vit_torch_tpu/ops/window_block.py computed in their bodies:
+// _fwd_kernel (def :200, pallas_call :247; window_block, "B7"),
+// _fwd_kernel_spatial (:404 / :496; window_block_spatial, "B8") and
+// _fwd_kernel_spatial_full (:710 / :806; window_block_full_spatial, "B9"):
+//   B7 = qkv product -> core -> proj product, over windows already cut,
+//   B8 = the same over a map, the window partition in the products' rows,
 //   B9 = LN1 -> qkv product -> core -> proj product + residual
 //        -> LN2 -> fc1 product + GELU -> fc2 product + residual.
-// The TPU kernels computed these products in their own bodies with the
-// weights resident in VMEM; B9's 12 C^2 weights do not fit in an SM's
-// shared memory, so on Hopper each block is this short chain of launches.
-// Each launch keeps the TPU kernel's rounding points.
+// The TPU kernels held the weights in VMEM; B9's 12 C^2 weights do not fit
+// in an SM's shared memory, so on Hopper each block is this short chain of
+// launches, each keeping the TPU kernel's rounding points.
 //
-// GEMM options, chosen per launch:
-// - window addressing.  Row r of the window-major order (window
-//   wi = r / N, token j = r mod N, window (wy, wx) of image b) lives at
-//   map position (b, (wy w + j / w + s) mod H, (wx w + j mod w + s) mod W).
-//   A gathered A-operand reads its rows there and a scattered Y (with its
-//   residual) writes them there: the window partition and reverse of the
-//   TPU band kernels, with the cyclic shift s of a shifted block folded in
-//   (roll by -s before the block, by +s after, computes the same function).
+// Product options, chosen per launch:
+// - window addressing.  Row r of the window-major order lives at map row
+//   (r / hw) hw + rows[r mod hw], rows the per-image table that the host
+//   builds per geometry (ops/gemm.py:window_rows: window (wy, wx), token
+//   j -> map position (wy w + j / w + s) mod H, (wx w + j mod w + s) mod W,
+//   the cyclic shift s of a shifted block folded in: roll by -s before the
+//   block and by +s after computes the same function).  A gathered A reads
+//   its rows there and a scattered Y (with its residual) writes them there:
+//   the window partition and reverse of the TPU band kernels.
 // - epilogues (fp32 accumulator acc, bf16 bias b, bf16 residual res):
-//   0: bf16(acc + b)                                   (qkv; B8's proj)
+//   0: bf16(acc + b)                                   (qkv; B7/B8's proj)
 //   1: bf16(bf16(acc + b) + res)                        (B9's proj)
-//   2: bf16(gelu(bf16(bf16(acc) + b))), exact erf GELU  (fc1)
+//   2: bf16(gelu(bf16(bf16(acc) + b))), erf GELU        (fc1)
 //   3: bf16(res + bf16(bf16(acc) + b))                  (fc2)
 //
-// GEMM tiling: 128 x 128 output tiles, k-steps of 32, 8 warps of 64 x 32,
-// mma.sync.m16n8k16 bf16 -> fp32 with ldmatrix fragment loads, and a
-// 3-stage cp.async pipeline (16-byte copies, zero-filled past the last
-// row) in 60 KB of dynamic shared memory.  (4 warps of 64 x 64 and 4
-// stages measured slower on the H100: 222 registers a thread.)  Consecutive blocks share their
-// rows of X, so gathered rows are read from device memory about once.  K
-// must be a multiple of 32 and the row strides multiples of 8 elements.
+// Bound on an H100 (989 TFLOP/s dense bf16, 3.35 TB/s): 2 T K N operations
+// against A, W and Y (and res) once.  At swin_base_384 bs32 stage 1
+// (T = 294,912, C = 128) every product is bound by bytes (the four move
+// 1.36 GB, 0.41 ms); from stage 2 on, by operations (116 GFLOP a block at
+// every stage, 0.117 ms).  The products of stages 3-4 want the tensor
+// cores busy; stage 1 wants the gathered rows read once and every byte
+// moved by wide, coalesced copies.
+//
+// Design: persistent, warp-specialised blocks of 384 threads (the shape of
+// attn_block.cu's qkv product).  Each block walks 128 x BN output tiles
+// (BN = 128 or 192: ops/gemm.py:gemm_plan picks the width that leaves the
+// busiest SM the fewest columns for N, so that 96-, 288- and 1024-wide
+// outputs all take a tile set with little padding; a tile's columns past
+// N read zero weights and are not written), tile index column-fastest so
+// that the blocks sharing a row tile run together and read its A from L2.
+// A stage of the mbarrier ring is a k-step of 64: the 128 x 64 A tile and
+// the BN x 64 W tile in the 128-byte swizzle.
+// - Warpgroup 2 is the producer (setmaxnreg 56).  W always comes by TMA
+//   (cached tensor map); so does a plain A (fc1, fc2, B7's rows).  The K
+//   tail (K = 96: the second k-step is half past the edge) is TMA's zero
+//   fill in both A and W, which adds nothing to the product.
+// - A gathered A (B8/B9's qkv) is not one TMA box: a window's 144 rows are
+//   12 runs of 12 map rows, any run may be cut by the shift's wrap, and a
+//   run of 12 rows does not start on the swizzle's 8-row phase (a box must
+//   land 1024-byte aligned).  So the producer's 128 threads gather it with
+//   16-byte cp.async copies, each thread 8 rows of one 16-byte chunk (a
+//   warp moves 4 whole 128-byte rows an instruction), into the 128-byte
+//   swizzle's offsets, zero-filled past T and past K, and each signals the
+//   stage's mbarrier with cp.async.mbarrier.arrive.noinc (128 arrivals and
+//   W's expect_tx arrival complete a stage).  cp.async writes in the
+//   generic proxy, so the consumers fence.proxy.async before their wgmma.
+// - Warpgroups 0 and 1 (setmaxnreg 224) own 64 rows each: wgmma
+//   m64nBNk16 from shared memory into BN / 2 fp32 registers a thread, a
+//   stage released once the wgmma that read it has retired.
+// - The epilogue runs 64 columns at a time through two 64 x 64 bf16 slice
+//   buffers a warpgroup, used in turn, in the 128-byte swizzle, one branch
+//   on the epilogue a slice (stage_slice); each thread's bias pairs and
+//   copy-out rows are read at the tile's start, while the products run.
+//   Plain rows without a residual (qkv of B7, fc1, B7's proj) leave by TMA
+//   stores (a buffer is written again once the store two slices back has
+//   read it); scattered rows (proj of B8/B9) and residual rows (B9's proj,
+//   fc2) are copied out 16 bytes a thread at their map rows, the residual
+//   read there 16 bytes at a time (its lines prefetched into L2 at the
+//   tile's start, its four chunks loaded at once) and added in fp32 (a
+//   warp writes 4 whole 128-byte rows an instruction).  Meanwhile the
+//   producer fills the next tile's stages.  GELU evaluates the Pallas
+//   kernel's own erf polynomial (window_block.py:_gelu_f32 takes
+//   fused_mlp._erf; sm90::gelu_erf), whose rcp and exp2 run on the SFU,
+//   where erff's longer evaluation made fc1's epilogue outlast its
+//   products.
+// - Shared memory: 1 KB of alignment, stages of (128 + BN) x 128 bytes
+//   (4 at BN = 192, 6 at 128), four 8 KB output slices, the barriers.
+// What holds it back, from development builds on an H100 80GB HBM3 at
+// 700 W with parts of the work taken out: not the tensor cores (without
+// its wgmmas a product took as long), but the epilogue (without it, a
+// quarter to three quarters less time; fc1's GELU most) and the loads.
+// Tiles of 256 columns, and each consumer warpgroup taking whole tiles of
+// its own so that one's epilogue overlaps the other's products (CUTLASS's
+// ping-pong), ran no faster and were taken out.
+//
+// This replaces the port's first design: 128 x 128 tiles of 8 warps on
+// mma.sync.m16n8k16 with ldmatrix fragments and a 3-stage cp.async ring,
+// about 190 TFLOP/s at stages 3-4 on an H100 80GB HBM3 at 700 W, against
+// cuBLAS's ~532 for the same product (chip_smoke).
 //
 // LayerNorm (the TPU kernels' _ln_rows_f32, flax's fast variance): one
 // warp per row, fp32 sum and sum of squares over 16-byte loads, mean and
 // var = max(E[x^2] - mean^2, 0), then
 // bf16((x - mean) * (rsqrt(var + eps) * w[k]) + b[k]) with fp32 w, b.  It
 // writes the normalised map once (the products then read it like any
-// input) rather than normalising inside every column tile of the product.
-//
-// Bound (see window_block.py for the per-block formula): at swin_base_384
-// stage 1, bs32 (T = 294,912 tokens, C = 128) the qkv product is 29 GFLOP
-// against 302 MB (the map read, qkv written): bound by bytes, 90 us.  The
-// products at C >= 256 are bound by operations.  This version has no TMA
-// or wgmma.
+// input) rather than normalising inside every column tile of the product;
+// it is bound by bytes and keeps its first design.
 //
 // C entry points (ctypes): window_gemm_bf16(...) and
 // window_layer_norm_bf16(...) return the cudaError_t of the launch; they
-// launch on the given stream and do not synchronise or allocate.
+// launch on the given stream and do not synchronise or allocate.  A width,
+// plan or option that the kernel does not take is refused with
+// cudaErrorInvalidValue before any launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kStages = 3;
-constexpr int kLd = kBK + 8;        // 16 bytes of row padding
-constexpr int kThreads = 256;       // 8 warps: 2 along M x 4 along N
-constexpr int kWarpM = 64;
-constexpr int kWarpN = 32;
-constexpr int kRowsPerCopy = kThreads / 4;   // 4 chunks of 16 B per row
-constexpr int kCopies = kBM / kRowsPerCopy;  // chunks per thread per tile
-constexpr int kTileElems = kBM * kLd;                    // A or B, one stage
-constexpr int kSmemBytes = kStages * 2 * kTileElems * 2;  // 61,440
+constexpr int kThreads = 384;        // 2 consumer warpgroups + producer
+constexpr int kBM = 128;             // rows a tile: 64 a consumer warpgroup
+constexpr int kSmemMax = 232448;     // 227 KB a block may use
+constexpr int kMaxStages = 8;
+constexpr int kSlice = 64 * 128;     // a 64 x 64 bf16 output slice
+// 1 KB of alignment, two slices a consumer warpgroup, the barriers
+constexpr int kFixed = 1024 + 4 * kSlice + 2 * kMaxStages * 8;
 
 enum Epilogue { kBias = 0, kBiasRes = 1, kGelu = 2, kBias16Res = 3 };
 
 struct Params {
-  const __nv_bfloat16* x;     // A source rows (row stride lda)
-  const __nv_bfloat16* w;     // (Nout, K), row-major (nn.Linear layout)
+  const __nv_bfloat16* x;     // A rows, K columns (gathered: the map)
   const __nv_bfloat16* bias;  // (Nout) or null
-  const __nv_bfloat16* res;   // residual, addressed as Y
-  __nv_bfloat16* y;           // rows of Nout (row stride ldy)
-  int T, K, Nout;
-  long long lda, ldy;
-  int gather, scatter;        // window addressing of A rows / Y rows
-  int Hm, Wm, win, shift;     // map geometry for window addressing
+  const __nv_bfloat16* res;   // residual, addressed as Y, or null
+  __nv_bfloat16* y;           // rows of Nout
+  const int* rows;            // per-image window-major -> map row, or null
+  int T, K, Nout, hw;
+  int gather, scatter, epi;
+  int tiles_n, tiles, ksteps, stages;
 };
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16-byte global -> shared copy; zero-fills the destination when !pred
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// row r of the window-major order -> its row in the (B, Hm, Wm) map
-__device__ __forceinline__ long long map_row(int r, const Params& p) {
-  const int w = p.win;
-  const int n = w * w;
-  const int nwc = p.Wm / w;
-  const int nw = (p.Hm / w) * nwc;
-  const int wi = r / n;
-  const int j = r - wi * n;
-  const int b = wi / nw;
-  const int wr = wi - b * nw;
-  const int wy = wr / nwc;
-  const int wx = wr - wy * nwc;
-  const int i = j / w;
-  int yy = wy * w + i + p.shift;
-  int xx = wx * w + (j - i * w) + p.shift;
-  if (yy >= p.Hm) yy -= p.Hm;
-  if (xx >= p.Wm) xx -= p.Wm;
-  return (static_cast<long long>(b) * p.Hm + yy) * p.Wm + xx;
+// row r of the window-major order -> its row of the (B, H, W) map
+__device__ __forceinline__ int map_row(int r, const Params& p) {
+  const int b = r / p.hw;
+  return b * p.hw + p.rows[r - b * p.hw];
 }
 
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-}
-
+// the value an epilogue stages in bf16 before the residual (if any) is
+// added: 0 and 1 bf16(acc + b); 2 bf16(gelu(bf16(bf16(acc) + b)));
+// 3 bf16(bf16(acc) + b)
 template <int EPI>
-__global__ void __launch_bounds__(kThreads)
-    window_gemm_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // stage s: A tile at smem + 2 s kTileElems, B tile right after it
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
+__device__ __forceinline__ float staged(float acc, float b) {
+  if (EPI == kGelu) return sm90::gelu_erf(bf16r(bf16r(acc) + b));
+  if (EPI == kBias16Res) return bf16r(acc) + b;
+  return acc + b;
+}
 
-  // each thread copies kCopies 16-byte chunks of A and of B per k-step:
-  // rows tid / 4 + 32 i, columns (tid % 4) * 8 .. + 8
-  const int lrow = tid >> 2;
-  const int lcol = (tid & 3) * 8;
-  const __nv_bfloat16* arow[kCopies];
-  const __nv_bfloat16* brow[kCopies];
-  bool aok[kCopies], bok[kCopies];
+// The staged bf16 values of 64-column slice c of a warpgroup's 64 x BN
+// accumulator (thread t's rows r0 and r0 + 8, columns 8 i + c0 and + 1)
+// into a 64 x 64 slice in the 128-byte swizzle; bias2 holds the thread's
+// bias pairs of the tile, one 32-bit bf16 pair per 8 columns.  Called
+// with c a constant of an unrolled loop, so that acc stays in registers.
+template <int EPI, int NA>
+__device__ __forceinline__ void stage_slice(int c, uint8_t* slice,
+                                            const float (&acc)[NA],
+                                            const uint32_t (&bias2)[NA / 4],
+                                            int r0, int c0) {
 #pragma unroll
-  for (int i = 0; i < kCopies; ++i) {
-    const int r = m0 + lrow + kRowsPerCopy * i;
-    aok[i] = r < p.T;
-    arow[i] = p.x;
-    if (aok[i]) arow[i] = p.x + (p.gather ? map_row(r, p) : r) * p.lda;
-    const int n = n0 + lrow + kRowsPerCopy * i;
-    bok[i] = n < p.Nout;
-    brow[i] = bok[i] ? p.w + static_cast<long long>(n) * p.K : p.w;
-  }
-  const int ksteps = p.K / kBK;
-  auto load_stage = [&](int ks) {
-    __nv_bfloat16* sa = smem + (ks % kStages) * 2 * kTileElems;
-    __nv_bfloat16* sb = sa + kTileElems;
-    const int k0 = ks * kBK + lcol;
-#pragma unroll
-    for (int i = 0; i < kCopies; ++i) {
-      const int row = (lrow + kRowsPerCopy * i) * kLd + lcol;
-      cp_async16(sa + row, arow[i] + (aok[i] ? k0 : 0), aok[i]);
-      cp_async16(sb + row, brow[i] + (bok[i] ? k0 : 0), bok[i]);
-    }
-  };
-
-  float acc[kWarpM / 16][kWarpN / 8][4];
-#pragma unroll
-  for (int mt = 0; mt < kWarpM / 16; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < kWarpN / 8; ++nt) {
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-    }
-  }
-  const int wm = (warp >> 2) * kWarpM;   // this warp's rows in the tile
-  const int wn = (warp & 3) * kWarpN;    // and columns
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ksteps) load_stage(s);
-    cp_async_commit();
-  }
-  for (int ks = 0; ks < ksteps; ++ks) {
-    cp_async_wait<kStages - 2>();   // k-step ks has landed
-    __syncthreads();                // and everyone is done with ks - 1
-    if (ks + kStages - 1 < ksteps) load_stage(ks + kStages - 1);
-    cp_async_commit();
-    const __nv_bfloat16* sa = smem + (ks % kStages) * 2 * kTileElems;
-    const __nv_bfloat16* sb = sa + kTileElems;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t af[kWarpM / 16][4];
-#pragma unroll
-      for (int mt = 0; mt < kWarpM / 16; ++mt) {
-        ldmatrix_x4(af[mt], sa + (wm + mt * 16 + (lane & 15)) * kLd +
-                                kk * 16 + (lane >> 4) * 8);
-      }
-      uint32_t bf[kWarpN / 8][2];
-#pragma unroll
-      for (int np = 0; np < kWarpN / 16; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, sb + (wn + np * 16 + (lane & 7) + ((lane >> 4) << 3)) *
-                                kLd +
-                            kk * 16 + ((lane >> 3) & 1) * 8);
-        bf[2 * np][0] = r[0];
-        bf[2 * np][1] = r[1];
-        bf[2 * np + 1][0] = r[2];
-        bf[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < kWarpM / 16; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < kWarpN / 8; ++nt) {
-          mma16816(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // epilogue: each thread holds rows g and g + 8 of every 16-row tile,
-  // columns 2t and 2t + 1 of every 8-column tile
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  float bias[kWarpN / 8][2];
-#pragma unroll
-  for (int nt = 0; nt < kWarpN / 8; ++nt) {
-    const int c = n0 + wn + nt * 8 + 2 * t;
-    bias[nt][0] = bias[nt][1] = 0.f;
-    if (p.bias != nullptr && c < p.Nout) {
-      const __nv_bfloat162 bv =
-          *reinterpret_cast<const __nv_bfloat162*>(p.bias + c);
-      bias[nt][0] = __low2float(bv);
-      bias[nt][1] = __high2float(bv);
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < kWarpM / 16; ++mt) {
+  for (int i = 8 * c; i < 8 * c + 8; ++i) {
+    const __nv_bfloat162 bb = *reinterpret_cast<const __nv_bfloat162*>(
+        &bias2[i]);
+    const float b0 = __low2float(bb), b1 = __high2float(bb);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int r = m0 + wm + mt * 16 + g + 8 * half;
-      if (r >= p.T) continue;
-      const long long yr = (p.scatter ? map_row(r, p) : r) * p.ldy;
-#pragma unroll
-      for (int nt = 0; nt < kWarpN / 8; ++nt) {
-        const int c = n0 + wn + nt * 8 + 2 * t;
-        if (c >= p.Nout) continue;
-        float v[2] = {acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]};
-        float rs[2] = {0.f, 0.f};
-        if (EPI == kBiasRes || EPI == kBias16Res) {
-          const __nv_bfloat162 rv =
-              *reinterpret_cast<const __nv_bfloat162*>(p.res + yr + c);
-          rs[0] = __low2float(rv);
-          rs[1] = __high2float(rv);
-        }
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float b = bias[nt][e];
-          if (EPI == kBias) {
-            v[e] = v[e] + b;
-          } else if (EPI == kBiasRes) {
-            v[e] = bf16r(v[e] + b) + rs[e];
-          } else if (EPI == kGelu) {
-            v[e] = gelu_erf(bf16r(bf16r(v[e]) + b));
-          } else {
-            v[e] = rs[e] + bf16r(bf16r(v[e]) + b);
-          }
-        }
-        *reinterpret_cast<__nv_bfloat162*>(p.y + yr + c) =
-            __floats2bfloat162_rn(v[0], v[1]);
-      }
+      *reinterpret_cast<__nv_bfloat162*>(
+          slice + sm90::swizzle128(r0 + 8 * half, 8 * (i & 7) + c0)) =
+          __floats2bfloat162_rn(staged<EPI>(acc[4 * i + 2 * half], b0),
+                                staged<EPI>(acc[4 * i + 2 * half + 1], b1));
     }
   }
 }
 
-template <int EPI>
-cudaError_t launch(const Params& p, cudaStream_t s) {
+template <int NA>
+__device__ __forceinline__ void stage_slice(int epi, int c, uint8_t* slice,
+                                            const float (&acc)[NA],
+                                            const uint32_t (&bias2)[NA / 4],
+                                            int r0, int c0) {
+  switch (epi) {   // one branch a slice, not one an element
+    case kGelu: stage_slice<kGelu>(c, slice, acc, bias2, r0, c0); break;
+    case kBias16Res:
+      stage_slice<kBias16Res>(c, slice, acc, bias2, r0, c0);
+      break;
+    default: stage_slice<kBias>(c, slice, acc, bias2, r0, c0); break;
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    window_gemm_kernel(const __grid_constant__ CUtensorMap tm_x,
+                       const __grid_constant__ CUtensorMap tm_w,
+                       const __grid_constant__ CUtensorMap tm_y,
+                       const Params p) {
+  constexpr int kStage = (kBM + BN) * 128;   // A + W tiles of a k-step
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = sm90::align1024(smem_raw);
+  uint8_t* otile = ring + p.stages * kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(otile + 4 * kSlice);
+  uint64_t* empty = full + kMaxStages;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      // a gathered stage completes on its 128 gathering threads' cp.async
+      // arrivals and the W tile's expect_tx arrival
+      sm90::mbar_init(full + s, p.gather ? 129 : 1);
+      sm90::mbar_init(empty + s, 8);   // one arrival per consumer warp
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+
+  if (wg == 2) {
+    // ---- producer
+    sm90::setmaxnreg_dec<56>();
+    const int pt = threadIdx.x - 256;
+    if (p.gather) {
+      const int chunk = pt & 7;   // this thread's 16-byte chunk of a row
+      const int sub = pt >> 3;    // and its rows: sub + 16 u of the tile
+      if (pt == 0) sm90::tma_prefetch_desc(&tm_w);
+      sm90::RingPos rp;
+#pragma unroll 1
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const int m0 = (tile / p.tiles_n) * kBM;
+        const int n0 = (tile % p.tiles_n) * BN;
+        int src[8];   // map rows, -1 past T
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int r = m0 + sub + 16 * u;
+          src[u] = r < p.T ? map_row(r, p) : -1;
+        }
+#pragma unroll 1
+        for (int kk = 0; kk < p.ksteps; ++kk) {
+          sm90::mbar_wait(empty + rp.stage, rp.phase ^ 1);
+          uint8_t* st = ring + rp.stage * kStage;
+          if (pt == 0) {
+            sm90::mbar_arrive_expect_tx(full + rp.stage, BN * 128);
+            sm90::tma_load_2d(st + kBM * 128, &tm_w, full + rp.stage,
+                              kk * 64, n0);
+          }
+          const int col = kk * 64 + chunk * 8;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const bool ok = src[u] >= 0 && col < p.K;
+            sm90::cp_async16(
+                st + sm90::swizzle128(sub + 16 * u, chunk * 8),
+                p.x + (ok ? static_cast<long long>(src[u]) * p.K + col : 0),
+                ok);
+          }
+          sm90::cp_async_mbar_arrive(full + rp.stage);
+          rp.advance(p.stages);
+        }
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    } else if (pt == 0) {
+      sm90::tma_prefetch_desc(&tm_x);
+      sm90::tma_prefetch_desc(&tm_w);
+      sm90::RingPos rp;
+#pragma unroll 1
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        const int m0 = (tile / p.tiles_n) * kBM;
+        const int n0 = (tile % p.tiles_n) * BN;
+#pragma unroll 1
+        for (int kk = 0; kk < p.ksteps; ++kk) {
+          sm90::mbar_wait(empty + rp.stage, rp.phase ^ 1);
+          uint8_t* st = ring + rp.stage * kStage;
+          sm90::mbar_arrive_expect_tx(full + rp.stage, kStage);
+          sm90::tma_load_2d(st, &tm_x, full + rp.stage, kk * 64, m0);
+          sm90::tma_load_2d(st + kBM * 128, &tm_w, full + rp.stage, kk * 64,
+                            n0);
+          rp.advance(p.stages);
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    sm90::setmaxnreg_inc<224>();
+    const int t = threadIdx.x & 127;
+    const int lane = t & 31;
+    const int r0 = 16 * (t >> 5) + (lane >> 2);
+    const int c0 = 2 * (lane & 3);
+    // plain rows without a residual leave by TMA stores; the others are
+    // copied out by the threads, 16 bytes each: rows (t / 8) + 16 u of the
+    // warpgroup's 64, chunk t % 8.  Two slice buffers a warpgroup, used in
+    // turn (sc counts the slices written)
+    const bool via_tma = !p.scatter && p.res == nullptr;
+    const int oc = 8 * (t & 7);
+    uint8_t* slices = otile + wg * 2 * kSlice;
+    int sc = 0;
+    float acc[BN / 2];
+    sm90::RingPos rp;
+#pragma unroll 1
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const int m0 = (tile / p.tiles_n) * kBM;
+      const int n0 = (tile % p.tiles_n) * BN;
+      const int mw = m0 + 64 * wg;   // this warpgroup's first row
+      // the thread's bias pairs of the tile, loaded while the products run
+      uint32_t bias2[BN / 8];
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int col = n0 + 8 * i + c0;
+        bias2[i] = p.bias != nullptr && col < p.Nout
+                       ? __ldg(reinterpret_cast<const unsigned int*>(
+                             p.bias + col))
+                       : 0u;
+      }
+      long long dst[4];   // element offsets of the copy-out rows
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = mw + (t >> 3) + 16 * u;
+        dst[u] = r < p.T ? static_cast<long long>(
+                               p.scatter ? map_row(r, p) : r) * p.Nout
+                         : -1;
+        // the residual's lines (both ends of a 128-byte slice row) into L2
+        // while the products run, so that the copy-out does not wait on
+        // device memory
+        if (p.res != nullptr && dst[u] >= 0 && (oc == 0 || oc == 56)) {
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c) {
+            if (n0 + 64 * c + oc < p.Nout) {
+              asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+                  p.res + dst[u] + n0 + 64 * c + oc));
+            }
+          }
+        }
+      }
+      int prev = -1;
+#pragma unroll 1
+      for (int kk = 0; kk < p.ksteps; ++kk) {
+        sm90::mbar_wait(full + rp.stage, rp.phase);
+        if (p.gather) sm90::fence_proxy_async();   // cp.async -> wgmma
+        const uint8_t* st = ring + rp.stage * kStage;
+        const uint64_t da = sm90::make_desc(st + wg * 64 * 128);
+        const uint64_t db = sm90::make_desc(st + kBM * 128);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          sm90::Wgmma<BN>::mma(acc, da + 2 * k, db + 2 * k, (kk | k) != 0);
+        }
+        sm90::wgmma_commit();
+        if (prev >= 0) {
+          sm90::wgmma_wait<1>();
+          if (lane == 0) sm90::mbar_arrive(empty + prev);
+        }
+        prev = rp.stage;
+        rp.advance(p.stages);
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      if (lane == 0) sm90::mbar_arrive(empty + prev);
+
+#pragma unroll
+      for (int c = 0; c < BN / 64; ++c) {
+        const int nc = n0 + 64 * c;
+        if (nc >= p.Nout) break;
+        uint8_t* slice = slices + (sc++ & 1) * kSlice;
+        // the residual's chunks first: all four loads in flight at once
+        // (y may alias res as far as the compiler knows, so loads left
+        // in the copy-out loop would each wait for the store before)
+        uint4 rv[4];
+        if (p.res != nullptr && nc + oc < p.Nout) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            if (dst[u] >= 0) {
+              rv[u] = __ldg(reinterpret_cast<const uint4*>(
+                  p.res + dst[u] + nc + oc));
+            }
+          }
+        }
+        if (via_tma) {   // the store two slices back has read the buffer
+          if (t == 0) sm90::bulk_wait_read<1>();
+          sm90::named_barrier(1 + wg, 128);
+        }   // (copied out: every thread read it before the last barrier)
+        stage_slice(p.epi, c, slice, acc, bias2, r0, c0);
+        if (via_tma) {
+          sm90::fence_proxy_async();   // st.shared -> the store's reads
+          sm90::named_barrier(1 + wg, 128);
+          if (t == 0 && mw < p.T) {
+            sm90::tma_store_2d(&tm_y, slice, nc, mw);
+            sm90::bulk_commit();
+          }
+          continue;
+        }
+        sm90::named_barrier(1 + wg, 128);
+        if (nc + oc >= p.Nout) continue;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (dst[u] < 0) continue;
+          uint4 v = *reinterpret_cast<const uint4*>(
+              slice + sm90::swizzle128((t >> 3) + 16 * u, oc));
+          if (p.res != nullptr) {   // bf16(staged + res), in fp32
+            __nv_bfloat162* a = reinterpret_cast<__nv_bfloat162*>(&v);
+            const __nv_bfloat162* r =
+                reinterpret_cast<const __nv_bfloat162*>(&rv[u]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              a[e] = __floats2bfloat162_rn(
+                  __low2float(a[e]) + __low2float(r[e]),
+                  __high2float(a[e]) + __high2float(r[e]));
+            }
+          }
+          *reinterpret_cast<uint4*>(p.y + dst[u] + nc + oc) = v;
+        }
+      }
+    }
+    if (t == 0) sm90::bulk_wait<0>();
+  }
+}
+
+template <int BN>
+cudaError_t launch(const Params& p, const void* w, int grid, cudaStream_t s) {
+  auto kernel = window_gemm_kernel<BN>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        window_gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid((p.Nout + kBN - 1) / kBN, (p.T + kBM - 1) / kBM);
-  window_gemm_kernel<EPI><<<grid, kThreads, kSmemBytes, s>>>(p);
+  // A and Y change from call to call and are encoded each time (a gathered
+  // A's map goes unused); W's map is cached by pointer and shape
+  CUtensorMap mx, mw, my;
+  if (!sm90::encode_bf16_2d(&mx, p.x, p.T, p.K, kBM) ||
+      !sm90::cached_bf16_2d(&mw, w, p.Nout, p.K, BN) ||
+      !sm90::encode_bf16_2d(&my, p.y, p.T, p.Nout, 64)) {
+    return cudaErrorInvalidValue;
+  }
+  const int smem = kFixed + p.stages * (kBM + BN) * 128;
+  kernel<<<grid, kThreads, smem, s>>>(mx, mw, my, p);
   return cudaGetLastError();
 }
 
@@ -360,41 +489,49 @@ __global__ void __launch_bounds__(32 * kLnRows)
 
 }  // namespace
 
+// x (T or map rows, K), w (Nout, K), bias (Nout) or null, res (as y) or
+// null, y (T or map rows, Nout), rows (hw) int32 or null; the plan
+// (block_n, stages, grid) is ops/gemm.py:gemm_plan's
 extern "C" int window_gemm_bf16(const void* x, const void* w,
                                 const void* bias, const void* res, void* y,
-                                int T, int K, int Nout, long long lda,
-                                long long ldy, int gather, int scatter,
-                                int Hm, int Wm, int win, int shift,
-                                int epilogue, void* stream) {
-  if (T < 1 || K < kBK || K % kBK || Nout < 2 || Nout % 2 || lda % 8 ||
-      ldy % 2 || (T + kBM - 1) / kBM > 65535 ||
-      ((gather || scatter) &&
-       (win < 1 || Hm % win || Wm % win || shift < 0 || shift >= win))) {
+                                const void* rows, int T, int K, int Nout,
+                                int hw, int gather, int scatter, int epilogue,
+                                int block_n, int stages, int grid,
+                                void* stream) {
+  const bool windowed = gather || scatter;
+  const bool with_res = epilogue == kBiasRes || epilogue == kBias16Res;
+  if (T < 1 || K < 32 || K % 32 || Nout < 8 || Nout % 8 || epilogue < 0 ||
+      epilogue > kBias16Res || (with_res && res == nullptr) ||
+      (windowed && (rows == nullptr || hw < 1 || T % hw)) || stages < 2 ||
+      stages > kMaxStages ||
+      kFixed + stages * (kBM + block_n) * 128 > kSmemMax || grid < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
-  p.w = static_cast<const __nv_bfloat16*>(w);
   p.bias = static_cast<const __nv_bfloat16*>(bias);
-  p.res = static_cast<const __nv_bfloat16*>(res);
+  p.res = with_res ? static_cast<const __nv_bfloat16*>(res) : nullptr;
   p.y = static_cast<__nv_bfloat16*>(y);
+  p.rows = static_cast<const int*>(rows);
   p.T = T;
   p.K = K;
   p.Nout = Nout;
-  p.lda = lda;
-  p.ldy = ldy;
-  p.gather = gather;
-  p.scatter = scatter;
-  p.Hm = Hm;
-  p.Wm = Wm;
-  p.win = win;
-  p.shift = shift;
+  p.hw = windowed ? hw : 1;
+  p.gather = gather != 0;
+  p.scatter = scatter != 0;
+  p.epi = epilogue;
+  p.tiles_n = (Nout + block_n - 1) / block_n;
+  const long long tiles =
+      static_cast<long long>((T + kBM - 1) / kBM) * p.tiles_n;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  p.tiles = static_cast<int>(tiles);
+  p.ksteps = (K + 63) / 64;
+  p.stages = stages;
+  if (grid > p.tiles) grid = p.tiles;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (epilogue) {
-    case kBias: return static_cast<int>(launch<kBias>(p, s));
-    case kBiasRes: return static_cast<int>(launch<kBiasRes>(p, s));
-    case kGelu: return static_cast<int>(launch<kGelu>(p, s));
-    case kBias16Res: return static_cast<int>(launch<kBias16Res>(p, s));
+  switch (block_n) {
+    case 128: return static_cast<int>(launch<128>(p, w, grid, s));
+    case 192: return static_cast<int>(launch<192>(p, w, grid, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

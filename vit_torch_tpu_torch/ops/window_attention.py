@@ -39,18 +39,76 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from vit_torch_tpu_torch.ops import _build
-from vit_torch_tpu_torch.ops.gemm import needs_grad
+from vit_torch_tpu_torch.ops.gemm import needs_grad, sm_count
 
 HEAD_DIM = 32          # every Swin config has head dim 32
 MAX_TOKENS = 144       # N = w^2 up to window 12
 # blocks of the backward per SM: its dbias partial sums are one (N, N)
 # table per block, so the block count is held near two waves
 _BWD_BLOCKS_PER_SM = 2
+# csrc/window_attention_fwd.cu: its instances' key widths (N padded), its
+# ring's bounds, the shared memory a block may use, the H100 SXM's SMs
+CORE_KEYS = (16, 32, 64, 144)
+_CORE_MAX_STAGES = 6
+_SMEM_MAX = 232448
+_H100_SMS = 132
+
+
+class CorePlan(NamedTuple):
+    """How ``csrc/window_attention_fwd.cu`` is launched: keys a window
+    padded to an instance's width (S's wgmma N), query rows (64-row
+    slices), groups (head ``h``, mask row ``j``: ``H * nW``), windows a
+    group, windows a block, blocks a group, blocks, ring stages and the
+    dynamic shared bytes.  Block ``x`` takes group ``g = x % groups``
+    (``j = g // H``, ``h = g % H``: blocks that run together take the
+    heads of the same windows) and the windows ``j + nW * b`` for ``b`` in
+    ``[c * per_block, min(windows, (c + 1) * per_block))``,
+    ``c = x // groups``: every window of a block takes mask row ``j``."""
+    keys: int
+    query_rows: int
+    groups: int
+    windows: int
+    per_block: int
+    chunks: int
+    blocks: int
+    stages: int
+    smem_bytes: int
+
+
+def core_plan(Bn: int, N: int, H: int, nW: int,
+              sms: int = _H100_SMS) -> CorePlan:
+    """The forward kernel's plan for ``Bn`` windows of ``N`` tokens, ``H``
+    heads and ``nW`` mask rows (1 unmasked).  Each block stages its
+    group's fp32 table (``bias[h] + mask[j]``) once, so a group's windows
+    are split into runs only as far as it takes the blocks to fill the
+    ``sms`` SMs; as many stages of one window's Q, K and V as shared memory
+    holds, up to 6.  What the kernel does not take raises."""
+    if not 1 <= N <= MAX_TOKENS or Bn < 1 or H < 1 or nW < 1 or Bn % nW:
+        raise ValueError(f"no window attention plan for Bn, N, H, nW = "
+                         f"{Bn}, {N}, {H}, {nW}")
+    keys = next(k for k in CORE_KEYS if N <= k)
+    rows = 64 * -(-keys // 64)
+    groups, windows = H * nW, Bn // nW
+    chunks = min(windows, max(1, sms // groups))
+    per_block = -(-windows // chunks)
+    chunks = -(-windows // per_block)
+    stride = keys if keys % 32 in (8, 24) else keys + 8   # the table's row
+    # 1 KB of alignment, each warpgroup's 64-row output slices, the table,
+    # the barriers
+    fixed = (1024 + 2 * (rows // 64) * 64 * HEAD_DIM * 2 + N * stride * 4
+             + 2 * _CORE_MAX_STAGES * 8)
+    stage = 3 * keys * HEAD_DIM * 2      # Q, K and V tiles of `keys` rows
+    stages = min(_CORE_MAX_STAGES, (_SMEM_MAX - fixed) // stage)
+    if stages < 2 or groups * chunks > 2 ** 31 - 1:
+        raise ValueError(f"no window attention plan for Bn, N, H, nW = "
+                         f"{Bn}, {N}, {H}, {nW}")
+    return CorePlan(keys, rows, groups, windows, per_block, chunks,
+                    groups * chunks, stages, fixed + stages * stage)
 
 
 def _scores(q, k, bias, mask, scale):
@@ -175,7 +233,7 @@ def _check_rows(**named) -> Tuple[int, int, int, int]:
         raise ValueError(f"{N} tokens per window: the kernels take 1 to "
                          f"{MAX_TOKENS}")
     if H > 65535:
-        raise ValueError(f"{H} heads exceed the grid's 65535")
+        raise ValueError(f"{H} heads exceed the backward's grid of 65535")
     return Bn, N, H, D
 
 
@@ -189,7 +247,8 @@ def _fwd_fn():
     """The forward's C entry point, built and loaded on first use."""
     fn = _build.load("window_attention_fwd").window_attention_fwd_bf16
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -214,11 +273,12 @@ def launch_window_attention(q, k, v, bias, mask, out, scale: float) -> None:
     and ``out`` are ``(Bn, N, H, D)`` bf16 CUDA views with unit stride
     along D (e.g. into the ``(Bn, N, 3, H, D)`` qkv projection and a
     ``(Bn, N, C)`` buffer); ``bias`` and ``mask`` as
-    :func:`window_attention` takes them."""
+    :func:`window_attention` takes them.  The plan is :func:`core_plan`'s."""
     Bn, N, H, D = _check_rows(q=q, k=k, v=v, out=out)
     nW = _check_bias_mask(bias, mask, H, N, Bn, q.device)
     if not Bn:
         return
+    plan = core_plan(Bn, N, H, nW, sm_count(q.device))
     strides = _strides(q, k, v, out)
     fn = _fwd_fn()
     with torch.cuda.device(q.device):
@@ -226,7 +286,8 @@ def launch_window_attention(q, k, v, bias, mask, out, scale: float) -> None:
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  bias.data_ptr(), None if mask is None else mask.data_ptr(),
                  Bn, H, N, D, nW, ctypes.cast(strides, ctypes.c_void_p),
-                 float(scale), stream)
+                 float(scale), plan.keys, plan.per_block, plan.stages,
+                 stream)
     if err != 0:
         raise RuntimeError(f"window_attention_fwd launch failed: CUDA error "
                            f"{err}")
