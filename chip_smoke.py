@@ -26,8 +26,8 @@
    window-7 stage 1 and at a ragged small shape (the window GEMM and the
    core pass the same ptxas gate as B12); the gradients of B8 and B9
    against autograd through their plain versions at the headline,
-   window-7 and ragged shapes; the talking-heads kernel (rows 10 and 11)
-   at the attention shapes of cait_s24_224 bs32, xxs24, s24_384,
+   window-7 and ragged shapes; the talking-heads kernels (rows 10 and
+   11; each of their three launches timed) at the attention shapes of cait_s24_224 bs32, xxs24, s24_384,
    m36_384, m48_448 and a ragged one through the model's qkv entry, and
    the headline through the (B, N, C) entry; the fused MLP (row 12) at DeiT-base, dino_vitb8
    and cait_s24_224 bs32, swin_base_384 stages 1 and 4, a ragged shape
@@ -68,7 +68,8 @@
    their 1e-5 init to CAIT_GAMMA so that the comparison holds something);
    linear-evaluates it (plain and
    cached) and fine-tunes it @224 bs32 for one synthetic epoch through
-   ``cli.main`` (24 kernel launches per backbone forward, no flash or
+   ``cli.main`` (24 counted calls of the talking-heads kernels, three
+   launches each, per backbone forward, no flash or
    window kernel, no plain talking-heads forward; the fine-tune's
    backward recomputes each block through the plain version, as the JAX
    backward does); times the steady-state fine-tune and linear-eval steps
@@ -239,6 +240,11 @@ CAIT_TRAIN_ARGS = ["--dataset", "synthetic", "--arch", CAIT_ARCH,
 # again through the (B, N, C) entry
 TH_SHAPES = [(32, 8, 196, 48), (32, 4, 196, 48), (8, 8, 576, 48),
              (8, 16, 576, 48), (4, 16, 784, 48), (2, 4, 37, 48)]
+# talking heads' kernels as the profiler names them, and its three launches
+# in order: the key parts' softmax statistics and the mixed weights A (both
+# talking_heads_mix_kernel), then O = A V
+TH_KERNELS = ("talking_heads_mix_kernel", "talking_heads_pv_kernel")
+TH_LAUNCHES = ("statistics", "mix", "pv")
 # the fused attention block (rows 3 and 4): dino_vits16 @224 (N = 197, C =
 # 384, 6 heads of 64) through its serving, linear-eval and fine-tune paths
 # at bs64 with B3 on; dino_vitb8 fine-tuned at 32 px, bs128 (bench.py config
@@ -421,8 +427,14 @@ def check_flash_bwd_kernel(shape, seed):
     smi = [_smi_sample()]
     ms = _time_ms(run, iters=20 if big else 100)
     smi.append(_smi_sample())
-    split = _device_times(run, FLASH_BWD_KERNELS)
-    if not all(t > 0 and n == 1 for t, n in split):
+    # the card's profiler now and then drops an event from a pass (a
+    # kernel read 0.9 times a call over 10 calls); a pass whose counts are
+    # off is made again, as _launch_times does, up to 3 passes
+    for _ in range(3):
+        split = _device_times(run, FLASH_BWD_KERNELS)
+        if all(t > 0 and n == 1 for t, n in split):
+            break
+    else:
         raise AssertionError(f"flash_attention_bwd {shape}: the profiler "
                              f"did not see each launch once a call: "
                              f"{split}")
@@ -683,9 +695,16 @@ def check_window_attention_bwd(case, seed):
     strided views into one window-major qkv tensor, through
     ``window_attention_qkv``'s autograd Function, whose backward writes one
     (Bn, N, 3, H, D) gradient; the fp32 bias and the block's real mask.
-    Times the kernel, the plain backward and SDPA's backward with the
-    float ``bias + mask`` as ``attn_mask`` (over (B, nW, H, N, D), as
-    row 5 times its forward), and names the kernel SDPA ran."""
+    A second call on the same inputs must give bitwise the same dq, dk, dv
+    and dbias (dbias is summed in a fixed order).  Times the kernel (CUDA
+    events over a loop of calls, and each launch's own device time from
+    one profiler pass: the window pass and the dbias reduction), the plain
+    backward, and SDPA's backward twice: over (B, nW, H, N, D) with the
+    ``bias + mask`` built from a bias that requires grad (as row 5's
+    forward yardstick builds it; SDPA then runs its fp32 math path), and
+    over (Bn, H, N, D) views with a contiguous bf16 ``bias + mask`` that
+    needs no grad (which SDPA's fused backends take); names the kernel
+    SDPA ran in each.  Neither SDPA call computes dbias."""
     import torch
     import torch.nn.functional as F
     from vit_torch_tpu_torch.ops import window_attention as wa
@@ -702,7 +721,11 @@ def check_window_attention_bwd(case, seed):
     mask = _swin_mask(case, "cuda")
     dqkv, dbias = torch.autograd.grad(
         wa.window_attention_qkv(qkv, bias, mask), (qkv, bias), dout)
+    dqkv2, dbias2 = torch.autograd.grad(
+        wa.window_attention_qkv(qkv, bias, mask), (qkv, bias), dout)
     torch.cuda.synchronize()
+    bitwise = bool(torch.equal(dqkv, dqkv2) and torch.equal(dbias, dbias2))
+    del dqkv2, dbias2
     qkv, bias = qkv.detach(), bias.detach()
     q, k, v = qkv.unbind(2)
     ref = wa.window_attention_bwd_reference(q, k, v, bias, mask, dout)
@@ -718,38 +741,71 @@ def check_window_attention_bwd(case, seed):
               / max(ref[3].abs().max().item(), BWD_FLOOR))
     del ref
     if not (max(errs) <= BWD_RTOL and db_err <= WINDOW_DBIAS_RTOL
-            and torch.isfinite(dbias).all()):
+            and torch.isfinite(dbias).all() and bitwise):
         raise AssertionError(f"window_attention_bwd {case}: dq/dk/dv error "
                              f"relative to max|plain| {errs} (limit "
                              f"{BWD_RTOL}), dbias {db_err} (limit "
-                             f"{WINDOW_DBIAS_RTOL})")
+                             f"{WINDOW_DBIAS_RTOL}), bitwise repeat "
+                             f"{bitwise}")
     dq, dk, dv = dqkv.unbind(2)
-    ms = _time_ms(lambda: wa.window_attention_bwd(
-        q, k, v, bias, mask, dout, dq=dq, dk=dk, dv=dv), iters=20)
+
+    def run():
+        return wa.window_attention_bwd(q, k, v, bias, mask, dout, dq=dq,
+                                       dk=dk, dv=dv)
+
+    smi = [_smi_sample()]
+    ms = _time_ms(run, iters=20)
+    (pass_ms, pass_n), (reduce_ms, reduce_n) = _device_times(
+        run, ("window_attn_bwd_kernel", "dbias_reduce_kernel"))
+    smi.append(_smi_sample())
     plain_ms = _time_ms(lambda: wa.window_attention_bwd_reference(
         q, k, v, bias, mask, dout), iters=3)
     qs, ks, vs = (x.reshape(B, nW, N, heads, 32).transpose(2, 3)
                   .contiguous().requires_grad_(True) for x in (q, k, v))
     dos = dout.reshape(B, nW, N, heads, 32).transpose(2, 3).contiguous()
-    add = bias[None, None] + (0 if mask is None else mask[None, :, None])
-    add = add.to(torch.bfloat16).expand(B, nW, heads, N, N)
-    o_lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=add,
-                                           scale=32 ** -0.5)
+    libs = {}
+    for name, bias_in in (("grad_bias", bias.detach().requires_grad_(True)),
+                          ("bf16_mask", bias)):
+        add = bias_in[None, None] + (0 if mask is None
+                                     else mask[None, :, None])
+        if name == "grad_bias":   # row 5's form: 5-D, a mask with grad
+            add = add.to(torch.bfloat16).expand(B, nW, heads, N, N)
+            ins, dout_lib = (qs, ks, vs), dos
+        else:   # 4-D views and a contiguous mask, as the fused backends take
+            add = add.to(torch.bfloat16).expand(B, nW, heads, N, N
+                                                ).reshape(Bn, heads, N, N)
+            ins = tuple(x.detach().reshape(Bn, heads, N, 32)
+                        .requires_grad_(True) for x in (qs, ks, vs))
+            dout_lib = dos.reshape(Bn, heads, N, 32)
+        o_lib = F.scaled_dot_product_attention(*ins, attn_mask=add,
+                                               scale=32 ** -0.5)
 
-    def lib():
-        return torch.autograd.grad(o_lib, (qs, ks, vs), dos,
-                                   retain_graph=True)
+        def lib():
+            return torch.autograd.grad(o_lib, ins, dout_lib,
+                                       retain_graph=True)
 
-    library_ms = _time_ms(lib, iters=20)
-    backend = _library_backend(lib) if seed == 0 else None
-    del o_lib
+        libs[name] = {"ms": _time_ms(lib, iters=20),
+                      "device_ms": _device_ms(lib, ""),
+                      "kernel": _library_backend(lib)}
+        del o_lib, add
     bound_ms, bound_by = _window_bwd_bound_ms(Bn, heads, N, 32)
+    plan = wa.bwd_plan(Bn, N, heads, 1 if mask is None else nW)
     row = {"case": list(case), "shape": [Bn, N, heads, 32],
            "masked": mask is not None, "rel_err_dq_dk_dv": errs,
-           "rel_err_dbias": db_err, "max_abs_err": abs_err, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "library_kernel": backend, "bound_ms": bound_ms,
-           "bound_by": bound_by}
+           "rel_err_dbias": db_err, "max_abs_err": abs_err,
+           "bitwise_repeat": bitwise, "ms": ms,
+           "device_ms": pass_ms + reduce_ms,
+           "device_ms_pass_reduce": [pass_ms, reduce_ms],
+           "launches_per_call_pass_reduce": [pass_n, reduce_n],
+           "plain_ms": plain_ms, "library_ms": libs["grad_bias"]["ms"],
+           "library_kernel": libs["grad_bias"]["kernel"],
+           "library_bf16_mask_ms": libs["bf16_mask"]["ms"],
+           "library_bf16_mask_kernel": libs["bf16_mask"]["kernel"],
+           "library_device_ms": libs["grad_bias"]["device_ms"],
+           "library_bf16_mask_device_ms": libs["bf16_mask"]["device_ms"],
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_share": bound_ms / (pass_ms + reduce_ms),
+           "plan": plan._asdict(), "smi_before_after": smi}
     _say("kernel check window_attention_bwd", json.dumps(row))
     return row
 
@@ -1042,8 +1098,9 @@ def check_talking_heads(shape, seed, bnc: bool = False):
     biases of std 0.1.  Times the kernel, the plain version and row 11's
     form through SDPA, names the kernel SDPA ran and checks that form
     against the plain version too.  ``ms`` is CUDA events over a loop of
-    calls, ``device_ms`` the kernel's own time from the profiler (the two
-    part where the host's launch rate sets the loop)."""
+    calls, ``device_ms`` the kernel's own time from one profiler pass (the
+    two part where the host's launch rate sets the loop); the plan and the
+    card's clocks and power around the timing beside them."""
     import torch
     from vit_torch_tpu_torch.ops import talking_heads as th
     B, H, N, D = shape
@@ -1079,15 +1136,25 @@ def check_talking_heads(shape, seed, bnc: bool = False):
                / ref.abs().max()).item()
     del ref
     big = B * H * N * N > 2e7
+    smi = [_smi_sample()]
     ms = _time_ms(run, iters=20 if big else 100)
-    device_ms = _device_ms(run, "talking_heads_fwd_kernel")
+    (device_ms, launches), = _device_times(run, (TH_KERNELS,))
+    by_launch = dict(zip(TH_LAUNCHES, (t for _, t in _launch_times(
+        run, len(TH_LAUNCHES)))))
+    smi.append(_smi_sample())
     plain_ms = _time_ms(lambda: th.talking_heads_reference(
         q, k, v, *tables, scale=scale), iters=3 if big else 20)
     library_ms = _time_ms(lib, iters=10 if big else 50)
     bound_ms, bound_by = _th_bound_ms(B, H, N, D)
     row = {"shape": list(shape), "entry": "bnc" if bnc else "qkv",
            "max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
-           "device_ms": device_ms,
+           "device_ms": device_ms, "device_ms_by_launch": by_launch,
+           "launches_per_call": launches,
+           "plan": th.talking_heads_plan(
+               B, H, N, D, sms=torch.cuda.get_device_properties(
+                   0).multi_processor_count)._asdict(),
+           "bound_share": _th_bound_ms(B, H, N, D)[0] / device_ms,
+           "smi_before_after": smi,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library_kernel": _library_backend(lib) if seed == 0 else None,
            "library_max_rel_err": lib_rel, "bound_ms": bound_ms,
@@ -1181,7 +1248,7 @@ def _kernel_group(name: str) -> str:
         return "attention_block_qkv"   # B3 / B4's qkv product
     if "attn_block_kernel" in name:
         return "attention_block"    # B3 / B4 attention and projection
-    if "talking_heads_fwd_kernel" in name:
+    if any(k in name for k in TH_KERNELS):
         return "talking_heads"
     if "fused_mlp_kernel" in name:
         return "fused_mlp"
@@ -2653,7 +2720,10 @@ def main() -> int:
     mlp_ptxas = ptxas_gate("fused_mlp", _build.LOGS.get("fused_mlp", ""))
     ab_ptxas = ptxas_gate("attn_block", _build.LOGS.get("attn_block", ""))
     window_ptxas = {k: ptxas_gate(k, _build.LOGS.get(k, ""))
-                    for k in ("window_gemm", "window_attention_fwd")}
+                    for k in ("window_gemm", "window_attention_fwd",
+                              "window_attention_bwd")}
+    th_ptxas = ptxas_gate("talking_heads", _build.LOGS.get("talking_heads",
+                                                           ""))
     flash_ptxas = {k: ptxas_gate(k, _build.LOGS.get(k, ""))
                    for k in ("flash_attention_fwd", "flash_attention_bwd")}
 
@@ -2864,8 +2934,8 @@ def main() -> int:
         if kernel.startswith("window_block"):
             kernels[-1]["launch_device_ms_by_case"] = [
                 [r["case"], r["launch_device_ms"]] for r in by_case]
-        if kernel == "window_attention":
-            kernels[-1]["ptxas"] = window_ptxas["window_attention_fwd"]
+        if kernel in ("window_attention", "window_attention_bwd"):
+            kernels[-1]["ptxas"] = window_ptxas[source[:-3]]
             kernels[-1]["plan"] = head["plan"]
     # the window GEMM's products: numbers at the headline case's gathered
     # qkv launch (swin_base_384 bs32 stage 1, shifted), every launch of
@@ -2912,6 +2982,16 @@ def main() -> int:
     bwd_entry["max_rel_err_dbias"] = max(r["rel_err_dbias"]
                                          for r in attn_bwd_rows)
     bwd_entry["library_kernel"] = attn_bwd_rows[0]["library_kernel"]
+    bwd_entry["library_bf16_mask_ms"] = attn_bwd_rows[0][
+        "library_bf16_mask_ms"]
+    bwd_entry["library_bf16_mask_kernel"] = attn_bwd_rows[0][
+        "library_bf16_mask_kernel"]
+    bwd_entry["bitwise_repeat"] = all(r["bitwise_repeat"]
+                                      for r in attn_bwd_rows)
+    bwd_entry["device_ms_pass_reduce_sdpa_sdpa_bf16_by_case"] = [
+        [r["case"], r["device_ms_pass_reduce"], r["library_device_ms"],
+         r["library_bf16_mask_device_ms"], r["library_bf16_mask_ms"]]
+        for r in attn_bwd_rows]
     # talking heads: numbers at the headline shape (cait_s24_224 bs32,
     # the model's qkv entry), every shape beside them; launches from the
     # fine-tune run (the slice's training path), every path beside them
@@ -2932,7 +3012,8 @@ def main() -> int:
                              for p, c in cait_paths.items()},
         "backward_recomputes_finetune":
             cait_paths["finetune"]["backward_recomputes"],
-        "device_ms": head["device_ms"],
+        "device_ms": head["device_ms"], "plan": head["plan"],
+        "ptxas": th_ptxas,
         "ms_device_plain_bound_library_by_shape": [
             [r["shape"], r["entry"], r["ms"], r["device_ms"], r["plain_ms"],
              r["bound_ms"], r["library_ms"]] for r in th_rows],

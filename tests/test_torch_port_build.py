@@ -2,8 +2,8 @@
 report beside the library, a library found built brings that report back
 into ``_build.LOGS`` without running ``nvcc``, and one found without its
 report is built again; and chip_smoke's gate on the fused-MLP,
-attention-block, flash-attention and Swin window (GEMM and core)
-reports.  A stand-in ``nvcc`` (a Python script that writes the library,
+attention-block, flash-attention, Swin window (GEMM, core and
+backward) and talking-heads reports.  A stand-in ``nvcc`` (a Python script that writes the library,
 prints a report and counts its calls) takes the compiler's place."""
 
 import importlib.util
@@ -134,3 +134,17 @@ def test_chip_smoke_gates_the_window_reports(kernel, log, ok):
     """The same gate on the Swin window GEMM (each tile width) and the
     window-attention core (each key width)."""
     _gate(kernel, log, ok)
+
+
+@GATE_CASES
+def test_chip_smoke_gates_the_window_backward_report(log, ok):
+    """The same gate on the window-attention backward (each key width, and
+    its dbias reduction)."""
+    _gate("window_attention_bwd", log, ok)
+
+
+@GATE_CASES
+def test_chip_smoke_gates_the_talking_heads_report(log, ok):
+    """The same gate on talking heads' three kernels (each head-dim and
+    padded-heads instance of the statistics, mix and PV launches)."""
+    _gate("talking_heads", log, ok)

@@ -5,8 +5,10 @@ bf16 train step that runs the backward kernel once per layer; the Swin
 window-attention kernels (forward and backward) and window-block kernels
 against their plain versions, with gradients, their refusals, a small Swin
 on the card against the CPU, and a Swin fine-tune step that runs the
-window-attention backward once per block; the CaiT talking-heads kernel
-against its plain version through its three entry points, its refusals,
+window-attention backward once per block, and the backward at every
+chip_smoke Swin shape, masked and not, bitwise the same across two calls;
+the CaiT talking-heads kernel against its plain version through its three
+entry points and at every chip_smoke CaiT shape, its refusals,
 a small CaiT on the card against the CPU, and a CaiT fine-tune step that
 launches the kernel once per talking-heads block; the fused attention
 blocks (B3 and B4) against their plain versions, with gradients, their
@@ -529,6 +531,52 @@ def test_swin_finetune_step_on_cuda_runs_b6_per_block(cuda):
     assert all(torch.isfinite(p).all() for p in model.parameters())
 
 
+# the backward at chip_smoke's SWIN_BLOCKS shapes, (Bn, N, H, nW):
+# swin_base_384 bs32 stages 1-4, swin_tiny's window 7 stage 1, a ragged
+# window 5; each masked (a -100/0 mask of nW rows, one row at stage 4) and
+# not
+SWIN_BWD_SHAPES = [(2048, 144, 4, 64), (512, 144, 8, 16), (128, 144, 16, 4),
+                   (32, 144, 32, 1), (2048, 49, 3, 64), (12, 25, 2, 6)]
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("shape", SWIN_BWD_SHAPES, ids=str)
+def test_window_attention_bwd_at_swin_shapes(cuda, shape, masked):
+    """B6 over strided views of one (Bn, N, 3, H, D) qkv tensor, its
+    gradients written into one such tensor, against the plain backward
+    (dq, dk, dv within BWD_RTOL of max |plain|, dbias within 1e-2 of
+    max |plain dbias|); a second call gives bitwise the same dq, dk, dv
+    and dbias (the partials are summed in a fixed order)."""
+    Bn, N, H, nW = shape
+    gen = torch.Generator(device=cuda).manual_seed(Bn + N + H)
+    qkv = torch.randn((Bn, N, 3, H, 32), generator=gen, device=cuda,
+                      dtype=torch.bfloat16)
+    bias = 0.5 * torch.randn((H, N, N), generator=gen, device=cuda)
+    mask = (torch.where(torch.rand((nW, N, N), generator=gen, device=cuda)
+                        > 0.7, -100.0, 0.0) if masked else None)
+    dout = torch.randn((Bn, N, H, 32), generator=gen, device=cuda,
+                       dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    runs = []
+    for _ in range(2):
+        dqkv = torch.empty_like(qkv)
+        *_, dbias = wa.window_attention_bwd(
+            q, k, v, bias, mask, dout,
+            **dict(zip(("dq", "dk", "dv"), dqkv.unbind(2))))
+        runs.append((dqkv, dbias))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    dqkv, dbias = runs[0]
+    ref = wa.window_attention_bwd_reference(q, k, v, bias, mask, dout)
+    for got, want in zip(dqkv.unbind(2), ref):
+        assert torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BWD_RTOL * max(want.float().abs().max().item(),
+                                     BWD_FLOOR)
+    err = (dbias - ref[3]).abs().max().item()
+    assert err <= 1e-2 * max(ref[3].abs().max().item(), BWD_FLOOR)
+
+
 # talking heads: max |kernel - plain| relative to max |plain|.  Both round
 # the mixed weights A to bf16 at the same point, but fp32 sums in another
 # order can move one A element by one bf16 ulp (2^-8), which PV carries
@@ -581,6 +629,40 @@ def test_talking_heads_kernel_matches_plain(cuda, shape):
     for got in (got_qkv, got_bhnd, got_bnc):
         assert got.shape == ref.shape and torch.isfinite(got).all()
         assert _rel_err(got, ref) <= TH_RTOL
+
+
+# chip_smoke's TH_SHAPES (cait_s24_224 bs32, xxs24_224 bs32, s24_384 and
+# m36_384 bs8, m48_448 bs4, a ragged shape), head dims 16, 32 and 64 on a
+# small shape, a single head
+TH_CHIP_SHAPES = [(32, 8, 196, 48), (32, 4, 196, 48), (8, 8, 576, 48),
+                  (8, 16, 576, 48), (4, 16, 784, 48), (2, 4, 37, 48),
+                  (2, 8, 70, 16), (2, 8, 70, 32), (2, 8, 70, 64),
+                  (2, 1, 50, 48)]
+
+
+@pytest.mark.parametrize("entry", ["qkv", "bnc"])
+@pytest.mark.parametrize("shape", TH_CHIP_SHAPES, ids=str)
+def test_talking_heads_kernel_at_cait_shapes(cuda, shape, entry):
+    """The kernel through the model's qkv entry (strided views of one
+    (B, N, 3, H, D) tensor) or the (B, N, C) entry, against the plain
+    version; one launch, no plain forward."""
+    B, H, N, D = shape
+    qkv, tables = _th_inputs(shape, cuda, seed=N + H)
+    q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+    before = (th.talking_heads_attention.launches,
+              th.talking_heads_reference.calls)
+    if entry == "qkv":
+        got = th.talking_heads_attention_qkv(qkv, *tables).transpose(1, 2)
+    else:
+        bnc = [x.reshape(B, N, H * D) for x in qkv.unbind(2)]
+        got = th.talking_heads_attention_bnc(
+            *bnc, *tables, num_heads=H).view(B, N, H, D).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert (th.talking_heads_attention.launches,
+            th.talking_heads_reference.calls) == (before[0] + 1, before[1])
+    ref = th.talking_heads_reference(q, k, v, *tables)
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert _rel_err(got, ref) <= TH_RTOL
 
 
 def test_talking_heads_kernel_refuses_what_it_does_not_take(cuda):

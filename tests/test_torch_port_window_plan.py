@@ -1,10 +1,12 @@
 """The launch plans of the Swin window kernels, on the CPU: the window
 GEMM's (``ops/gemm.py:gemm_plan``) at every Swin width of the port's zoo,
 its per-image row table (``window_rows``) against the window order of the
-block's autograd Function (``window_block._window_order``), and the
-attention core's (``ops/window_attention.py:core_plan``).  Each plan is
-walked the way its kernel walks it (``csrc/window_gemm.cu``,
-``csrc/window_attention_fwd.cu``), so the tests show that every output
+block's autograd Function (``window_block._window_order``), the
+attention core's (``ops/window_attention.py:core_plan``) and its
+backward's (``bwd_plan``: the same runs, the dbias partials and the
+shared memory).  Each plan is walked the way its kernel walks it
+(``csrc/window_gemm.cu``, ``csrc/window_attention_fwd.cu``,
+``csrc/window_attention_bwd.cu``), so the tests show that every output
 element and every (window, head) pair is computed exactly once."""
 
 import numpy as np
@@ -163,3 +165,68 @@ def test_core_plan_takes_every_window_head_once(N, nW, sms):
 def test_core_plan_refuses_what_the_kernel_does_not_take(Bn, N, H, nW):
     with pytest.raises(ValueError, match="no window attention plan"):
         wa.core_plan(Bn, N, H, nW)
+
+
+def _bwd_cases():
+    """(Bn, N, H, nW) of the backward at every chip_smoke block case."""
+    cases = []
+    for B, H, W, C, w, shift in SWIN_BLOCKS:
+        nW = (H // w) * (W // w)
+        cases.append((B * nW, w * w, C // 32, nW if shift else 1))
+    return cases
+
+
+@pytest.mark.parametrize("case", _bwd_cases(), ids=str)
+def test_bwd_plan_takes_every_window_head_once(case):
+    """The backward walks the forward's runs (block x: group x mod groups,
+    run x div groups): every (window, head) pair once; each block writes
+    its dbias partial (or one a warpgroup) and every (part, head) the
+    reduction sums is written exactly once, so no partial is left
+    unwritten."""
+    Bn, N, H, nW = case
+    plan = wa.bwd_plan(Bn, N, H, nW)
+    core = wa.core_plan(Bn, N, H, nW)
+    assert plan[:7] == tuple(core)[:7]
+    assert plan.split == (plan.keys == 144)
+    assert plan.stages == 1 if plan.split else 2 <= plan.stages <= 4
+    wparts = 1 if plan.split else 2
+    assert plan.parts == plan.chunks * nW * wparts
+    seen = np.zeros((Bn, H), dtype=np.int64)
+    written = np.zeros((plan.parts, H), dtype=np.int64)
+    for x in range(plan.blocks):
+        c, g = divmod(x, plan.groups)
+        j, h = divmod(g, H)
+        b = np.arange(c * plan.per_block,
+                      min(plan.windows, (c + 1) * plan.per_block))
+        seen[j + nW * b, h] += 1
+        for wg in range(wparts):
+            written[(c * nW + j) * wparts + wg, h] += 1
+    assert (seen == 1).all() and (written == 1).all()
+
+
+@pytest.mark.parametrize("N,keys,smem", [
+    (144, 144, 231552), (49, 64, 113568), (25, 32, 70688), (16, 16, 51840),
+    (1, 16, 50400)])
+def test_bwd_plan_shared_memory(N, keys, smem):
+    """The kernel's layout: 1 KB of alignment, the P and dS tiles (92,160
+    bytes at N = 144; 4 x 8 KB below), then at N = 144 the dbias sums of
+    the 9 warps with live rows (72 fp32 a thread) and below it the fp32
+    table (rows of the keys' width padded to an odd multiple of 8
+    floats), the barriers, the ring (at N = 144, K, V and two Q/dO slots);
+    within the 227 KB a block may use.
+    At N = 144 each block keeps its threads' table values in a global
+    scratch of the same 82,944 bytes a block."""
+    plan = wa.bwd_plan(8 * 4, N, 3, 4)
+    assert plan.keys == keys and plan.smem_bytes == smem
+    assert plan.smem_bytes <= SMEM_MAX
+    assert plan.table_bytes == (plan.blocks * 82944 if plan.split else 0)
+    if not plan.split:   # as many stages as fit, up to 4
+        stage = 4 * keys * 32 * 2
+        assert plan.stages == 4 or plan.smem_bytes + stage > SMEM_MAX
+
+
+@pytest.mark.parametrize("Bn,N,H,nW", [(4, 145, 2, 1), (4, 0, 2, 1),
+                                       (6, 49, 2, 4), (4, 49, 0, 1)])
+def test_bwd_plan_refuses_what_the_kernel_does_not_take(Bn, N, H, nW):
+    with pytest.raises(ValueError, match="no window attention plan"):
+        wa.bwd_plan(Bn, N, H, nW)

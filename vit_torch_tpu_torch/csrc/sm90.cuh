@@ -236,24 +236,47 @@ inline bool encode_bf16_box(CUtensorMap* map, const void* base, int rows,
 // into a fused (B, N, 3, H, D) projection take the same map.
 inline bool encode_bf16_bhnd(CUtensorMap* map, const void* base, int B, int H,
                              int N, int D, long long s_b, long long s_h,
-                             long long s_n, int box_rows) {
+                             long long s_n, int box_rows);
+
+// The same map with a box of box_cols (64: the 128-byte swizzle, 32: the
+// 64-byte one) >= D columns, box_rows rows and box_heads heads of one
+// image: columns at or past D read as zero, so a head dim of 48 (96-byte
+// rows, no swizzle's span) is read as a 64-column tile whose last 16
+// columns are zero, and one load brings the same rows of box_heads heads
+// (planes of box_rows rows, consecutive in shared memory).
+inline bool encode_bf16_bhnd_box(CUtensorMap* map, const void* base, int B,
+                                 int H, int N, int D, long long s_b,
+                                 long long s_h, long long s_n, int box_cols,
+                                 int box_rows, int box_heads) {
   const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || (D != 64 && D != 32)) return false;
+  if (fn == nullptr || (box_cols != 64 && box_cols != 32) || D > box_cols) {
+    return false;
+  }
   const cuuint64_t dims[4] = {
       static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N),
       static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_n) * 2,
                                  static_cast<cuuint64_t>(s_h) * 2,
                                  static_cast<cuuint64_t>(s_b) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(D),
-                             static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows),
+                             static_cast<cuuint32_t>(box_heads), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
             const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE,
-            D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool encode_bf16_bhnd(CUtensorMap* map, const void* base, int B, int H,
+                             int N, int D, long long s_b, long long s_h,
+                             long long s_n, int box_rows) {
+  return (D == 64 || D == 32) &&
+         encode_bf16_bhnd_box(map, base, B, H, N, D, s_b, s_h, s_n, D,
+                              box_rows, 1);
 }
 
 // boxes of box_rows x 64 with the 128-byte swizzle (the layout note)
@@ -472,6 +495,27 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
+// x itself, through a move the compiler cannot see through: what a loop
+// derives from it (descriptors a k-step or a head apart, swizzled offsets)
+// is computed in the loop instead of being hoisted out of it and kept in a
+// register each for the loop's whole life
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("mov.b64 %0, %0;\n" : "+l"(x));
+  return x;
+}
+
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
+  return x;
+}
+
+// a compiler-only memory fence: loads after it are not issued before it,
+// so that an unrolled loop's loads do not all start at once and take a
+// register each for their results
+__device__ __forceinline__ void load_fence() {
+  asm volatile("" ::: "memory");
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -614,6 +658,20 @@ struct Wgmma<256> {
 };
 
 template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
 struct Wgmma<16> {
   static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a,
                                              uint64_t b, int scale_d) {
@@ -623,6 +681,26 @@ struct Wgmma<16> {
         "%0, %1, %2, %3, %4, %5, %6, %7"
         "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<72> {
+  static __device__ __forceinline__ void mma(float (&d)[36], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35"
+        "}, %36, %37, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };
@@ -649,6 +727,28 @@ struct Wgmma<144> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
           "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// D (64 x N, fp32) (+)= A (64 x 16) B (16 x N), bf16, A a K-major tile in
+// shared memory (as Wgmma's), B an MN-major one (make_desc_mn, the
+// transposed-B flag as WgmmaRS::mma_tb): the window-attention backward's
+// dQ = dS K reads the bf16 dS tile it wrote for dK as A, K as B.
+template <int N>
+struct WgmmaSB;
+
+template <>
+struct WgmmaSB<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };
@@ -714,6 +814,21 @@ template <int N>
 struct WgmmaRS;
 
 template <>
+struct WgmmaRS<16> {
+  static __device__ __forceinline__ void mma_tb(float (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
 struct WgmmaRS<32> {
   static __device__ __forceinline__ void mma_tb(float (&d)[16],
                                                 const uint32_t (&a)[4],
@@ -744,6 +859,24 @@ struct WgmmaRS<64> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<48> {
+  static __device__ __forceinline__ void mma_tb(float (&d)[24],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };

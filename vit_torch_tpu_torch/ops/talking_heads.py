@@ -1,8 +1,8 @@
 """CaiT talking-heads attention: a hand-written CUDA kernel for Hopper and
 its plain PyTorch version.
 
-Counterpart of ``vit_torch_tpu/ops/talking_heads.py``: the kernel
-``csrc/talking_heads.cu`` replaces both Pallas kernels there, ``_kernel``
+Counterpart of ``vit_torch_tpu/ops/talking_heads.py``: the kernels of
+``csrc/talking_heads.cu`` replace both Pallas kernels there, ``_kernel``
 (the ``(B, H, N, D)`` layout) and ``_kernel_v2`` (the head-concatenated
 ``(B, N, C)`` layout), which compute one function:
 
@@ -14,13 +14,15 @@ with fp32 scores, mixes and softmax and ``A`` rounded to the activation
 dtype for PV (the einsum reference ``_ref_forward``).  ``wl`` and ``ww``
 are ``(H, H)`` in the JAX layout (``wl[i, j]`` mixes head ``i`` into head
 ``j``: the transpose of timm's ``proj_l.weight``); ``bl`` and ``bw`` are
-``(H,)``.  The source note gives the kernel's design and bound.  The TPU's
-``fits``/``fits_v2`` VMEM budgets have no counterpart: on CUDA the kernel
-takes every talking-heads attention of every ``CAIT_CONFIGS`` entry.
+``(H,)``.  The source note gives the design (three launches: the softmax
+statistics, the mixed weights A into a scratch, then O = A V) and the
+bound.  The TPU's ``fits``/``fits_v2`` VMEM budgets have no counterpart:
+on CUDA the kernels take every talking-heads attention of every
+``CAIT_CONFIGS`` entry.
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version
-(:func:`talking_heads_reference`); a CUDA tensor launches the kernel, or
-raises if the kernel does not take the input.  There is no fallback.
+(:func:`talking_heads_reference`); a CUDA tensor launches the kernels, or
+raises if they do not take the input.  There is no fallback.
 
 Gradients: as in the JAX package (``_th_bwd``, ``_th_v2_bwd``), the
 backward is not a kernel.  It recomputes the forward through the plain
@@ -29,7 +31,8 @@ version under autograd (:func:`talking_heads_bwd`), on either device.
 ``(B, N, 3, H, D)`` qkv projection itself, so its backward returns one
 gradient of that shape.
 
-Counters: ``talking_heads_attention.launches`` counts kernel launches,
+Counters: ``talking_heads_attention.launches`` counts the calls that
+launch the kernels (three launches each),
 ``talking_heads_reference.calls`` the plain version run as a forward, and
 ``talking_heads_bwd.calls`` the backward's recomputes.
 """
@@ -38,18 +41,87 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from vit_torch_tpu_torch.ops import _build
+from vit_torch_tpu_torch.ops.gemm import sm_count
 
 HEAD_DIMS = (16, 32, 48, 64)
 MAX_HEADS = 16
-# the kernel streams the keys, so N is bounded only by the int indexing;
-# this cap is well past every CaiT config (cait_m48_448: N = 784)
+# the kernels stream the keys, and their scratch holds the mixed weights,
+# 2 B H N^2 bytes; this cap is well past every CaiT config (cait_m48_448:
+# N = 784)
 MAX_TOKENS = 16384
-_MAX_BATCH = 65535        # B rides in gridDim.y
+_MAX_BATCH = 65535        # B rides in gridDim.z
+_H100_SMS = 132
+# csrc/talking_heads.cu: query rows a block, keys a K ring slot, the ring's
+# bound, the shared memory a block may use (two blocks an SM: half an SM's
+# 228 KB less the 1 KB each block reserves); launch 3's value tile (keys)
+# and ring slots
+_ROWS, _KEYS, _MAX_SLOTS = 64, 16, 8
+_SMEM_MAX, _SMEM_HALF = 232448, 115712
+_PV_KEYS, _PV_SLOTS = 64, 4
+
+
+class Plan(NamedTuple):
+    """How ``csrc/talking_heads.cu``'s three launches run: launches 1 and 2
+    over ``grid`` (row tiles, key ``parts``, images), ``blocks_per_sm`` of
+    them an SM, each with a ring of ``slots`` 16-key tiles of K of every
+    head (padded to ``padded_heads``: 4, 8 or 16) in ``smem_bytes`` of
+    shared memory; launch 3 over ``pv_grid`` (row tiles, heads, images) in
+    ``pv_smem_bytes``; the scratch between them, ``stats_bytes`` of softmax
+    statistics and ``mix_bytes`` of mixed weights."""
+    padded_heads: int
+    blocks_per_sm: int
+    parts: int
+    grid: Tuple[int, int, int]
+    slots: int
+    smem_bytes: int
+    pv_grid: Tuple[int, int, int]
+    pv_smem_bytes: int
+    stats_bytes: int
+    mix_bytes: int
+
+
+def _parts(blocks: int, tiles: int, slots: int) -> int:
+    """Key parts of a row tile: the fewest that minimise waves x (16-key
+    tiles a block + 1, its set-up), over ``blocks`` (row tiles x images),
+    ``tiles`` and ``slots`` block slots of the card."""
+    def cost(p):
+        return -(-blocks * p // slots) * (-(-tiles // p) + 1)
+    parts = min(range(1, min(tiles, 64) + 1), key=lambda p: (cost(p), p))
+    return -(-tiles // -(-tiles // parts))      # no part left empty
+
+
+@functools.lru_cache(maxsize=256)
+def talking_heads_plan(B: int, H: int, N: int, D: int, *,
+                       sms: int = _H100_SMS) -> Plan:
+    """The kernels' plan for ``(B, H, N, D)`` on a card of ``sms`` SMs.  A
+    block of launches 1 and 2 keeps its 64 query rows of every head (``D``
+    read as 64 columns above 32, else 32) in shared memory beside as many
+    ring slots as fit (2 to 8).  What the kernels do not take raises.
+    Cached: a model asks for the same few shapes at every call."""
+    if (D not in HEAD_DIMS or not 1 <= H <= MAX_HEADS or N < 1 or B < 1
+            or B > _MAX_BATCH):
+        raise ValueError(f"no talking-heads plan for (B, H, N, D) = "
+                         f"{(B, H, N, D)}")
+    mh = next(m for m in (4, 8, 16) if H <= m)
+    per_sm = 2 if mh <= 8 else 1
+    row_bytes = 128 if D > 32 else 64
+    slot = mh * _KEYS * row_bytes
+    fixed = (1024 + mh * _ROWS * row_bytes + (2 * mh * mh + 2 * mh) * 4
+             + mh * _ROWS * 8 + (2 * _MAX_SLOTS + 1) * 8)
+    limit = _SMEM_HALF if per_sm == 2 else _SMEM_MAX
+    slots = min(_MAX_SLOTS, (limit - fixed) // slot)
+    rows, tiles = -(-N // _ROWS), -(-N // _KEYS)
+    parts = _parts(rows * B, tiles, sms * per_sm)
+    return Plan(mh, per_sm, parts, (rows, parts, B), slots,
+                fixed + slots * slot, (rows, H, B),
+                1024 + _PV_SLOTS * _PV_KEYS * row_bytes + 2 * _PV_SLOTS * 8,
+                B * parts * mh * rows * _ROWS * 8,
+                B * H * rows * _ROWS * tiles * _KEYS * 2)
 
 
 def _reference(q, k, v, wl, bl, ww, bw, scale: float) -> torch.Tensor:
@@ -177,25 +249,32 @@ def _fwd_fn():
     """The kernel's C entry point, built and loaded on first use."""
     fn = _build.load("talking_heads").talking_heads_fwd_bf16
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float] + [
+        ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return fn
 
 
 def launch_talking_heads(q, k, v, out, wl, bl, ww, bw, scale: float) -> None:
-    """Launch the kernel on the current stream: ``q``, ``k``, ``v`` and
-    ``out`` are ``(B, H, N, D)`` bf16 CUDA views with unit stride along D
+    """Launch the three kernels on the current stream: ``q``, ``k``, ``v``
+    and ``out`` are ``(B, H, N, D)`` bf16 CUDA views with unit stride along D
     (e.g. into the ``(B, N, 3, H, D)`` qkv projection and a
     ``(B, N, H, D)`` buffer); the tables are read through their strides
-    (e.g. a transposed ``Linear(H, H)`` weight), so no copy is made."""
+    (e.g. a transposed ``Linear(H, H)`` weight), so no copy is made.  The
+    plan is :func:`talking_heads_plan`'s; the scratch between the
+    launches is allocated here."""
     tables = (wl, bl, ww, bw)
     B, H, N, D = _check(q, k, v, out, tables)
     if not B * N:
         return
+    plan = talking_heads_plan(B, H, N, D, sms=sm_count(q.device))
+    scratch = torch.empty(plan.stats_bytes + plan.mix_bytes,
+                          dtype=torch.uint8, device=q.device)
     strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
     strides = (ctypes.c_longlong * len(strides))(*strides)
     table_strides = (ctypes.c_longlong * 6)(*wl.stride(), *ww.stride(),
                                             *bl.stride(), *bw.stride())
+    launch = (ctypes.c_int * 3)(plan.slots, plan.parts, plan.smem_bytes)
     fn = _fwd_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -203,6 +282,8 @@ def launch_talking_heads(q, k, v, out, wl, bl, ww, bw, scale: float) -> None:
                  *(x.data_ptr() for x in tables), B, H, N, D,
                  ctypes.cast(strides, ctypes.c_void_p),
                  ctypes.cast(table_strides, ctypes.c_void_p), float(scale),
+                 ctypes.cast(launch, ctypes.c_void_p), scratch.data_ptr(),
+                 scratch.data_ptr() + plan.stats_bytes,
                  stream)
     if err != 0:
         raise RuntimeError(f"talking_heads_fwd launch failed: CUDA error "
@@ -285,8 +366,8 @@ def talking_heads_attention(q: torch.Tensor, k: torch.Tensor,
     """Talking-heads attention over ``(B, H, N, D)`` tensors (row 10's
     layout); differentiable in every tensor input.
 
-    ``talking_heads_attention.launches`` counts kernel launches, from every
-    entry point."""
+    ``talking_heads_attention.launches`` counts the calls that launch the
+    kernels, from every entry point."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if _needs_grad(q, k, v, wl, bl, ww, bw):

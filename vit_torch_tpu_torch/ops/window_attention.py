@@ -48,13 +48,17 @@ from vit_torch_tpu_torch.ops.gemm import needs_grad, sm_count
 
 HEAD_DIM = 32          # every Swin config has head dim 32
 MAX_TOKENS = 144       # N = w^2 up to window 12
-# blocks of the backward per SM: its dbias partial sums are one (N, N)
-# table per block, so the block count is held near two waves
-_BWD_BLOCKS_PER_SM = 2
 # csrc/window_attention_fwd.cu: its instances' key widths (N padded), its
 # ring's bounds, the shared memory a block may use, the H100 SXM's SMs
 CORE_KEYS = (16, 32, 64, 144)
 _CORE_MAX_STAGES = 6
+# csrc/window_attention_bwd.cu: the ring's bound (keys <= 64), its
+# barriers' bytes, the warps with live query rows at N = 144 (each keeps
+# its table values in global scratch and its dbias sums in shared memory,
+# keys / 2 fp32 a thread)
+_BWD_MAX_STAGES = 4
+_BWD_BARRIER_BYTES = 4 * _BWD_MAX_STAGES * 8
+_BWD_SLOTS = 9
 _SMEM_MAX = 232448
 _H100_SMS = 132
 
@@ -109,6 +113,63 @@ def core_plan(Bn: int, N: int, H: int, nW: int,
                          f"{Bn}, {N}, {H}, {nW}")
     return CorePlan(keys, rows, groups, windows, per_block, chunks,
                     groups * chunks, stages, fixed + stages * stage)
+
+
+class BwdPlan(NamedTuple):
+    """How ``csrc/window_attention_bwd.cu`` is launched: the forward's
+    split of groups (head ``h``, mask row ``j``) into runs of windows
+    (:class:`CorePlan`'s fields ``keys`` to ``blocks``), then ``split``:
+    whether three consumer warpgroups share every window (keys = 144:
+    query rows and keys 64 wg ... by warpgroup) or two take alternate
+    windows (keys <= 64); the ring's stages (1 when split: K and V arrive
+    apart from Q and dO, which have two slots); ``parts``, the (N, N)
+    dbias partials the reduction sums (one a block when split, one a
+    warpgroup otherwise; part ``(c * nW + j) * w + wg`` of head ``h``);
+    the dynamic shared bytes; and ``table_bytes``, the global scratch of the split schedule,
+    where each block keeps every thread's table values (0 otherwise)."""
+    keys: int
+    query_rows: int
+    groups: int
+    windows: int
+    per_block: int
+    chunks: int
+    blocks: int
+    split: bool
+    stages: int
+    parts: int
+    smem_bytes: int
+    table_bytes: int
+
+
+def bwd_plan(Bn: int, N: int, H: int, nW: int,
+             sms: int = _H100_SMS) -> BwdPlan:
+    """The backward kernel's plan for ``Bn`` windows of ``N`` tokens, ``H``
+    heads and ``nW`` mask rows (1 unmasked): :func:`core_plan`'s runs of
+    windows, and the shared memory of the kernel's layout (1 KB of
+    alignment, the P and dS tiles, then the dbias sums of every live warp
+    when split or the group's fp32 table otherwise, the barriers, the
+    ring).  What the kernel does not take raises."""
+    core = core_plan(Bn, N, H, nW, sms)
+    keys, split = core.keys, core.keys > 64
+    tile = keys * HEAD_DIM * 2                   # one of Q, K, V, dO
+    stride = keys if keys % 32 in (8, 24) else keys + 8   # the table's row
+    per_thread = _BWD_SLOTS * 32 * keys // 2 * 4   # a float each, live warps
+    if split:   # keys 0-127 in two 128-byte tiles, the rest in 64-byte rows
+        bufs = 2 * (2 * keys * 128 + keys * 64)
+        fixed = 1024 + bufs + per_thread + _BWD_BARRIER_BYTES
+    else:       # one 64 x 64 tile a warpgroup for P, one for dS
+        bufs = 4 * 64 * 128
+        fixed = 1024 + bufs + N * stride * 4 + _BWD_BARRIER_BYTES
+    stage = (6 if split else 4) * tile   # split: K, V and two Q/dO slots
+    stages = 1 if split else min(_BWD_MAX_STAGES, (_SMEM_MAX - fixed) // stage)
+    if fixed + stages * stage > _SMEM_MAX or (not split and stages < 2):
+        raise ValueError(f"no window attention plan for Bn, N, H, nW = "
+                         f"{Bn}, {N}, {H}, {nW}")
+    parts = core.chunks * nW * (1 if split else 2)
+    return BwdPlan(keys, core.query_rows, core.groups, core.windows,
+                   core.per_block, core.chunks, core.blocks, split, stages,
+                   parts, fixed + stages * stage,
+                   core.blocks * per_thread if split else 0)
 
 
 def _scores(q, k, bias, mask, scale):
@@ -232,8 +293,6 @@ def _check_rows(**named) -> Tuple[int, int, int, int]:
     if not 1 <= N <= MAX_TOKENS:
         raise ValueError(f"{N} tokens per window: the kernels take 1 to "
                          f"{MAX_TOKENS}")
-    if H > 65535:
-        raise ValueError(f"{H} heads exceed the backward's grid of 65535")
     return Bn, N, H, D
 
 
@@ -257,15 +316,11 @@ def _fwd_fn():
 def _bwd_fn():
     """The backward's C entry point, built and loaded on first use."""
     fn = _build.load("window_attention_bwd").window_attention_bwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch_window_attention(q, k, v, bias, mask, out, scale: float) -> None:
@@ -324,8 +379,8 @@ def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On CPU tensors the plain version runs; on CUDA tensors the kernel
     (two launches: the window loop with per-block dbias sums, then their
-    fixed-order reduction).  ``window_attention_bwd.launches`` counts
-    kernel launches."""
+    fixed-order reduction; the plan is :func:`bwd_plan`'s).
+    ``window_attention_bwd.launches`` counts kernel launches."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -342,13 +397,11 @@ def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dbias = torch.zeros((H, N, N), dtype=torch.float32, device=q.device)
     if not Bn:
         return dq, dk, dv, dbias
-    # one block per (head, mask row, chunk of the Bn / nW images)
-    index = q.device.index if q.device.index is not None else \
-        torch.cuda.current_device()
-    chunks = max(1, min(Bn // nW,
-                        _BWD_BLOCKS_PER_SM * _sm_count(index) // (nW * H)))
-    partial = torch.empty((chunks * nW, H, N, N), dtype=torch.float32,
+    plan = bwd_plan(Bn, N, H, nW, sm_count(q.device))
+    partial = torch.empty((plan.parts, H, N, N), dtype=torch.float32,
                           device=q.device)
+    tab = (torch.empty(plan.table_bytes, dtype=torch.uint8, device=q.device)
+           if plan.table_bytes else None)
     strides = _strides(q, k, v, do, dq, dk, dv)
     fn = _bwd_fn()
     with torch.cuda.device(q.device):
@@ -356,9 +409,10 @@ def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  bias.data_ptr(), None if mask is None else mask.data_ptr(),
-                 partial.data_ptr(), dbias.data_ptr(), Bn, H, N, D, nW,
-                 chunks, ctypes.cast(strides, ctypes.c_void_p), float(scale),
-                 stream)
+                 partial.data_ptr(), None if tab is None else tab.data_ptr(),
+                 dbias.data_ptr(), Bn, H, N, D, nW,
+                 ctypes.cast(strides, ctypes.c_void_p), float(scale),
+                 plan.keys, plan.per_block, plan.stages, plan.parts, stream)
     if err != 0:
         raise RuntimeError(f"window_attention_bwd launch failed: CUDA error "
                            f"{err}")
