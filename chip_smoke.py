@@ -102,7 +102,18 @@
    and the eval steps, no B8); times the DeiT linear-eval step, the eval
    forward and the fine-tune step with the fused MLP off, on, on, off,
    and holds one bs8 DeiT step against the plain versions;
-11. prints one JSON line with each kernel's numbers, then the card's name
+11. the conv families (no kernel of their own): exports and serves
+   xcit_small_24_p16 with ``VITX_FUSED_MLP=1`` (26 B12 launches per
+   dispatch) and resnext50_32x4d (no launch) @224 over HTTP, their LayerScale
+   gates raised and BN statistics drawn away from init in the bundle, the
+   served logits held against an fp32 forward of the bundle on the CPU;
+   linear-evaluates (plain and cached) and fine-tunes both @224 bs32 for
+   one synthetic epoch through ``cli.main`` (XCiT under the flag); times
+   XCiT's fine-tune step with B12 off, on, on, off (B12 itself at XCiT's
+   shapes is in 3's checks) and ResNeXt's fine-tune step, each with its
+   profile, peak memory and MFU, and ResNeXt's eval forward with the
+   conv+BN fold on and off in turns (the fold's CUDA default);
+12. prints one JSON line with each kernel's numbers, then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -294,14 +305,16 @@ DEIT_TRAIN_ARGS = ["--dataset", "synthetic", "--arch", DEIT_ARCH,
                    "512", "--scan", "0", "--limit_train", str(DEIT_SAMPLES),
                    "--limit_test", str(DEIT_SAMPLES)]
 # (T, C, hidden, out, biases) of the B12 checks: DeiT-base bs32 (the
-# headline), dino_vitb8 @224 bs32, cait_s24_224 bs32, swin_base_384 stage 1
-# bs32 (the byte-bound case), a ragged T with out != C and no biases,
+# headline), dino_vitb8 @224 bs32, cait_s24_224 bs32 (also xcit_small_24_p16
+# bs32's XCA blocks, 32 x 196 tokens of 384), swin_base_384 stage 1 bs32
+# (the byte-bound case), a ragged T with out != C and no biases,
 # swin_base_384 stage 4 bs32 (C = 1024: two output slabs, the one plan that
-# recomputes fc1) and T < 64 (one partly empty row tile)
+# recomputes fc1), T < 64 (one partly empty row tile) and
+# xcit_small_24_p16 bs32's class-attention blocks (the CLS tokens only)
 MLP_SHAPES = [(6336, 768, 3072, 768, True), (25120, 768, 3072, 768, True),
               (6272, 384, 1536, 384, True), (294912, 128, 512, 128, True),
               (1000, 256, 1024, 520, False), (4608, 1024, 4096, 1024, True),
-              (40, 384, 1536, 384, True)]
+              (40, 384, 1536, 384, True), (32, 384, 1536, 384, True)]
 # (T, C, hidden, out) at which B12's two row layouts are timed against
 # each other: swin_base_384 stages 1 and 2 at bs32, where launch_plan
 # takes 128-row tiles (they fill the card), and stage 2 at bs1, where it
@@ -321,6 +334,20 @@ DEIT_LOGITS_RTOL = 5e-2
 # the Swin linear eval with the flat window block (B7,
 # VITX_FUSED_SPATIAL=0): 4 + 4 steps
 SWIN_FLAT_SAMPLES = 128
+# the conv families (ROADMAP A5), at the published manifests' archs @224
+# bs32: xcit_small_24_p16 (no kernel of its own; with VITX_FUSED_MLP=1 its
+# 24 XCA and 2 class-attention MLPs take B12, 26 launches a forward) and
+# resnext50_32x4d (cuDNN convs, grouped 3x3s of 32 groups; no kernel).
+# Served logits are held against an fp32 forward of the same weights on
+# the CPU, relative to max |CPU logit|: bf16 activations through 24 (or 16
+# bottleneck) blocks, the final norm or pool and the head
+XCIT_ARCH, XCIT_SIZE, XCIT_MLPS = "xcit_small_24_p16", 224, 26
+RESNEXT_ARCH, RESNEXT_SIZE = "resnext50_32x4d", 224
+CONV_LOGITS_RTOL = 5e-2
+# the served conv models' state: XCiT's LayerScale gates raised from their
+# 1e-5 init (as CAIT_GAMMA) and every BN's running statistics drawn away
+# from 0 and 1, so that the bundle's statistics change the logits
+CONV_GAMMA = 0.1
 SWIN_BLOCKS = [(32, 96, 96, 128, 12, 6), (32, 96, 96, 128, 12, 0),
                (32, 48, 48, 256, 12, 6), (32, 48, 48, 256, 12, 0),
                (32, 24, 24, 512, 12, 6), (32, 24, 24, 512, 12, 0),
@@ -1252,6 +1279,15 @@ def _kernel_group(name: str) -> str:
         return "talking_heads"
     if "fused_mlp_kernel" in name:
         return "fused_mlp"
+    if any(t in low for t in ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
+                              "bn_bwd", "bn_fwd")):
+        return "batch_norm"         # cuDNN's and PyTorch's BN, train and eval
+    if any(t in low for t in ("fprop", "dgrad", "wgrad", "conv2d",
+                              "convolve", "convolution", "depthwise", "pool",
+                              "nhwc", "cudnn")):
+        # cuDNN convs, their slices and layout moves, pooling (cuDNN runs
+        # some 1x1 convs as nvjet GEMMs, which fall under "matmul")
+        return "conv"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
         return "matmul"
     if "layer_norm" in low or "gammabetabackward" in low:
@@ -1314,16 +1350,18 @@ def _depth(backbone) -> int:
 def serve_end_to_end(workdir: str, arch: str, image_size: int,
                      kernels, plain, flops_per_image: int,
                      logits_tol: float, relative: bool, prepare=None,
-                     buckets: str = BUCKETS):
+                     buckets: str = BUCKETS, per_dispatch=None):
     """Export → BundleServer on cuda → concurrent HTTP requests; prints
     the serving numbers and returns the launch counts of the HTTP run.
-    Each of ``kernels`` must launch once per layer per dispatch, and no
-    other kernel at all.  ``plain()`` is a context that patches the plain
-    versions in; the logits of the two must agree within ``logits_tol``
-    (relative to max |plain logit| when ``relative``).  ``prepare(state)``
-    may edit the exported state dict in place before the server loads
-    it.  The last of ``buckets`` is the batch of the batched request and
-    of the served img/s."""
+    Each of ``kernels`` must launch once per layer (``per_dispatch`` times
+    when given) per dispatch, and no other kernel at all.  ``plain()`` is
+    a context that patches the plain versions in; the logits of the two
+    must agree within ``logits_tol`` (relative to max |plain logit| when
+    ``relative``); with ``plain=None`` the served logits are held against
+    an fp32 forward of the bundle's weights on the CPU instead.
+    ``prepare(state)`` may edit the exported state dict in place before
+    the server loads it.  The last of ``buckets`` is the batch of the
+    batched request and of the served img/s."""
     import torch
     from vit_torch_tpu_torch.cli import export as cli_export
     from vit_torch_tpu_torch.data.datasets import resize_images
@@ -1343,7 +1381,7 @@ def serve_end_to_end(workdir: str, arch: str, image_size: int,
 
     server = BundleServer(bundle, port=0, max_wait_ms=10)
     try:
-        depth = _depth(server.model.model.backbone)
+        depth = per_dispatch or _depth(server.model.model.backbone)
         addr = server.address
         server.start()
         rng = np.random.default_rng(0)
@@ -1402,14 +1440,19 @@ def serve_end_to_end(workdir: str, arch: str, image_size: int,
                                for p in replies[-1][1]["predictions"]])
 
         # logits: kernel path vs plain versions, same weights, on the card
+        # (or vs the CPU in fp32)
         resized = resize_images(batch, image_size)
         kernel_logits = server.model.predict(resized)
-        with plain():
-            plain_logits = server.model.predict(resized)
+        if plain is None:
+            plain_logits = _cpu_fp32_logits(bundle, resized)
+        else:
+            with plain():
+                plain_logits = server.model.predict(resized)
         err = float(np.abs(kernel_logits - plain_logits).max())
         err_http = float(np.abs(http_big - plain_logits).max())
         max_logit = float(np.abs(plain_logits).max())
-        _say(f"logits {arch} kernel vs plain: max abs err {err:.5f} "
+        versus = "cpu fp32" if plain is None else "plain"
+        _say(f"logits {arch} card vs {versus}: max abs err {err:.5f} "
              f"(http {err_http:.5f}), max |logit| {max_logit:.4f}, argmax "
              f"agree "
              f"{int((kernel_logits.argmax(1) == plain_logits.argmax(1)).sum())}"
@@ -1448,6 +1491,38 @@ def serve_end_to_end(workdir: str, arch: str, image_size: int,
         return launches
     finally:
         server.shutdown()
+
+
+def _cpu_fp32_logits(bundle: str, images: np.ndarray) -> np.ndarray:
+    """The bundle's classifier in fp32 on the CPU (its weights and BN
+    statistics, eval mode), normalising uint8 images as the bundle does."""
+    import torch
+    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+    with open(f"{bundle}/manifest.json") as f:
+        manifest = json.load(f)
+    zm = VisionModelZoo.get_model(
+        manifest["arch"], classifier=manifest["classifier"],
+        image_size=manifest["image_size"], dtype=torch.float32, device="cpu")
+    zm.model.load_state_dict(torch.load(f"{bundle}/weights.pt",
+                                        weights_only=True))
+    mean, std = (torch.tensor(manifest["norm"][k]) for k in ("mean", "std"))
+    with torch.inference_mode():
+        x = (torch.from_numpy(images).float() / 255.0 - mean) / std
+        return zm.model.eval()(x).numpy()
+
+
+def _show_conv_state(state) -> None:
+    """Raise XCiT's LayerScale gates to CONV_GAMMA and draw every BN's
+    running statistics (seeded) away from their init, in a state dict."""
+    import torch
+    gen = torch.Generator().manual_seed(7)
+    for name, value in state.items():
+        if ".gamma" in name:
+            value.fill_(CONV_GAMMA)
+        elif name.endswith("running_mean"):
+            value.copy_(0.1 * torch.randn(value.shape, generator=gen))
+        elif name.endswith("running_var"):
+            value.copy_(0.5 + torch.rand(value.shape, generator=gen))
 
 
 def _plain_attention():
@@ -2696,6 +2771,135 @@ def swin_flat_through_cli(workdir: str):
             want, samples=SWIN_FLAT_SAMPLES)
 
 
+def _conv_args(arch: str):
+    return ["--dataset", "synthetic", "--arch", arch, "--image_size", "224",
+            "--bs", str(TRAIN_BS), "--epoch", "1", "--opt", "adamw",
+            "--lr", "1e-4", "--fc", "512"]
+
+
+def conv_family_through_cli(workdir: str, arch: str, mode: str,
+                            per_forward, env):
+    """xcit_small_24_p16 or resnext50_32x4d @224 bs32 through ``cli.main``,
+    one synthetic epoch: ``lineareval`` (the frozen backbone in train mode,
+    its BN statistics updated), ``lineareval_cached`` (the backbone once
+    over each split in eval mode) or ``finetune``.  Every backbone forward
+    launches each kernel of ``per_forward`` that many times (B12 in every
+    XCiT MLP under ``VITX_FUSED_MLP=1``; ResNeXt runs no kernel); no plain
+    MLP runs."""
+    from vit_torch_tpu_torch.cli import main as cli_main
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
+    extra = {"lineareval": ["--lineareval"],
+             "lineareval_cached": ["--lineareval", "--cache_features"],
+             "finetune": []}[mode]
+    steps = SYNTHETIC_N // TRAIN_BS
+    want = _want(**{k: n * 2 * steps for k, n in per_forward.items()})
+    fm.fused_mlp_reference.calls = 0
+    with mock.patch.dict(os.environ, env):
+        counts = _run_cli(cli_main.main, _conv_args(arch) + extra,
+                          f"{workdir}/{arch}_{mode}.json", f"{arch}_{mode}",
+                          want)
+    if fm.fused_mlp_reference.calls:
+        raise AssertionError(f"{arch}_{mode}: the plain MLP ran "
+                             f"{fm.fused_mlp_reference.calls} times")
+    return counts
+
+
+def _with_rates(run, step_flops):
+    run["img_per_s"] = TRAIN_BS * 1e3 / run["step_ms"]
+    run["step_tflop"] = step_flops / 1e12
+    run["mfu"] = step_flops / (run["step_ms"] / 1e3) / H100_BF16_FLOPS
+    return run
+
+
+def steady_state_xcit(iters: int = 12):
+    """xcit_small_24_p16 @224 bs32 fine-tune steps with the MLPs on the
+    cuBLAS chain and on B12 (``VITX_FUSED_MLP`` off, on, on, off): CUDA-
+    event step time, device busy time and idle share from a profile,
+    ``max_memory_allocated``, MFU with 3 x ``xcit_flops``, the profile of
+    the first run with B12 on and of the first without, by kernel group."""
+    import torch
+    from vit_torch_tpu_torch.models.xcit import XCIT_CONFIGS, xcit_flops
+    zm, trainer, batch = _train_setup(TRAIN_BS, arch=XCIT_ARCH,
+                                      image_size=XCIT_SIZE)
+    zm.model.train()
+    step_flops = 3 * xcit_flops(XCIT_CONFIGS[XCIT_ARCH], XCIT_SIZE) * TRAIN_BS
+    runs = {"0": [], "1": []}
+    for value in ("0", "1", "1", "0"):
+        with mock.patch.dict(os.environ, {"VITX_FUSED_MLP": value}):
+            t = _time_train_steps(trainer, batch, iters)
+        run = _with_rates({k: t[k] for k in (
+            "step_ms", "host_step_ms", "launches_per_step", "peak_mem_gb")},
+            step_flops)
+        run.update(device_busy_ms=t["profile"]["device_busy_ms"],
+                   idle_share=t["profile"]["idle_share"])
+        if not runs[value]:
+            run["profile"] = t["profile"]
+        want = XCIT_MLPS if value == "1" else 0
+        if run["launches_per_step"] != _want(fused_mlp=want):
+            raise AssertionError(f"xcit step with VITX_FUSED_MLP={value}: "
+                                 f"launches {run['launches_per_step']}")
+        runs[value].append(run)
+    row = {"arch": XCIT_ARCH, "image_size": XCIT_SIZE, "bs": TRAIN_BS,
+           "opt": "adamw", "iters": iters, "kernel_on": runs["1"],
+           "kernel_off": runs["0"]}
+    _say(json.dumps({"xcit_finetune_step": row}))
+    del zm, trainer, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def steady_state_resnext(iters: int = 12):
+    """resnext50_32x4d @224 bs32: the fine-tune step (CUDA events, device
+    busy time and idle share, ``max_memory_allocated``, MFU with 3 x
+    ``resnet_flops``, a profile by kernel group), then the bs32 eval
+    forward (inference mode, as served) with the conv+BN fold on and off
+    in turns (``VITX_FOLD_BN`` 1, 0, 0, 1), each with its device busy
+    time; the two sides' features are held against each other."""
+    import torch
+    from vit_torch_tpu_torch.models.resnet import RESNET_CONFIGS, resnet_flops
+    zm, trainer, batch = _train_setup(TRAIN_BS, arch=RESNEXT_ARCH,
+                                      image_size=RESNEXT_SIZE)
+    zm.model.train()
+    fwd_flops = resnet_flops(RESNET_CONFIGS[RESNEXT_ARCH],
+                             RESNEXT_SIZE) * TRAIN_BS
+    t = _time_train_steps(trainer, batch, iters)
+    if t["launches_per_step"] != _want():
+        raise AssertionError(f"resnext step launched {t['launches_per_step']}")
+    step = _with_rates({k: t[k] for k in (
+        "step_ms", "host_step_ms", "launches_per_step", "peak_mem_gb",
+        "profile")}, 3 * fwd_flops)
+    step.update(device_busy_ms=t["profile"]["device_busy_ms"],
+                idle_share=t["profile"]["idle_share"])
+    model = zm.model.eval()
+    x = trainer.eval_transform(batch[0])
+    fold = {"1": [], "0": []}
+    feats = {}
+    for value in ("1", "0", "0", "1"):
+        with mock.patch.dict(os.environ, {"VITX_FOLD_BN": value}), \
+                torch.inference_mode():
+            ms = _time_ms(lambda: model(x), iters=10)
+            prof = _profile_calls(lambda: model(x), iters=2)
+            feats[value] = model(x).float()
+        fold[value].append({
+            "ms": ms, "img_per_s": TRAIN_BS * 1e3 / ms,
+            "mfu": fwd_flops / (ms / 1e3) / H100_BF16_FLOPS,
+            "device_busy_ms": prof["device_busy_ms"],
+            "groups_ms": prof["groups_ms"]})
+    err = ((feats["1"] - feats["0"]).abs().max()
+           / feats["0"].abs().max()).item()
+    if not err <= CONV_LOGITS_RTOL:
+        raise AssertionError(f"resnext folded vs unfolded logits: {err}")
+    row = {"arch": RESNEXT_ARCH, "image_size": RESNEXT_SIZE, "bs": TRAIN_BS,
+           "opt": "adamw", "iters": iters, "finetune_step": step,
+           "eval_forward_fold_on": fold["1"],
+           "eval_forward_fold_off": fold["0"],
+           "fold_vs_unfold_rel_err": err}
+    _say(json.dumps({"resnext_steady_state": row}))
+    del zm, trainer, batch, model, x
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2842,6 +3046,29 @@ def main() -> int:
         want=_want(fused_mlp=DEIT_DEPTH, flash_attention_fwd=DEIT_DEPTH,
                    flash_attention_bwd=DEIT_DEPTH),
         name="deit_step_vs_plain")
+
+    from vit_torch_tpu_torch.models.resnet import RESNET_CONFIGS, resnet_flops
+    from vit_torch_tpu_torch.models.xcit import XCIT_CONFIGS, xcit_flops
+    xcit_env = {"VITX_FUSED_MLP": "1"}
+    with tempfile.TemporaryDirectory() as workdir:
+        with mock.patch.dict(os.environ, xcit_env):
+            xcit_paths = {"serve": serve_end_to_end(
+                workdir, XCIT_ARCH, XCIT_SIZE, ("fused_mlp",), None,
+                xcit_flops(XCIT_CONFIGS[XCIT_ARCH], XCIT_SIZE),
+                CONV_LOGITS_RTOL, relative=True, prepare=_show_conv_state,
+                per_dispatch=XCIT_MLPS)}
+        resnext_paths = {"serve": serve_end_to_end(
+            workdir, RESNEXT_ARCH, RESNEXT_SIZE, (), None,
+            resnet_flops(RESNET_CONFIGS[RESNEXT_ARCH], RESNEXT_SIZE),
+            CONV_LOGITS_RTOL, relative=True, prepare=_show_conv_state,
+            per_dispatch=1)}
+        for mode in ("lineareval", "lineareval_cached", "finetune"):
+            xcit_paths[mode] = conv_family_through_cli(
+                workdir, XCIT_ARCH, mode, {"fused_mlp": XCIT_MLPS}, xcit_env)
+            resnext_paths[mode] = conv_family_through_cli(
+                workdir, RESNEXT_ARCH, mode, {}, {})
+    xcit_steps = steady_state_xcit()
+    resnext_steps = steady_state_resnext()
 
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -3100,6 +3327,15 @@ def main() -> int:
         "eval_forward_ms_kernel_on_off": [
             [r["eval_forward_ms"] for r in deit_steps[
                 "deit_lineareval_bs32"][side]]
+            for side in ("kernel_on", "kernel_off")],
+        "xcit_launches_by_path": {p: c["fused_mlp"]
+                                  for p, c in xcit_paths.items()},
+        "xcit_shape_ms_device_plain_library_bound": [
+            [r["shape"], r["ms"], r["device_ms"], r["plain_ms"],
+             r["library_ms"], r["bound_ms"]] for r in (mlp_rows[2],
+                                                       mlp_rows[7])],
+        "xcit_step_ms_kernel_on_off": [
+            [r["step_ms"] for r in xcit_steps[side]]
             for side in ("kernel_on", "kernel_off")]})
     # the flat window block: numbers at the headline case (swin_base_384
     # bs32 stage 1, shifted), every case beside them; launches from the
@@ -3123,6 +3359,20 @@ def main() -> int:
              r["bound_ms"]] for r in flat_rows],
         "grad_max_rel_err": max(flat_grads["grad_rel_err"]),
         "fwd_bwd_ms": flat_grads["fwd_bwd_ms"]})
+    # the conv families run no kernel of their own (XCiT's MLPs are B12's,
+    # above): their paths, steps and the fold measurement in one line
+    _say(json.dumps({"conv_families": {
+        "xcit": {"arch": XCIT_ARCH, "launches_by_path": xcit_paths,
+                 "step_ms_kernel_on_off": [
+                     [r["step_ms"] for r in xcit_steps[side]]
+                     for side in ("kernel_on", "kernel_off")]},
+        "resnext": {"arch": RESNEXT_ARCH, "launches_by_path": resnext_paths,
+                    "finetune_step_ms": resnext_steps["finetune_step"][
+                        "step_ms"],
+                    "eval_forward_ms_fold_on_off": [
+                        [r["ms"] for r in resnext_steps[side]]
+                        for side in ("eval_forward_fold_on",
+                                     "eval_forward_fold_off")]}}}))
     _say(json.dumps({"kernels": kernels}))
     _say(smi)
     _say(json.dumps({"ok": True, "device": {

@@ -280,16 +280,24 @@ with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
     MANIFESTS = json.load(f)
 
 
-@pytest.mark.parametrize("name", ["dino_vitb8", "dino_vits16", "cait_s24_224",
-                                  "swin_base_patch4_window12_384_22k",
-                                  "deit_base_distilled_patch16_224"])
+# published checkpoint -> (keys the backbone takes, keys in the file)
+PUBLISHED_KEYS = {"dino_vitb8": (150, 150), "dino_vits16": (150, 150),
+                  "cait_s24_224": (474, 476),
+                  "swin_base_patch4_window12_384_22k": (327, 364),
+                  "deit_base_distilled_patch16_224": (151, 155),
+                  "xcit_small_24_p16": (705, 707),
+                  "resnext50_32x4d": (318, 320)}
+
+
+@pytest.mark.parametrize("name", list(PUBLISHED_KEYS))
 def test_importer_loads_the_published_layout(name, tmp_path, monkeypatch):
     """A full-size backbone on the meta device takes a state dict of the
     published checkpoint's keys and shapes (zeros backed by calloc, in
     the file's own wrapping and prefix) through the port's loader: every
-    key the backbone needs is there with its shape, and the keys it
-    leaves are the classifier heads (DeiT's two) and Swin's computed
-    buffers only."""
+    key the backbone needs is there with its shape (XCiT's and ResNeXt's
+    BatchNorm running statistics and batch counts too), and the keys it
+    leaves are the classifier heads (DeiT's two, torchvision's ``fc``)
+    and Swin's computed buffers only."""
     man = MANIFESTS[name]
     zm = VisionModelZoo.get_model(name, image_size=man["image_size"],
                                   device="meta")
@@ -297,7 +305,8 @@ def test_importer_loads_the_published_layout(name, tmp_path, monkeypatch):
     sd = {prefix + k: torch.from_numpy(np.zeros(shape, dtype))
           for k, (shape, dtype) in man["keys"].items()}
     monkeypatch.setattr(torch_import.torch, "load",
-                        lambda *a, **k: {"model": sd})
+                        lambda *a, **k: {man["wrapper"]: sd}
+                        if man["wrapper"] else sd)
     path = tmp_path / "checkpoint.pth"
     path.touch()
     with pytest.warns(UserWarning, match="meta"):
@@ -307,8 +316,9 @@ def test_importer_loads_the_published_layout(name, tmp_path, monkeypatch):
     for k, v in needed.items():
         assert tuple(man["keys"][k][0]) == tuple(v.shape), k
     left = set(man["keys"]) - set(needed)
-    assert all(k.startswith(("head.", "head_dist.")) or k.endswith(
+    assert all(k.startswith(("head.", "head_dist.", "fc.")) or k.endswith(
         ("relative_position_index", "attn_mask")) for k in left), left
+    assert (len(needed), len(man["keys"])) == PUBLISHED_KEYS[name]
 
 
 # (B, N, C, heads, packed) -> (columns a warpgroup projects in one pass,

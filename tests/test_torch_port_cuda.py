@@ -18,7 +18,9 @@ refusals, and a DeiT-shaped step with it on against the CPU; the flat
 window block (B7) against its plain version, with gradients; the window
 GEMM's four launches of B9 and the window-attention core's plans (one
 and 64 mask rows, 25- and 49-token windows) against their plain
-versions.
+versions; the conv families at full width (xcit_small_24_p16 with B12 off
+and on, resnext50_32x4d with the conv+BN fold on and off) against their
+fp32 CPU forwards, and their BN running statistics after one card step.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere.  They
 import neither JAX nor the JAX package, so they run on a machine without
@@ -1082,3 +1084,102 @@ def test_deit_step_with_b12_on_cuda_matches_cpu(cuda, monkeypatch):
     for n, g in grads_c.items():
         err = ((grads_g[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
         assert err <= 5e-2, (n, err)
+
+
+# the conv families at full width: xcit_small_24_p16 (its MLPs through the
+# cuBLAS chain, or B12 under VITX_FUSED_MLP=1) and resnext50_32x4d (eval
+# with the conv+BN fold on and off), bf16 on the card against fp32 on the
+# CPU; relative to max |CPU logit| (as chip_smoke's served logits)
+CONV_CASES = [("xcit_small_24_p16", {"VITX_FUSED_MLP": "0"}),
+              ("xcit_small_24_p16", {"VITX_FUSED_MLP": "1"}),
+              ("resnext50_32x4d", {"VITX_FOLD_BN": "1"}),
+              ("resnext50_32x4d", {"VITX_FOLD_BN": "0"})]
+CONV_LOGITS_RTOL = 5e-2
+# BN running statistics after one bf16 step on the card against one fp32
+# step on the CPU: the batch statistics of bf16 activations, relative to
+# max |CPU| of each tensor
+CONV_STATS_RTOL = 5e-2
+
+
+def _conv_model(arch):
+    """A seeded fp32 classifier on the CPU with its BN statistics and
+    scales drawn away from their init and XCiT's LayerScale gates raised
+    from 1e-5 to 0.1, so that eval and train mode and every block count."""
+    from vit_torch_tpu_torch.models.layers import BatchNorm
+    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+    zm = VisionModelZoo.get_model(arch, classifier=[10], device="cpu",
+                                  dtype=torch.float32,
+                                  generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, mod in zm.model.named_modules():
+            if isinstance(mod, BatchNorm):
+                n = mod.num_features
+                mod.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                mod.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+                mod.weight.copy_(0.5 + torch.rand(n, generator=gen))
+        for name, p in zm.model.named_parameters():
+            if ".gamma" in name:
+                p.fill_(0.1)
+    return zm
+
+
+@pytest.mark.parametrize("arch,env", CONV_CASES, ids=str)
+def test_conv_family_on_cuda_matches_cpu_fp32(cuda, arch, env, monkeypatch):
+    """Eval logits of one seeded full-width model in bf16 on the card and
+    in fp32 on the CPU; under ``VITX_FUSED_MLP=1`` every XCiT MLP (24 XCA
+    and 2 class-attention blocks) launches B12 on the card."""
+    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    ref = _conv_model(arch)
+    zm = VisionModelZoo.get_model(arch, classifier=[10], device=cuda)
+    zm.model.load_state_dict(ref.model.state_dict())
+    x = torch.randn((2, 224, 224, 3), generator=torch.Generator()
+                    .manual_seed(2))
+    before = fm.fused_mlp.launches
+    with torch.inference_mode():
+        got = zm.model.eval()(x.to(cuda)).float().cpu()
+        want = ref.model.eval()(x)
+    fused = env.get("VITX_FUSED_MLP") == "1"
+    assert fm.fused_mlp.launches - before == (26 if fused else 0)
+    assert torch.isfinite(got).all()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    assert err <= CONV_LOGITS_RTOL, err
+
+
+@pytest.mark.parametrize("arch", ["xcit_small_24_p16", "resnext50_32x4d"])
+def test_bn_running_stats_after_one_card_step(cuda, arch):
+    """One bf16 fine-tune step on the card and one fp32 step on the CPU
+    from the same weights and batch: every BN's running mean and variance
+    (momentum 0.1, the unbiased variance) within CONV_STATS_RTOL of the
+    CPU's, one batch tracked, a finite loss."""
+    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+    from vit_torch_tpu_torch.train.optimizers import get_optimizer
+    from vit_torch_tpu_torch.train.steps import make_train_step, split_params
+    ref = _conv_model(arch)
+    zm = VisionModelZoo.get_model(arch, classifier=[10], device=cuda)
+    zm.model.load_state_dict(ref.model.state_dict())
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 224, 224, 3), generator=gen)
+    labels, mask = torch.arange(4), torch.ones(4)
+    stats = []
+    for model, dev in ((ref.model, "cpu"), (zm.model, cuda)):
+        model.train()
+        step = make_train_step(model, get_optimizer(
+            "adamw", split_params(model, False), 1e-4))
+        m = step(x.to(dev), labels.to(dev), mask.to(dev))
+        assert torch.isfinite(m["loss_sum"]).item()
+        stats.append({k: v.float().cpu() for k, v in
+                      model.state_dict().items()
+                      if "running" in k or "num_batches" in k})
+    want, got = stats
+    assert len(want) == (3 * 53 if arch.startswith("resnext") else
+                         3 * (4 + 24))
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            assert got[k].item() == w.item() == 1, k
+            continue
+        err = ((got[k] - w).abs().max() / w.abs().max()).item()
+        assert err <= CONV_STATS_RTOL, (k, err)

@@ -1,14 +1,16 @@
 """Torch checkpoints into the port's models, counterpart of the serving
 part of ``vit_torch_tpu/checkpoint/torch_import.py``.
 
-The port's parameter names are DINO's, timm/Facebook DeiT's and CaiT's and
-Microsoft Swin's, so a DINO/timm ViT, a DeiT, a CaiT or a Swin state dict
-loads as it is
-(CaiT's ``module.`` prefix is stripped); what remains is unwrapping the
-published checkpoint variants, skipping Swin's computed buffers, and
-bicubic interpolation of the position table to the model's grid, with the
-JAX package's ``jax.image.resize`` semantics (Keys cubic, a = -0.5, half-
-pixel centres, antialiased when shrinking) written in numpy.
+The port's parameter names are DINO's, timm/Facebook DeiT's and CaiT's,
+Microsoft Swin's, facebookresearch/xcit's and torchvision's, so each of
+those state dicts loads as it is (CaiT's ``module.`` prefix is stripped),
+XCiT's and ResNeXt/WRN's with their BatchNorm running statistics; what
+remains is unwrapping the published checkpoint variants, skipping Swin's
+computed buffers and the classifier heads, and bicubic interpolation of
+the position table to the model's grid, with the JAX package's
+``jax.image.resize`` semantics (Keys cubic, a = -0.5, half-pixel centres,
+antialiased when shrinking) written in numpy.  The loader is chosen by the
+backbone's family, as the JAX package's ``_FAMILY_IMPORTERS`` does.
 """
 
 from __future__ import annotations
@@ -96,23 +98,33 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 def load_backbone_state_dict(path: str, model: nn.Module,
                              image_size: int) -> None:
-    """Load a DINO/timm ViT, Facebook/timm DeiT or CaiT, or Microsoft Swin
-    checkpoint into ``model.backbone`` in place.  For a ViT, DeiT or CaiT
-    the position table is interpolated to the ``image_size`` grid, its
-    first ``num_prefix_tokens`` rows kept as they are (the backbone's: 1
-    for the CLS token, 2 for a distilled DeiT's CLS and distillation
-    tokens, 0 for CaiT's table); a Swin checkpoint goes through
-    :func:`load_swin_state_dict`.  Keys the backbone lacks (``head.*``,
-    DeiT's ``head_dist.*``) are ignored; keys it needs and the file lacks
-    raise."""
+    """Load a checkpoint of the backbone's family into ``model.backbone``
+    in place, by the loader of ``backbone.family``: a DINO/timm ViT or a
+    Facebook/timm DeiT or CaiT through :func:`load_vit_state_dict`, a
+    Microsoft Swin through :func:`load_swin_state_dict`, a
+    facebookresearch/xcit XCiT through :func:`load_xcit_state_dict`, a
+    torchvision ResNeXt/WRN through :func:`load_resnet_state_dict`."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     backbone = model.backbone
-    sd = load_torch_state_dict(path)
+    family = getattr(backbone, "family", None)
+    if family not in _FAMILY_LOADERS:
+        raise NotImplementedError(f"no checkpoint loader for a "
+                                  f"{type(backbone).__name__} backbone")
+    _FAMILY_LOADERS[family](load_torch_state_dict(path), backbone,
+                            image_size)
+
+
+def load_vit_state_dict(sd: Dict[str, torch.Tensor], backbone: nn.Module,
+                        image_size: int) -> None:
+    """Load a DINO/timm ViT, Facebook/timm DeiT or CaiT state dict into a
+    port backbone in place.  The position table is interpolated to the
+    ``image_size`` grid, its first ``num_prefix_tokens`` rows kept as they
+    are (the backbone's: 1 for the CLS token, 2 for a distilled DeiT's CLS
+    and distillation tokens, 0 for CaiT's table).  Keys the backbone lacks
+    (``head.*``, DeiT's ``head_dist.*``) are ignored; keys it needs and the
+    dict lacks raise."""
     target = backbone.state_dict()
-    if "pos_embed" not in target:
-        load_swin_state_dict(sd, backbone)
-        return
     num_prefix = getattr(backbone, "num_prefix_tokens", 1)
     n_target = target["pos_embed"].shape[1] - num_prefix
     if n_target != (image_size // backbone.config.patch_size) ** 2:
@@ -125,8 +137,7 @@ def load_backbone_state_dict(path: str, model: nn.Module,
     sd = {k: v for k, v in sd.items() if k in target}
     missing = sorted(set(target) - set(sd))
     if missing:
-        raise ValueError(f"checkpoint {path} lacks backbone keys "
-                         f"{missing[:8]}")
+        raise ValueError(f"checkpoint lacks backbone keys {missing[:8]}")
     backbone.load_state_dict(sd)
 
 
@@ -134,25 +145,60 @@ def load_backbone_state_dict(path: str, model: nn.Module,
 _SWIN_COMPUTED = ("relative_position_index", "attn_mask")
 
 
+def _load_by_name(sd: Dict[str, torch.Tensor], backbone: nn.Module,
+                  what: str) -> None:
+    """Load the backbone's keys of ``sd`` into it in place; raise on any
+    key the backbone needs and the dict lacks or on a shape mismatch."""
+    target = backbone.state_dict()
+    missing = sorted(set(target) - set(sd))
+    if missing:
+        raise ValueError(f"{what} state dict lacks backbone keys "
+                         f"{missing[:8]}")
+    bad = [f"{k}: {tuple(sd[k].shape)} vs {tuple(v.shape)}"
+           for k, v in target.items() if sd[k].shape != v.shape]
+    if bad:
+        raise ValueError(f"{what} state dict shapes do not match the "
+                         f"backbone: {bad[:8]}")
+    backbone.load_state_dict({k: sd[k] for k in target})
+
+
 def load_swin_state_dict(sd: Dict[str, torch.Tensor],
-                         backbone: nn.Module) -> None:
+                         backbone: nn.Module, image_size: int = 0) -> None:
     """Load a Microsoft Swin state dict (already unwrapped from
     ``checkpoint['model']``) into a port Swin backbone in place.  The
     port's names are Microsoft's, so this is a load by name that skips
     ``relative_position_index``, ``attn_mask`` and ``head.*``, as the
     reference's ``strict=False`` load does, and raises on any key the
     backbone needs and the dict lacks or on a shape mismatch."""
-    sd = {k: v for k, v in sd.items()
-          if not k.startswith("head.")
-          and k.rsplit(".", 1)[-1] not in _SWIN_COMPUTED}
-    target = backbone.state_dict()
-    missing = sorted(set(target) - set(sd))
-    if missing:
-        raise ValueError(f"Swin state dict lacks backbone keys "
-                         f"{missing[:8]}")
-    bad = [f"{k}: {tuple(sd[k].shape)} vs {tuple(v.shape)}"
-           for k, v in target.items() if sd[k].shape != v.shape]
-    if bad:
-        raise ValueError(f"Swin state dict shapes do not match the "
-                         f"backbone: {bad[:8]}")
-    backbone.load_state_dict({k: sd[k] for k in target})
+    _load_by_name({k: v for k, v in sd.items()
+                   if not k.startswith("head.")
+                   and k.rsplit(".", 1)[-1] not in _SWIN_COMPUTED},
+                  backbone, "Swin")
+
+
+def load_xcit_state_dict(sd: Dict[str, torch.Tensor], backbone: nn.Module,
+                         image_size: int = 0) -> None:
+    """Load a facebookresearch/xcit state dict into a port XCiT backbone in
+    place, by name, with the BatchNorm running statistics of its conv stem
+    and LPI; ``head.*`` is skipped.  Raises on any key the backbone needs
+    and the dict lacks or on a shape mismatch.  The conv stem and the
+    Fourier encoding take any image size, so nothing is interpolated."""
+    _load_by_name({k: v for k, v in sd.items() if not k.startswith("head.")},
+                  backbone, "XCiT")
+
+
+def load_resnet_state_dict(sd: Dict[str, torch.Tensor], backbone: nn.Module,
+                           image_size: int = 0) -> None:
+    """Load a torchvision ResNeXt/WRN state dict into a port ResNet
+    backbone in place, by name, with every BatchNorm's running statistics;
+    ``fc.*`` is skipped.  Raises on any key the backbone needs and the
+    dict lacks or on a shape mismatch."""
+    _load_by_name({k: v for k, v in sd.items() if not k.startswith("fc.")},
+                  backbone, "ResNet")
+
+
+# backbone family -> its loader ``(state dict, backbone, image size)``
+_FAMILY_LOADERS = {"dino": load_vit_state_dict, "deit": load_vit_state_dict,
+                   "cait": load_vit_state_dict, "swin": load_swin_state_dict,
+                   "xcit": load_xcit_state_dict,
+                   "resnet": load_resnet_state_dict}

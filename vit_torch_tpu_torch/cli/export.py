@@ -9,9 +9,12 @@ Without ``--torch_ckpt`` the weights are seeded random ones (pipeline
 smoke and speed only); with it the backbone comes from a DINO/timm torch
 checkpoint or a Facebook DeiT (``--arch deit_*``, the distilled ones
 with both tokens) or CaiT checkpoint (``--arch cait_*``), its position
-table interpolated to ``--image_size``, or from a Microsoft Swin
+table interpolated to ``--image_size``, from a Microsoft Swin
 checkpoint (``--arch swin_base_patch4_window12_384_22k`` and the other
-Swin archs).
+Swin archs), from a facebookresearch/xcit checkpoint (``--arch xcit_*``)
+or from a torchvision ResNeXt/WRN one (``--arch resnext50_32x4d``, ...);
+the last two carry their BatchNorm running statistics into the bundle,
+which serves in eval mode.
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ def _norm_for(norm_values, dataset: str):
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--arch", required=True,
-                   help="a ported zoo arch: dino_*/vit_*, deit_*, cait_*, "
-                        "swin_*")
+                   help="a zoo arch: dino_*/vit_*, deit_*, cait_*, swin_*, "
+                        "xcit_*, resnext*/wide_resnet*")
     p.add_argument("--classifier", default="10",
                    help="comma-separated head units incl. class count, "
                         "e.g. 512,10 (reference [*fc, num_labels])")

@@ -6,7 +6,12 @@ zoo → trainer → fit → stats JSON.  Runs on CUDA unless ``--device cpu``.
         --arch dino_vitb8 --image_size 224 --bs 32 --epoch 1 --opt adamw \\
         --lr 1e-4 --fc 512
 
-``--arch`` takes the ported families (dino/vit, deit, cait, swin);
+``--arch`` takes every family of the zoo: dino/vit, deit, cait, swin
+(also through ``cli.main_swin``), xcit and the ResNeXt/WRN CNNs
+(``resnext50_32x4d``, ``wide_resnet50_2``, ...), whose BatchNorm running
+statistics the fine-tune and the plain linear eval update (the backbone
+runs in train mode) and the cached linear eval reads (eval mode);
+``--pretrained --torch_ckpt`` loads a checkpoint of the arch's family.
 ``VITX_FUSED_MLP=1`` sends every block's MLP through the fused kernel.
 ``--lineareval`` freezes the backbone; ``--lineareval --cache_features``
 runs the backbone once and trains the head on cached features.  Flags of

@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from vit_torch_tpu_torch.models.layers import (LayerNorm, Linear, Mlp,
-                                               PatchEmbed)
+                                               PatchEmbed, run_block)
 from vit_torch_tpu_torch.ops import talking_heads as th
 
 
@@ -196,8 +196,11 @@ class CaiT(nn.Module):
 
     ``dtype`` is the activation dtype; parameters stay fp32.  The position
     table covers the patches of ``image_size`` only
-    (``num_prefix_tokens = 0`` for the checkpoint importer)."""
+    (``num_prefix_tokens = 0`` for the checkpoint importer).  ``remat``
+    recomputes each talking-heads block in the backward
+    (:func:`layers.run_block`), as the JAX model's ``remat`` does."""
 
+    family = "cait"
     num_prefix_tokens = 0
 
     def __init__(self, config: CaiTConfig, image_size: int = 224,
@@ -206,6 +209,7 @@ class CaiT(nn.Module):
         cfg = config
         self.config = cfg
         self.dtype = dtype
+        self.remat = False
         D = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, image_channels, D)
         n_patches = (image_size // cfg.patch_size) ** 2
@@ -228,7 +232,7 @@ class CaiT(nn.Module):
         dt = self.dtype
         x = self.patch_embed(x.to(dt)) + self.pos_embed.to(dt)
         for blk in self.blocks:
-            x = blk(x)
+            x = run_block(blk, x, remat=self.remat)
         cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
         for blk in self.blocks_token_only:
             cls = blk(x, cls)

@@ -41,6 +41,7 @@ class DistilledVisionTransformer(VisionTransformer):
     """ViT with CLS and distillation tokens; returns the average of the two
     normed tokens ``(B, embed_dim)``."""
 
+    family = "deit"
     num_prefix_tokens = 2
 
     def __init__(self, config: ViTConfig, image_size: int = 224,

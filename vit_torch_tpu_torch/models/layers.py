@@ -1,13 +1,22 @@
-"""Transformer building blocks of the ViT family, counterpart of
+"""Building blocks of the model zoo, counterpart of
 ``vit_torch_tpu/models/layers.py``.
 
 Numerics follow the JAX package:
 
 - parameters are fp32; activations run in the model's ``dtype`` (bfloat16
-  by default), and every matmul casts its weights to that dtype;
-- LayerNorm and GELU compute in fp32 and round once to the activation
-  dtype; GELU is the exact erf form;
+  by default), and every matmul and conv casts its weights to that dtype;
+- LayerNorm, BatchNorm and GELU compute in fp32 and round once to the
+  activation dtype; GELU is the exact erf form;
 - the patch embedding is a reshape + matmul with fp32 accumulation.
+
+The convolutional families (XCiT's stem and LPI, ResNeXt/WRN) take an
+NHWC image as the transformers do; ``x.permute(0, 3, 1, 2)`` is an NCHW
+view with ``channels_last`` strides, the layout cuDNN prefers for bf16, and
+every conv and BatchNorm keeps it.  Grouped convs are ``nn.Conv2d`` with
+``groups`` (cuDNN): the JAX package computes them outside any Pallas
+kernel, and its block-diagonal regrouping (``VITX_DENSE_GROUPS``) is a
+TPU-measured workaround that computes the same function, so it does not
+carry over.
 
 Parameter names follow torch/timm/DINO (``patch_embed.proj.weight`` as a
 ``(D, C, p, p)`` conv weight, ``blocks.{i}.attn.qkv.weight``,
@@ -16,11 +25,13 @@ Parameter names follow torch/timm/DINO (``patch_embed.proj.weight`` as a
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from vit_torch_tpu_torch.ops import attn_block, fused_mlp
@@ -127,6 +138,131 @@ def set_generator(model: nn.Module,
     for mod in model.modules():
         if isinstance(mod, (DropPath, Dropout)):
             mod.generator = generator
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that runs in the activation dtype: the (fp32) weight
+    and bias are cast to ``x.dtype`` at the call, as :class:`Linear` does.
+    Takes NCHW (``channels_last`` strides from an NHWC permute)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm over NCHW with torch's ``BatchNorm2d`` names and state
+    (``weight``, ``bias``, ``running_mean``, ``running_var``,
+    ``num_batches_tracked``), the names of the published checkpoints.
+
+    The JAX ``BatchNorm`` (``vit_torch_tpu/models/layers.py:107-165``) is
+    torch's: momentum 0.1 (flax's 0.9), eps 1e-5, the running variance
+    updated with the unbiased estimator (x n/(n-1)) and the batch's biased
+    variance normalising in train mode.  PyTorch's kernel takes a bf16
+    input with the fp32 parameters and statistics, computes in fp32 and
+    rounds once to the input dtype."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+
+# The conv+BN fold in eval is on by default on CUDA, as in the JAX
+# package, whose default came from a TPU measurement that does not carry
+# over.  chip_smoke.py's steady_state_resnext times the resnext50_32x4d
+# @224 bs32 eval forward (inference mode, as served) with the fold on,
+# off, off, on.  On an H100 80GB HBM3 at 700 W (three calls) it takes
+# 3.78-5.62 ms on events folded against 6.20-8.23 unfolded, with device
+# busy time 3.04-3.33 ms against 3.09-3.25: the BN pass goes and the
+# conv's bias add costs about as much, so the fold wins by the launches
+# it saves in a forward the host paces, not by device time.
+
+
+def _fold(conv: nn.Conv2d, bn: BatchNorm, dtype: torch.dtype):
+    """The eval-mode ``bn(conv(x))`` as one conv's weight and bias:
+    ``w * a`` and ``bias - mean * a`` with ``a = weight / sqrt(var +
+    eps)``, in fp32 and cast once (the JAX ``fold_conv_bn_eval``)."""
+    a = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+    w = (conv.weight.float() * a[:, None, None, None]).to(dtype)
+    b = (bn.bias.float() - bn.running_mean.float() * a).to(dtype)
+    return w, b
+
+
+def _folded(conv: nn.Conv2d, bn: BatchNorm, dtype: torch.dtype):
+    """:func:`_fold`, cached on ``bn`` while no gradient is recorded: the
+    cache holds as long as the tensors and their version counters do (an
+    optimizer step, a state-dict load or a train-mode forward, which adds
+    one to ``num_batches_tracked``, moves them), so serving folds once."""
+    if torch.is_grad_enabled():
+        return _fold(conv, bn, dtype)
+    tensors = (conv.weight, bn.weight, bn.bias, bn.running_mean,
+               bn.running_var, bn.num_batches_tracked)
+    key = (dtype, tuple((t.data_ptr(), t._version) for t in tensors))
+    cached = getattr(bn, "_fold_cache", None)
+    if cached is None or cached[0] != key:
+        cached = bn._fold_cache = (key, *_fold(conv, bn, dtype))
+    return cached[1], cached[2]
+
+
+def conv_bn(conv: nn.Conv2d, bn: BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """``bn(conv(x))``; in eval, as one conv with the BN folded into its
+    weight and bias (exact up to fp association), unless
+    ``VITX_FOLD_BN=0`` (read per call, as the JAX package's
+    ``use_folded_bn`` reads it).  Train-mode BN depends on the batch and
+    is never folded."""
+    if bn.training or os.environ.get("VITX_FOLD_BN") == "0":
+        return bn(conv(x))
+    w, b = _folded(conv, bn, x.dtype)
+    return F.conv2d(x, w, b, conv.stride, conv.padding, conv.dilation,
+                    conv.groups)
+
+
+def run_block(block: nn.Module, *args, remat: bool = False):
+    """``block(*args)``; with ``remat`` and autograd recording, under
+    ``torch.utils.checkpoint`` (non-reentrant): the block's activations
+    are recomputed in the backward instead of kept, as ``jax.checkpoint``
+    does per block in the JAX package.
+
+    The recompute must compute what the forward did.  Dropout and
+    drop-path draw from the trainer's ``torch.Generator``, which
+    ``preserve_rng_state`` does not cover, so the generators' states at
+    the forward are set again for the recompute and their states at the
+    backward put back after it; and a train-mode BatchNorm would fold the
+    batch into its running statistics a second time, so they are put back
+    too.  The port draws from no global RNG, so that is not saved."""
+    if not (remat and torch.is_grad_enabled()):
+        return block(*args)
+    gens = list({id(m.generator): m.generator for m in block.modules()
+                 if isinstance(m, (DropPath, Dropout))
+                 and m.generator is not None}.values())
+    norms = [m for m in block.modules()
+             if isinstance(m, nn.modules.batchnorm._BatchNorm)
+             and m.training and m.track_running_stats]
+    at_forward = [g.get_state() for g in gens]
+    calls = []
+
+    def run(*inputs):
+        if not calls:
+            calls.append(1)
+            return block(*inputs)
+        at_backward = [g.get_state() for g in gens]
+        stats = [[t.clone() for t in (m.running_mean, m.running_var,
+                                      m.num_batches_tracked)]
+                 for m in norms]
+        for g, state in zip(gens, at_forward):
+            g.set_state(state)
+        try:
+            return block(*inputs)
+        finally:
+            for g, state in zip(gens, at_backward):
+                g.set_state(state)
+            with torch.no_grad():
+                for m, saved in zip(norms, stats):
+                    for t, s in zip((m.running_mean, m.running_var,
+                                     m.num_batches_tracked), saved):
+                        t.copy_(s)
+
+    return torch.utils.checkpoint.checkpoint(
+        run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 # B12 is opt-in on CUDA too.  chip_smoke.py's steady_state_deit times
@@ -336,21 +472,33 @@ class ClassifierHead(nn.Module):
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded init in the JAX package's scheme: LayerNorm weight 1, every
-    bias 0, LayerScale gates (``gamma_1``/``gamma_2`` of a module with an
-    ``init_scale``, CaiT) the constant ``init_scale``, every other
-    parameter truncated normal (std 0.02, cut at two standard deviations).
-    Parameters are visited in module order, so one seed gives one set of
-    weights on every device."""
+    """Seeded init in the JAX package's scheme: LayerNorm and BatchNorm
+    weight 1, every bias 0, BatchNorm's running statistics reset (mean 0,
+    variance 1), LayerScale gates (``gamma_1``/``gamma_2`` of CaiT,
+    ``gamma1``-``gamma3`` of XCiT: a module with an ``init_scale``) the
+    constant ``init_scale``, XCA's ``temperature`` 1, a :class:`Conv2d`
+    weight flax's ``lecun_normal`` (truncated normal of std
+    ``1/sqrt(fan_in)``, corrected for the cut at two standard
+    deviations), every other parameter truncated normal (std 0.02, cut at
+    two standard deviations).  Parameters are visited in module order, so
+    one seed gives one set of weights on every device."""
     for mod in model.modules():
+        if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+            mod.reset_running_stats()
         for name, param in mod.named_parameters(recurse=False):
-            if isinstance(mod, LayerNorm) and name == "weight":
+            if isinstance(mod, (LayerNorm, BatchNorm)) and name == "weight":
                 param.fill_(1.0)
             elif name == "bias":
                 param.zero_()
-            elif name in ("gamma_1", "gamma_2") and hasattr(mod,
-                                                            "init_scale"):
+            elif name.startswith("gamma") and hasattr(mod, "init_scale"):
                 param.fill_(mod.init_scale)
+            elif name == "temperature":
+                param.fill_(1.0)
+            elif isinstance(mod, Conv2d) and name == "weight":
+                fan_in = param[0].numel()
+                std = 1.0 / math.sqrt(fan_in) / .87962566103423978
+                nn.init.trunc_normal_(param, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
             else:
                 nn.init.trunc_normal_(param, std=0.02, a=-0.04, b=0.04,
                                       generator=generator)

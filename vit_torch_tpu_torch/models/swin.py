@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_torch_tpu_torch.models.layers import (DropPath, Dropout, LayerNorm,
-                                               Linear, Mlp)
+                                               Linear, Mlp, run_block)
 from vit_torch_tpu_torch.ops import window_block as wb
 from vit_torch_tpu_torch.ops.window_block import (  # noqa: F401 (re-export)
     window_partition, window_reverse)
@@ -365,7 +365,10 @@ class SwinTransformer(nn.Module):
     ``(B, C_final)`` out; ``features_only`` gives the final normed map
     ``(B, H', W', C_final)``; ``multi_features`` the per-stage maps (the
     last one normed).  ``dtype`` is the activation dtype; parameters stay
-    fp32."""
+    fp32.  ``remat`` recomputes each block in the backward
+    (:func:`layers.run_block`)."""
+
+    family = "swin"
 
     def __init__(self, config: SwinConfig, image_size: int = 224,
                  image_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
@@ -374,6 +377,7 @@ class SwinTransformer(nn.Module):
         cfg = config
         self.config = cfg
         self.dtype = dtype
+        self.remat = False
         self.features_only = features_only
         self.multi_features = multi_features
         self.patch_embed = PatchEmbed(cfg.patch_size, image_channels,
@@ -405,7 +409,7 @@ class SwinTransformer(nn.Module):
         stages = []
         for layer in self.layers:
             for blk in layer.blocks:
-                x = blk(x)
+                x = run_block(blk, x, remat=self.remat)
             stages.append(x)
             if layer.downsample is not None:
                 x = layer.downsample(x)

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from vit_torch_tpu_torch.models.layers import (Block, Dropout, LayerNorm,
-                                               PatchEmbed)
+                                               PatchEmbed, run_block)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +50,10 @@ class VisionTransformer(nn.Module):
     """ViT backbone returning CLS-token features ``(B, embed_dim)``, or all
     tokens ``(B, 1 + N, embed_dim)`` with ``return_all_tokens``.
 
-    ``dtype`` is the activation dtype; parameters stay fp32."""
+    ``dtype`` is the activation dtype; parameters stay fp32.  ``remat``
+    recomputes each block in the backward (:func:`layers.run_block`)."""
+
+    family = "dino"
 
     def __init__(self, config: ViTConfig, image_size: int = 224,
                  image_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
@@ -60,6 +63,7 @@ class VisionTransformer(nn.Module):
         self.config = cfg
         self.dtype = dtype
         self.return_all_tokens = return_all_tokens
+        self.remat = False
         self.patch_embed = PatchEmbed(cfg.patch_size, image_channels,
                                       cfg.embed_dim)
         n_patches = (image_size // cfg.patch_size) ** 2
@@ -95,7 +99,7 @@ class VisionTransformer(nn.Module):
             + self.pos_embed.to(dt)
         x = self.pos_drop(x)
         for blk in self.blocks:
-            x = blk(x)
+            x = run_block(blk, x, remat=self.remat)
         return self._pool(self.norm(x))
 
 

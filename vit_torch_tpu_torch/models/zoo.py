@@ -2,15 +2,17 @@
 
 ``VisionModelZoo.get_model(arch, ...)`` returns a :class:`ZooModel` whose
 ``model`` is a :class:`Classifier` (backbone + optional MLP head) with
-seeded weights on the requested device.  The dino/vit, swin, cait and
-deit families are ported; the other families raise until their slice
-lands (ROADMAP.md).
+seeded weights on the requested device.  Every family of the JAX
+package is ported: dino/vit, swin, cait, deit, xcit and resnet
+(ResNeXt/WRN).  ``available_archs`` lists every arch,
+``get_output_shape`` runs a model on the meta device, and ``remat``
+recomputes each backbone block in the backward.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -19,8 +21,10 @@ from vit_torch_tpu_torch.device import resolve_device
 from vit_torch_tpu_torch.models.cait import CAIT_CONFIGS, CaiT
 from vit_torch_tpu_torch.models.deit import DEIT_CONFIGS, build_deit
 from vit_torch_tpu_torch.models.layers import ClassifierHead, init_weights
+from vit_torch_tpu_torch.models.resnet import RESNET_CONFIGS, ResNet
 from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, SwinTransformer
 from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, VisionTransformer
+from vit_torch_tpu_torch.models.xcit import XCIT_CONFIGS, XCiT
 
 
 class Classifier(nn.Module):
@@ -77,12 +81,13 @@ def arch_family(arch: str) -> str:
 
 
 # family → (its configs, the function that makes its backbone from a
-# config), for the families ported; a DeiT config is a (ViTConfig,
-# distilled) pair
+# config); a DeiT config is a (ViTConfig, distilled) pair
 _PORTED = {"dino": (VIT_CONFIGS, VisionTransformer),
            "swin": (SWIN_CONFIGS, SwinTransformer),
            "cait": (CAIT_CONFIGS, CaiT),
-           "deit": (DEIT_CONFIGS, build_deit)}
+           "deit": (DEIT_CONFIGS, build_deit),
+           "xcit": (XCIT_CONFIGS, XCiT),
+           "resnet": (RESNET_CONFIGS, ResNet)}
 
 
 def reset_buffers(model: nn.Module,
@@ -101,6 +106,12 @@ class VisionModelZoo:
     """Facade: ``get_model(arch, ...)`` → :class:`ZooModel`."""
 
     @classmethod
+    def available_archs(cls) -> List[str]:
+        """Every arch the zoo builds, sorted (the JAX facade's set)."""
+        return sorted({arch for configs, _ in _PORTED.values()
+                       for arch in configs})
+
+    @classmethod
     def get_model(
         cls,
         arch: str,
@@ -110,6 +121,7 @@ class VisionModelZoo:
         dtype: torch.dtype = torch.bfloat16,
         device: Optional[Union[str, torch.device]] = None,
         generator: Optional[torch.Generator] = None,
+        remat: bool = False,
     ) -> ZooModel:
         """Build a zoo model with seeded weights.
 
@@ -120,7 +132,10 @@ class VisionModelZoo:
         (CUDA when omitted).  ``device="meta"`` skips the init, for callers
         that load a state dict next.  ``image_size`` defaults to the
         config's ``default_image_size`` where it has one (CaiT), else to
-        384 for the ``*384*`` archs and to 224 otherwise."""
+        384 for the ``*384*`` archs and to 224 otherwise.  ``remat`` runs
+        each backbone block under ``torch.utils.checkpoint`` when a
+        gradient is recorded (``layers.run_block``; the JAX package's
+        ``jax.checkpoint`` per block)."""
         dev = resolve_device(device)
         family = arch_family(arch)
         if family not in _PORTED:
@@ -137,6 +152,7 @@ class VisionModelZoo:
         with torch.device("meta"):
             backbone = build(configs[arch], image_size=image_size,
                              image_channels=image_channels, dtype=dtype)
+            backbone.remat = remat
             head = (ClassifierHead(backbone.feature_dim, classifier)
                     if classifier else None)
             model = Classifier(backbone, head)
@@ -152,4 +168,25 @@ class VisionModelZoo:
                         feature_dim=backbone.feature_dim,
                         image_size=image_size,
                         classifier=list(classifier) if classifier else None,
-                        patch_size=backbone.config.patch_size)
+                        patch_size=getattr(backbone.config, "patch_size",
+                                           None))
+
+    @classmethod
+    def get_output_shape(cls, zoo_model: ZooModel, image_size: int,
+                         image_channels: int = 3) -> Tuple[int, ...]:
+        """The output shape of ``zoo_model`` for one ``image_size`` image,
+        with no memory and no FLOPs spent (the JAX facade's
+        ``jax.eval_shape``): a copy of the model is built on the meta
+        device and run on fake CPU tensors, which carry shapes only.  (On
+        meta tensors the kernel wrappers raise: they take the plain version
+        only for CPU tensors.)"""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        twin = cls.get_model(zoo_model.arch, image_channels=image_channels,
+                             classifier=zoo_model.classifier,
+                             image_size=image_size, dtype=zoo_model.dtype,
+                             device="meta")
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            twin.model.to_empty(device="cpu")
+            reset_buffers(twin.model, "cpu")
+            x = torch.empty((1, image_size, image_size, image_channels))
+            return tuple(twin.model(x).shape)

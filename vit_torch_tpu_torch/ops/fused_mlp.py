@@ -220,9 +220,11 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: Optional[torch.Tensor],
     """Fused fc1 → exact GELU → fc2 over ``(..., C)`` tokens (B12);
     ``(..., Co)`` out.  ``w1`` ``(Hd, C)``, ``w2`` ``(Co, Hd)``; biases may
     be None.  Differentiable in every tensor input.  Call :func:`fits`
-    with ``T = prod(leading dims)`` first."""
+    with ``T = prod(leading dims)`` first.  Tokens that are not one
+    contiguous matrix (a view such as XCiT's CLS tokens ``x[:, :1]``) are
+    copied into one first."""
     lead, C = x.shape[:-1], x.shape[-1]
-    x2 = x.reshape(-1, C)
+    x2 = x.reshape(-1, C).contiguous()
     if needs_grad(x, w1, b1, w2, b2):
         out = _FusedMlp.apply(x2, w1, b1, w2, b2)
     else:
