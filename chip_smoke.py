@@ -113,7 +113,23 @@
    shapes is in 3's checks) and ResNeXt's fine-tune step, each with its
    profile, peak memory and MFU, and ResNeXt's eval forward with the
    conv+BN fold on and off in turns (the fold's CUDA default);
-12. prints one JSON line with each kernel's numbers, then the card's name
+12. the training life cycle and the data extras (no kernel of their own;
+   their ViT steps run the flash pair, counted on every path):
+   fine-tunes dino_vitb8 @224 bs32 for two one-batch epochs through
+   ``cli.main`` with ``--ckpt_dir --save_every 1 --export_bundle`` (the
+   random crop and flip off), checks the checkpoint layout, holds the
+   latest checkpoint bitwise against the trainer's state in memory and
+   times its save and restore, redoes epoch 1 from the epoch-0 checkpoint
+   through ``--resume`` and holds its parameters against the unbroken
+   run's; serves the exported bundle (one 32-image request, logits
+   against the CPU in fp32); holds each of the 14 AutoAugment ops at bs32
+   @224 against the same op on the CPU with the same draws, runs one
+   synthetic epoch with ``--aug_auto imagenet`` and times the step with
+   AutoAugment off, on, on, off; writes a synthetic tire ImageFolder,
+   trains dino_vits16 @224 bs32 on it (setting 0, 7 channels) with and
+   without ``--aug_auto`` and holds device LBP against host LBP (no code
+   may differ);
+13. prints one JSON line with each kernel's numbers, then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -354,6 +370,42 @@ SWIN_BLOCKS = [(32, 96, 96, 128, 12, 6), (32, 96, 96, 128, 12, 0),
                (32, 12, 12, 1024, 12, 0), (32, 56, 56, 96, 7, 3),
                (2, 10, 15, 64, 5, 2)]
 
+# the training life cycle (ROADMAP A6, A9's --export_bundle): dino_vitb8
+# @224 bs32 through cli.main on the per-step path with one batch an epoch
+# (--scan 0, 32 train and 32 val samples), the random augmentation off
+# (crop pad 0, no flip) and no dropout or drop-path (dino_vitb8 has none),
+# so that a resume's shuffle restart changes only the order of the
+# batch's rows
+RESUME_LR = 1e-4
+RESUME_ARGS = ["--dataset", "synthetic", "--arch", ARCH, "--image_size",
+               str(IMAGE_SIZE), "--bs", str(TRAIN_BS), "--opt", "adamw",
+               "--lr", str(RESUME_LR), "--fc", "512", "--scan", "0",
+               "--limit_train", str(TRAIN_BS), "--limit_test",
+               str(TRAIN_BS)]
+# the resumed epoch 1 against the unbroken run's epoch 1, both from the
+# same epoch-0 checkpoint: the rows summed in another order and the flash
+# backward's dQ added by red.global.add in an order that varies between
+# runs (ROADMAP §C) give gradients apart by rounding, not bitwise.  One
+# AdamW step moves an element by about lr at most, so no element may
+# differ by more than 4 lr, and the two epochs' updates must agree to 10%
+# of the update's norm (a lost optimizer state or weight fails both)
+RESUME_ATOL = 4 * RESUME_LR
+RESUME_UPDATE_RTOL = 0.1
+# AutoAugment's ops on the card against the same op on the CPU with the
+# same draws (bs32 @224): a warp's sample coordinate within rounding of a
+# pixel boundary (cos/sin and the affine sums rounded apart on the two
+# devices) lands on the neighbouring pixel, so up to 1% of a warp's pixels
+# may differ by more than one level; the other ops, none
+AA_WARPS = ("shearX", "shearY", "translateX", "translateY", "rotate")
+AA_WARP_SHARE = 1e-2
+# the tire phase: a synthetic ImageFolder of two classes of 20 PNGs of four
+# sizes (32 train and 8 test images at test ratio 0.2), tire setting 0
+# (r, g, b and four LBP maps, 7 channels), dino_vits16 @224 bs32
+TIRE_PER_CLASS = 20
+TIRE_SIZES = [(240, 320), (300, 300), (180, 260), (400, 280)]
+TIRE_ARGS = ["--dataset", "tire", "--arch", VITS_ARCH, "--image_size",
+             str(VITS_SIZE), "--tire_settings", "0", "--bs", str(TRAIN_BS),
+             "--epoch", "1", "--opt", "adamw", "--lr", "1e-4", "--fc", "512"]
 
 def _say(*parts) -> None:
     print(*parts, flush=True)
@@ -2900,6 +2952,366 @@ def steady_state_resnext(iters: int = 12):
     return row
 
 
+def _cli_trainer(argv, fp: str, mode: str, want, augment_off=False):
+    """One run of ``cli.main`` on the card; returns its trainer, the
+    kernels' launch counts (checked against ``want``) and its seconds.
+    ``augment_off`` gives the CLI's train augmentation no crop and no
+    flip (the resume phase's order-free configuration)."""
+    import contextlib
+    import functools
+    from vit_torch_tpu_torch.cli import main as cli_main
+    from vit_torch_tpu_torch.data.augment import make_train_augment
+    seen = []
+
+    class Recording(cli_main.Trainer):
+        def __init__(self, zoo_model, **kw):
+            super().__init__(zoo_model, **kw)
+            seen.append(self)
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(cli_main, "Trainer",
+                                              Recording))
+        if augment_off:
+            stack.enter_context(mock.patch.object(
+                cli_main, "make_train_augment", functools.partial(
+                    make_train_augment, crop_pad=0, hflip=False)))
+        _reset_counts()
+        t0 = time.perf_counter()
+        cli_main.main(argv + ["--stats_fp", fp])
+        seconds = time.perf_counter() - t0
+        counts = _read_counts()
+    with open(fp) as f:
+        stats = json.load(f)
+    _say(json.dumps({"cli": {"mode": mode, "seconds": seconds,
+                             "launches": counts, "want": want,
+                             "results": stats["results"]}}))
+    if counts != want:
+        raise AssertionError(f"{mode}: kernel launches {counts} != {want}")
+    for split in ("train", "val"):
+        if not all(np.isfinite(r["loss"]) for r in stats[split]):
+            raise AssertionError(f"{mode}: bad {split} rows {stats[split]}")
+    return seen[0], counts, seconds
+
+
+def _same_state(got, want, where: str) -> None:
+    """Nested dicts and lists of tensors and numbers, bitwise."""
+    import torch
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{where}: keys {sorted(got)} != "
+                                 f"{sorted(want)}")
+        for k in want:
+            _same_state(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{where}: length {len(got)} != {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_state(g, w, f"{where}[{i}]")
+    elif isinstance(want, torch.Tensor):
+        if not (got.dtype == want.dtype and torch.equal(got.cpu(),
+                                                        want.cpu())):
+            raise AssertionError(f"{where}: restored tensor differs")
+    elif got != want:
+        raise AssertionError(f"{where}: {got!r} != {want!r}")
+
+
+def resume_through_cli(workdir: str):
+    """dino_vitb8 fine-tuned for two epochs through ``cli.main`` with
+    ``--ckpt_dir --save_every 1 --export_bundle``; the layout checked, the
+    latest checkpoint held bitwise against the trainer's state in memory
+    (parameters, AdamW moments, step, generator), save and restore timed;
+    then epoch 1 again from the epoch-0 checkpoint through ``--resume``,
+    its flash launches counted and its parameters held against the
+    unbroken run's (RESUME_ATOL, RESUME_UPDATE_RTOL)."""
+    import shutil
+    import torch
+    from vit_torch_tpu_torch.checkpoint import ckpt_io
+    from vit_torch_tpu_torch.models.vit import VIT_CONFIGS
+    depth = VIT_CONFIGS[ARCH].depth
+    full_dir, res_dir = f"{workdir}/ckpt-unbroken", f"{workdir}/ckpt-resumed"
+    bundle = f"{workdir}/bundle-trained"
+    full, full_counts, full_s = _cli_trainer(
+        RESUME_ARGS + ["--epoch", "2", "--ckpt_dir", full_dir,
+                       "--save_every", "1", "--export_bundle", bundle,
+                       "--export_bs", BUCKETS],
+        f"{workdir}/resume_unbroken.json", "resume_unbroken",
+        _want(flash_attention_fwd=4 * depth, flash_attention_bwd=2 * depth),
+        augment_off=True)
+    steps = ckpt_io._steps(full_dir)
+    best = ckpt_io._steps(f"{full_dir}/{ckpt_io.BEST_SUBDIR}")
+    metrics = ckpt_io.saved_metrics(full_dir)
+    if steps != [0, 1] or len(best) != 1 or sorted(metrics) != [0, 1]:
+        raise AssertionError(f"checkpoint layout: steps {steps}, best "
+                             f"{best}, metrics {metrics}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ckpt_io.restore_checkpoint(full_dir, map_location="cuda")
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    in_memory = full.checkpoint_state(1)
+    _same_state(restored, in_memory, "checkpoint")
+    moments = sum(len(st) for st in restored["optimizer"]["state"].values())
+    t0 = time.perf_counter()
+    ckpt_io.save_checkpoint(f"{workdir}/ckpt-timed", in_memory, 1)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    ckpt_bytes = os.path.getsize(f"{full_dir}/1/state.pt")
+    del restored
+
+    # epoch 1 again, resumed from the unbroken run's epoch-0 checkpoint
+    shutil.copytree(f"{full_dir}/0", f"{res_dir}/0")
+    with open(f"{res_dir}/metrics.json", "w") as f:
+        json.dump({"0": metrics[0]}, f)
+    resumed, res_counts, res_s = _cli_trainer(
+        RESUME_ARGS + ["--epoch", "2", "--resume", res_dir, "--ckpt_dir",
+                       res_dir, "--save_every", "1"],
+        f"{workdir}/resume_resumed.json", "resume",
+        _want(flash_attention_fwd=2 * depth, flash_attention_bwd=depth),
+        augment_off=True)
+    if resumed.start_epoch != 1 or ckpt_io._steps(res_dir) != [0, 1]:
+        raise AssertionError(f"resumed at {resumed.start_epoch}, steps "
+                             f"{ckpt_io._steps(res_dir)}")
+    start = ckpt_io.restore_checkpoint(full_dir, 0,
+                                       map_location="cuda")["model"]
+    a, b = full.model.state_dict(), resumed.model.state_dict()
+    max_abs, diff_sq, update_sq = 0.0, 0.0, 0.0
+    for k, v in a.items():
+        if not v.is_floating_point():
+            continue
+        d = (b[k].double() - v.double())
+        max_abs = max(max_abs, float(d.abs().max()))
+        diff_sq += float((d * d).sum())
+        u = v.double() - start[k].double()
+        update_sq += float((u * u).sum())
+    update_rel = (diff_sq / update_sq) ** 0.5
+    row = {"arch": ARCH, "bs": TRAIN_BS, "unbroken_seconds": full_s,
+           "resumed_seconds": res_s, "steps": steps, "best": best,
+           "metrics": metrics, "checkpoint_bytes": ckpt_bytes,
+           "optimizer_state_tensors": moments, "save_ms": save_ms,
+           "restore_ms": restore_ms, "restored_bitwise": True,
+           "resumed_max_abs_diff": max_abs,
+           "resumed_update_rel_diff": update_rel,
+           "limits": [RESUME_ATOL, RESUME_UPDATE_RTOL],
+           "launches_unbroken": full_counts,
+           "launches_resumed_epoch": res_counts}
+    _say(json.dumps({"resume": row}))
+    if not (max_abs <= RESUME_ATOL and update_rel <= RESUME_UPDATE_RTOL):
+        raise AssertionError(f"resumed parameters differ from the unbroken "
+                             f"run's: max {max_abs}, update {update_rel}")
+    del full, resumed, a, b, start
+    return {"row": row, "bundle": bundle, "resumed": res_counts,
+            "unbroken": full_counts}
+
+
+def serve_trained_bundle(bundle: str):
+    """The resume phase's ``--export_bundle``, loaded by ``BundleServer``
+    on the card; one 32-image request, its logits held against the
+    trained weights' fp32 CPU forward (LOGITS: 5e-2 of max |logit|, as
+    the other served models)."""
+    from vit_torch_tpu_torch.serving.server import BundleServer
+    server = BundleServer(bundle, port=0, max_wait_ms=10)
+    try:
+        depth = _depth(server.model.model.backbone)
+        server.start()
+        batch = np.random.default_rng(1).integers(
+            0, 256, (TRAIN_BS, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8)
+        server.model.predict(batch)
+        _reset_counts()
+        t0 = time.perf_counter()
+        status, body = _post(server.address,
+                             {"images": [_png_b64(img) for img in batch]})
+        seconds = time.perf_counter() - t0
+        launches = _read_counts()
+        if status != 200:
+            raise AssertionError(f"predict answered {status}: {body}")
+        _, stats = _get(server.address, "/stats")
+        dispatches = sum(stats["dispatches"].values())
+        got = np.asarray([p["logits"] for p in body["predictions"]])
+        want = _cpu_fp32_logits(bundle, batch)
+        err = float(np.abs(got - want).max())
+        max_logit = float(np.abs(want).max())
+        row = {"bundle_manifest": server.model.manifest, "seconds": seconds,
+               "dispatches": stats["dispatches"], "launches": launches,
+               "logits_max_abs_err": err, "max_abs_logit": max_logit,
+               "argmax_agree": int((got.argmax(1) == want.argmax(1)).sum())}
+        _say(json.dumps({"export_bundle": row}))
+        if launches != _want(flash_attention_fwd=depth * dispatches):
+            raise AssertionError(f"served launches {launches}")
+        if got.shape != (TRAIN_BS, 10) or not err <= CONV_LOGITS_RTOL * \
+                max_logit:
+            raise AssertionError(f"served logits off by {err} (max |logit| "
+                                 f"{max_logit})")
+        return launches
+    finally:
+        server.shutdown()
+
+
+def check_autoaugment_ops(seed: int = 0):
+    """Every AutoAugment op at bs32 @224 on the card against the same op
+    on the CPU with the same draws (magnitudes and signs from a seed):
+    the share of pixels more than one level apart, and the op's time."""
+    import torch
+    from vit_torch_tpu_torch.data import autoaugment as aa
+    rng = np.random.default_rng(seed)
+    imgs = torch.from_numpy(rng.integers(
+        0, 256, (TRAIN_BS, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32))
+    imgs_d = imgs.cuda()
+    rows = {}
+    for k, name in enumerate(aa.OP_NAMES):
+        levels = aa._RANGES[name]
+        mags = torch.tensor([float(levels[i]) for i in
+                             rng.integers(0, 10, TRAIN_BS)])
+        signs = torch.from_numpy(rng.choice([-1.0, 1.0], TRAIN_BS).astype(
+            np.float32))
+        mags_d, signs_d = mags.cuda(), signs.cuda()
+        cpu = aa.OP_FNS[k](imgs, mags, signs)
+        card = aa.OP_FNS[k](imgs_d, mags_d, signs_d)
+        diff = (card.cpu() - cpu).abs()
+        share = float((diff > 1).float().mean())
+        ms = _time_ms(lambda: aa.OP_FNS[k](imgs_d, mags_d, signs_d),
+                      iters=5)
+        limit = AA_WARP_SHARE if name in AA_WARPS else 0.0
+        rows[name] = {"share_over_one_level": share,
+                      "max_abs_diff": float(diff.max()), "ms": ms,
+                      "limit": limit}
+        if share > limit:
+            raise AssertionError(f"autoaugment {name}: {share} of the "
+                                 f"pixels differ by more than one level")
+    _say(json.dumps({"autoaugment_ops": rows}))
+    return rows
+
+
+def steady_state_aug_auto(iters: int = 8):
+    """The dino_vitb8 bs32 fine-tune step with the plain train
+    augmentation and with ``auto_policy="imagenet"``, off, on, on, off,
+    and the two augmentations' device time from one profiler pass."""
+    import torch
+    from vit_torch_tpu_torch.data.augment import make_train_augment
+    from vit_torch_tpu_torch.data.datasets import NORM_VALUES
+    from vit_torch_tpu_torch.train.steps import make_train_step
+    zm, trainer, batch = _train_setup(TRAIN_BS)
+    zm.model.train()
+    augments = {side: make_train_augment(
+        **NORM_VALUES["synthetic"], dtype=torch.bfloat16,
+        auto_policy=policy) for side, policy in (("off", None),
+                                                 ("on", "imagenet"))}
+    steps = {side: make_train_step(zm.model, trainer.optimizer, fn,
+                                   generator=trainer.generator)
+             for side, fn in augments.items()}
+    out = {"off": [], "on": []}
+    for side in ("off", "on", "on", "off"):
+        trainer.train_step = steps[side]
+        t = _time_train_steps(trainer, batch, iters)
+        out[side].append({"step_ms": t["step_ms"],
+                          "host_step_ms": t["host_step_ms"],
+                          "device_busy_ms": t["profile"]["device_busy_ms"]})
+    for side, fn in augments.items():
+        prof = _profile_calls(lambda: fn(trainer.generator, batch[0]), 2)
+        out[f"augment_{side}"] = {"device_ms": prof["device_busy_ms"],
+                                  "host_ms": prof["window_ms"],
+                                  "groups_ms": prof["groups_ms"]}
+    _say(json.dumps({"aug_auto_steady_state": out}))
+    return out
+
+
+def _tire_folder(root: str, seed: int = 0) -> str:
+    """Two classes of TIRE_PER_CLASS PNGs in TIRE_SIZES, made from a seed:
+    a class-dependent stripe pattern under noise."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    for c, name in enumerate(("tread_a", "tread_b")):
+        os.makedirs(f"{root}/{name}")
+        for i in range(TIRE_PER_CLASS):
+            h, w = TIRE_SIZES[i % len(TIRE_SIZES)]
+            yy, xx = np.mgrid[0:h, 0:w] / 16.0
+            base = 128 + 60 * np.sin(yy * (1 + c) + xx * (2 - c))
+            img = base[..., None] + rng.normal(0, 30, (h, w, 3))
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                f"{root}/{name}/{i:02d}.png")
+    return root
+
+
+def tire_through_cli(workdir: str, folder: str, aug_auto: bool):
+    """dino_vits16 @224 on the tire data, setting 0 (7 channels), one
+    epoch through ``cli.main``: 1 train step, 1 eval step."""
+    extra = ["--aug_auto", "imagenet"] if aug_auto else []
+    mode = "tire" + ("_aug_auto" if aug_auto else "")
+    _, counts, seconds = _cli_trainer(
+        TIRE_ARGS + ["--data_path", folder] + extra, f"{workdir}/{mode}.json",
+        mode, _want(flash_attention_fwd=2 * VITS_DEPTH,
+                    flash_attention_bwd=VITS_DEPTH))
+    return dict(counts, seconds=seconds)
+
+
+def check_lbp_device(folder: str):
+    """``lbp_device`` on the card against the host ``lbp.py`` on the same
+    images (the tire phase's letterboxed test split at 224, setting 0):
+    the count of codes that differ (the JAX package claims 0 for its own),
+    and the device LBP's time at bs32."""
+    import torch
+    from vit_torch_tpu_torch.data.datasets import _imagefolder_arrays
+    from vit_torch_tpu_torch.data.lbp import get_lbp_merge
+    from vit_torch_tpu_torch.data.lbp_device import lbp_merge_device
+    from vit_torch_tpu_torch.data.tire import (TIRE_LBP_POINT_MULT,
+                                               TIRE_LBP_RADIUS,
+                                               TIRE_SETTINGS)
+    methods = TIRE_SETTINGS[0]["methods"]
+    splits, _ = _imagefolder_arrays(folder, VITS_SIZE, letterbox=True)
+    imgs = splits["test"][0]
+    kw = dict(radius=TIRE_LBP_RADIUS, point_mult=TIRE_LBP_POINT_MULT,
+              methods=methods)
+    card = lbp_merge_device(torch.from_numpy(imgs).cuda(), **kw).cpu()
+    host = np.stack([get_lbp_merge(img, **kw) for img in imgs])
+    differ = int((card.numpy() != host).sum())
+    batch = torch.from_numpy(np.concatenate(
+        [splits["train"][0][:TRAIN_BS - len(imgs)], imgs])).cuda()
+    ms = _time_ms(lambda: lbp_merge_device(batch, **kw), iters=5)
+    row = {"images": len(imgs), "codes": int(host.size),
+           "codes_differing": differ, "bs32_ms": ms,
+           "shape": list(batch.shape), "methods": list(methods)}
+    _say(json.dumps({"lbp_device": row}))
+    if differ:
+        raise AssertionError(f"device LBP differs from the host in {differ} "
+                             f"codes")
+    return row
+
+
+def lifecycle_and_data_extras():
+    """The training life cycle (resume, ``--export_bundle``) and the data
+    extras (AutoAugment, the tire data, device LBP): no kernel of their
+    own; their ViT steps run rows 1-2.  Prints their summary line and
+    returns the flash launch counts of each path."""
+    from vit_torch_tpu_torch.cli import main as cli_main
+    from vit_torch_tpu_torch.models.vit import VIT_CONFIGS
+    with tempfile.TemporaryDirectory() as workdir:
+        resume = resume_through_cli(workdir)
+        bundle_launches = serve_trained_bundle(resume["bundle"])
+    aa_ops = check_autoaugment_ops()
+    depth, steps = VIT_CONFIGS[ARCH].depth, SYNTHETIC_N // TRAIN_BS
+    with tempfile.TemporaryDirectory() as workdir:
+        aug_auto = _run_cli(
+            cli_main.main, TRAIN_ARGS + ["--aug_auto", "imagenet"],
+            f"{workdir}/aug_auto.json", "aug_auto",
+            _want(flash_attention_fwd=depth * 2 * steps,
+                  flash_attention_bwd=depth * steps))
+    aa_steps = steady_state_aug_auto()
+    with tempfile.TemporaryDirectory() as workdir:
+        folder = _tire_folder(f"{workdir}/tire")
+        tire_paths = {mode: tire_through_cli(workdir, folder, on)
+                      for mode, on in (("tire", False),
+                                       ("tire_aug_auto", True))}
+        lbp_row = check_lbp_device(folder)
+    paths = {"resume_unbroken": resume["unbroken"],
+             "resume_resumed_epoch": resume["resumed"],
+             "export_bundle_serve": bundle_launches, "aug_auto": aug_auto,
+             **tire_paths}
+    _say(json.dumps({"lifecycle_and_data_extras": {
+        "resume": resume["row"], "launches_by_path": paths,
+        "autoaugment_ops": aa_ops, "aug_auto_steps": aa_steps,
+        "lbp_device": lbp_row}}))
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3069,6 +3481,7 @@ def main() -> int:
                 workdir, RESNEXT_ARCH, mode, {}, {})
     xcit_steps = steady_state_xcit()
     resnext_steps = steady_state_resnext()
+    extra_paths = lifecycle_and_data_extras()
 
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -3084,7 +3497,8 @@ def main() -> int:
         "launches_by_path": {
             "serve": launches["flash_attention_fwd"],
             "finetune": finetune["flash_attention_fwd"],
-            "lineareval": lineareval["flash_attention_fwd"]},
+            "lineareval": lineareval["flash_attention_fwd"],
+            **{p: c["flash_attention_fwd"] for p, c in extra_paths.items()}},
         "ms_with_lse": train_row["fwd_with_lse_ms"],
         "max_abs_err_lse": max(r["max_abs_err_lse"] for r in bwd_rows),
         "device_ms": serving_row["device_ms"],
@@ -3109,7 +3523,8 @@ def main() -> int:
         "shape": train_row["shape"],
         "launches_by_path": {
             "finetune": finetune["flash_attention_bwd"],
-            "lineareval": lineareval["flash_attention_bwd"]},
+            "lineareval": lineareval["flash_attention_bwd"],
+            **{p: c["flash_attention_bwd"] for p, c in extra_paths.items()}},
         "ms_32px_bs128": bwd_rows[1]["ms"],
         "bound_ms_32px_bs128": bwd_rows[1]["bound_ms"],
         "device_ms": train_row["device_ms"],

@@ -31,6 +31,9 @@ from vit_torch_tpu_torch.cli import main as cli_main
 from vit_torch_tpu_torch.models import layers, vit
 from vit_torch_tpu_torch.models.zoo import VisionModelZoo
 from vit_torch_tpu_torch.ops import attn_block as ab
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 GRADS = ("x", "w_qkv", "b_qkv", "w_proj", "b_proj")
 

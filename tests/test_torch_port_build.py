@@ -14,6 +14,9 @@ import sys
 import pytest
 
 from vit_torch_tpu_torch.ops import _build
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -45,6 +45,9 @@ from vit_torch_tpu_torch.ops import talking_heads as th
 from vit_torch_tpu_torch.serving import load_bundle
 from vit_torch_tpu_torch.train import steps
 from vit_torch_tpu_torch.train.optimizers import get_optimizer
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 # head dim 48, as every published CaiT config has (cait_test has 16)
 D48 = jax_cait.CaiTConfig(embed_dim=96, num_heads=2, depth=2, patch_size=16)

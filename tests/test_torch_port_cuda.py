@@ -39,6 +39,9 @@ from vit_torch_tpu_torch.ops import flash_attention as fa
 from vit_torch_tpu_torch.ops import talking_heads as th
 from vit_torch_tpu_torch.ops import window_attention as wa
 from vit_torch_tpu_torch.ops import window_block as wb
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 pytestmark = pytest.mark.cuda
 

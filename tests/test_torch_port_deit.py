@@ -37,6 +37,9 @@ from vit_torch_tpu_torch.models.layers import init_weights
 from vit_torch_tpu_torch.models.zoo import Classifier, VisionModelZoo
 from vit_torch_tpu_torch.ops import fused_mlp as fm
 from vit_torch_tpu_torch.serving import load_bundle
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 
 def _pair(cfg, size, seed=0):

@@ -21,6 +21,9 @@ from vit_torch_tpu_torch.ops import flash_attention as fa
 from vit_torch_tpu_torch.ops.attention import dot_product_attention
 from vit_torch_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bhnd, flash_attention_bhnd_reference)
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 ATOL = 1e-5
 

@@ -25,6 +25,9 @@ from vit_torch_tpu.ops.flash_attention import (
     flash_attention as jax_flash_attention,
     flash_attention_bhnd as jax_flash_attention_bhnd)
 from vit_torch_tpu_torch.ops import flash_attention as fa
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 ATOL, RTOL = 1e-5, 1e-5
 

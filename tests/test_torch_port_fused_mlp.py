@@ -22,6 +22,9 @@ import torch
 from vit_torch_tpu.models import layers as jax_layers
 from vit_torch_tpu_torch.models import layers
 from vit_torch_tpu_torch.ops import fused_mlp as fm
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 # the module (the JAX package's ops/__init__ exports the function of the
 # same name)

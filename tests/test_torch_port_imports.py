@@ -6,6 +6,9 @@ process has both loaded."""
 import os
 import subprocess
 import sys
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -62,6 +62,9 @@ from vit_torch_tpu_torch.serving import export_classifier, load_bundle
 from vit_torch_tpu_torch.serving.export import save_bundle
 from vit_torch_tpu_torch.train import steps
 from vit_torch_tpu_torch.train.optimizers import get_optimizer
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 # fp32 values: max |port - JAX| relative to max |JAX|
 RTOL = 1e-4

@@ -28,6 +28,9 @@ from vit_torch_tpu_torch.data.datasets import NORM_VALUES
 from vit_torch_tpu_torch.models.zoo import VisionModelZoo
 from vit_torch_tpu_torch.serving import (
     BundleServer, export_classifier, load_bundle, save_bundle)
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 NORM = NORM_VALUES["stl10"]
 

@@ -46,6 +46,9 @@ from vit_torch_tpu_torch.ops import window_block as wb
 from vit_torch_tpu_torch.serving import load_bundle
 from vit_torch_tpu_torch.train import steps
 from vit_torch_tpu_torch.train.optimizers import get_optimizer
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 # head dim 32, as every published Swin config has, so both routes reach the
 # Pallas kernels on the JAX side

@@ -8,6 +8,9 @@ size the kernels address, and what the kernels do not take is refused."""
 import pytest
 
 from vit_torch_tpu_torch.ops import talking_heads as th
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 SMEM_MAX, SMEM_HALF = 232448, 115712
 # chip_smoke's TH_SHAPES (cait_s24_224 bs32, xxs24, s24_384, m36_384,

@@ -23,6 +23,9 @@ from vit_torch_tpu_torch.checkpoint.torch_import import interpolate_pos_embed
 from vit_torch_tpu_torch.models.layers import ClassifierHead
 from vit_torch_tpu_torch.models.vit import ViTConfig, VisionTransformer
 from vit_torch_tpu_torch.models.zoo import Classifier
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 # (name, config, image size): the repo's tiny test arch (head dim 32) and a
 # head-dim-64 model as dino_vitb8 has

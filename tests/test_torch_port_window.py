@@ -30,6 +30,9 @@ from vit_torch_tpu.ops.window_block import (
 from vit_torch_tpu_torch.models import swin
 from vit_torch_tpu_torch.ops import window_attention as wa
 from vit_torch_tpu_torch.ops import window_block as wb
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 BF16_RTOL = 2e-2
 

@@ -34,6 +34,9 @@ from vit_torch_tpu.ops.window_block import (
     window_block_spatial as jax_window_block_spatial)
 from vit_torch_tpu_torch.ops import window_attention as wa
 from vit_torch_tpu_torch.ops import window_block as wb
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 # the attention backward in fp32: gradients of order 1-10 that differ by
 # summation order (test_kernels.py holds the Pallas kernel to its own

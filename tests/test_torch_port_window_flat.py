@@ -24,6 +24,9 @@ from vit_torch_tpu.models import swin as jax_swin
 from vit_torch_tpu_torch.checkpoint.jax_import import state_dict_from_jax
 from vit_torch_tpu_torch.models import swin
 from vit_torch_tpu_torch.ops import window_block as wb
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 # the module (the JAX package's ops/__init__ may export a function of the
 # same name)

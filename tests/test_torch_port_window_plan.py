@@ -19,6 +19,9 @@ from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS
 from vit_torch_tpu_torch.ops import gemm as gm
 from vit_torch_tpu_torch.ops import window_attention as wa
 from vit_torch_tpu_torch.ops import window_block as wb
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 SMEM_MAX = 232448
 SWIN_BLOCKS = [(32, 96, 96, 128, 12, 6), (32, 96, 96, 128, 12, 0),

@@ -20,6 +20,9 @@ from vit_torch_tpu.models.zoo import VisionModelZoo as JaxZoo
 from vit_torch_tpu_torch.checkpoint.jax_import import state_dict_from_jax
 from vit_torch_tpu_torch.models import layers, swin, vit, xcit
 from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+from torch_threads import fit_threads_to_workers
+
+fit_threads_to_workers()
 
 
 def test_available_archs_match_the_jax_facade():

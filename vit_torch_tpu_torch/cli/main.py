@@ -14,8 +14,18 @@ runs in train mode) and the cached linear eval reads (eval mode);
 ``--pretrained --torch_ckpt`` loads a checkpoint of the arch's family.
 ``VITX_FUSED_MLP=1`` sends every block's MLP through the fused kernel.
 ``--lineareval`` freezes the backbone; ``--lineareval --cache_features``
-runs the backbone once and trains the head on cached features.  Flags of
-slices that are not ported yet raise (``utils/args.py:check_ported``).
+runs the backbone once and trains the head on cached features.
+
+``--ckpt_dir D`` saves checkpoints into D (every new best, and every
+``--save_every`` epochs; the best mirrored into ``D/best``) and
+``--resume D`` continues from D's latest one (``train/trainer.py``).
+``--export_bundle B`` writes the trained classifier as a serving bundle
+(``serving/export.py``, buckets ``--export_bs``, the dataset's
+normalisation) that ``cli.serve --bundle B`` serves.  ``--aug_auto
+POLICY`` adds AutoAugment to the train augmentation.  ``--dataset tire
+--data_path DIR`` builds LBP channel stacks (``--tire_settings 0-3``;
+7 channels for setting 0) from an ImageFolder (``data/tire.py``).  The
+parallelism flags raise (``utils/args.py:check_ported``).
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from vit_torch_tpu_torch.data.augment import (make_eval_transform,
 from vit_torch_tpu_torch.data.datasets import Datasets
 from vit_torch_tpu_torch.device import resolve_device
 from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+from vit_torch_tpu_torch.serving.export import export_classifier, save_bundle
 from vit_torch_tpu_torch.train.trainer import Trainer
 from vit_torch_tpu_torch.utils.args import (ARGS, check_ported,
                                             classification_config)
@@ -46,16 +57,30 @@ def main(argv: Optional[Sequence[str]] = None) -> Stats:
     device = resolve_device(args["device"])
     dtype = torch.bfloat16 if args["dtype"] == "bfloat16" else torch.float32
 
-    data = Datasets(args["dataset"], image_size=args["image_size"],
-                    bs=args["bs"], root_path=args["root_path"],
-                    data_path=args["data_path"],
-                    limit_train=args["limit_train"],
-                    limit_test=args["limit_test"], seed=args["seed"])
+    image_channels = 3
+    if args["dataset"] == "tire":
+        from vit_torch_tpu_torch.data.tire import TireDatasets
+        data = TireDatasets(args["data_path"] or args["root_path"],
+                            image_size=args["image_size"] or 224,
+                            bs=args["bs"], settings=args["tire_settings"],
+                            seed=args["seed"], limit_train=args["limit_train"],
+                            limit_test=args["limit_test"],
+                            aug_auto=args["aug_auto"])
+        image_channels = data.image_channels
+        augment_fn = data.make_augment_fn(dtype=dtype)
+    else:
+        data = Datasets(args["dataset"], image_size=args["image_size"],
+                        bs=args["bs"], root_path=args["root_path"],
+                        data_path=args["data_path"],
+                        limit_train=args["limit_train"],
+                        limit_test=args["limit_test"], seed=args["seed"])
+        augment_fn = make_train_augment(**data.norm_values, dtype=dtype,
+                                        auto_policy=args["aug_auto"] or None)
 
     classifier = [*args["fc"], data.num_labels]
     zoo_model = VisionModelZoo.get_model(
         args["arch"], classifier=classifier, image_size=data.image_size,
-        dtype=dtype, device=device,
+        dtype=dtype, device=device, image_channels=image_channels,
         generator=torch.Generator().manual_seed(args["seed"]))
     if args["pretrained"]:
         if not args["torch_ckpt"]:
@@ -88,9 +113,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Stats:
         lr_gamma=args["lr_gamma"], lr_scale=args["lr_scale"],
         lineareval=args["lineareval"],
         earlystop_epoch=args["earlystop_epoch"],
-        seed=args["seed"], stats=stats,
-        augment_fn=make_train_augment(**data.norm_values, dtype=dtype),
+        seed=args["seed"], stats=stats, augment_fn=augment_fn,
         eval_transform=make_eval_transform(**data.norm_values, dtype=dtype),
+        ckpt_dir=args["ckpt_dir"], save_every=args["save_every"],
+        resume=args["resume"],
     )
     # as in the JAX CLI, the scan path trains on data.sets, which ignores
     # --limit_train / --limit_test
@@ -102,6 +128,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Stats:
     else:
         trainer.fit(data.loaders)
     print("\nresults:", json.dumps(stats.update_results(), indent=2))
+    if args["export_bundle"]:
+        exported = export_classifier(
+            zoo_model,
+            batch_sizes=[int(b) for b in args["export_bs"].split(",") if b],
+            norm=data.norm_values)
+        save_bundle(args["export_bundle"], exported)
+        print("serving bundle saved to", args["export_bundle"])
     if args["stats_fp"]:
         print("stats saved to", args["stats_fp"])
     return stats

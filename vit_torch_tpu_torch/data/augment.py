@@ -133,14 +133,17 @@ def make_train_augment(
 ) -> Callable[[torch.Generator, torch.Tensor], torch.Tensor]:
     """The reference's train transform stack as one device function,
     ``augment(generator, uint8 images) -> float images``, in the JAX
-    package's order: crop → flip → normalize → cutout.
+    package's order: crop → flip → AutoAugment → normalize → cutout.
 
     ``crop_pad=None`` derives the reference default ``max(2, size // 12)``.
+    ``auto_policy`` ∈ {imagenet, cifar10, stl10, svhn} enables AutoAugment
+    (``autoaugment.py``) on the batch's device.
     """
-    if auto_policy:
-        raise NotImplementedError(
-            "AutoAugment is not ported yet (ROADMAP.md A7)")
     do_flip = hflip
+    auto_fn = None
+    if auto_policy:
+        from vit_torch_tpu_torch.data.autoaugment import make_autoaugment
+        auto_fn = make_autoaugment(auto_policy)
 
     def augment(gen: torch.Generator, images: torch.Tensor) -> torch.Tensor:
         H = images.shape[1]
@@ -148,6 +151,8 @@ def make_train_augment(
         x = random_crop(gen, images, pad, fill=128)
         if do_flip:
             x = random_hflip(gen, x)
+        if auto_fn is not None:
+            x = auto_fn(gen, x)
         x = normalize(x, mean, std, dtype=dtype)
         if cutout_size > 0:
             x = cutout(gen, x, cutout_size)

@@ -52,6 +52,7 @@ class ZooModel:
     image_size: int
     classifier: Optional[List[int]] = None
     patch_size: Optional[int] = None
+    image_channels: int = 3
 
     @property
     def dtype(self) -> torch.dtype:
@@ -169,7 +170,8 @@ class VisionModelZoo:
                         image_size=image_size,
                         classifier=list(classifier) if classifier else None,
                         patch_size=getattr(backbone.config, "patch_size",
-                                           None))
+                                           None),
+                        image_channels=image_channels)
 
     @classmethod
     def get_output_shape(cls, zoo_model: ZooModel, image_size: int,

@@ -10,9 +10,10 @@ from; there is no traced artifact (the JAX package's StableHLO).
 
 Serving contract per bundle:
 
-    uint8 images (bs, H, W, 3)  →  fp32 logits (bs, num_classes)
+    uint8 images (bs, H, W, C)  →  fp32 logits (bs, num_classes)
 
-with ``(x/255 - mean)/std`` computed in the activation dtype.
+with ``(x/255 - mean)/std`` computed in the activation dtype; C is the
+manifest's ``image_channels`` (3, or a tire model's LBP channel stack).
 ``ServingModel.predict`` pads a batch up to the smallest bucket that holds
 it and slices the padding off; oversize batches run in chunks of the
 largest bucket.
@@ -60,8 +61,10 @@ class ServingModel:
 
     def predict(self, images: np.ndarray) -> np.ndarray:
         """Run raw uint8 NHWC images through the classifier."""
-        if images.ndim != 4 or images.shape[-1] != 3:
-            raise ValueError(f"expected (bs, H, W, 3) uint8, got {images.shape}")
+        C = self.manifest.get("image_channels", 3)
+        if images.ndim != 4 or images.shape[-1] != C:
+            raise ValueError(f"expected (bs, H, W, {C}) uint8, got "
+                             f"{images.shape}")
         if np.asarray(images).dtype != np.uint8:
             raise ValueError(
                 f"expected uint8 pixels in [0, 255], got {images.dtype} — "
@@ -113,6 +116,7 @@ def export_classifier(zoo_model: ZooModel, *,
         "arch": zoo_model.arch,
         "family": zoo_model.family,
         "image_size": int(zoo_model.image_size),
+        "image_channels": int(zoo_model.image_channels),
         "batch_sizes": sorted(set(int(b) for b in batch_sizes)),
         "num_classes": int(classifier[-1] if classifier
                            else zoo_model.feature_dim),
@@ -158,7 +162,8 @@ def load_bundle(bundle_dir: str,
     dt = getattr(torch, manifest["activation_dtype"])
     zm = VisionModelZoo.get_model(
         manifest["arch"], classifier=manifest["classifier"],
-        image_size=manifest["image_size"], dtype=dt, device="meta")
+        image_size=manifest["image_size"], dtype=dt, device="meta",
+        image_channels=manifest.get("image_channels", 3))
     state = torch.load(os.path.join(bundle_dir, _WEIGHTS),
                        map_location="cpu", weights_only=True)
     zm.model.load_state_dict(state, assign=True)

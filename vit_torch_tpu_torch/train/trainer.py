@@ -13,8 +13,26 @@ augmentation and every dropout / drop-path of the model draw from it, so a
 run is reproducible from ``seed``.  It switches the model to ``train()``
 for the train split and ``eval()`` for the val split.
 
-Checkpointing, resume, meshes and pipelines are not ported yet: the CLI
-refuses their flags (``utils/args.py:check_ported``).
+Checkpoints (``checkpoint/ckpt_io.py``) follow the JAX trainer: with
+``ckpt_dir`` every new best val accuracy is saved, and every
+``save_every``-th epoch, with the epoch as the step; each best is mirrored
+into ``ckpt_dir/best`` (``max_to_keep=1``) so that recency retention never
+evicts it.  A checkpoint holds the model's ``state_dict()`` (BatchNorm
+statistics included), the optimizer's, the step count, the epoch and the
+generator's state.  ``resume`` restores the latest one and starts at the
+epoch after it, with the best val accuracy of every save seeding both the
+best-tracking and the early-stop history.  The cached linear eval saves
+the full model (frozen backbone, live head) with the head optimizer's
+state; a resumed cached run starts that optimizer afresh, as the JAX
+package does.
+
+As in the JAX package, the epoch loop over device-resident splits makes a
+fresh ``np.random.default_rng(seed)`` and loops from the start epoch, so
+a resumed run's first epoch takes epoch 0's permutation, not the one the
+unbroken run would take there (the per-step loaders restart theirs the
+same way).  A resumed run equals an unbroken one only where the order
+cannot matter.  Meshes and pipelines are not ported yet: the CLI refuses
+their flags (``utils/args.py:check_ported``).
 """
 
 from __future__ import annotations
@@ -25,6 +43,10 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from vit_torch_tpu_torch.checkpoint.ckpt_io import (BEST_SUBDIR,
+                                                   best_saved_metric,
+                                                   restore_checkpoint,
+                                                   save_checkpoint)
 from vit_torch_tpu_torch.models.layers import set_generator
 from vit_torch_tpu_torch.models.zoo import ZooModel
 from vit_torch_tpu_torch.train.optimizers import (get_optimizer,
@@ -84,6 +106,9 @@ class Trainer:
         stats: Optional[Stats] = None,
         augment_fn: Optional[Callable] = None,
         eval_transform: Optional[Callable] = None,
+        ckpt_dir: str = "",
+        save_every: int = 0,
+        resume: str = "",
         print_progress: bool = True,
     ) -> None:
         self.zoo_model = zoo_model
@@ -99,6 +124,10 @@ class Trainer:
         self.seed = seed
         self.augment_fn = augment_fn
         self.eval_transform = eval_transform
+        self.ckpt_dir = ckpt_dir
+        self.save_every = save_every
+        self.start_epoch = 0
+        self.step = 0                         # optimizer steps taken
 
         self.lr_factor_fn = get_lr_factor_fn(lr_scheduler, lr_step, lr_gamma,
                                              lr_scale)
@@ -110,6 +139,59 @@ class Trainer:
             self.model, self.optimizer, augment_fn, generator=self.generator,
             lineareval=lineareval)
         self.eval_step = make_eval_step(self.model, eval_transform)
+
+        # best-val tracking persists across resume: without re-seeding, the
+        # first epoch after it would always rank as a new best
+        self.best_acc = -1.0
+        if resume:
+            self._restore(resume)
+
+    # ------------------------------------------------------------------
+    def _restore(self, ckpt_dir: str) -> None:
+        state = restore_checkpoint(ckpt_dir, map_location=self.device)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = state["step"]
+        # a CUDA generator's state is a CPU ByteTensor
+        self.generator.set_state(state["generator"].cpu())
+        self.start_epoch = state["epoch"] + 1
+        prev_best = best_saved_metric(ckpt_dir)
+        if prev_best is not None:
+            self.best_acc = prev_best
+        if self.print_progress:
+            print(f"resumed from {ckpt_dir} at epoch {self.start_epoch}"
+                  + (f" (best val_acc so far {prev_best:.4f})"
+                     if prev_best is not None else ""))
+
+    def checkpoint_state(self, epoch: int) -> Dict[str, Any]:
+        """What a checkpoint holds after ``epoch``."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "epoch": epoch,
+                "generator": self.generator.get_state()}
+
+    def _maybe_checkpoint(self, epoch: int, val_acc: float) -> None:
+        """The JAX trainer's policy: save on a new best and every
+        ``save_every`` epochs; mirror each best into ``ckpt_dir/best``."""
+        if not self.ckpt_dir:
+            return
+        is_best = val_acc > self.best_acc
+        self.best_acc = max(self.best_acc, val_acc)
+        if not (is_best or (self.save_every
+                            and epoch % self.save_every == 0)):
+            return
+        state = self.checkpoint_state(epoch)
+        save_checkpoint(self.ckpt_dir, state, epoch,
+                        metrics={"val_acc": val_acc})
+        if is_best:
+            save_checkpoint(os.path.join(self.ckpt_dir, BEST_SUBDIR), state,
+                            epoch, metrics={"val_acc": val_acc},
+                            max_to_keep=1)
+
+    def _seed_val_accs(self) -> list:
+        """Early-stop history seed: the best pre-resume accuracy keeps the
+        no-improvement window honest across a resume."""
+        return [self.best_acc] if self.best_acc > -1.0 else []
 
     # ------------------------------------------------------------------
     def _to_device(self, batch: Dict[str, np.ndarray]):
@@ -132,6 +214,7 @@ class Trainer:
             images, labels, mask = self._to_device(batch)
             if training:
                 m = self.train_step(images, labels, mask)
+                self.step += 1
             else:
                 m = self.eval_step(images, labels, mask)
             if debug_eval:
@@ -160,8 +243,8 @@ class Trainer:
     def fit(self, loaders: Dict[str, Any]) -> Stats:
         """The per-step path (``--scan 0``): host batches from loaders."""
         S = self.stats
-        val_accs: list = []
-        for epoch in range(self.epochs):
+        val_accs = self._seed_val_accs()
+        for epoch in range(self.start_epoch, self.epochs):
             set_learning_rate(self.optimizer,
                               self.base_lr * self.lr_factor_fn(epoch))
             for split in ("train", "val"):
@@ -176,6 +259,7 @@ class Trainer:
                     S.print(force=True, end="\n")
                 if split == "val":
                     val_accs.append(final["acc"])
+                    self._maybe_checkpoint(epoch, final["acc"])
             if should_early_stop(val_accs, self.earlystop_epoch):
                 if self.print_progress:
                     print(f"\nearly stop at epoch {epoch}: no val improvement "
@@ -231,10 +315,10 @@ class Trainer:
 
     def _scan_epoch_loop(self, train_run, eval_run, device_sets,
                          batch_size: int, module: torch.nn.Module) -> Stats:
-        rng = np.random.default_rng(self.seed)
+        rng = np.random.default_rng(self.seed)   # epoch 0's, also on resume
         S = self.stats
-        val_accs: list = []
-        for epoch in range(self.epochs):
+        val_accs = self._seed_val_accs()
+        for epoch in range(self.start_epoch, self.epochs):
             lr = self.base_lr * self.lr_factor_fn(epoch)
             set_learning_rate(self.optimizer, lr)
             for split, training in (("train", True), ("val", False)):
@@ -248,6 +332,7 @@ class Trainer:
                 module.train(training)
                 if training:
                     m = train_run(images, labels, idx, msk)
+                    self.step += len(idx)
                 else:
                     m = eval_run(images, labels, idx, msk)
                     if isinstance(m, tuple):       # VITX_DEBUG_EVAL preds
@@ -264,6 +349,7 @@ class Trainer:
                     S.print(force=True, end="\n")
                 if split == "val":
                     val_accs.append(final["acc"])
+                    self._maybe_checkpoint(epoch, final["acc"])
             if should_early_stop(val_accs, self.earlystop_epoch):
                 if self.print_progress:
                     print(f"\nearly stop at epoch {epoch}")

@@ -131,8 +131,8 @@ def classification_config(stamp: Optional[str] = None) -> List[Tuple]:
     """The reference ``main.py:73-101`` flag table, kept name-compatible.
 
     ``device`` is ``cuda`` (the default, as in the reference) or ``cpu``;
-    checkpoint/resume flags are net-new capability of the JAX package and
-    raise here until their slice lands (:func:`check_ported`).
+    the parallelism flags raise until their slice lands
+    (:func:`check_ported`).
     """
     stamp = stamp or time_stamp()
     return [
@@ -170,10 +170,10 @@ def classification_config(stamp: Optional[str] = None) -> List[Tuple]:
         ("aug_auto", "", str, ["", "imagenet", "cifar10", "stl10", "svhn"],
          "device-side AutoAugment policy ('' disables)"),
         # --- net-new (no reference equivalent): checkpointing / resume / precision ---
-        ("ckpt_dir", "", str, None, "orbax checkpoint directory ('' disables saving)"),
+        ("ckpt_dir", "", str, None, "checkpoint directory ('' disables saving)"),
         ("export_bundle", "", str, None,
-         "after training, export the eval forward as a serving bundle "
-         "(StableHLO) to this directory"),
+         "after training, export the classifier as a serving bundle "
+         "(manifest + weights) to this directory"),
         ("export_bs", "1,8,32", str, None,
          "comma-separated batch-size buckets for --export_bundle"),
         ("resume", "", str, None, "checkpoint path to resume training from"),
@@ -204,21 +204,13 @@ UNPORTED_FLAGS = {
     "mesh": ("", "A8, parallelism"),
     "fsdp": (False, "A8, parallelism"),
     "pipe_microbatches": (0, "A8, parallelism"),
-    "ckpt_dir": ("", "A6, checkpoints"),
-    "resume": ("", "A6, checkpoints"),
-    "save_every": (0, "A6, checkpoints"),
-    "aug_auto": ("", "A7, data extras"),
-    "export_bundle": ("", "A9, serving extras"),
 }
 
 
 def check_ported(args: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` for a flag (or ``--dataset tire``) of
-    a slice that is not ported yet, given a non-default value."""
+    """Raise ``NotImplementedError`` for a flag of a slice that is not
+    ported yet, given a non-default value."""
     for flag, (default, item) in UNPORTED_FLAGS.items():
         if args.get(flag, default) != default:
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP.md {item})")
-    if args.get("dataset") == "tire":
-        raise NotImplementedError(
-            "--dataset tire is not ported yet (ROADMAP.md A7, data extras)")
