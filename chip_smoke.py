@@ -5,8 +5,9 @@
 1. prints the device and its power limit;
 2. builds every CUDA kernel (``_build.KERNELS``: the flash-attention
    forward and backward, the Swin window-attention core forward and
-   backward, the window GEMM, talking heads, the fused attention block
-   and the fused MLP) from the sources in the checkout
+   backward, the window GEMM, talking heads, the fused attention block,
+   the fused MLP and W8A8's row quantisation and int8 product) from the
+   sources in the checkout
    (``nvcc``, ``sm_90a``, one process per source, all started together)
    and prints each kernel's registers, shared memory and spills;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -129,7 +130,22 @@
    trains dino_vits16 @224 bs32 on it (setting 0, 7 channels) with and
    without ``--aug_auto`` and holds device LBP against host LBP (no code
    may differ);
-13. prints one JSON line with each kernel's numbers, then the card's name
+13. W8A8 (``csrc/w8a8.cu``): holds Q1 (row quantisation; bit for bit)
+   and Q2 (the int8 product; within W8A8_ULPS) against their plain
+   versions at dino_vitb8 @224 bs8 and bs32's qkv, proj, fc1 and fc2 and
+   a ragged shape, timed beside their bounds, the plain versions,
+   ``torch._int_mm`` plus the same rescale and the bf16 ``F.linear``
+   (``kernel check w8a8``; the source passes the ptxas gate); exports
+   dino_vitb8 @224 through ``cli.export --w8a8`` and serves it over HTTP
+   as in 4 (per dispatch 48 Q1 and 48 Q2 launches and 12 flash, the
+   logits against the plain versions), then the fp bundle of the same
+   weights: bundle bytes, cosine and top-1 agreement of the two, their
+   predict times in turns (``w8a8_serve``); runs one full-width bs8 eval
+   forward of deit_base_distilled, cait_s24_224, xcit_small_24_p16 and
+   swin_base_384 with ``VITX_W8A8`` off and on (every QLinear one Q2 and
+   two Q1 launches, Swin off B9, cosine above W8A8_MIN_COSINE:
+   ``w8a8_families``);
+14. prints one JSON line with each kernel's numbers, then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -406,6 +422,29 @@ TIRE_SIZES = [(240, 320), (300, 300), (180, 260), (400, 280)]
 TIRE_ARGS = ["--dataset", "tire", "--arch", VITS_ARCH, "--image_size",
              str(VITS_SIZE), "--tire_settings", "0", "--bs", str(TRAIN_BS),
              "--epoch", "1", "--opt", "adamw", "--lr", "1e-4", "--fc", "512"]
+# W8A8 (csrc/w8a8.cu): Q1 (row quantisation) must equal its plain version
+# bit for bit; Q2 (int8 product) may differ from its plain version by one
+# ulp of its output (both round each step once; nvcc contracts nothing).
+# The shapes: dino_vitb8 @224 (785 tokens) at bs8 and bs32, its qkv, proj,
+# fc1 and fc2 (T, K, N), then a partial row tile, a K tail and a partial
+# column tile
+W8A8_ULPS = 1
+W8A8_SHAPES = [(785 * bs, K, N) for bs in (8, 32)
+               for K, N in ((768, 2304), (768, 768), (768, 3072),
+                            (3072, 768))] + [(203, 784, 200)]
+# served W8A8 logits against the plain versions on the card (flash's
+# rounding can move a code by one step, so not bit for bit): max abs err
+# relative to max |plain logit|; the W8A8 bundle's logits against the fp
+# bundle's (same weights): cosine above the JAX test's 0.99
+# (tests/test_quant.py:test_vit_logits_agreement)
+W8A8_LOGITS_RTOL = 5e-2
+W8A8_MIN_COSINE = 0.99
+# every transformer family's eval forward at full width, W8A8 on and off
+W8A8_FAMILIES = [(DEIT_ARCH, DEIT_SIZE), (CAIT_ARCH, CAIT_SIZE),
+                 (XCIT_ARCH, XCIT_SIZE), (SWIN_ARCH, SWIN_SIZE)]
+W8A8_FAMILY_BS = 8
+H100_INT8_OPS = 1979e12           # dense tensor-core peak, SXM
+
 
 def _say(*parts) -> None:
     print(*parts, flush=True)
@@ -1402,11 +1441,14 @@ def _depth(backbone) -> int:
 def serve_end_to_end(workdir: str, arch: str, image_size: int,
                      kernels, plain, flops_per_image: int,
                      logits_tol: float, relative: bool, prepare=None,
-                     buckets: str = BUCKETS, per_dispatch=None):
+                     buckets: str = BUCKETS, per_dispatch=None,
+                     export_flags=()):
     """Export → BundleServer on cuda → concurrent HTTP requests; prints
     the serving numbers and returns the launch counts of the HTTP run.
     Each of ``kernels`` must launch once per layer (``per_dispatch`` times
-    when given) per dispatch, and no other kernel at all.  ``plain()`` is
+    when given) per dispatch, or, where ``kernels`` maps names to counts,
+    that many times per dispatch; no other kernel may launch at all.
+    ``export_flags`` go to ``cli.export`` (``--w8a8``).  ``plain()`` is
     a context that patches the plain versions in; the logits of the two
     must agree within ``logits_tol`` (relative to max |plain logit| when
     ``relative``); with ``plain=None`` the served logits are held against
@@ -1419,11 +1461,12 @@ def serve_end_to_end(workdir: str, arch: str, image_size: int,
     from vit_torch_tpu_torch.data.datasets import resize_images
     from vit_torch_tpu_torch.serving.server import BundleServer
 
-    bundle = f"{workdir}/bundle-{arch}"
+    bundle = "-".join([f"{workdir}/bundle-{arch}",
+                       *(f.strip("-") for f in export_flags)])
     t0 = time.perf_counter()
     cli_export.main(["--arch", arch, "--classifier", CLASSIFIER,
                      "--image_size", str(image_size), "--bs", buckets,
-                     "--dataset", "stl10", "--out", bundle])
+                     "--dataset", "stl10", "--out", bundle, *export_flags])
     _say(f"export {arch} seconds {time.perf_counter() - t0:.2f}")
     if prepare is not None:
         weights = f"{bundle}/weights.pt"
@@ -1474,10 +1517,12 @@ def serve_end_to_end(workdir: str, arch: str, image_size: int,
         _say(f"http {arch} requests {len(payloads)} images "
              f"{len(singles) + len(batch)} seconds {http_s:.3f} "
              f"dispatches {stats['dispatches']} launches {launches}")
-        want = _want(**{k: depth * dispatches for k in kernels})
+        per = (kernels if isinstance(kernels, dict)
+               else {k: depth for k in kernels})
+        want = _want(**{k: n * dispatches for k, n in per.items()})
         if launches != want or dispatches == 0:
             raise AssertionError(f"{arch} launches {launches} != {want} "
-                                 f"({depth} layers x {dispatches} "
+                                 f"({per} a dispatch x {dispatches} "
                                  f"dispatches)")
         for status, body in replies:
             if status != 200:
@@ -1588,6 +1633,7 @@ def _counters():
     from vit_torch_tpu_torch.ops import flash_attention as fa
     from vit_torch_tpu_torch.ops import fused_mlp as fm
     from vit_torch_tpu_torch.ops import gemm as gm
+    from vit_torch_tpu_torch.ops import quant
     from vit_torch_tpu_torch.ops import talking_heads as th
     from vit_torch_tpu_torch.ops import window_attention as wa
     from vit_torch_tpu_torch.ops import window_block as wb
@@ -1602,7 +1648,9 @@ def _counters():
             "attention_block_packed": ab.attention_block_packed,
             "fused_mlp": fm.fused_mlp,
             "window_block": wb.window_block,
-            "window_gemm": gm.gemm}
+            "window_gemm": gm.gemm,
+            "w8a8_quantize_rows": quant.quantize_rowwise,
+            "w8a8_gemm": quant.int8_gemm}
 
 
 def _reset_counts():
@@ -3312,6 +3360,272 @@ def lifecycle_and_data_extras():
     return paths
 
 
+def _w8a8_bounds(T, K, N):
+    """(least ms, what bounds it) of Q1 over a (T, K) bf16 input (read
+    once; codes and fp32 scales written once) and of Q2 over (T, K) and
+    (N, K) codes, the scales and an fp32 bias, bf16 out (2 T K N int8
+    operations at the dense int8 peak)."""
+    q1 = 1e3 * (T * K * 2 + T * K + T * 4) / H100_BYTES_PER_S
+    t_ops = 2 * T * K * N / H100_INT8_OPS
+    t_bytes = (T * K + N * K + T * N * 2 + T * 4 + N * 8) / H100_BYTES_PER_S
+    return ((q1, "bytes"),
+            (1e3 * max(t_ops, t_bytes),
+             "operations" if t_ops >= t_bytes else "bytes"))
+
+
+def _max_ulps(got, want) -> int:
+    """Largest elementwise distance, in units in the last place of got's
+    dtype (fp32 or bf16, compared as ordered integers)."""
+    import torch
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    mag = 2 ** (8 * got.element_size() - 1) - 1
+    a, b = (t.contiguous().view(bits[t.dtype]).long() for t in (got, want))
+    a = torch.where(a < 0, -(a & mag), a)
+    b = torch.where(b < 0, -(b & mag), b)
+    return int((a - b).abs().max().item())
+
+
+def check_w8a8_kernels(shape, seed):
+    """Q1 and Q2 (``csrc/w8a8.cu``) against their plain versions at one
+    (T, K, N) product: Q1 on bf16 activations and the fp32 weight (codes
+    and scales bit for bit), Q2 in bf16 out with a bias (the model's) and
+    fp32 out (within W8A8_ULPS); each timed on CUDA events and by its
+    device time, beside its plain version, its bound and the library
+    yardsticks: none for Q1; ``torch._int_mm`` plus the same rescale for
+    Q2 (timed only), and the bf16 product ``F.linear`` the int8 pair
+    replaces."""
+    import torch
+    import torch.nn.functional as F
+    from vit_torch_tpu_torch.ops import quant
+    T, K, N = shape
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn((T, K), generator=gen) * torch.exp(
+        torch.randn((T, 1), generator=gen))).cuda().bfloat16()
+    w = (0.03 * torch.randn((N, K), generator=gen)).cuda()
+    b = (0.1 * torch.randn((N,), generator=gen)).cuda()
+    before = (quant.quantize_rowwise.launches, quant.int8_gemm.launches)
+    x_q, x_s = quant.quantize_rowwise(x)
+    w_q, w_s = quant.quantize_weight(w)
+    x_s = x_s.view(-1)
+    y = quant.int8_gemm(x_q, x_s, w_q, w_s, b, torch.bfloat16)
+    y32 = quant.int8_gemm(x_q, x_s, w_q, w_s, b, torch.float32)
+    torch.cuda.synchronize()
+    if (quant.quantize_rowwise.launches - before[0],
+            quant.int8_gemm.launches - before[1]) != (2, 2):
+        raise AssertionError(f"w8a8 {shape}: the kernels did not launch")
+    q1_errs = []
+    for (q, sc), src in (((x_q, x_s), x), ((w_q, w_s), w)):
+        ref_q, ref_s = quant.quantize_rowwise_reference(src)
+        q1_errs.append(max(
+            (q.int() - ref_q.int()).abs().max().item(),
+            (sc - ref_s.view(-1)).abs().max().item()))
+    ulps = [_max_ulps(got, quant.int8_gemm_reference(
+        x_q, x_s, w_q, w_s, b, got.dtype)) for got in (y, y32)]
+    ref = quant.int8_gemm_reference(x_q, x_s, w_q, w_s, b, torch.float32)
+    q2_err = (y32 - ref).abs().max().item()
+    if max(q1_errs) != 0 or max(ulps) > W8A8_ULPS or not (
+            torch.isfinite(y).all() and torch.isfinite(y32).all()):
+        raise AssertionError(f"w8a8 {shape}: Q1 max err {q1_errs} (must be "
+                             f"0), Q2 max ulps {ulps} > {W8A8_ULPS}")
+    del y, y32, ref
+
+    def q1():
+        return quant.quantize_rowwise(x)
+
+    def q2():
+        return quant.int8_gemm(x_q, x_s, w_q, w_s, b, torch.bfloat16)
+
+    def int_mm():
+        acc = torch._int_mm(x_q, w_q.t())
+        return (acc.float() * x_s[:, None] * w_s + b).bfloat16()
+
+    wb16, bb16 = w.bfloat16(), b.bfloat16()
+    try:
+        int_mm()
+        lib_ms, lib_error = _time_ms(int_mm, iters=20), None
+    except RuntimeError as e:   # the yardstick only; the port never calls it
+        lib_ms, lib_error = None, str(e)[:120]
+    (q1_bound, q1_by), (q2_bound, q2_by) = _w8a8_bounds(T, K, N)
+    # per launch the profiler recorded: a pass now and then drops some
+    # (see _cuda_events), and a mean over the calls would then read low;
+    # None ("not measured") where it recorded none
+    q1_dev, q2_dev = (t / n if n else None for t, n in _device_times(
+        lambda: (q1(), q2()), ("quantize_rows_kernel", "w8a8_gemm_kernel")))
+    row = {"shape": [T, K, N],
+           "q1": {"max_abs_err": max(q1_errs),
+                  "ms": _time_ms(q1, iters=20), "device_ms": q1_dev,
+                  "plain_ms": _time_ms(
+                      lambda: quant.quantize_rowwise_reference(x), iters=5),
+                  "bound_ms": q1_bound, "bound_by": q1_by,
+                  "library_ms": None},
+           "q2": {"max_abs_err": q2_err, "max_ulps_bf16_fp32": ulps,
+                  "ms": _time_ms(q2, iters=20), "device_ms": q2_dev,
+                  "plain_ms": _time_ms(lambda: quant.int8_gemm_reference(
+                      x_q, x_s, w_q, w_s, b, torch.bfloat16), iters=3),
+                  "bound_ms": q2_bound, "bound_by": q2_by,
+                  "library_ms": lib_ms, "library_error": lib_error,
+                  "bf16_linear_ms": _time_ms(
+                      lambda: F.linear(x, wb16, bb16), iters=20)}}
+    q2_ms = q2_dev or row["q2"]["ms"]   # events where not measured
+    row["q2"]["tops"] = 2 * T * K * N / q2_ms / 1e9
+    row["q2"]["bound_share"] = q2_bound / q2_ms
+    _say("kernel check w8a8", json.dumps(row))
+    return row
+
+
+def _plain_w8a8():
+    """Q1, Q2 and the flash attention on their plain versions, patched in
+    for the served-logits comparison."""
+    import contextlib
+    from vit_torch_tpu_torch.ops import quant
+    stack = contextlib.ExitStack()
+    stack.enter_context(_plain_attention())
+    stack.enter_context(mock.patch.object(
+        quant, "quantize_rowwise", quant.quantize_rowwise_reference))
+    stack.enter_context(mock.patch.object(
+        quant, "int8_gemm", quant.int8_gemm_reference))
+    return stack
+
+
+def _cosine(a, b) -> float:
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def serve_w8a8(workdir: str):
+    """dino_vitb8 @224 exported through ``cli.export --w8a8`` (int8 weights
+    prequantised) and served over HTTP: per dispatch, 4 Q1 and 4 Q2
+    launches and one flash launch a block, nothing else; the logits held
+    against the plain versions.  Then the fp bundle of the same seeded
+    weights: bundle bytes, the two bundles' logits on one batch (cosine,
+    top-1 agreement) and their predict times in turns."""
+    import torch
+    from vit_torch_tpu_torch.cli import export as cli_export
+    from vit_torch_tpu_torch.data.datasets import resize_images
+    from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, vit_flops
+    from vit_torch_tpu_torch.serving import load_bundle
+    depth = VIT_CONFIGS[ARCH].depth
+    per = {"flash_attention_fwd": depth, "w8a8_quantize_rows": 4 * depth,
+           "w8a8_gemm": 4 * depth}
+    launches = serve_end_to_end(
+        workdir, ARCH, IMAGE_SIZE, per, _plain_w8a8,
+        vit_flops(VIT_CONFIGS[ARCH], IMAGE_SIZE), W8A8_LOGITS_RTOL,
+        relative=True, export_flags=("--w8a8",))
+    bundles = {"w8a8": f"{workdir}/bundle-{ARCH}-w8a8",
+               "fp": f"{workdir}/bundle-{ARCH}-fp"}
+    cli_export.main(["--arch", ARCH, "--classifier", CLASSIFIER,
+                     "--image_size", str(IMAGE_SIZE), "--bs", BUCKETS,
+                     "--dataset", "stl10", "--out", bundles["fp"]])
+    models = {k: load_bundle(v) for k, v in bundles.items()}
+    if not (models["w8a8"].manifest["w8a8"]
+            and models["w8a8"].manifest["w8a8_prequant"]
+            and not models["fp"].manifest["w8a8"]):
+        raise AssertionError("the W8A8 bundle's manifest does not say so")
+    rng = np.random.default_rng(1)
+    big = int(BUCKETS.split(",")[-1])
+    batch = resize_images(rng.integers(0, 256, (big, 256, 256, 3),
+                                       dtype=np.uint8), IMAGE_SIZE)
+    logits = {k: m.predict(batch) for k, m in models.items()}
+    cos = _cosine(logits["w8a8"], logits["fp"])
+    top1 = int((logits["w8a8"].argmax(1) == logits["fp"].argmax(1)).sum())
+    if not (np.isfinite(logits["w8a8"]).all() and cos > W8A8_MIN_COSINE):
+        raise AssertionError(f"W8A8 logits against the fp bundle's: cosine "
+                             f"{cos} <= {W8A8_MIN_COSINE}")
+    predict_ms = {"fp": [], "w8a8": []}
+    for k in ("fp", "w8a8", "w8a8", "fp"):
+        models[k].predict(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            models[k].predict(batch)
+        predict_ms[k].append(1e3 * (time.perf_counter() - t0) / 10)
+    fwd_ms = {}
+    for k in ("fp", "w8a8"):
+        m = models[k]
+        x = torch.from_numpy(batch).to(m.device)
+        with torch.inference_mode():
+            fwd_ms[k] = _time_ms(lambda: m.model(
+                (x.to(m.mean.dtype) / 255.0 - m.mean) / m.std), iters=10)
+    sizes = {k: os.path.getsize(f"{v}/weights.pt")
+             for k, v in bundles.items()}
+    row = {"arch": ARCH, "image_size": IMAGE_SIZE, "bucket": big,
+           "launches_http": launches,
+           "launches_per_dispatch": {k: per[k] for k in
+                                     ("w8a8_quantize_rows", "w8a8_gemm")},
+           "bundle_bytes": sizes,
+           "bundle_bytes_ratio": sizes["w8a8"] / sizes["fp"],
+           "cosine_vs_fp_bundle": cos, "top1_agree_vs_fp_bundle": top1,
+           "top1_of": big, "predict_ms_fp_w8a8_w8a8_fp": [
+               predict_ms["fp"][0], predict_ms["w8a8"][0],
+               predict_ms["w8a8"][1], predict_ms["fp"][1]],
+           "predict_img_per_s": {k: big * 1e3 / min(v)
+                                 for k, v in predict_ms.items()},
+           "forward_ms_cuda_events": fwd_ms}
+    _say(json.dumps({"w8a8_serve": row}))
+    del models
+    return row
+
+
+def w8a8_every_family():
+    """One full-width eval forward at bs8 of deit_base_distilled, cait_s24,
+    xcit_small_24_p16 and swin_base_384 (seeded weights, bf16), with
+    ``VITX_W8A8`` off and on: under it every QLinear runs once a forward
+    (one Q2 launch, two Q1: activations and weight), Swin's blocks leave
+    B9 for B8; the logits' cosine against the fp forward must exceed
+    W8A8_MIN_COSINE.  Both forwards are timed on CUDA events."""
+    import torch
+    from vit_torch_tpu_torch.models.layers import QLinear
+    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+    rows = []
+    for arch, size in W8A8_FAMILIES:
+        zm = VisionModelZoo.get_model(arch, classifier=[10],
+                                      image_size=size)
+        model = zm.model.eval()
+        with torch.no_grad():   # LayerScale gates up from their init, as
+            for name, p in model.named_parameters():   # the serve phases
+                if ".gamma" in name:
+                    p.fill_(CAIT_GAMMA if arch == CAIT_ARCH else CONV_GAMMA)
+        sites = sum(isinstance(m, QLinear) for m in model.modules())
+        x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (W8A8_FAMILY_BS, size, size, 3)).astype(np.float32)).cuda()
+        x = x.bfloat16()
+        out, counts, ms = {}, {}, {}
+        for on in (False, True):
+            with mock.patch.dict(os.environ, {"VITX_W8A8": "1" if on
+                                              else ""}), \
+                    torch.inference_mode():
+                _reset_counts()
+                out[on] = model(x).float().cpu().numpy()
+                torch.cuda.synchronize()
+                counts[on] = _read_counts()
+                ms[on] = _time_ms(lambda: model(x), iters=5)
+        cos = _cosine(out[True], out[False])
+        q = counts[True]
+        want_b9 = (0, SWIN_DEPTH) if arch == SWIN_ARCH else (0, 0)
+        if (q["w8a8_gemm"] != sites or q["w8a8_quantize_rows"] != 2 * sites
+                or counts[False]["w8a8_gemm"] != 0
+                or (q["window_block_full_spatial"],
+                    counts[False]["window_block_full_spatial"]) != want_b9
+                or not np.isfinite(out[True]).all()
+                or cos <= W8A8_MIN_COSINE):
+            raise AssertionError(f"W8A8 {arch}: launches {q} ({sites} "
+                                 f"QLinear), off {counts[False]}, cosine "
+                                 f"{cos}")
+        rows.append({"arch": arch, "image_size": size,
+                     "bs": W8A8_FAMILY_BS, "qlinear": sites,
+                     "launches_w8a8": {k: v for k, v in q.items() if v},
+                     "launches_fp": {k: v for k, v in counts[False].items()
+                                     if v},
+                     "cosine": cos,
+                     "top1_agree": int((out[True].argmax(1)
+                                        == out[False].argmax(1)).sum()),
+                     "forward_ms_fp_w8a8": [ms[False], ms[True]]})
+        del model, zm
+        torch.cuda.empty_cache()
+    _say(json.dumps({"w8a8_families": rows}))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3482,6 +3796,13 @@ def main() -> int:
     xcit_steps = steady_state_xcit()
     resnext_steps = steady_state_resnext()
     extra_paths = lifecycle_and_data_extras()
+
+    w8a8_ptxas = ptxas_gate("w8a8", _build.LOGS.get("w8a8", ""))
+    w8a8_rows = [check_w8a8_kernels(shape, seed=i)
+                 for i, shape in enumerate(W8A8_SHAPES)]
+    with tempfile.TemporaryDirectory() as workdir:
+        w8a8_serve = serve_w8a8(workdir)
+    w8a8_families = w8a8_every_family()
 
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -3774,6 +4095,45 @@ def main() -> int:
              r["bound_ms"]] for r in flat_rows],
         "grad_max_rel_err": max(flat_grads["grad_rel_err"]),
         "fwd_bwd_ms": flat_grads["fwd_bwd_ms"]})
+    # W8A8's two kernels: numbers at dino_vitb8 @224 bs32 fc1 (T = 25,120,
+    # K = 768, N = 3,072), every shape beside them; launches from the W8A8
+    # serve's HTTP run (the slice's main path)
+    head = next(r for r in w8a8_rows if r["shape"] == [25120, 768, 3072])
+    for kernel, key, replaces in (
+            ("w8a8_quantize_rows", "q1", "vit_torch_tpu/ops/quant.py:68"),
+            ("w8a8_gemm", "q2", "vit_torch_tpu/ops/quant.py:93")):
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": "vit_torch_tpu_torch/csrc/w8a8.cu",
+            "replaces": replaces,
+            "launches": w8a8_serve["launches_http"][kernel],
+            "max_abs_err": max(r[key]["max_abs_err"] for r in w8a8_rows),
+            "ms": head[key]["ms"], "device_ms": head[key]["device_ms"],
+            "plain_ms": head[key]["plain_ms"],
+            "bound_ms": head[key]["bound_ms"],
+            "bound_by": head[key]["bound_by"],
+            "library_ms": head[key]["library_ms"],
+            "shape": head["shape"], "ptxas": w8a8_ptxas,
+            "launches_per_dispatch": w8a8_serve["launches_per_dispatch"][
+                kernel],
+            "ms_device_plain_library_bound_by_shape": [
+                [r["shape"], r[key]["ms"], r[key]["device_ms"],
+                 r[key]["plain_ms"], r[key]["library_ms"],
+                 r[key]["bound_ms"]] for r in w8a8_rows]})
+    kernels[-1]["library"] = "torch._int_mm + the same rescale (cuBLASLt)"
+    kernels[-1]["max_ulps"] = max(max(r["q2"]["max_ulps_bf16_fp32"])
+                                  for r in w8a8_rows)
+    kernels[-1]["bf16_linear_ms_by_shape"] = [
+        [r["shape"], r["q2"]["bf16_linear_ms"]] for r in w8a8_rows]
+    kernels[-1]["tops_bound_share_by_shape"] = [
+        [r["shape"], r["q2"]["tops"], r["q2"]["bound_share"]]
+        for r in w8a8_rows]
+    kernels[-1]["w8a8_serve"] = {k: w8a8_serve[k] for k in (
+        "bundle_bytes_ratio", "cosine_vs_fp_bundle",
+        "top1_agree_vs_fp_bundle", "predict_img_per_s")}
+    kernels[-1]["families_q2_launches_cosine"] = [
+        [r["arch"], r["launches_w8a8"]["w8a8_gemm"], r["cosine"]]
+        for r in w8a8_families]
     # the conv families run no kernel of their own (XCiT's MLPs are B12's,
     # above): their paths, steps and the fold measurement in one line
     _say(json.dumps({"conv_families": {

@@ -1186,3 +1186,136 @@ def test_bn_running_stats_after_one_card_step(cuda, arch):
             continue
         err = ((got[k] - w).abs().max() / w.abs().max()).item()
         assert err <= CONV_STATS_RTOL, (k, err)
+
+
+# ---- W8A8 (csrc/w8a8.cu): Q1 row quantisation and Q2 int8 product -------
+
+# dino_vitb8 @224 (785 tokens) at bs8 and bs32: qkv, proj, fc1, fc2
+W8A8_PRODUCTS = [(785 * bs, K, N) for bs in (8, 32)
+                 for K, N in ((768, 2304), (768, 768), (768, 3072),
+                              (3072, 768))]
+# a partial row tile, a K tail past the last 128-wide k-step, a partial
+# column tile (200 = 192 + 8); the smallest shape the kernel takes
+W8A8_RAGGED = [(203, 784, 200), (1, 16, 8)]
+
+
+def _ulps(got, want):
+    """Elementwise distance in units in the last place of got's dtype (fp32
+    or bf16, both as ordered integers)."""
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    a = got.contiguous().view(bits[got.dtype]).long()
+    b = want.contiguous().view(bits[want.dtype]).long()
+    a = torch.where(a < 0, -(a & (2 ** (8 * got.element_size() - 1) - 1)), a)
+    b = torch.where(b < 0, -(b & (2 ** (8 * got.element_size() - 1) - 1)), b)
+    return (a - b).abs()
+
+
+def _w8a8_operands(T, K, N, seed, device, dtype=torch.bfloat16):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((T, K), generator=gen) * torch.exp(
+        torch.randn((T, 1), generator=gen))
+    if T > 2:
+        x[0] = 0.0                                   # scale = eps
+        x[1, :8] = torch.tensor([127., .5, 1.5, 2.5, -.5, -2.5, 3.5, 0.])
+        x[1, 8:] = 0.0                               # ties, scale 1
+    w = torch.randn((N, K), generator=gen) * 0.03
+    b = torch.randn((N,), generator=gen) * 0.1
+    return x.to(device, dtype), w.to(device), b.to(device)
+
+
+@pytest.mark.parametrize("shape", W8A8_PRODUCTS + W8A8_RAGGED, ids=str)
+def test_w8a8_kernels_match_plain(cuda, shape):
+    """Q1 bit for bit against its plain version (bf16 activations, fp32
+    weights); Q2 within one ulp of its plain version in fp32 and bf16
+    out, with and without a bias, and exact where the codes sit on an
+    integer grid."""
+    from vit_torch_tpu_torch.ops import quant
+    T, K, N = shape
+    x, w, b = _w8a8_operands(T, K, N, seed=T + K + N, device=cuda)
+    before = (quant.quantize_rowwise.launches, quant.int8_gemm.launches)
+    x_q, x_s = quant.quantize_rowwise(x)
+    w_q, w_s = quant.quantize_weight(w)
+    torch.cuda.synchronize()
+    for got, want in (((x_q, x_s), quant.quantize_rowwise_reference(x)),
+                      ((w_q, w_s[:, None]),
+                       quant.quantize_rowwise_reference(w))):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    x_s = x_s.view(-1)
+    for bias in (b, None):
+        for out in (torch.float32, torch.bfloat16):
+            got = quant.int8_gemm(x_q, x_s, w_q, w_s, bias, out)
+            want = quant.int8_gemm_reference(x_q, x_s, w_q, w_s, bias, out)
+            torch.cuda.synchronize()
+            assert got.dtype == out and got.shape == (T, N)
+            assert _ulps(got, want).max().item() <= 1
+    # the s32 sums exactly: unit scales, no bias
+    ones_t, ones_n = torch.ones(T, device=cuda), torch.ones(N, device=cuda)
+    acc = quant.int8_gemm(x_q, ones_t, w_q, ones_n, None, torch.float32)
+    exact = torch.matmul(x_q.double(), w_q.double().t())
+    assert torch.equal(acc.double(), exact.float().double())
+    assert (quant.quantize_rowwise.launches - before[0],
+            quant.int8_gemm.launches - before[1]) == (2, 5)
+
+
+def test_w8a8_linear_on_cuda_matches_cpu(cuda):
+    """The same fp32 operands through both kernels on the card and both
+    plain versions on the CPU: the same output bit for bit (Q1's IEEE
+    arithmetic, Q2's exact sums and one rounding per step)."""
+    from vit_torch_tpu_torch.ops import quant
+    x, w, b = _w8a8_operands(203, 784, 200, seed=5, device="cpu",
+                             dtype=torch.float32)
+    want = quant.w8a8_linear(x.view(7, 29, 784), w, b)
+    got = quant.w8a8_linear(x.view(7, 29, 784).to(cuda), w.to(cuda),
+                            b.to(cuda))
+    assert got.shape == (7, 29, 200)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_w8a8_refuses_what_it_does_not_take(cuda):
+    from vit_torch_tpu_torch.ops import quant
+    x = torch.randn((16, 24), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        quant.quantize_rowwise(x)
+    x_q = torch.zeros((16, 32), dtype=torch.int8, device=cuda)
+    w_q = torch.zeros((8, 32), dtype=torch.int8, device=cuda)
+    ones = torch.ones(16, device=cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        quant.int8_gemm(x_q, ones, w_q.cpu(), torch.ones(8), None,
+                        torch.float32)
+    with pytest.raises(ValueError, match="several devices"):
+        quant.w8a8_linear(torch.randn((4, 32), device=cuda),
+                          torch.randn((8, 32)), None)
+    with pytest.raises(TypeError):
+        quant.int8_gemm(x_q.float(), ones, w_q, ones[:8], None,
+                        torch.float32)
+    with pytest.raises(TypeError):
+        quant.int8_gemm(x_q, ones, w_q, ones[:8], None, torch.float16)
+    with pytest.raises(ValueError):
+        quant.int8_gemm(x_q, ones, torch.zeros((12, 32), dtype=torch.int8,
+                                               device=cuda),
+                        torch.ones(12, device=cuda), None, torch.float32)
+
+
+def test_w8a8_vit_on_cuda_matches_cpu(cuda, monkeypatch):
+    """A 2-block C = 768 ViT at 32 px under VITX_W8A8=1 on the card (bf16)
+    against the same weights on the CPU (fp32, the plain versions): four
+    Q2 launches a block, eight Q1 (activations and weights); logits within
+    the W8A8 serving tolerance of chip_smoke."""
+    from vit_torch_tpu_torch.models import vit
+    from vit_torch_tpu_torch.models.layers import init_weights
+    from vit_torch_tpu_torch.ops import quant
+    monkeypatch.setenv("VITX_W8A8", "1")
+    cfg = vit.ViTConfig(8, 768, 2, 12)
+    ref = vit.VisionTransformer(cfg, image_size=32, dtype=torch.float32)
+    init_weights(ref, torch.Generator().manual_seed(0))
+    model = vit.VisionTransformer(cfg, image_size=32).to(cuda)
+    model.load_state_dict(ref.state_dict())
+    x = torch.randn((4, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = ref.eval()(x)
+        before = (quant.quantize_rowwise.launches, quant.int8_gemm.launches)
+        got = model.eval()(x.to(cuda, torch.bfloat16)).float().cpu()
+    assert (quant.quantize_rowwise.launches - before[0],
+            quant.int8_gemm.launches - before[1]) == (16, 8)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    assert err <= 5e-2, err

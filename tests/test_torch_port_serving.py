@@ -175,10 +175,13 @@ def test_cli_export_then_load(tmp_path):
     assert logits.shape == (3, 3) and np.isfinite(logits).all()
 
 
+# --w8a8 itself works (tests/test_torch_port_quant.py); a data-parallel
+# W8A8 bundle is refused with the other parallelism flags
 @pytest.mark.parametrize("flag", [["--platforms", "cpu,cuda"],
-                                  ["--num_devices", "2"], ["--w8a8"]])
+                                  ["--num_devices", "2"],
+                                  ["--w8a8", "--num_devices", "2"]])
 def test_cli_export_refuses_later_slices(flag, tmp_path):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A8"):
         cli_export.main(["--arch", "vit_tiny_test", "--device", "cpu",
                          "--out", str(tmp_path), *flag])
 

@@ -15,6 +15,11 @@ Swin archs), from a facebookresearch/xcit checkpoint (``--arch xcit_*``)
 or from a torchvision ResNeXt/WRN one (``--arch resnext50_32x4d``, ...);
 the last two carry their BatchNorm running statistics into the bundle,
 which serves in eval mode.
+
+``--w8a8`` exports a bundle that serves through the dynamic int8 path
+(``ops/quant.py``) whatever ``VITX_W8A8`` says at serve time, its
+quantised layers' weights stored as int8 rows and fp32 scales;
+``--no_prequant`` keeps their fp32 weights, quantised per call.
 """
 
 from __future__ import annotations
@@ -58,29 +63,30 @@ def main(argv=None) -> None:
                    help="torch checkpoint for the backbone weights")
     p.add_argument("--platforms", default=None,
                    help="multi-platform export; not ported (the bundle is "
-                        "weights, which every device loads)")
+                        "weights, which every device loads; ROADMAP A8)")
     p.add_argument("--w8a8", action="store_true",
-                   help="int8 serving path; not ported yet")
+                   help="serve through the int8 path (weights prequantised "
+                        "by default)")
     p.add_argument("--no_prequant", action="store_true",
-                   help="with --w8a8 only")
+                   help="with --w8a8: keep the fp32 weights, quantised per "
+                        "call")
     p.add_argument("--param_dtype", default=None,
                    choices=[None, "bfloat16", "float32"],
                    help="cast stored weights (bfloat16 halves the bundle)")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="data-parallel bundles (>1) are not ported yet")
+                   help="data-parallel bundles (>1) are not ported yet "
+                        "(ROADMAP A8)")
     p.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
     p.add_argument("--out", required=True, help="bundle output directory")
     args = p.parse_args(argv)
 
     if args.platforms:
-        raise NotImplementedError("--platforms belongs to a later slice of "
-                                  "the port (ROADMAP.md)")
+        raise NotImplementedError("--platforms belongs to the parallelism "
+                                  "slice of the port (ROADMAP.md, A8)")
     if args.num_devices > 1:
-        raise NotImplementedError("--num_devices > 1 belongs to a later "
-                                  "slice of the port (ROADMAP.md)")
-    if args.w8a8:
-        raise NotImplementedError("--w8a8 belongs to a later slice of the "
-                                  "port (ROADMAP.md)")
+        raise NotImplementedError("--num_devices > 1 belongs to the "
+                                  "parallelism slice of the port "
+                                  "(ROADMAP.md, A8)")
 
     from vit_torch_tpu_torch.checkpoint.torch_import import (
         load_backbone_state_dict)
@@ -101,7 +107,8 @@ def main(argv=None) -> None:
     exported = export_classifier(
         zm, batch_sizes=[int(b) for b in args.bs.split(",") if b],
         norm=_norm_for(NORM_VALUES, args.dataset),
-        param_dtype=args.param_dtype)
+        param_dtype=args.param_dtype, prequant=not args.no_prequant,
+        w8a8=True if args.w8a8 else None)
     save_bundle(args.out, exported)
     sizes = {f: os.path.getsize(os.path.join(args.out, f))
              for f in sorted(os.listdir(args.out))}

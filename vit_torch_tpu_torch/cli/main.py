@@ -21,7 +21,9 @@ runs the backbone once and trains the head on cached features.
 ``--resume D`` continues from D's latest one (``train/trainer.py``).
 ``--export_bundle B`` writes the trained classifier as a serving bundle
 (``serving/export.py``, buckets ``--export_bs``, the dataset's
-normalisation) that ``cli.serve --bundle B`` serves.  ``--aug_auto
+normalisation) that ``cli.serve --bundle B`` serves; under
+``VITX_W8A8=1`` it is a W8A8 bundle with prequantised int8 weights, as
+the JAX export is under the flag.  ``--aug_auto
 POLICY`` adds AutoAugment to the train augmentation.  ``--dataset tire
 --data_path DIR`` builds LBP channel stacks (``--tire_settings 0-3``;
 7 channels for setting 0) from an ImageFolder (``data/tire.py``).  The

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from vit_torch_tpu_torch.ops import attn_block, fused_mlp
+from vit_torch_tpu_torch.ops import attn_block, fused_mlp, quant
 from vit_torch_tpu_torch.ops.attention import qkv_attention
 
 
@@ -74,6 +74,65 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+def _use_w8a8(training: bool, forced: Optional[bool] = None) -> bool:
+    """Whether a forward takes the dynamic int8 serving path
+    (:mod:`.quant`): never in training mode (rounding has a zero gradient,
+    the JAX ``deterministic=False``); else ``forced`` where a bundle's
+    manifest set it (:func:`set_w8a8`), else ``VITX_W8A8=1``, read per
+    call."""
+    if training:
+        return False
+    return quant.w8a8_enabled() if forced is None else forced
+
+
+class QLinear(Linear):
+    """:class:`Linear` that runs through W8A8 (:func:`.quant.w8a8_linear`)
+    when :func:`_use_w8a8` says so: the counterpart of the JAX ``QDense``,
+    with ``Linear``'s parameters and state-dict keys.
+
+    ``w8a8`` is None (follow ``VITX_W8A8``) or a bundle's fixed choice.
+    A serving bundle may hold the weight prequantised: :meth:`set_prequant`
+    puts the int8 rows and their scales in the buffers ``weight_q`` and
+    ``weight_scale`` (in the state dict once set) and drops the fp32
+    ``weight``, after which the layer only serves through int8."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
+        self.w8a8: Optional[bool] = None
+        self.register_buffer("weight_q", None)
+        self.register_buffer("weight_scale", None)
+
+    def quantized(self) -> bool:
+        """Whether this call takes the int8 path."""
+        return _use_w8a8(self.training, self.w8a8)
+
+    def set_prequant(self, w_q: torch.Tensor, w_scale: torch.Tensor) -> None:
+        """Hold the weight as int8 rows ``(N, K)`` and fp32 scales ``(N,)``
+        (:func:`.quant.quantize_weight`'s) in place of the fp32 one."""
+        self.weight_q, self.weight_scale = w_q, w_scale
+        self.weight = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quantized():
+            pre = None if self.weight_q is None else (self.weight_q,
+                                                      self.weight_scale)
+            return quant.w8a8_linear(x, self.weight, self.bias, pre=pre)
+        if self.weight is None:
+            raise RuntimeError("this layer holds only its prequantised int8 "
+                               "weight and serves through W8A8 in eval mode")
+        return super().forward(x)
+
+
+def set_w8a8(model: nn.Module, on: Optional[bool]) -> None:
+    """Fix every :class:`QLinear` of ``model`` to the int8 path (True), the
+    fp path (False), or back to ``VITX_W8A8`` (None): a bundle's manifest,
+    not the server's environment, decides how it serves."""
+    for mod in model.modules():
+        if isinstance(mod, QLinear):
+            mod.w8a8 = on
 
 
 def _keep_mask(x: torch.Tensor, shape, keep: float,
@@ -282,8 +341,8 @@ def _fused_mlp(x: torch.Tensor, mlp: "Mlp") -> bool:
     """Whether the MLP takes the fused kernel (:func:`.fused_mlp.fused_mlp`,
     B12): ``VITX_FUSED_MLP=1``, read per call as the JAX package reads it,
     with dropout inactive, for the shapes the kernel takes.  Without the
-    flag (or with ``=0``) it is off on every device.  The JAX dispatch puts
-    its W8A8 serving path first; the port has no W8A8 yet (ROADMAP A9)."""
+    flag (or with ``=0``) it is off on every device.  The W8A8 serving path
+    comes first (:meth:`Mlp.forward`), as in the JAX dispatch."""
     if os.environ.get("VITX_FUSED_MLP", "") != "1":
         return False
     if mlp.drop.training and mlp.drop.rate > 0.0:
@@ -294,18 +353,21 @@ def _fused_mlp(x: torch.Tensor, mlp: "Mlp") -> bool:
 
 
 class Mlp(nn.Module):
-    """Transformer MLP: Linear → exact GELU → Linear (+dropout); under
-    ``VITX_FUSED_MLP=1`` the fused kernel (B12), as the JAX module
-    dispatches it."""
+    """Transformer MLP: Linear → exact GELU → Linear (+dropout), in the JAX
+    module's dispatch order: the W8A8 serving path (both products through
+    int8, eval only), then under ``VITX_FUSED_MLP=1`` the fused kernel
+    (B12), then the two cuBLAS products."""
 
     def __init__(self, dim: int, hidden_dim: int,
                  out_dim: Optional[int] = None, dropout: float = 0.0):
         super().__init__()
-        self.fc1 = Linear(dim, hidden_dim)
-        self.fc2 = Linear(hidden_dim, out_dim or dim)
+        self.fc1 = QLinear(dim, hidden_dim)
+        self.fc2 = QLinear(hidden_dim, out_dim or dim)
         self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fc1.quantized():
+            return self.fc2(gelu_exact(self.fc1(x)))
         if _fused_mlp(x, self):
             dt = x.dtype
             return fused_mlp.fused_mlp(
@@ -360,10 +422,12 @@ class Attention(nn.Module):
     """Multi-head self-attention with one fused qkv projection whose
     outputs are ordered (3, H, D).
 
-    The JAX module's dispatch order: the packed kernel (B4), then the
-    fused kernel (B3), then the qkv product, :func:`.qkv_attention` (q, k
-    and v stay views into the qkv output; on CUDA the flash kernel reads
-    them through their strides) and the output product.  ``attn_drop`` is
+    The JAX module's dispatch order: the W8A8 serving path (eval only; the
+    qkv and output products through int8, the attention core as below),
+    then the packed kernel (B4), then the fused kernel (B3), then the qkv
+    product, :func:`.qkv_attention` (q, k and v stay views into the qkv
+    output; on CUDA the flash kernel reads them through their strides) and
+    the output product.  ``attn_drop`` is
     kept for config parity; like the JAX module, no dropout is applied to
     the attention weights."""
 
@@ -373,8 +437,8 @@ class Attention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
-        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = Linear(dim, dim)
+        self.qkv = QLinear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = QLinear(dim, dim)
         self.proj_drop = Dropout(proj_drop)
 
     def _weights(self, dtype: torch.dtype):
@@ -387,10 +451,12 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
-        if _packed_attention(x, H):
+        # under W8A8 the qkv and proj QLinears quantise themselves
+        fused = not self.qkv.quantized()
+        if fused and _packed_attention(x, H):
             out = attn_block.attention_block_packed(
                 x, *self._weights(x.dtype), num_heads=H, scale=self.scale)
-        elif _fused_attention(x, H):
+        elif fused and _fused_attention(x, H):
             out = attn_block.attention_block(
                 x, *self._weights(x.dtype), num_heads=H, scale=self.scale)
         else:

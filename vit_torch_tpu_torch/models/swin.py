@@ -15,7 +15,8 @@ by name (``checkpoint/torch_import.py``).  ``relative_position_index`` and
 
 Dispatch of a block (the port's own, for CUDA; the TPU's measured policy
 does not carry over): a block whose map needs no padding and whose
-DropPath is inactive (eval, or rate 0) runs the whole-block kernel
+DropPath is inactive (eval, or rate 0), outside W8A8, runs the
+whole-block kernel
 :func:`~vit_torch_tpu_torch.ops.window_block.window_block_full_spatial`
 (B9); every other block runs PyTorch ops around the window-block kernel
 :func:`~vit_torch_tpu_torch.ops.window_block.window_block_spatial` (B8):
@@ -25,7 +26,9 @@ call) those blocks take the flat window block
 :func:`~vit_torch_tpu_torch.ops.window_block.window_block` (B7) in B8's
 place, as the JAX dispatch does when its spatial route is off: roll,
 window partition, B7, window reverse, roll back.  The MLP there is
-:class:`Mlp`, the fused kernel (B12) under ``VITX_FUSED_MLP=1``.  With
+:class:`Mlp`: int8 under W8A8 in eval (``VITX_W8A8=1``; the window qkv
+and proj products stay fp, as in the JAX package), the fused kernel
+(B12) under ``VITX_FUSED_MLP=1``.  With
 grad, every route goes through the block functions' autograd Functions,
 whose attention backward is the window-attention backward kernel (B6);
 the bias table's gradient flows through the autograd gather of
@@ -242,10 +245,13 @@ class SwinBlock(nn.Module):
 
     def _full_block_route(self, pad_needed: bool) -> bool:
         """B9 takes the block when the map needs no padding (LayerNorm does
-        not commute with zero padding) and DropPath is inactive (the
-        residuals are inside the kernel)."""
+        not commute with zero padding), DropPath is inactive (the
+        residuals are inside the kernel) and W8A8 is off: under W8A8 in
+        eval the block runs B8 with its fp window products and the MLP
+        through int8, as the JAX ``_use_fused_block_full`` decides."""
         drop_active = self.training and self.drop_path.rate > 0.0
-        return not pad_needed and not drop_active
+        return (not pad_needed and not drop_active
+                and not self.mlp.fc1.quantized())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape

@@ -33,7 +33,8 @@ from torch import nn
 
 from vit_torch_tpu_torch.models.layers import (BatchNorm, Conv2d, DropPath,
                                                LayerNorm, Linear, Mlp,
-                                               gelu_exact, run_block)
+                                               QLinear, gelu_exact,
+                                               run_block)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,8 +251,9 @@ class XCA(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
-        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = Linear(dim, dim)
+        # QLinear: int8 under W8A8 in eval, as the JAX XCA's QDense
+        self.qkv = QLinear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = QLinear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(xca_core(self.qkv(x), self.temperature,

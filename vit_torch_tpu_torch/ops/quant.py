@@ -1,0 +1,263 @@
+"""Dynamic W8A8 int8 products for the serving path: two hand-written CUDA
+kernels for Hopper and their plain PyTorch versions.
+
+Counterpart of ``vit_torch_tpu/ops/quant.py`` (``:39-117``), standard
+dynamic post-training quantisation:
+
+- weights: symmetric int8 per output channel (``scale = absmax / 127 +
+  1e-8``).  The port's weights are torch's ``(N, K)``, so an output
+  channel is a row, and one row quantisation (Q1) serves weights and
+  activations alike;
+- activations: symmetric int8 per token (per row), computed on the fly;
+- the product accumulates in s32, is rescaled per row and per column in
+  fp32 (+ bias) and cast to the caller's dtype (Q2).
+
+On CUDA, Q1 is ``csrc/w8a8.cu``'s ``quantize_rows_kernel`` and Q2 its
+``w8a8_gemm_kernel`` (wgmma ``s32.s8.s8`` fed by TMA); the source note
+gives their arithmetic, bounds and design.  Dispatch is by the tensors'
+device: CPU tensors run the plain versions
+(:func:`quantize_rowwise_reference`, :func:`int8_gemm_reference`); CUDA
+tensors launch the kernels or raise, with no fallback.  The plain versions
+compute what the kernels compute, bit for bit: IEEE divisions (a divisor
+held as a tensor, never a Python number, which PyTorch's CUDA division
+turns into a multiply by the reciprocal), round half to even, the s32 sum
+exact (summed in float64, exact below 2^53), then ``(acc * x_scale) *
+w_scale (+ bias)`` one rounding at a time.
+
+The path is opt-in (``VITX_W8A8=1``, read per call) and inference only:
+rounding has a zero gradient, so ``models/layers.py`` never routes a
+training-mode forward through it.  ``quantize_rowwise.launches`` and
+``int8_gemm.launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from vit_torch_tpu_torch.ops import _build
+from vit_torch_tpu_torch.ops.gemm import check, ptr, sm_count
+
+_EPS = 1e-8
+_QMAX = 127.0
+
+# csrc/w8a8.cu: rows of 16-byte loads (Q1) and TMA rows (Q2), so K a
+# multiple of 16; Q2's 128-row tiles, its column widths (the widest first),
+# k-steps of 128 int8 and the ring's bounds
+_K_ALIGN = 16
+BLOCK_M = 128
+BLOCK_NS = (192, 128)
+_BLOCK_K = 128
+_MAX_STAGES = 8
+_SMEM_MAX = 232448
+_SMEM_FIXED = 1024 + 2 * _MAX_STAGES * 8
+
+
+def w8a8_enabled() -> bool:
+    """Opt-in flag for the int8 serving path (``VITX_W8A8=1``), read per
+    call."""
+    return os.environ.get("VITX_W8A8", "") == "1"
+
+
+def quantize_rowwise_reference(x: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of Q1: symmetric int8 per row of the last axis, in
+    fp32.  Returns ``(codes int8, scale fp32 x.shape[:-1] + (1,))``."""
+    x32 = x.float()
+    absmax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = absmax / torch.full_like(absmax, _QMAX) + _EPS
+    q = torch.clamp(torch.round(x32 / scale), -_QMAX, _QMAX)
+    return q.to(torch.int8), scale
+
+
+def int8_gemm_reference(x_q: torch.Tensor, x_scale: torch.Tensor,
+                        w_q: torch.Tensor, w_scale: torch.Tensor,
+                        bias: Optional[torch.Tensor],
+                        out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of Q2 over ``(T, K)`` codes, ``(N, K)`` weight codes,
+    ``(T,)`` and ``(N,)`` scales: the exact s32 product (as float64), then
+    ``(acc * x_scale) * w_scale (+ bias)`` in fp32, cast to ``out_dtype``."""
+    acc = torch.matmul(x_q.double(), w_q.double().t()).to(torch.int32)
+    y = acc.float() * x_scale.float()[:, None] * w_scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype)
+
+
+class Int8Plan(NamedTuple):
+    """How ``csrc/w8a8.cu``'s product is launched: output columns a tile
+    (rows: :data:`BLOCK_M`), row and column tiles, ring stages of (128 +
+    block_n) x 128 int8, persistent blocks and their dynamic shared
+    bytes."""
+    block_n: int
+    tiles_m: int
+    tiles_n: int
+    stages: int
+    grid: int
+    smem_bytes: int
+
+
+def int8_plan(T: int, K: int, N: int, sms: int = 132) -> Int8Plan:
+    """Q2's launch plan for ``T`` rows of ``K`` in, ``N`` out, chosen as
+    ``ops/gemm.py:gemm_plan`` chooses the window GEMM's: the width of
+    :data:`BLOCK_NS` whose busiest SM computes the fewest columns (the
+    wider on a tie), as many stages as shared memory holds (up to 8), one
+    persistent block per SM or per tile.  Widths the kernel does not take
+    raise ``ValueError``: K a multiple of 16, N of 8."""
+    if T < 1 or K < _K_ALIGN or K % _K_ALIGN or N < 8 or N % 8:
+        raise ValueError(f"the int8 product takes T >= 1 rows, K a multiple "
+                         f"of {_K_ALIGN} and N a multiple of 8, got T, K, N "
+                         f"= {T}, {K}, {N}")
+    tiles_m = -(-T // BLOCK_M)
+
+    def load(bn):   # columns the busiest SM computes
+        return -(-(tiles_m * -(-N // bn)) // sms) * bn
+
+    bn = min(BLOCK_NS, key=lambda b: (load(b), -b))
+    tiles_n = -(-N // bn)
+    stage = (BLOCK_M + bn) * _BLOCK_K
+    stages = min(_MAX_STAGES, (_SMEM_MAX - _SMEM_FIXED) // stage)
+    if tiles_m * tiles_n > 2 ** 31 - 1:
+        raise ValueError(f"{tiles_m * tiles_n} tiles exceed 2^31 - 1")
+    return Int8Plan(bn, tiles_m, tiles_n, stages, min(tiles_m * tiles_n, sms),
+                    _SMEM_FIXED + stages * stage)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """w8a8.cu's entry points, built and loaded on first use."""
+    lib = _build.load("w8a8")
+    lib.w8a8_quantize_rows.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                                       + [ctypes.c_void_p] * 2
+                                       + [ctypes.c_int] * 2
+                                       + [ctypes.c_void_p])
+    lib.w8a8_quantize_rows.restype = ctypes.c_int
+    lib.w8a8_gemm.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                              + [ctypes.c_void_p])
+    lib.w8a8_gemm.restype = ctypes.c_int
+    return lib
+
+
+def _on_cuda(*tensors) -> bool:
+    """True when every given tensor lies on one CUDA device, False when all
+    lie on the CPU; anything else raises."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"the W8A8 operands lie on several devices: "
+                         f"{sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no W8A8 kernel for device {dev}")
+    return dev.type == "cuda"
+
+
+def _check_k(K: int) -> None:
+    if K < _K_ALIGN or K % _K_ALIGN:
+        raise ValueError(f"the W8A8 kernels take K a multiple of {_K_ALIGN} "
+                         f"(16-byte rows), got K = {K}")
+
+
+def quantize_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantisation over the last axis (Q1).
+
+    Returns ``(x_q int8, scale fp32)`` with ``scale`` shaped ``x.shape[:-1]
+    + (1,)`` such that ``x ~= x_q * scale``.  CPU tensors run the plain
+    version; a CUDA tensor (bf16 or fp32) is one kernel launch."""
+    if not _on_cuda(x):
+        return quantize_rowwise_reference(x)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the row quantisation takes bfloat16 or float32, "
+                        f"got {x.dtype}")
+    K = x.shape[-1]
+    _check_k(K)
+    x2 = x.reshape(-1, K).contiguous()
+    R = x2.shape[0]
+    q = torch.empty((R, K), dtype=torch.int8, device=x.device)
+    scale = torch.empty((R,), dtype=torch.float32, device=x.device)
+    if R:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        check(_lib().w8a8_quantize_rows(
+            x2.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
+            scale.data_ptr(), R, K, stream), "w8a8 quantize_rows")
+        quantize_rowwise.launches += 1
+    return q.view(x.shape), scale.view(*x.shape[:-1], 1)
+
+
+quantize_rowwise.launches = 0
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 quantisation of an ``(N, K)``
+    weight: Q1 over its rows.  Returns ``(w_q int8 (N, K), scale fp32
+    (N,))`` such that ``w ~= w_q * scale[:, None]``."""
+    w_q, scale = quantize_rowwise(w)
+    return w_q, scale.view(-1)
+
+
+def int8_gemm(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
+              w_scale: torch.Tensor, bias: Optional[torch.Tensor],
+              out_dtype: torch.dtype) -> torch.Tensor:
+    """Q2: ``(x_q @ w_q.T) * x_scale[:, None] * w_scale (+ bias)`` over
+    ``(T, K)`` and ``(N, K)`` int8 codes, ``(T,)``/``(N,)`` fp32 scales and
+    an ``(N,)`` bias, in ``out_dtype``.  CPU tensors run the plain version;
+    CUDA tensors are one kernel launch (fp32 or bf16 out) or raise."""
+    T, K = x_q.shape
+    N = w_q.shape[0]
+    if w_q.shape != (N, K) or x_scale.shape != (T,) or w_scale.shape != (N,):
+        raise ValueError(f"int8 product operands of shapes {tuple(x_q.shape)}"
+                         f", {tuple(w_q.shape)}, scales "
+                         f"{tuple(x_scale.shape)}, {tuple(w_scale.shape)}")
+    if not _on_cuda(x_q, x_scale, w_q, w_scale, bias):
+        return int8_gemm_reference(x_q, x_scale, w_q, w_scale, bias,
+                                   out_dtype)
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"the int8 product takes int8 codes, got "
+                        f"{x_q.dtype}, {w_q.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the int8 product writes float32 or bfloat16, not "
+                        f"{out_dtype}")
+    _check_k(K)
+    plan = int8_plan(T, K, N, sm_count(x_q.device))
+    x_q, w_q = x_q.contiguous(), w_q.contiguous()
+    if x_q.data_ptr() % 16 or w_q.data_ptr() % 16:
+        raise ValueError("the int8 codes must be 16-byte aligned")
+    x_scale = x_scale.float().contiguous()
+    w_scale = w_scale.float().contiguous()
+    bias = None if bias is None else bias.float().contiguous()
+    y = torch.empty((T, N), dtype=out_dtype, device=x_q.device)
+    stream = torch.cuda.current_stream(x_q.device).cuda_stream
+    check(_lib().w8a8_gemm(
+        x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(),
+        w_scale.data_ptr(), ptr(bias), y.data_ptr(),
+        int(out_dtype == torch.bfloat16), T, K, N, plan.block_n, plan.stages,
+        plan.grid, stream), "w8a8 gemm")
+    int8_gemm.launches += 1
+    return y
+
+
+int8_gemm.launches = 0
+
+
+def w8a8_linear(x: torch.Tensor, w: Optional[torch.Tensor],
+                bias: Optional[torch.Tensor],
+                out_dtype: Optional[torch.dtype] = None,
+                pre: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """``x @ w.T (+ bias)`` through the int8 path (JAX ``w8a8_dot``).
+
+    ``x``: ``(..., K)`` activations; ``w``: the ``(N, K)`` weight, quantised
+    per call (Q1 over its rows) unless ``pre = (w_q, w_scale)`` gives it
+    prequantised (a serving bundle's int8 weights; ``w`` may then be
+    None).  ``x`` is quantised per row (Q1), the product rescaled (Q2).
+    Output dtype defaults to ``x.dtype``."""
+    out_dtype = out_dtype or x.dtype
+    K = x.shape[-1]
+    x_q, x_scale = quantize_rowwise(x)
+    w_q, w_scale = pre if pre is not None else quantize_weight(w)
+    y = int8_gemm(x_q.reshape(-1, K), x_scale.reshape(-1), w_q, w_scale,
+                  bias, out_dtype)
+    return y.view(*x.shape[:-1], w_q.shape[0])

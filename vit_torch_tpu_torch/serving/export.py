@@ -17,6 +17,17 @@ manifest's ``image_channels`` (3, or a tire model's LBP channel stack).
 ``ServingModel.predict`` pads a batch up to the smallest bucket that holds
 it and slices the padding off; oversize batches run in chunks of the
 largest bucket.
+
+W8A8 (``ops/quant.py``): a bundle exported under ``VITX_W8A8=1`` has
+``"w8a8": true`` in its manifest and serves every quantised product
+(:class:`~vit_torch_tpu_torch.models.layers.QLinear`) through int8,
+whatever ``VITX_W8A8`` says when it is loaded; a bundle without it serves
+in fp even with the flag set.  The JAX package bakes the path into its
+traced artifact; here the manifest carries it.  With ``prequant`` (the
+default) each quantised layer's weight is stored as its int8 rows
+(``<layer>.weight_q``, ``(N, K)``) and fp32 scales (``<layer>.weight_scale``)
+in place of the fp32 ``<layer>.weight``, and ``"w8a8_prequant": true``;
+a family without such layers (ResNet) stores fp32 weights and says false.
 """
 
 from __future__ import annotations
@@ -30,8 +41,10 @@ import numpy as np
 import torch
 
 from vit_torch_tpu_torch.device import resolve_device
+from vit_torch_tpu_torch.models.layers import QLinear, set_w8a8
 from vit_torch_tpu_torch.models.zoo import (VisionModelZoo, ZooModel,
                                             reset_buffers)
+from vit_torch_tpu_torch.ops.quant import quantize_weight, w8a8_enabled
 
 FORMAT = "vit_torch_tpu_torch.serving/1"
 _DETECTION_FORMAT = "vit_torch_tpu.serving.detection"
@@ -92,10 +105,31 @@ class ServingModel:
                 f"data.datasets.resize_images first")
 
 
+def _prequantize(model: torch.nn.Module, state: Dict,
+                 cast: Optional[torch.dtype]) -> bool:
+    """Replace each :class:`QLinear`'s ``weight`` in ``state`` by its int8
+    rows and fp32 scales (Q1 on the model's device, from the weight as it
+    is stored, cast or not).  Returns whether any layer was quantised."""
+    found = False
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if not isinstance(mod, QLinear):
+                continue
+            w = mod.weight if cast is None else mod.weight.to(cast)
+            w_q, w_scale = quantize_weight(w)
+            del state[f"{name}.weight"]
+            state[f"{name}.weight_q"] = w_q.cpu()
+            state[f"{name}.weight_scale"] = w_scale.cpu()
+            found = True
+    return found
+
+
 def export_classifier(zoo_model: ZooModel, *,
                       batch_sizes: Sequence[int] = (1, 8, 32),
                       norm: Optional[Dict[str, Sequence[float]]] = None,
-                      param_dtype: Optional[str] = None) -> Dict:
+                      param_dtype: Optional[str] = None,
+                      prequant: bool = True,
+                      w8a8: Optional[bool] = None) -> Dict:
     """Package a zoo classifier for serving.
 
     ``norm`` is ``{"mean": (3,), "std": (3,)}`` in 0-1 units (a
@@ -104,12 +138,22 @@ def export_classifier(zoo_model: ZooModel, *,
     bundle; matmuls cast weights to the activation dtype anyway, and
     LayerNorm still computes in fp32.
 
+    Under ``VITX_W8A8=1`` (or ``w8a8=True``, which overrides the flag
+    either way) the bundle serves through int8 (``"w8a8"`` in the
+    manifest); with ``prequant`` (default) its quantised layers' weights
+    are stored as int8 rows and fp32 scales, about a quarter of their fp32
+    bytes, and serving skips the per-call weight quantisation.
+    ``prequant=False`` keeps the fp32 weights, quantised per call.
+
     Returns ``{"manifest": dict, "state_dict": dict}``."""
     norm = norm or {"mean": (0.0, 0.0, 0.0), "std": (1.0, 1.0, 1.0)}
     cast = getattr(torch, param_dtype) if param_dtype else None
     state = {k: (v.detach().to("cpu", cast) if cast is not None
                  and v.is_floating_point() else v.detach().cpu())
              for k, v in zoo_model.model.state_dict().items()}
+    w8a8 = w8a8_enabled() if w8a8 is None else w8a8
+    prequantized = w8a8 and prequant and _prequantize(zoo_model.model,
+                                                      state, cast)
     classifier = zoo_model.classifier
     manifest = {
         "format": FORMAT,
@@ -127,8 +171,8 @@ def export_classifier(zoo_model: ZooModel, *,
         "activation_dtype": str(zoo_model.dtype).replace("torch.", ""),
         "param_dtype": str(param_dtype) if param_dtype else "float32",
         "num_devices": 1,
-        "w8a8": False,
-        "w8a8_prequant": False,
+        "w8a8": w8a8,
+        "w8a8_prequant": prequantized,
         "torch_version": torch.__version__,
     }
     return {"manifest": manifest, "state_dict": state}
@@ -166,9 +210,15 @@ def load_bundle(bundle_dir: str,
         image_channels=manifest.get("image_channels", 3))
     state = torch.load(os.path.join(bundle_dir, _WEIGHTS),
                        map_location="cpu", weights_only=True)
+    for key in [k for k in state if k.endswith(".weight_q")]:
+        layer = key[:-len(".weight_q")]
+        zm.model.get_submodule(layer).set_prequant(
+            state[key], state[f"{layer}.weight_scale"])
     zm.model.load_state_dict(state, assign=True)
     reset_buffers(zm.model, "cpu")
     model = zm.model.to(dev).eval()
+    # the manifest, not the server's environment, decides the path
+    set_w8a8(model, bool(manifest.get("w8a8", False)))
     norm = manifest["norm"]
     return ServingModel(
         manifest=manifest, model=model, device=dev,
