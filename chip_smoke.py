@@ -145,7 +145,20 @@
    swin_base_384 with ``VITX_W8A8`` off and on (every QLinear one Q2 and
    two Q1 launches, Swin off B9, cosine above W8A8_MIN_COSINE:
    ``w8a8_families``);
-14. prints one JSON line with each kernel's numbers, then the card's name
+14. DETR (ROADMAP A10a): holds the flash pair with a key length of its
+   own against the plain versions at DETR's shapes (the decoder's
+   cross-attention, both self-attentions, a ragged memory, Nq > Nk),
+   timed beside SDPA forward and backward (``kernel check
+   flash_attention_cross``); writes a synthetic COCO set at 512 px and
+   trains full-width DETR over Swin-T at bs8 for one epoch and evaluates
+   its bbox AP through ``vit_torch_tpu_torch.cli.coco`` (18 flash
+   forward and 18 backward launches and 12 B8 a step: ``detr_train``);
+   times and profiles the step with the host matcher's share
+   (``detr_step``); holds one bs8 step on the kernels and one on the
+   plain versions against the fp32 step (``detr_step_vs_plain``); runs an
+   eval forward with W8A8 off and on (``detr_w8a8``); prints a ``detr``
+   summary line;
+15. prints one JSON line with each kernel's numbers, then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -444,6 +457,31 @@ W8A8_FAMILIES = [(DEIT_ARCH, DEIT_SIZE), (CAIT_ARCH, CAIT_SIZE),
                  (XCIT_ARCH, XCIT_SIZE), (SWIN_ARCH, SWIN_SIZE)]
 W8A8_FAMILY_BS = 8
 H100_INT8_OPS = 1979e12           # dense tensor-core peak, SXM
+# DETR (ROADMAP A10a): the flash kernels with a key length of their own,
+# (B, H, Nq, Nk, D) at Swin-T 512 px bs8 (a 16 x 16 memory, hidden 256, 8
+# heads): the decoder's cross-attention, the encoder's and the decoder's
+# self-attention, a ragged memory and 300 queries over 256 keys (Nq > Nk)
+DETR_FLASH_SHAPES = [(8, 8, 100, 256, 32), (8, 8, 256, 256, 32),
+                     (8, 8, 100, 100, 32), (3, 8, 100, 391, 32),
+                     (8, 8, 300, 256, 32)]
+DETR_BACKBONE, DETR_SIZE, DETR_BS = "swin_tiny_patch4_window7_224", 512, 8
+DETR_TRAIN_N, DETR_VAL_N = 64, 32      # synthetic COCO pictures, 512 px
+DETR_LAYERS = 6                        # encoder and decoder layers each
+# a forward runs 6 encoder self-, 6 decoder self- and 6 cross-attentions
+DETR_FLASH = 3 * DETR_LAYERS
+SWIN_T_DEPTH = 12                      # every block pads at 512 px: B8
+# the bs8 DETR step against the fp32 step (compare_detr_step_with_plain):
+# the loss relative to the fp32 loss (the classifiers' STEP_LOSS_ATOL is
+# 2e-2 on a loss near ln 10, about 1%); the kernel step's gradients that
+# bf16 can compute at all (the plain bf16 step within STEP_GRAD_RTOL of
+# fp32): their median within STEP_GRAD_RTOL, none past DETR_STEP_GRAD_MAX,
+# the plain step's bound and the kernels' own added
+DETR_STEP_LOSS_RTOL = 1e-2
+DETR_STEP_GRAD_MAX = 2 * STEP_GRAD_RTOL
+DETR_ARGS = ["--backbone", DETR_BACKBONE, "--image_size", str(DETR_SIZE),
+             "--bs", str(DETR_BS), "--epochs", "1", "--no_initial_eval",
+             "--num_queries", "100", "--hidden_dim", "256", "--enc_layers",
+             str(DETR_LAYERS), "--dec_layers", str(DETR_LAYERS)]
 
 
 def _say(*parts) -> None:
@@ -3626,6 +3664,421 @@ def w8a8_every_family():
     return rows
 
 
+def _cross_bounds_ms(B, H, Nq, Nk, D):
+    """(forward, backward) bounds of attention of Nq queries over Nk keys:
+    the forward's QK^T and PV against q, o (Nq rows) and k, v (Nk rows)
+    read or written once; the backward's five products against q, o, dO,
+    dq (Nq rows), k, v, dk, dv (Nk rows) and the fp32 LSE."""
+    rows = B * H * D * 2
+    return (_bound(4 * B * H * Nq * Nk * D, 2 * (Nq + Nk) * rows),
+            _bound(10 * B * H * Nq * Nk * D,
+                   4 * (Nq + Nk) * rows + B * H * Nq * 4))
+
+
+def check_flash_cross(shape, seed):
+    """The flash pair with a key length of its own, (B, H, Nq, Nk, D) at
+    DETR's shapes: forward, LSE and backward through the model's (B, N, H,
+    D) entry with grad, against the plain versions (KERNEL_ATOL, LSE_ATOL,
+    BWD_RTOL); then the forward and the backward timed on CUDA events, the
+    device time of each launch from the profiler, the plain versions, and
+    SDPA forward and backward (events and device time, the backend it
+    took).  At these shapes the work is a few microseconds of bound, so
+    the launches set the time."""
+    import torch
+    import torch.nn.functional as F
+    from vit_torch_tpu_torch.ops import flash_attention as fa
+    B, H, Nq, Nk, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(2000 + seed)
+    q, do = (torch.randn((B, Nq, H, D), generator=gen, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, Nk, H, D), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    scale = D ** -0.5
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, scale=scale)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    ref, lse_ref = fa.flash_attention_bhnd_reference(qt, kt, vt, scale=scale,
+                                                     return_lse=True)
+    o, lse = fa.flash_attention_fwd(qt, kt, vt, scale=scale,
+                                    return_lse=True)
+    err = (out.transpose(1, 2).float() - ref.float()).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    errs, abs_err = [], 0.0
+    for got, want in zip(grads, fa.flash_attention_bwd_reference(
+            qt, kt, vt, dot, scale=scale)):
+        want = want.float()
+        diff = (got.transpose(1, 2).float() - want).abs().max().item()
+        abs_err = max(abs_err, diff)
+        errs.append(diff / max(want.abs().max().item(), BWD_FLOOR))
+    if not (torch.isfinite(out).all() and err <= KERNEL_ATOL
+            and lse_err <= LSE_ATOL and max(errs) <= BWD_RTOL):
+        raise AssertionError(f"flash cross {shape}: forward err {err}, lse "
+                             f"err {lse_err}, dq/dk/dv rel {errs}")
+    dq, dk, dv = (torch.empty_like(x) for x in (qt, kt, vt))
+
+    def fwd():
+        return fa.flash_attention(q, k, v, scale=scale)
+
+    def bwd():
+        fa.flash_attention_bwd(qt, kt, vt, o, lse, dot, scale=scale, dq=dq,
+                               dk=dk, dv=dv)
+
+    ms, bwd_ms = _time_ms(fwd, iters=100), _time_ms(bwd, iters=100)
+    ((device_ms, seen),) = _device_times(fwd, ("flash_fwd_kernel",))
+    split = _device_times(bwd, FLASH_BWD_KERNELS)
+    if not (device_ms > 0 and seen == 1
+            and all(t > 0 and n == 1 for t, n in split)):
+        raise AssertionError(f"flash cross {shape}: the profiler saw "
+                             f"forward {(device_ms, seen)}, backward "
+                             f"{split}")
+    plain_ms = _time_ms(lambda: fa.flash_attention_bhnd_reference(
+        qt, kt, vt, scale=scale), iters=20)
+    plain_bwd_ms = _time_ms(lambda: fa.flash_attention_bwd_reference(
+        qt, kt, vt, dot, scale=scale), iters=20)
+    qs, ks, vs = (x.contiguous().requires_grad_(True) for x in (qt, kt, vt))
+    dos = dot.contiguous()
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+
+    def library_bwd():
+        return torch.autograd.grad(o_lib, (qs, ks, vs), dos,
+                                   retain_graph=True)
+
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = _cross_bounds_ms(*shape)
+    row = {"shape": list(shape), "max_abs_err": err,
+           "max_abs_err_lse": lse_err, "rel_err_dq_dk_dv": errs,
+           "max_abs_err_bwd": abs_err,
+           "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+           "bound_ms": fwd_bound, "bound_by": fwd_by,
+           "library_ms": _time_ms(library, iters=100),
+           "library_device_ms": _device_ms(library, ""),
+           "library_backend": _library_backend(library),
+           "bwd_ms": bwd_ms, "bwd_device_ms": sum(t for t, _ in split),
+           "bwd_device_ms_preprocess_main_convert": [t for t, _ in split],
+           "bwd_plain_ms": plain_bwd_ms, "bwd_bound_ms": bwd_bound,
+           "bwd_bound_by": bwd_by,
+           "bwd_library_ms": _time_ms(library_bwd, iters=100),
+           "bwd_library_device_ms": _device_ms(library_bwd, ""),
+           "bwd_library_backend": _library_backend(library_bwd),
+           "plan": fa.launch_plan(B, H, Nq, D, Nk=Nk)._asdict(),
+           "bwd_plan": fa.launch_plan(B, H, Nq, D, Nk=Nk,
+                                      backward=True)._asdict()}
+    _say("kernel check flash_attention_cross", json.dumps(row))
+    return row
+
+
+def write_detr_data(workdir: str) -> str:
+    """A synthetic COCO root at 512 px: ``train`` (DETR_TRAIN_N pictures)
+    and ``validation`` (DETR_VAL_N, another seed)."""
+    from vit_torch_tpu_torch.detection.coco_data import make_synthetic_coco
+    root = os.path.join(workdir, "detr_coco")
+    make_synthetic_coco(os.path.join(root, "train"), n_images=DETR_TRAIN_N,
+                        size=DETR_SIZE, seed=0)
+    make_synthetic_coco(os.path.join(root, "validation"),
+                        n_images=DETR_VAL_N, size=DETR_SIZE, seed=1)
+    return root
+
+
+def _detr_want(train_steps: int, eval_batches: int):
+    """Launches of DETR over Swin-T at 512 px: every Swin block takes B8
+    (one core launch forward, one B6 backward with grad), every forward
+    18 flash forwards, every train step 18 flash backwards."""
+    forwards = train_steps + eval_batches
+    return _want(flash_attention_fwd=DETR_FLASH * forwards,
+                 flash_attention_bwd=DETR_FLASH * train_steps,
+                 window_block_spatial=SWIN_T_DEPTH * forwards,
+                 window_attention=SWIN_T_DEPTH * forwards,
+                 window_attention_bwd=SWIN_T_DEPTH * train_steps)
+
+
+def detr_train_through_cli(root: str, workdir: str):
+    """Full-width DETR (hidden 256, 8 heads, 6 + 6 layers, FFN 2048, 100
+    queries) over Swin-T at 512 px, bs8, one epoch of the synthetic train
+    set and the bbox evaluation of the validation set through
+    ``vit_torch_tpu_torch.cli.coco``: launch counts, the stats JSON (a
+    finite loss, the 12 COCO numbers; AP itself is not gated: seeded
+    weights, one epoch)."""
+    from vit_torch_tpu_torch.cli import coco as cli_coco
+    steps, evals = DETR_TRAIN_N // DETR_BS, DETR_VAL_N // DETR_BS
+    want = _detr_want(steps, evals)
+    fp = os.path.join(workdir, "detr_stats.json")
+    _reset_counts()
+    t0 = time.perf_counter()
+    cli_coco.main(DETR_ARGS + ["--data_root", root, "--stats_fp", fp])
+    seconds = time.perf_counter() - t0
+    counts = _read_counts()
+    with open(fp) as f:
+        record = json.load(f)
+    logs = record["logs"]
+    row = {"seconds": seconds, "launches": counts, "want": want,
+           "telem": record["telem"],
+           "train": logs[0]["train"] if logs else None,
+           "bbox": logs[0]["val"].get("bbox") if logs else None}
+    _say(json.dumps({"detr_train": row}))
+    if counts != want:
+        raise AssertionError(f"detr_train: kernel launches {counts} != "
+                             f"{want}")
+    if not (len(logs) == 1 and np.isfinite(logs[0]["train"]["loss_total"])
+            and len(row["bbox"]) == 12
+            and all(np.isfinite(v) for v in row["bbox"].values())):
+        raise AssertionError(f"detr_train: bad stats {record}")
+    return row
+
+
+def _detr_setup(root: str, seed: int = 0):
+    """A seeded full-width DETR over Swin-T at 512 px on the card, its
+    trainer (AdamW, the flip on) and one synthetic bs8 batch."""
+    import torch
+    from vit_torch_tpu_torch.detection.coco_data import (CocoDetectionDataset,
+                                                         CocoLoader)
+    from vit_torch_tpu_torch.detection.detr import DETRConfig, build_detr
+    from vit_torch_tpu_torch.detection.engine import DetectionTrainer
+    ds = CocoDetectionDataset(os.path.join(root, "train", "data"),
+                              os.path.join(root, "train", "labels.json"),
+                              image_size=DETR_SIZE)
+    batch = next(iter(CocoLoader(ds, DETR_BS, num_workers=0)))
+    model = build_detr(DETRConfig(num_classes=ds.num_classes),
+                       DETR_BACKBONE, DETR_SIZE, torch.bfloat16,
+                       torch.Generator().manual_seed(seed), "cuda")
+    trainer = DetectionTrainer(model, image_size=DETR_SIZE,
+                               num_classes=ds.num_classes, augment=True)
+    return model, trainer, batch
+
+
+def steady_state_detr(root: str, iters: int = 10):
+    """The DETR train step at bs8 (flip, forward, costs on the card, the
+    Hungarian solves on the host, 6 layers' set losses, backward, clip,
+    AdamW) on the card: CUDA-event and host time over ``iters`` steps
+    after warm-up (the step waits for the costs, so the two agree), the
+    host's share (waiting for the costs; solving the 6 x 8 assignments),
+    the launches per step, peak memory and a profile by kernel group with
+    the device's idle share."""
+    import torch
+    model, trainer, batch = _detr_setup(root)
+    for _ in range(3):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    _reset_counts()
+    trainer.train_step(batch)
+    per_step = _read_counts()
+    trainer.host_ms = {"costs_wait": 0.0, "match": 0.0, "steps": 0}
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    smi = [_smi_sample()]
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        logs = trainer.train_step(batch)
+    end.record()
+    torch.cuda.synchronize()
+    host_step_ms = 1e3 * (time.perf_counter() - t0) / iters
+    smi.append(_smi_sample())
+    host = trainer.host_ms
+    row = {"arch": f"detr_{DETR_BACKBONE}", "image_size": DETR_SIZE,
+           "bs": DETR_BS, "opt": "adamw", "iters": iters,
+           "step_ms": start.elapsed_time(end) / iters,
+           "host_step_ms": host_step_ms,
+           "costs_wait_ms_per_step": host["costs_wait"] / host["steps"],
+           "matcher_host_ms_per_step": host["match"] / host["steps"],
+           "loss_total": float(logs["loss_total"]),
+           "launches_per_step": per_step,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "smi_before_after": smi,
+           "profile": _profile_calls(lambda: trainer.train_step(batch))}
+    _say(json.dumps({"detr_step": row}))
+    if per_step != _detr_want(1, 0):
+        raise AssertionError(f"launches per DETR step {per_step}")
+    if not np.isfinite(row["loss_total"]):
+        raise AssertionError(f"DETR step loss {row['loss_total']}")
+    return row
+
+
+def _plain_flash(q, k, v, *, scale=None):
+    """Attention on the plain version (differentiable through autograd),
+    patched in for the kernel-vs-plain comparison of a DETR step."""
+    from vit_torch_tpu_torch.ops import flash_attention as fa
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return fa.flash_attention_bhnd_reference(qt, kt, vt,
+                                             scale=scale).transpose(1, 2)
+
+
+def _plain_detr():
+    """Flash (every attention of the transformer) and the Swin window
+    blocks on their plain versions."""
+    from vit_torch_tpu_torch.ops import attention as attention_mod
+    stack = _plain_window_blocks()
+    stack.enter_context(mock.patch.object(attention_mod, "flash_attention",
+                                          _plain_flash))
+    return stack
+
+
+def compare_detr_step_with_plain(root: str):
+    """Loss and gradients of one bs8 DETR train step (no augmentation, the
+    same drop-path masks, no optimizer step, the kernel forward's
+    assignment for every run) on the kernels, on their plain versions in
+    bf16, and on the plain versions in fp32, the reference.  The
+    classifiers' bound (every relative gradient norm within
+    STEP_GRAD_RTOL of the plain bf16 step) does not hold for this model:
+    the plain bf16 step itself leaves a third of DETR's gradients more
+    than STEP_GRAD_RTOL from the fp32 step (the deep decoder layers'
+    self-attention q/k gradients by over 100%: dS = P (dP - Di) cancels
+    over 100 queries and dO, V are bf16), so each bf16 step is held to the
+    fp32 one: the loss within DETR_STEP_LOSS_RTOL, the whole gradient
+    within STEP_GRAD_RTOL, and on the gradients bf16 can compute (those
+    the plain bf16 step gets within STEP_GRAD_RTOL, at least half of
+    them) the kernel step's median within STEP_GRAD_RTOL and none past
+    DETR_STEP_GRAD_MAX.  Gradients zero in exact arithmetic (every key
+    bias: softmax ignores a shift shared by all keys; the first decoder
+    layer's self-attention, whose values are zero) are left out.  The
+    classifiers' readings are printed beside them.  The first card run
+    of Swin's B8 route and of flash with Nk != Nq under autograd in one
+    model."""
+    import torch
+    from vit_torch_tpu_torch.data.augment import normalize
+    from vit_torch_tpu_torch.detection.detr import DETRConfig, build_detr
+    from vit_torch_tpu_torch.detection.engine import prep_targets
+    from vit_torch_tpu_torch.models.layers import set_generator
+    model, trainer, batch = _detr_setup(root, seed=1)
+    ref = build_detr(DETRConfig(num_classes=model.config.num_classes),
+                     DETR_BACKBONE, DETR_SIZE, torch.float32, device="cuda")
+    ref.load_state_dict(model.state_dict())
+    set_generator(ref, trainer.generator)
+    b = trainer._batch(batch)
+    x = normalize(b["image"], **trainer.norm)
+    targets = prep_targets(b["labels"], b["boxes"], b["box_mask"],
+                           b["mask"], DETR_SIZE)
+
+    def forward(m):
+        m.train()
+        trainer.generator.manual_seed(7)          # the same drop-path masks
+        return m(x)
+
+    def loss_and_grads(m, out):
+        m.zero_grad(set_to_none=True)
+        loss, _ = trainer.losses(out, targets, assign)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().float().clone()
+                             for n, p in m.named_parameters()
+                             if p.grad is not None}
+
+    _reset_counts()
+    out = forward(model)
+    assign = trainer.match(list(out["aux_outputs"]) + [out], targets)
+    loss_k, grads_k = loss_and_grads(model, out)
+    counts = _read_counts()
+    with _plain_detr():
+        loss_p, grads_p = loss_and_grads(model, forward(model))
+        loss_r, grads_r = loss_and_grads(ref, forward(ref))
+    if _read_counts() != counts:
+        raise AssertionError("the plain DETR steps launched a kernel")
+    if (counts != _detr_want(1, 0)
+            or not set(grads_k) == set(grads_p) == set(grads_r)):
+        raise AssertionError(f"launches in the kernel DETR step {counts}")
+
+    def rel(got, want, names):
+        return {n: ((got[n] - want[n]).norm()
+                    / want[n].norm().clamp_min(1e-30)).item() for n in names}
+
+    def whole(got):
+        return (torch.cat([(got[n] - grads_r[n]).flatten() for n in grads_r])
+                .norm() / torch.cat([g.flatten() for g in grads_r.values()])
+                .norm()).item()
+
+    exact = [n for n, g in grads_r.items()
+             if g.norm() > 0 and not n.endswith("k.bias")]
+    k_ref, p_ref = rel(grads_k, grads_r, exact), rel(grads_p, grads_r, exact)
+    k_p = rel(grads_k, grads_p, exact)
+    able = [n for n in exact if p_ref[n] <= STEP_GRAD_RTOL]
+    k_able = [k_ref[n] for n in able]
+    worst = max(able, key=k_ref.get)
+    row = {"arch": f"detr_{DETR_BACKBONE}", "bs": DETR_BS,
+           "loss_kernel": loss_k, "loss_plain": loss_p, "loss_fp32": loss_r,
+           "loss_rel_err_kernel_plain": [abs(loss_k - loss_r) / abs(loss_r),
+                                         abs(loss_p - loss_r) / abs(loss_r)],
+           "whole_grad_rel_err_kernel_plain": [whole(grads_k),
+                                               whole(grads_p)],
+           "median_grad_rel_err_kernel_plain": [
+               float(np.median(list(k_ref.values()))),
+               float(np.median(list(p_ref.values())))],
+           "params": len(grads_r), "exact_nonzero": len(exact),
+           "bf16_able": len(able),
+           "able_median_max_kernel": [float(np.median(k_able)),
+                                      max(k_able)],
+           "able_worst_param": worst,
+           "classifier_bounds_kernel_vs_plain": {
+               "loss_abs_diff": abs(loss_k - loss_p),
+               "max_grad_rel_err": max(k_p.values()),
+               "over_step_grad_rtol": sum(v > STEP_GRAD_RTOL
+                                          for v in k_p.values())},
+           "plain_bf16_vs_fp32_over_step_grad_rtol": len(exact) - len(able),
+           "launches": counts}
+    _say(json.dumps({"detr_step_vs_plain": row}))
+    if not (np.isfinite(loss_k)
+            and row["loss_rel_err_kernel_plain"][0] <= DETR_STEP_LOSS_RTOL
+            and row["whole_grad_rel_err_kernel_plain"][0] <= STEP_GRAD_RTOL
+            and 2 * len(able) >= len(exact)
+            and row["able_median_max_kernel"][0] <= STEP_GRAD_RTOL
+            and row["able_median_max_kernel"][1] <= DETR_STEP_GRAD_MAX):
+        raise AssertionError(
+            f"DETR kernel step vs the fp32 step: {row} (limits loss "
+            f"{DETR_STEP_LOSS_RTOL}, whole gradient and median "
+            f"{STEP_GRAD_RTOL}, max {DETR_STEP_GRAD_MAX})")
+    return row
+
+
+def detr_w8a8_forward(root: str):
+    """One full-width DETR eval forward at bs8 with ``VITX_W8A8`` off and
+    on: under it every QLinear (input_proj, MHA q/k/v/out, FFN, Swin's
+    MLPs) runs once (one Q2 launch, two Q1); the logits' cosine against
+    the fp forward must exceed W8A8_MIN_COSINE; both forwards timed on
+    CUDA events."""
+    import torch
+    from vit_torch_tpu_torch.data.augment import normalize
+    from vit_torch_tpu_torch.models.layers import QLinear
+    model, trainer, batch = _detr_setup(root, seed=2)
+    model.eval()
+    sites = sum(isinstance(m, QLinear) for m in model.modules())
+    x = normalize(torch.as_tensor(batch["image"]).cuda(), **trainer.norm)
+    out, counts, ms = {}, {}, {}
+    for on in (False, True):
+        with mock.patch.dict(os.environ, {"VITX_W8A8": "1" if on else ""}), \
+                torch.inference_mode():
+            _reset_counts()
+            out[on] = model(x)["pred_logits"].float().cpu().numpy()
+            torch.cuda.synchronize()
+            counts[on] = _read_counts()
+            ms[on] = _time_ms(lambda: model(x), iters=5)
+    cos = _cosine(out[True], out[False])
+    q = counts[True]
+    row = {"arch": f"detr_{DETR_BACKBONE}", "bs": DETR_BS, "qlinear": sites,
+           "launches_w8a8": {k: v for k, v in q.items() if v},
+           "launches_fp": {k: v for k, v in counts[False].items() if v},
+           "cosine": cos, "forward_ms_fp_w8a8": [ms[False], ms[True]]}
+    _say(json.dumps({"detr_w8a8": row}))
+    if (q["w8a8_gemm"] != sites or q["w8a8_quantize_rows"] != 2 * sites
+            or counts[False]["w8a8_gemm"] != 0
+            or q["flash_attention_fwd"] != DETR_FLASH
+            or not np.isfinite(out[True]).all()
+            or cos <= W8A8_MIN_COSINE):
+        raise AssertionError(f"DETR W8A8: {row}")
+    return row
+
+
+def detr_phases(workdir: str):
+    """Every DETR phase on one synthetic root."""
+    root = write_detr_data(workdir)
+    return {"train": detr_train_through_cli(root, workdir),
+            "step": steady_state_detr(root),
+            "step_vs_plain": compare_detr_step_with_plain(root),
+            "w8a8": detr_w8a8_forward(root)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3663,6 +4116,8 @@ def main() -> int:
     bwd_rows = [check_flash_bwd_kernel(shape, seed=i)
                 for i, shape in enumerate(BWD_SHAPES)]
     train_row = bwd_rows[0]
+    cross_rows = [check_flash_cross(shape, seed=i)
+                  for i, shape in enumerate(DETR_FLASH_SHAPES)]
 
     attn_rows = [check_window_attention(case, seed=i)
                  for i, case in enumerate(SWIN_BLOCKS)]
@@ -3803,6 +4258,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         w8a8_serve = serve_w8a8(workdir)
     w8a8_families = w8a8_every_family()
+    with tempfile.TemporaryDirectory() as workdir:
+        detr = detr_phases(workdir)
 
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -3819,7 +4276,14 @@ def main() -> int:
             "serve": launches["flash_attention_fwd"],
             "finetune": finetune["flash_attention_fwd"],
             "lineareval": lineareval["flash_attention_fwd"],
-            **{p: c["flash_attention_fwd"] for p, c in extra_paths.items()}},
+            **{p: c["flash_attention_fwd"] for p, c in extra_paths.items()},
+            "detr_train": detr["train"]["launches"]["flash_attention_fwd"]},
+        "detr_launches_per_step": detr["step"]["launches_per_step"][
+            "flash_attention_fwd"],
+        "detr_shape_ms_device_plain_library_libdevice_bound": [
+            [r["shape"], r["ms"], r["device_ms"], r["plain_ms"],
+             r["library_ms"], r["library_device_ms"], r["bound_ms"]]
+            for r in cross_rows],
         "ms_with_lse": train_row["fwd_with_lse_ms"],
         "max_abs_err_lse": max(r["max_abs_err_lse"] for r in bwd_rows),
         "device_ms": serving_row["device_ms"],
@@ -3845,7 +4309,14 @@ def main() -> int:
         "launches_by_path": {
             "finetune": finetune["flash_attention_bwd"],
             "lineareval": lineareval["flash_attention_bwd"],
-            **{p: c["flash_attention_bwd"] for p, c in extra_paths.items()}},
+            **{p: c["flash_attention_bwd"] for p, c in extra_paths.items()},
+            "detr_train": detr["train"]["launches"]["flash_attention_bwd"]},
+        "detr_launches_per_step": detr["step"]["launches_per_step"][
+            "flash_attention_bwd"],
+        "detr_shape_ms_device_plain_library_libdevice_bound": [
+            [r["shape"], r["bwd_ms"], r["bwd_device_ms"], r["bwd_plain_ms"],
+             r["bwd_library_ms"], r["bwd_library_device_ms"],
+             r["bwd_bound_ms"]] for r in cross_rows],
         "ms_32px_bs128": bwd_rows[1]["ms"],
         "bound_ms_32px_bs128": bwd_rows[1]["bound_ms"],
         "device_ms": train_row["device_ms"],
@@ -4148,6 +4619,21 @@ def main() -> int:
                         [r["ms"] for r in resnext_steps[side]]
                         for side in ("eval_forward_fold_on",
                                      "eval_forward_fold_off")]}}}))
+    # DETR (ROADMAP A10a) runs the flash pair at Nk != Nq and Swin's B8
+    # chain with B6; its numbers in one line beside the kernels'
+    _say(json.dumps({"detr": {
+        "train_seconds": detr["train"]["seconds"],
+        "bbox": detr["train"]["bbox"],
+        "loss_total": detr["train"]["train"]["loss_total"],
+        "step": {k: detr["step"][k] for k in (
+            "step_ms", "host_step_ms", "costs_wait_ms_per_step",
+            "matcher_host_ms_per_step", "peak_mem_gb", "loss_total")},
+        "device_busy_ms": detr["step"]["profile"]["device_busy_ms"],
+        "idle_share": detr["step"]["profile"]["idle_share"],
+        "step_vs_fp32": {k: detr["step_vs_plain"][k] for k in (
+            "loss_rel_err_kernel_plain", "whole_grad_rel_err_kernel_plain",
+            "able_median_max_kernel")},
+        "w8a8_cosine": detr["w8a8"]["cosine"]}}))
     _say(json.dumps({"kernels": kernels}))
     _say(smi)
     _say(json.dumps({"ok": True, "device": {

@@ -1319,3 +1319,86 @@ def test_w8a8_vit_on_cuda_matches_cpu(cuda, monkeypatch):
             quant.int8_gemm.launches - before[1]) == (16, 8)
     err = ((got - want).abs().max() / want.abs().max()).item()
     assert err <= 5e-2, err
+
+
+# (B, H, Nq, Nk, D): DETR's cross-attention at 512 px (100 queries, 16 x 16
+# memory), a ragged memory, 300 queries over 256 keys (Nq > Nk), one query,
+# keys fewer than a tile, and a D = 64 pair
+CROSS_SHAPES = [(2, 8, 100, 256, 32), (3, 8, 100, 391, 32),
+                (2, 8, 300, 256, 32), (2, 3, 1, 70, 64), (2, 3, 200, 5, 64),
+                (4, 2, 129, 64, 32)]
+
+
+@pytest.mark.parametrize("shape", CROSS_SHAPES, ids=str)
+def test_cross_attention_kernels_match_plain(cuda, shape):
+    """q of Nq rows against k, v of Nk: the forward, its log-sum-exp and
+    the backward through the (B, N, H, D) entry with grad, against the
+    plain versions; one launch of each kernel."""
+    B, H, Nq, Nk, D = shape
+    gen = torch.Generator(device=cuda).manual_seed(Nq + Nk)
+    q, do = (torch.randn((B, Nq, H, D), generator=gen, device=cuda,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, Nk, H, D), generator=gen, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = (fa.flash_attention_bhnd.launches, fa.flash_attention_bwd.launches)
+    out = fa.flash_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bhnd.launches - before[0],
+            fa.flash_attention_bwd.launches - before[1]) == (1, 1)
+    assert out.shape == (B, Nq, H, D)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    ref, lse_ref = fa.flash_attention_bhnd_reference(qt, kt, vt,
+                                                     return_lse=True)
+    assert (out.transpose(1, 2).float() - ref.float()).abs().max() <= ATOL
+    _, lse = fa.flash_attention_fwd(qt, kt, vt, return_lse=True)
+    assert lse.shape == (B, H, Nq)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    for got, want in zip(grads, fa.flash_attention_bwd_reference(
+            qt, kt, vt, dot)):
+        assert got.shape == want.transpose(1, 2).shape
+        err = (got.transpose(1, 2).float() - want.float()).abs().max().item()
+        assert err <= BWD_RTOL * max(want.float().abs().max().item(),
+                                     BWD_FLOOR)
+
+
+def test_cross_attention_refuses_what_it_does_not_take(cuda):
+    q = torch.randn((2, 4, 40, 32), device=cuda, dtype=torch.bfloat16)
+    k = torch.randn((2, 4, 70, 32), device=cuda, dtype=torch.bfloat16)
+    for bad, match in ((k[:1], "agree"), (k[:, :3], "agree"),
+                       (torch.randn((2, 4, 70, 64), device=cuda,
+                                    dtype=torch.bfloat16), "agree")):
+        with pytest.raises(ValueError, match=match):
+            fa.flash_attention_bhnd(q, bad, bad)
+    with pytest.raises(ValueError, match="shape"):
+        fa.flash_attention_bhnd(q, k, k[:, :, :69])
+    with pytest.raises(TypeError):
+        fa.flash_attention_bhnd(q, k.float(), k.float())
+    with pytest.raises(ValueError, match="device|on cpu"):
+        fa.flash_attention_fwd(q, k.cpu(), k.cpu())
+    with pytest.raises(ValueError, match="no flash"):
+        fa.flash_attention_bhnd(q, k[:, :, :0], k[:, :, :0])
+
+
+def test_tiny_detr_on_cuda_matches_cpu(cuda):
+    """A DETR of hidden 64 and 2 heads (head dim 32, the flash kernels')
+    over a Swin-T trunk at 64 px, bf16 on the card (flash for all 6
+    attentions, cross-attention with Nq = 8 against Nk = 4 keys) against
+    the same weights in fp32 on the CPU (the plain versions)."""
+    from vit_torch_tpu_torch.detection.detr import DETRConfig, build_detr
+    cfg = DETRConfig(num_classes=3, num_queries=8, hidden_dim=64,
+                     num_heads=2, enc_layers=1, dec_layers=2, ffn_dim=128)
+    ref = build_detr(cfg, "swin_tiny_patch4_window7_224", 64, torch.float32)
+    model = build_detr(cfg, "swin_tiny_patch4_window7_224", 64).to(cuda)
+    model.load_state_dict(ref.state_dict())
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    before = fa.flash_attention_bhnd.launches
+    with torch.no_grad():
+        want = ref.eval()(x)
+        got = model.eval()(x.to(cuda))
+    assert fa.flash_attention_bhnd.launches - before == 1 + 2 * 2
+    for key in ("pred_logits", "pred_boxes"):
+        g, w = got[key].float().cpu(), want[key]
+        err = ((g - w).abs().max() / w.abs().max()).item()
+        assert err <= 5e-2, (key, err)

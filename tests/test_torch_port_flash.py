@@ -203,3 +203,85 @@ def test_backward_on_the_card_calls_the_launcher(monkeypatch):
     assert dq.shape == dk.shape == dv.shape == (2, 3, 40, 32)
     assert second[6:9] == tuple(views) == got
     assert second[9] == 32 ** -0.5
+
+
+# (B, H, Nq, Nk, D): DETR's cross-attention (100 queries over a 16 x 16
+# memory), a ragged memory, Nq > Nk, one query
+CROSS_SHAPES = [(2, 2, 100, 256, 32), (1, 2, 100, 391, 32),
+                (2, 1, 300, 256, 32), (2, 3, 1, 70, 64)]
+
+
+@pytest.mark.parametrize("shape", CROSS_SHAPES, ids=str)
+def test_cross_attention_plain_versions_match_xla(shape):
+    """q of Nq rows over k, v of Nk: the plain forward and backward (which
+    the wrappers run on the CPU, and the card checks its kernels against)
+    against the JAX package's ``_xla_attention`` and its ``jax.vjp``, the
+    path the JAX DETR takes for its attentions."""
+    import jax
+    B, H, Nq, Nk, D = shape
+    rng = np.random.default_rng(Nq + Nk)
+    q, do = (rng.standard_normal((B, Nq, H, D)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((B, Nk, H, D)).astype(np.float32)
+            for _ in range(2))
+    want, vjp = jax.vjp(lambda q, k, v: _xla_attention(q, k, v,
+                                                       scale=D ** -0.5),
+                        *(jnp.asarray(x) for x in (q, k, v)))
+    dwant = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(x).transpose(1, 2)
+                       for x in (q, k, v, do))
+    got = flash_attention_bhnd_reference(tq, tk, tv)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(),
+                               np.asarray(want), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(dot_product_attention(
+        *(torch.from_numpy(x) for x in (q, k, v))).numpy(),
+        np.asarray(want), atol=ATOL, rtol=0)
+    grads = fa.flash_attention_bwd(tq, tk, tv, got, None, tdo)
+    for g, w, name in zip(grads, dwant, "qkv"):
+        assert g.shape == tuple(w.shape[i] for i in (0, 2, 1, 3)), name
+        np.testing.assert_allclose(g.transpose(1, 2).numpy(), np.asarray(w),
+                                   atol=ATOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", CROSS_SHAPES + [(8, 8, 100, 100, 32),
+                                                  (8, 8, 256, 256, 32)],
+                         ids=str)
+def test_launch_plans_with_a_key_length_of_their_own(shape):
+    """The forward's items and grid count query rows, its stages key tiles;
+    the backward's grid counts 128-key blocks and its stages and dQ rows
+    64-query tiles; ``Nk`` None is self-attention."""
+    B, H, Nq, Nk, D = shape
+    fwd = fa.launch_plan(B, H, Nq, D, Nk=Nk)
+    assert fwd.grid == (min(132, -(-Nq // 128) * B * H), 1)
+    assert fwd.stages == min(8, -(-Nk // 64))
+    assert fwd.smem_bytes == 1024 + (4 + 2 * fwd.stages) * 64 * D * 2 + 160
+    bwd = fa.launch_plan(B, H, Nq, D, Nk=Nk, backward=True)
+    assert bwd.grid == (-(-Nk // 128), B * H)
+    assert bwd.stages == min(4, -(-Nq // 64))
+    assert bwd.dq_rows == -(-Nq // 64) * 64
+    assert fa.launch_plan(B, H, Nq, D) == fa.launch_plan(B, H, Nq, D, Nk=Nq)
+    with pytest.raises(ValueError, match="no flash"):
+        fa.launch_plan(B, H, Nq, D, Nk=0)
+
+
+def test_cross_attention_on_the_card_calls_the_launchers(monkeypatch):
+    """A tensor on the card with Nq != Nk reaches both launchers, the
+    output and dq of q's shape, dk and dv of k's, the LSE over Nq."""
+    calls = []
+    monkeypatch.setattr(fa, "_launch_fwd",
+                        lambda *args: calls.append(("fwd", args)))
+    monkeypatch.setattr(fa, "_launch_bwd",
+                        lambda *args: calls.append(("bwd", args)))
+    monkeypatch.setattr(fa, "flash_attention_bhnd_reference", _refuse)
+    monkeypatch.setattr(fa, "flash_attention_bwd_reference", _refuse)
+    with _CardOnMeta():
+        q = torch.empty((2, 3, 40, 32), dtype=torch.bfloat16, device="cuda")
+        k, v = (torch.empty((2, 3, 70, 32), dtype=torch.bfloat16,
+                            device="cuda") for _ in range(2))
+        out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, out)
+    assert [c[0] for c in calls] == ["fwd", "bwd"]
+    assert out.shape == dq.shape == (2, 3, 40, 32)
+    assert dk.shape == dv.shape == (2, 3, 70, 32)
+    assert lse.shape == (2, 3, 40)
+    assert calls[1][1][6:9] == (dq, dk, dv)

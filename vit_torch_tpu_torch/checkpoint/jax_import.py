@@ -28,13 +28,20 @@ initialised by the JAX package run in the port:
   ``cls_attn_blocks.{i}``;
 - ResNet's ``layer{i}_{j}`` becomes ``layer{i}.{j}``, and
   ``downsample_conv`` / ``downsample_bn`` ``downsample.0`` / ``.1``;
+- DETR's ``encoder_{i}`` and ``decoder_{i}`` become ``encoder.{i}`` and
+  ``decoder.{i}`` (their ``self_attn`` / ``cross_attn`` ``q``, ``k``,
+  ``v``, ``out``, ``linear1``, ``linear2`` and norms keep their names, as
+  do ``input_proj``, ``class_embed``, ``bbox_embed.fc{0,1,2}``,
+  ``encoder_norm`` and ``decoder_norm``), and its ``backbone`` subtree
+  maps as the Swin tree it is;
 - the ``batch_stats`` collection's BatchNorm ``mean`` / ``var`` become
   ``running_mean`` / ``running_var``, with a ``num_batches_tracked`` of 0
   beside them (a strict load needs it; flax does not count batches);
 - Swin's ``relative_position_bias_table``, CaiT's ``gamma_1`` and
-  ``gamma_2``, XCiT's ``gamma1``-``gamma3`` and ``temperature``, and the
-  ``cls_token``, ``pos_embed`` and DeiT's ``dist_token`` leaves are kept
-  as they are.
+  ``gamma_2``, XCiT's ``gamma1``-``gamma3`` and ``temperature``, the
+  ``cls_token``, ``pos_embed`` and DeiT's ``dist_token`` leaves, and
+  DETR's ``query_embed`` and learned ``position_embedding.row_embed`` /
+  ``col_embed`` tables are kept as they are.
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ def _torch_key(path: str) -> str:
     key = re.sub(r"(^|\.)pos_proj_(kernel|bias)$",
                  r"\1pos_embeder.token_projection.\2", key)
     key = re.sub(r"(^|\.)layer(\d+)_(\d+)\.", r"\1layer\2.\3.", key)
+    key = re.sub(r"(^|\.)(encoder|decoder)_(\d+)\.", r"\1\2.\3.", key)
     return re.sub(r"downsample_(conv|bn)\.", lambda m: (
         f"downsample.{int(m[1] == 'bn')}."), key)
 
@@ -77,7 +85,8 @@ def state_dict_from_jax(params: Mapping[str, Any], image_channels: int = 3,
                         batch_stats: Optional[Mapping[str, Any]] = None
                         ) -> Dict[str, torch.Tensor]:
     """Map a flax classifier tree of any family (``{"backbone": ...,
-    "head": ...}``, or a bare backbone tree) of numpy-convertible arrays,
+    "head": ...}``, or a bare backbone tree) or a DETR tree of
+    numpy-convertible arrays,
     and its ``batch_stats`` collection where the model has BatchNorm
     (XCiT, ResNet), to a state dict."""
     out: Dict[str, torch.Tensor] = {}

@@ -1,0 +1,266 @@
+"""COCO detection CLI, counterpart of ``vit_torch_tpu/cli/coco.py`` (the
+reference's ``object/coco_pipeline.py`` flags ``:51-72``, ``--test``
+smoke mode ``:75-82`` and per-epoch stats JSON ``:442-559``;
+``object_detr/main.py``): trains DETR over a Swin feature map on a
+COCO-format directory with the host Hungarian matcher, evaluates COCO
+bbox AP after every epoch (and once before training), and streams the
+train losses and the 12 COCO numbers to a stats JSON.  The flags keep the
+JAX CLI's names and defaults.
+
+    python -m vit_torch_tpu_torch.cli.coco --data_root /path/coco \\
+        --backbone swin_tiny_patch4_window7_224 --epochs 5 --bs 8
+    python -m vit_torch_tpu_torch.cli.coco --test          # on the card
+    python -m vit_torch_tpu_torch.cli.coco --test --device cpu
+
+It runs on CUDA unless ``--device cpu``.  ``--dtype`` defaults to
+bfloat16 on CUDA and float32 on the CPU: the flash and window kernels
+take bfloat16, so ``--dtype float32`` on CUDA raises.  ``--test`` writes a
+16-image synthetic set at 64 px and trains 1-2 epochs of a 1 + 1 layer,
+hidden-64 DETR with 8 queries and 2 heads (head dim 32, the flash
+kernels' smallest); its backbone is ``swin_test`` on the CPU and Swin-T
+on the card, whose window kernels take head dim 32 only.  The flags of
+later slices raise before any work, naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+import time
+from typing import Optional, Sequence
+
+import torch
+
+# flag -> (is it set?, the ROADMAP.md item that ports it)
+UNPORTED_COCO_FLAGS = {
+    "head": (lambda v: v != "detr", "A10b, Faster R-CNN and keypoints"),
+    "keypoints": (bool, "A10b, Faster R-CNN and keypoints"),
+    "masks": (bool, "A10c, masks and segmentation"),
+    "panoptic_root": (bool, "A10c, masks and segmentation"),
+    "matcher": (lambda v: v != "host", "A10d, the device matcher"),
+    "scan": (lambda v: v > 1, "A10d, chunked-scan training"),
+    "ckpt_dir": (bool, "A10d, detection checkpoints"),
+    "resume": (bool, "A10d, detection checkpoints"),
+    "export_bundle": (bool, "A10d, detection bundles"),
+    "mesh": (bool, "A8, parallelism"),
+}
+
+
+def get_args_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("coco detection")
+    p.add_argument("--data_root", default="", type=str,
+                   help="COCO dir: {train,validation}/{data,labels.json}")
+    p.add_argument("--backbone", default="swin_tiny_patch4_window7_224")
+    p.add_argument("--head", default="detr", choices=["detr", "faster_rcnn"],
+                   help="detection head (faster_rcnn: ROADMAP.md A10b)")
+    p.add_argument("--keypoints", action="store_true",
+                   help="Keypoint R-CNN head (ROADMAP.md A10b)")
+    p.add_argument("--panoptic_root", default="", type=str,
+                   help="panoptic dataset root (ROADMAP.md A10c)")
+    p.add_argument("--scan", default=1, type=int,
+                   help="train steps per dispatch; >1 is ROADMAP.md A10d")
+    p.add_argument("--matcher", default="host", choices=["host", "device"],
+                   help="DETR matching: host = exact Hungarian on the host "
+                        "(device: ROADMAP.md A10d)")
+    p.add_argument("--opt", default="adamw", choices=["adamw", "sgd"],
+                   help="adamw = upstream DETR's recipe (clip 0.1), sgd = "
+                        "the reference fork's (momentum .9, coupled wd; "
+                        "object_detr/main.py:239-252)")
+    p.add_argument("--masks", action="store_true",
+                   help="DETR instance-mask head (ROADMAP.md A10c)")
+    p.add_argument("--image_size", default=512, type=int)
+    p.add_argument("--bs", default=8, type=int)
+    p.add_argument("--epochs", default=10, type=int)
+    p.add_argument("--lr", default=1e-4, type=float)
+    p.add_argument("--lr_step", default=8, type=int,
+                   help="StepLR period in epochs (reference "
+                        "object/coco_pipeline.py:464-476)")
+    p.add_argument("--lr_gamma", default=0.1, type=float,
+                   help="StepLR decay factor")
+    p.add_argument("--weight_decay", default=1e-4, type=float)
+    p.add_argument("--torch_ckpt", default="", type=str,
+                   help="local Microsoft Swin state_dict for the backbone "
+                        "(the reference trains detection from pretrained "
+                        "backbones)")
+    p.add_argument("--no_hflip", action="store_true",
+                   help="disable the train-time random horizontal flip")
+    p.add_argument("--aug_crop", action="store_true",
+                   help="DETR train-time RandomSelect zoom-crop")
+    p.add_argument("--aug_erase", action="store_true",
+                   help="DETR train-time RandomErasing")
+    p.add_argument("--no_initial_eval", action="store_true",
+                   help="skip the epoch-0 validation pass")
+    p.add_argument("--ckpt_dir", default="", type=str,
+                   help="checkpoint dir (ROADMAP.md A10d)")
+    p.add_argument("--resume", default="", type=str,
+                   help="resume from a checkpoint dir (ROADMAP.md A10d)")
+    p.add_argument("--num_queries", default=100, type=int)
+    p.add_argument("--pre_norm", action="store_true",
+                   help="pre-norm DETR transformer (normalize_before)")
+    p.add_argument("--position_embedding", default="sine",
+                   choices=["sine", "learned"])
+    p.add_argument("--enc_layers", default=6, type=int)
+    p.add_argument("--dec_layers", default=6, type=int)
+    p.add_argument("--hidden_dim", default=256, type=int)
+    p.add_argument("--max_boxes", default=64, type=int)
+    p.add_argument("--limit_train", default=0, type=int)
+    p.add_argument("--limit_test", default=0, type=int)
+    p.add_argument("--labels", default=[], nargs="+", type=int,
+                   help="category-id subset filter")
+    p.add_argument("--stats_fp", default=f"./logs/coco/stats_"
+                   f"{time.strftime('%y%m%d_%H%M%S')}.json")
+    p.add_argument("--mesh", default="", type=str,
+                   help="data-parallel mesh (ROADMAP.md A8)")
+    p.add_argument("--export_bundle", default="", type=str,
+                   help="serving bundle dir (ROADMAP.md A10d)")
+    p.add_argument("--export_bs", default="1,8", type=str)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                   help="activations: bfloat16 on CUDA (the default; the "
+                        "kernels take nothing else), float32 on the CPU")
+    p.add_argument("--test", action="store_true",
+                   help="smoke mode: a tiny synthetic set, at most 2 "
+                        "epochs (reference object/coco_pipeline.py:75-82)")
+    return p
+
+
+def check_ported(args: argparse.Namespace) -> None:
+    """Raise ``NotImplementedError`` for a flag of a later slice."""
+    for flag, (is_set, item) in UNPORTED_COCO_FLAGS.items():
+        if is_set(getattr(args, flag)):
+            raise NotImplementedError(
+                f"--{flag} {getattr(args, flag)} is not ported yet "
+                f"(ROADMAP.md {item})")
+
+
+def _dtype(args, device: torch.device) -> torch.dtype:
+    if args.dtype is None:
+        return torch.bfloat16 if device.type == "cuda" else torch.float32
+    if device.type == "cuda" and args.dtype == "float32":
+        raise ValueError("--dtype float32 on CUDA: the flash and window "
+                         "kernels take bfloat16 activations")
+    return torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = get_args_parser().parse_args(argv)
+    check_ported(args)
+    from vit_torch_tpu_torch.detection.coco_data import (
+        CocoDetectionDataset, CocoLoader, make_synthetic_coco)
+    from vit_torch_tpu_torch.detection.detr import DETRConfig, build_detr
+    from vit_torch_tpu_torch.detection.engine import DetectionTrainer
+    from vit_torch_tpu_torch.device import resolve_device
+    from vit_torch_tpu_torch.utils.stats import default_hardware
+
+    device = resolve_device(args.device)
+    dtype = _dtype(args, device)
+    num_heads = 8
+    if args.test:
+        tmp = tempfile.mkdtemp(prefix="coco_smoke_")
+        img_dir, ann_file = make_synthetic_coco(tmp, n_images=16, size=64)
+        train_dirs = val_dirs = (img_dir, ann_file)
+        args.epochs = min(args.epochs, 2)
+        args.bs = min(args.bs, 4)
+        args.image_size = 64
+        args.max_boxes = 8
+        args.enc_layers, args.dec_layers = 1, 1
+        args.hidden_dim, args.num_queries = 64, 8
+        num_heads = 2
+        if (args.backbone == get_args_parser().get_default("backbone")
+                and device.type == "cpu"):
+            args.backbone = "swin_test"
+    else:
+        if not args.data_root:
+            raise ValueError("--data_root required (or --test)")
+        train_dirs = (os.path.join(args.data_root, "train", "data"),
+                      os.path.join(args.data_root, "train", "labels.json"))
+        val_dirs = (os.path.join(args.data_root, "validation", "data"),
+                    os.path.join(args.data_root, "validation",
+                                 "labels.json"))
+
+    cats = args.labels or None
+    train_ds = CocoDetectionDataset(*train_dirs, image_size=args.image_size,
+                                    max_boxes=args.max_boxes,
+                                    limit=args.limit_train,
+                                    category_ids=cats)
+    val_ds = CocoDetectionDataset(*val_dirs, image_size=args.image_size,
+                                  max_boxes=args.max_boxes,
+                                  limit=args.limit_test, category_ids=cats)
+    train_loader = CocoLoader(train_ds, args.bs, shuffle=True)
+    val_loader = CocoLoader(val_ds, args.bs)
+    print(f"train: {len(train_ds)} images, val: {len(val_ds)} images, "
+          f"{train_ds.num_classes} classes")
+
+    cfg = DETRConfig(num_classes=train_ds.num_classes,
+                     num_queries=args.num_queries,
+                     hidden_dim=args.hidden_dim, num_heads=num_heads,
+                     enc_layers=args.enc_layers, dec_layers=args.dec_layers,
+                     pre_norm=args.pre_norm,
+                     position_embedding=args.position_embedding)
+    model = build_detr(cfg, args.backbone, args.image_size, dtype,
+                       torch.Generator().manual_seed(0), device)
+    if args.torch_ckpt:
+        from vit_torch_tpu_torch.checkpoint.torch_import import (
+            load_backbone_state_dict)
+        load_backbone_state_dict(args.torch_ckpt, model, args.image_size)
+        print(f"loaded pretrained swin backbone from {args.torch_ckpt}")
+    trainer = DetectionTrainer(model, image_size=args.image_size,
+                               num_classes=train_ds.num_classes, lr=args.lr,
+                               augment=not args.no_hflip,
+                               aug_crop=args.aug_crop,
+                               aug_erase=args.aug_erase, opt=args.opt,
+                               weight_decay=args.weight_decay)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model: {n_params / 1e6:.1f}M params ({args.head}, {dtype}, "
+          f"{device})")
+
+    record = {"info": vars(args),
+              "telem": {"hardware": default_hardware(device),
+                        "time_start": time.time(), "completed": False},
+              "logs": []}
+
+    def save():
+        os.makedirs(os.path.dirname(os.path.abspath(args.stats_fp)),
+                    exist_ok=True)
+        record["telem"]["time_updated"] = time.time()
+        with open(args.stats_fp, "w") as f:
+            json.dump(record, f, indent=2, default=str)
+
+    def log_fn(i, n, logs):
+        print(f"\r  [{i + 1}/{n}] " + " ".join(
+            f"{k}[{v:.4f}]" for k, v in logs.items()), end="", flush=True)
+
+    eval_kw = dict(label_to_cat=val_ds.label_to_cat, iou_types=("bbox",))
+    if not args.no_initial_eval:
+        metrics = trainer.evaluate(val_loader, val_ds.coco, **eval_kw)
+        record["initial"] = metrics
+        print(f"initial: AP {metrics.get('bbox', {}).get('ap', 0):.4f}")
+        save()
+
+    for epoch in range(args.epochs):
+        t0 = time.time()
+        # StepLR(lr_step, lr_gamma), reference coco_pipeline.py:464-476
+        sched_lr = args.lr * args.lr_gamma ** (epoch // max(args.lr_step, 1))
+        trainer.base_lr = sched_lr        # epoch 0's warmup ramps to it
+        trainer.set_lr(sched_lr)
+        train_logs = trainer.train_one_epoch(train_loader, epoch,
+                                             log_fn=log_fn)
+        print()
+        metrics = trainer.evaluate(val_loader, val_ds.coco, **eval_kw)
+        record["logs"].append({"epoch": epoch, "time": time.time() - t0,
+                               "train": train_logs, "val": metrics})
+        save()
+        ap = metrics.get("bbox", {})
+        print(f"epoch {epoch}: loss {train_logs['loss_total']:.4f} "
+              f"AP {ap.get('ap', 0):.4f} AP50 {ap.get('ap50', 0):.4f}")
+
+    record["telem"]["completed"] = True
+    save()
+    print("stats saved to", args.stats_fp)
+    return record
+
+
+if __name__ == "__main__":
+    main()

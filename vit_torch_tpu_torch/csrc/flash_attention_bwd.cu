@@ -4,7 +4,9 @@
 // vit_torch_tpu/ops/flash_attention.py, all reached through _bwd_impl:
 // _bwd_fused_kernel_hb (:176, pallas_call at :292), _bwd_fused_kernel
 // (:155, at :307), _bwd_dq_kernel (:143, at :324) and _bwd_dkv_kernel
-// (:204, at :335).  Same function over (B, H, N, D), keys >= N masked:
+// (:204, at :335).  Same function with Q, O, dO and dQ over (B, H, Nq, D)
+// and K, V, dK and dV over (B, H, Nk, D), keys >= Nk masked (Nq = Nk = N
+// in self-attention; the notes below write N where the two are one):
 //
 //   P  = softmax(scale * Q K^T)                    (fp32)
 //   dV = P^T dO                                    (P rounded to bf16)
@@ -16,14 +18,14 @@
 // and recompute exact softmax rows.  At N = 785 that does not fit an SM's
 // 227 KB, so this kernel tiles both sequence axes and takes two residuals
 // from the forward: the output O and the per-row log-sum-exp (natural log,
-// fp32, (B*H, N); see flash_attention_fwd.cu).  P is recomputed tile by
+// fp32, (B*H, Nq); see flash_attention_fwd.cu).  P is recomputed tile by
 // tile as exp2(scale*log2(e) * S - log2(e) * LSE), already normalised.
 //
 // Three launches on one stream:
 // 1. flash_bwd_preprocess_kernel: Di = rowsum(dO o O) (equal to
 //    rowsum(P o dP)) in fp32 from the bf16 tiles, and log2(e) * LSE, into a
-//    (B*H, 2, R) fp32 scratch (R = ceil(N / 64) * 64, launch_plan's dQ
-//    rows; rows past N get LSE = +inf, hence P = 0, and Di = 0); it also
+//    (B*H, 2, R) fp32 scratch (R = ceil(Nq / 64) * 64, launch_plan's dQ
+//    rows; rows past Nq get LSE = +inf, hence P = 0, and Di = 0); it also
 //    zeroes the (B*H, R, D) fp32 dQ accumulator.
 // 2. flash_bwd_kernel: one block per (128 keys, b * h), one pass over the
 //    query tiles, so that each (query tile, key tile) pair is visited once:
@@ -31,12 +33,12 @@
 //    thread of warpgroup 2 (setmaxnreg 24) loads the block's K and V once
 //    and streams (Q_i, dO_i, log2(e) LSE_i, Di_i) for each 64-query tile i
 //    through a ring of mbarrier stages by TMA (4-D maps over (D, N, H, B)
-//    with the tensors' own strides, rows past N zero; the statistics by a
-//    bulk copy); consumer warpgroups 0 and 1 (setmaxnreg 240) each own 64
-//    of the keys and, per tile:
+//    with the tensors' own strides, rows past Nq or Nk zero; the
+//    statistics by a bulk copy); consumer warpgroups 0 and 1 (setmaxnreg
+//    240) each own 64 of the keys and, per tile:
 //    - S^T = K Q^T and dP^T = V dO^T: wgmma m64n64k16, both operands
 //      K-major tiles in shared memory;
-//    - P^T = exp2(S^T scale log2(e) - log2(e) LSE) (keys past N masked to
+//    - P^T = exp2(S^T scale log2(e) - log2(e) LSE) (keys past Nk masked to
 //      0), dS^T = P^T o (dP^T - Di) scale, in fp32 on the accumulators;
 //    - dV += bf16(P^T) dO and dK += bf16(dS^T) Q: register-A wgmma with
 //      dO and Q as MN-major B (sm90::WgmmaRS::mma_tb), the accumulator's
@@ -57,9 +59,9 @@
 // run, so dq may differ in its last bf16 bit between runs; dk and dv do
 // not.  The card's gates hold all three within 2e-2 of max |plain|.
 //
-// The ragged edge.  Query tiles are 64 rows (R = ceil(N / 64) * 64), key
-// blocks 128 (64 a warpgroup); a warpgroup whose 64 keys all lie at or
-// past N skips its products (its dS^T halves are zeroed once, for dQ).
+// The ragged edge.  Query tiles are 64 rows (R = ceil(Nq / 64) * 64), key
+// blocks 128 (64 a warpgroup) over Nk; a warpgroup whose 64 keys all lie
+// at or past Nk skips its products (its dS^T halves are zeroed once, for dQ).
 // So the products cover about ceil(N / 64) * 64 keys and queries: at
 // N = 785 (832 / 785)^2 = 1.12x the useful work, N = 197 1.69x, N = 17
 // 14x (a launch- and latency-bound shape).
@@ -135,12 +137,12 @@ __device__ __forceinline__ void red_add2(float* dst, float a, float b) {
 struct RowParams {
   const __nv_bfloat16* o;
   const __nv_bfloat16* dout;
-  const float* lse;   // (B*H, N)
+  const float* lse;   // (B*H, Nq)
   float* stats;       // (B*H, 2, R): log2(e) LSE, Di
   float* dq_acc;      // (B*H, R, D)
   __nv_bfloat16* dq;
   long long o_stride[3], do_stride[3], dq_stride[3];
-  int H, N, R;
+  int H, Nq, R;   // query rows: these kernels never see a key
 };
 
 template <int D>
@@ -153,7 +155,7 @@ __global__ void __launch_bounds__(kPreThreads)
   const int b = bh / p.H;
   const int h = bh % p.H;
   float acc = 0.f;
-  if (row < p.N) {
+  if (row < p.Nq) {
     const uint4 ov = *reinterpret_cast<const uint4*>(
         p.o + b * p.o_stride[0] + h * p.o_stride[1] + row * p.o_stride[2] +
         8 * part);
@@ -177,9 +179,9 @@ __global__ void __launch_bounds__(kPreThreads)
   if (row >= p.R) return;
   const long long base = static_cast<long long>(bh) * p.R;
   if (part == 0) {
-    const bool valid = row < p.N;
+    const bool valid = row < p.Nq;
     p.stats[2 * base + row] =
-        valid ? p.lse[static_cast<long long>(bh) * p.N + row] * attn::kLog2e
+        valid ? p.lse[static_cast<long long>(bh) * p.Nq + row] * attn::kLog2e
               : INFINITY;
     p.stats[2 * base + p.R + row] = valid ? acc : 0.f;
   }
@@ -195,7 +197,7 @@ __global__ void __launch_bounds__(kPreThreads)
   constexpr int kPer = D / 8;
   const int part = threadIdx.x % kPer;
   const int row = blockIdx.x * (kPreThreads / kPer) + threadIdx.x / kPer;
-  if (row >= p.N) return;
+  if (row >= p.Nq) return;
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
@@ -220,7 +222,7 @@ struct Params {
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
   long long dk_stride[3], dv_stride[3];
-  int H, N, R, n_qt, stages;
+  int H, Nq, Nk, R, n_qt, stages;   // n_qt: 64-row query tiles over Nq
   float scale;          // the softmax scale, applied to dS
   float scale_log2;     // scale * log2(e)
 };
@@ -266,7 +268,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::tma_prefetch_desc(&tm_k);
       sm90::tma_prefetch_desc(&tm_v);
       sm90::tma_prefetch_desc(&tm_do);
-      // K and V of the block's 128 keys (a half past N reads as zero)
+      // K and V of the block's 128 keys (a half past Nk reads as zero)
       sm90::mbar_arrive_expect_tx(kvbar, 4 * kTile);
       for (int w = 0; w < 2; ++w) {
         sm90::tma_load_4d(k_tile + w * kTile, &tm_k, kvbar, 0, key0 + 64 * w,
@@ -299,8 +301,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int r0 = 16 * (t >> 5) + (lane >> 2);   // key row in the WG's 64
     const int c0 = 2 * (lane & 3);
     const int wkey0 = key0 + 64 * wg;
-    const bool live = wkey0 < p.N;   // the warpgroup has keys before N
-    const bool key_ok[2] = {wkey0 + r0 < p.N, wkey0 + r0 + 8 < p.N};
+    const bool live = wkey0 < p.Nk;   // the warpgroup has keys before Nk
+    const bool key_ok[2] = {wkey0 + r0 < p.Nk, wkey0 + r0 + 8 < p.Nk};
     if (!live) {   // its halves of the dS^T buffers stay zero for dQ
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -418,7 +420,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = r0 + 8 * r;
-          if (i * kBlockQ + row >= p.N) continue;
+          if (i * kBlockQ + row >= p.Nq) continue;
 #pragma unroll
           for (int j = 0; j < D / 8; ++j) {
             red_add2(acc + row * D + 8 * j + c0, dq[4 * j + 2 * r],
@@ -443,7 +445,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int key = wkey0 + r0 + 8 * r;
-        if (key >= p.N) continue;
+        if (key >= p.Nk) continue;
         __nv_bfloat16* dkr = p.dk + b * p.dk_stride[0] +
                              h * p.dk_stride[1] + key * p.dk_stride[2];
         __nv_bfloat16* dvr = p.dv + b * p.dv_stride[0] +
@@ -474,13 +476,13 @@ cudaError_t launch(const void* const* ptr, const long long* st, int B,
   }
   // q, k, v, dout: tensors 0, 1, 2, 4 of the stride table
   CUtensorMap mq, mk, mv, mdo;
-  if (!sm90::encode_bf16_bhnd(&mq, ptr[0], B, p.H, p.N, D, st[0], st[1],
+  if (!sm90::encode_bf16_bhnd(&mq, ptr[0], B, p.H, p.Nq, D, st[0], st[1],
                               st[2], kBlockQ) ||
-      !sm90::encode_bf16_bhnd(&mk, ptr[1], B, p.H, p.N, D, st[3], st[4],
+      !sm90::encode_bf16_bhnd(&mk, ptr[1], B, p.H, p.Nk, D, st[3], st[4],
                               st[5], 64) ||
-      !sm90::encode_bf16_bhnd(&mv, ptr[2], B, p.H, p.N, D, st[6], st[7],
+      !sm90::encode_bf16_bhnd(&mv, ptr[2], B, p.H, p.Nk, D, st[6], st[7],
                               st[8], 64) ||
-      !sm90::encode_bf16_bhnd(&mdo, ptr[4], B, p.H, p.N, D, st[12], st[13],
+      !sm90::encode_bf16_bhnd(&mdo, ptr[4], B, p.H, p.Nq, D, st[12], st[13],
                               st[14], kBlockQ)) {
     return cudaErrorInvalidValue;
   }
@@ -499,22 +501,23 @@ cudaError_t launch(const void* const* ptr, const long long* st, int B,
 
 }  // namespace
 
+// q, o, dout and dq are (B, H, Nq, D), k, v, dk and dv (B, H, Nk, D).
 // strides: 24 element strides, (image, head, row) of q, k, v, o, dout, dq,
-// dk, dv in that order.  lse is contiguous (B*H, N) fp32; stats (B*H, 2, R)
+// dk, dv in that order.  lse is contiguous (B*H, Nq) fp32; stats (B*H, 2, R)
 // and dq_acc (B*H, R, D) are fp32 scratch, R = plan[6].  plan: block_q,
 // block_k, stages, grid x, grid y, shared bytes, dQ rows (launch_plan's
 // fields).
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* stats, void* dq_acc, void* dq,
-    void* dk, void* dv, int B, int H, int N, int D, const long long* strides,
-    const int* plan, float scale, void* stream) {
-  const int n_qt = (N + kBlockQ - 1) / kBlockQ;
+    void* dk, void* dv, int B, int H, int Nq, int Nk, int D,
+    const long long* strides, const int* plan, float scale, void* stream) {
+  const int n_qt = (Nq + kBlockQ - 1) / kBlockQ;
   const int stages = plan[2];
-  if (B < 1 || H < 1 || N < 1 || (D != 64 && D != 32) ||
+  if (B < 1 || H < 1 || Nq < 1 || Nk < 1 || (D != 64 && D != 32) ||
       static_cast<long long>(B) * H > 65535 || plan[0] != kBlockQ ||
       plan[1] != kBlockK || stages < 1 || stages > kMaxStages ||
-      stages > n_qt || plan[3] != (N + kBlockK - 1) / kBlockK ||
+      stages > n_qt || plan[3] != (Nk + kBlockK - 1) / kBlockK ||
       plan[4] != B * H ||
       plan[5] != 1024 + 4 * 64 * D * 2 + 2 * kDsT +
                      stages * stage_bytes(D) + kBarBytes ||
@@ -534,7 +537,7 @@ extern "C" int flash_attention_bwd_bf16(
     rp.dq_stride[j] = strides[15 + j];
   }
   rp.H = H;
-  rp.N = N;
+  rp.Nq = Nq;
   rp.R = plan[6];
   Params p;
   p.stats = rp.stats;
@@ -546,7 +549,8 @@ extern "C" int flash_attention_bwd_bf16(
     p.dv_stride[j] = strides[21 + j];
   }
   p.H = H;
-  p.N = N;
+  p.Nq = Nq;
+  p.Nk = Nk;
   p.R = plan[6];
   p.n_qt = n_qt;
   p.stages = stages;

@@ -3,9 +3,14 @@
 // Replaces the Pallas TPU kernels vit_torch_tpu/ops/flash_attention.py:
 // _fwd_kernel (:91) and _fwd_kernel_hb (:111), both reached through
 // _fwd_impl (pallas_calls at :251 and :265).  Same function:
-// O = softmax(scale * Q K^T) V over (B, H, N, D), keys at index >= N
-// masked, fp32 scores and softmax statistics, P rounded to bf16 for P V
+// O = softmax(scale * Q K^T) V with Q and O over (B, H, Nq, D) and K and V
+// over (B, H, Nk, D), keys at index >= Nk masked (the Pallas kernel's
+// kv_len), fp32 scores and softmax statistics, P rounded to bf16 for P V
 // while the row sum adds the unrounded fp32 P, O / l rounded once.
+// Self-attention is Nq = Nk = N; DETR's decoder cross-attention puts 100
+// queries against the Hf * Wf memory tokens (Nq < Nk), and 300 queries
+// over a 16 x 16 map give Nq > Nk.  The notes below write N where the two
+// are one.
 //
 // Design.  The TPU kernel keeps a whole K/V row in VMEM and runs an exact
 // one-pass softmax; an SM's 227 KB do not hold that at N = 785, so the
@@ -43,9 +48,9 @@
 //   the 128-byte swizzle, D = 32 tiles in the 64-byte one.  O / l is
 //   written through o's strides (bf16 pairs), so O may land straight in a
 //   (B, N, H, D) buffer.
-// - The ragged edge: keys >= N are masked to -inf in the last key tile
+// - The ragged edge: keys >= Nk are masked to -inf in the last key tile
 //   (softmax_tile's key range); a warpgroup whose 64 rows all lie at or
-//   past N takes its turns without products (head_idle).  So the products
+//   past Nq takes its turns without products (head_idle).  So the products
 //   cover ceil(N / 64) * 64 rows and keys: at N = 785, (832 / 785)^2 =
 //   1.12x the useful work (a 128-key tiling would be (896 / 785)^2 =
 //   1.30x); N = 197: (256 / 197)^2 = 1.69x; N = 17: (64 / 17)^2 = 14x, a
@@ -63,7 +68,7 @@
 //
 // For training the kernel also writes each row's log-sum-exp,
 // LSE = log sum_j exp(scale * S_ij) in natural log, fp32, into a
-// (B*H, N) buffer (row (b*H + h) * N + i); the backward recomputes
+// (B*H, Nq) buffer (row (b*H + h) * Nq + i); the backward recomputes
 // P = exp(scale * S - LSE) from it.  A null pointer skips the write
 // (inference).  The kernel runs in base 2, so it stores
 // (m + log2 l) / log2(e) and the backward multiplies by log2(e) again.
@@ -99,23 +104,23 @@ constexpr int kBarBytes = (2 * kMaxStages + 4) * 8;
 
 struct Params {
   __nv_bfloat16* o;
-  float* lse;              // (B*H, N) natural-log LSE, or null (inference)
+  float* lse;              // (B*H, Nq) natural-log LSE, or null (inference)
   long long o_stride[3];   // elements: image, head, row
-  int H, N, n_kt, stages;
+  int H, Nq, Nk, n_kt, stages;   // n_kt: 64-key tiles over Nk
   int q_blocks, items;     // 128-row blocks a head; q_blocks * B * H
   float scale_log2;        // scale * log2(e): the softmax runs in base 2
 };
 
 // item n of the call: 128 query rows (block qb) of head h of image b
 struct Item {
-  int b, h, bh, q0, live;  // live: warpgroups with rows before N (1 or 2)
+  int b, h, bh, q0, live;  // live: warpgroups with rows before Nq (1 or 2)
   __device__ __forceinline__ Item(const Params& p, int n) {
     const int qb = n % p.q_blocks;
     bh = n / p.q_blocks;
     b = bh / p.H;
     h = bh % p.H;
     q0 = qb * kBlockQ;
-    live = min(2, (p.N - q0 + kRows - 1) / kRows);
+    live = min(2, (p.Nq - q0 + kRows - 1) / kRows);
   }
 };
 
@@ -161,7 +166,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll 1
       for (int n = blockIdx.x; n < p.items; n += gridDim.x, ++use) {
         const Item it(p, n);
-        // both Q tiles of the slot (a tile past N reads as zero), once the
+        // both Q tiles of the slot (a tile past Nq reads as zero), once the
         // item two back has released it
         const int slot = use & 1;
         sm90::mbar_wait(qempty + slot, ((use >> 1) & 1) ^ 1);
@@ -190,7 +195,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int r0 = 16 * (t >> 5) + (lane >> 2);   // row in the WG's 64
     const int c0 = 2 * (lane & 3);
     const int key_lo[2] = {0, 0};
-    const int key_hi[2] = {p.N, p.N};
+    const int key_hi[2] = {p.Nk, p.Nk};
     const attn::KvRing kv{ring, kStage, p.stages, full, empty};
     sm90::RingPos rp;
     // warpgroup 0 takes the first turn
@@ -229,7 +234,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = it.q0 + wg * kRows + r0 + 8 * r;
-        if (row >= p.N) continue;
+        if (row >= p.Nq) continue;
         __nv_bfloat16* orow = og + row * p.o_stride[2];
 #pragma unroll
         for (int i = 0; i < D / 8; ++i) {
@@ -238,7 +243,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                     o[4 * i + 2 * r + 1] * inv[r]);
         }
         if (p.lse != nullptr && c0 == 0) {
-          p.lse[static_cast<long long>(it.bh) * p.N + row] = lse[r];
+          p.lse[static_cast<long long>(it.bh) * p.Nq + row] = lse[r];
         }
       }
     }
@@ -260,11 +265,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     configured = true;
   }
   CUtensorMap mq, mk, mv;
-  if (!sm90::encode_bf16_bhnd(&mq, q, B, p.H, p.N, D, st[0], st[1], st[2],
+  if (!sm90::encode_bf16_bhnd(&mq, q, B, p.H, p.Nq, D, st[0], st[1], st[2],
                               kRows) ||
-      !sm90::encode_bf16_bhnd(&mk, k, B, p.H, p.N, D, st[3], st[4], st[5],
+      !sm90::encode_bf16_bhnd(&mk, k, B, p.H, p.Nk, D, st[3], st[4], st[5],
                               attn::kKeys) ||
-      !sm90::encode_bf16_bhnd(&mv, v, B, p.H, p.N, D, st[6], st[7], st[8],
+      !sm90::encode_bf16_bhnd(&mv, v, B, p.H, p.Nk, D, st[6], st[7], st[8],
                               attn::kKeys)) {
     return cudaErrorInvalidValue;
   }
@@ -274,22 +279,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// strides: 12 element strides, (image, head, row) of q, k, v and o.
-// plan: block_q, block_k, stages, grid x (the persistent blocks, at most
-// one an item), grid y (1), shared bytes, dQ rows (launch_plan's fields;
-// dQ rows 0 here).
+// q and o are (B, H, Nq, D), k and v (B, H, Nk, D).  strides: 12 element
+// strides, (image, head, row) of q, k, v and o.  plan: block_q, block_k,
+// stages, grid x (the persistent blocks, at most one an item), grid y (1),
+// shared bytes, dQ rows (launch_plan's fields; dQ rows 0 here).
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
-                                        int B, int H, int N, int D,
+                                        int B, int H, int Nq, int Nk, int D,
                                         const long long* strides,
                                         const int* plan, float scale,
                                         void* stream) {
   const int stage = 2 * kRows * D * 2;
-  const int n_kt = (N + attn::kKeys - 1) / attn::kKeys;
+  const int n_kt = (Nk + attn::kKeys - 1) / attn::kKeys;
   const int stages = plan[2];
-  const int q_blocks = (N + kBlockQ - 1) / kBlockQ;
+  const int q_blocks = (Nq + kBlockQ - 1) / kBlockQ;
   const long long items = static_cast<long long>(q_blocks) * B * H;
-  if (B < 1 || H < 1 || N < 1 || (D != 64 && D != 32) ||
+  if (B < 1 || H < 1 || Nq < 1 || Nk < 1 || (D != 64 && D != 32) ||
       items > 0x7fffffffLL || plan[0] != kBlockQ ||
       plan[1] != attn::kKeys || stages < 1 || stages > kMaxStages ||
       stages > n_kt || plan[3] < 1 || plan[3] > items || plan[4] != 1 ||
@@ -302,7 +307,8 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
   p.lse = static_cast<float*>(lse);
   for (int j = 0; j < 3; ++j) p.o_stride[j] = strides[9 + j];
   p.H = H;
-  p.N = N;
+  p.Nq = Nq;
+  p.Nk = Nk;
   p.n_kt = n_kt;
   p.stages = stages;
   p.q_blocks = q_blocks;

@@ -1,0 +1,344 @@
+"""COCO bbox evaluation, counterpart of
+``vit_torch_tpu/detection/coco_eval.py`` (its ``COCO``, ``COCOeval`` and
+``CocoEvaluator`` for ``iou_type="bbox"``).
+
+The published COCO protocol: greedy score-descending matching per IoU
+threshold with iscrowd and area-range ignore handling, 101-point
+interpolated precision, and the 12-number summary (AP, AP50, AP75,
+APs/m/l, AR1/10/100, ARs/m/l) that the reference flattens into its stats
+JSON (``object/coco_pipeline.py:495-515``).  The bbox IoU with crowd
+regions is the numpy body of the JAX package's ``_mask._bbox_iou``
+(``vit_torch_tpu/detection/_mask.py:289-302``); the port loads no native
+library.  Mask IoU (``segm``) comes with ROADMAP.md A10c and the keypoint
+OKS with A10b; a multi-process merge with A8.
+"""
+
+from __future__ import annotations
+
+import json
+from collections import defaultdict
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+_LATER = {"segm": "A10c, masks and segmentation",
+          "keypoints": "A10b, Faster R-CNN and keypoints"}
+
+
+def _refuse_iou_type(iou_type: str) -> None:
+    if iou_type in _LATER:
+        raise NotImplementedError(f"iou_type {iou_type!r} is not ported yet "
+                                  f"(ROADMAP.md {_LATER[iou_type]})")
+    if iou_type != "bbox":
+        raise ValueError(f"unknown iou_type {iou_type!r}")
+
+
+def bbox_iou(dt: np.ndarray, gt: np.ndarray,
+             iscrowd: Sequence[int]) -> np.ndarray:
+    """(D, G) IoU of xywh boxes; against a crowd gt the denominator is the
+    detection's own area (pycocotools ``bbIou``)."""
+    dt = np.asarray(dt, np.float64).reshape(-1, 4)
+    gt = np.asarray(gt, np.float64).reshape(-1, 4)
+    if len(dt) == 0 or len(gt) == 0:
+        return np.zeros((len(dt), len(gt)))
+    dx0, dy0 = dt[:, 0:1], dt[:, 1:2]
+    dx1, dy1 = dx0 + dt[:, 2:3], dy0 + dt[:, 3:4]
+    gx0, gy0 = gt[None, :, 0], gt[None, :, 1]
+    gx1, gy1 = gx0 + gt[None, :, 2], gy0 + gt[None, :, 3]
+    iw = np.maximum(np.minimum(dx1, gx1) - np.maximum(dx0, gx0), 0)
+    ih = np.maximum(np.minimum(dy1, gy1) - np.maximum(dy0, gy0), 0)
+    inter = iw * ih
+    da = (dt[:, 2] * dt[:, 3])[:, None]
+    ga = (gt[:, 2] * gt[:, 3])[None, :]
+    crowd = (np.asarray(iscrowd, bool)[None, :] if len(iscrowd)
+             else np.zeros((1, len(gt)), bool))
+    denom = np.where(crowd, da, da + ga - inter)
+    return np.where(denom > 0, inter / np.maximum(denom, 1e-12), 0.0)
+
+
+class COCO:
+    """Minimal COCO-format container (pycocotools.COCO equivalent)."""
+
+    def __init__(self, annotation_file: Optional[str] = None,
+                 dataset: Optional[dict] = None) -> None:
+        if annotation_file is not None:
+            with open(annotation_file) as f:
+                dataset = json.load(f)
+        self.dataset = dataset or {"images": [], "annotations": [],
+                                   "categories": []}
+        self.create_index()
+
+    def create_index(self) -> None:
+        self.anns: Dict[int, dict] = {}
+        self.imgs: Dict[int, dict] = {}
+        self.cats: Dict[int, dict] = {}
+        self.img_to_anns: Dict[int, List[dict]] = defaultdict(list)
+        for img in self.dataset.get("images", []):
+            self.imgs[img["id"]] = img
+        for cat in self.dataset.get("categories", []):
+            self.cats[cat["id"]] = cat
+        for ann in self.dataset.get("annotations", []):
+            self.anns[ann["id"]] = ann
+            self.img_to_anns[ann["image_id"]].append(ann)
+
+    def get_img_ids(self) -> List[int]:
+        return sorted(self.imgs)
+
+    def get_cat_ids(self) -> List[int]:
+        return sorted(self.cats)
+
+    def load_res(self, results: Sequence[dict]) -> "COCO":
+        """Build a results COCO from detection dicts ``{image_id,
+        category_id, bbox (xywh), score}``."""
+        res = COCO(dataset={
+            "images": list(self.dataset.get("images", [])),
+            "categories": list(self.dataset.get("categories", [])),
+            "annotations": []})
+        anns = []
+        for i, det in enumerate(results):
+            if "segmentation" in det:
+                _refuse_iou_type("segm")
+            if "keypoints" in det:
+                _refuse_iou_type("keypoints")
+            ann = dict(det)
+            ann["id"] = i + 1
+            if "bbox" in ann and "area" not in ann:
+                x, y, w, h = ann["bbox"]
+                ann["area"] = w * h
+            ann.setdefault("iscrowd", 0)
+            anns.append(ann)
+        res.dataset["annotations"] = anns
+        res.create_index()
+        return res
+
+
+class COCOeval:
+    """The COCO bbox evaluation protocol."""
+
+    def __init__(self, coco_gt: COCO, coco_dt: COCO,
+                 iou_type: str = "bbox") -> None:
+        _refuse_iou_type(iou_type)
+        self.coco_gt = coco_gt
+        self.coco_dt = coco_dt
+        self.iou_type = iou_type
+        self.img_ids = coco_gt.get_img_ids()
+        self.cat_ids = coco_gt.get_cat_ids() or [-1]
+        self.iou_thrs = np.linspace(0.5, 0.95, 10)
+        self.rec_thrs = np.linspace(0.0, 1.0, 101)
+        self.max_dets = [1, 10, 100]
+        self.area_rng = [[0.0, 1e10], [0.0, 32 ** 2], [32 ** 2, 96 ** 2],
+                         [96 ** 2, 1e10]]
+        self.area_lbl = ["all", "small", "medium", "large"]
+        self.stats: np.ndarray = np.zeros(12)
+        self.eval: dict = {}
+
+    # -- per-image matching -----------------------------------------------
+
+    def _gt_dt(self, img_id, cat_id):
+        gts = [a for a in self.coco_gt.img_to_anns.get(img_id, [])
+               if a["category_id"] == cat_id]
+        dts = [a for a in self.coco_dt.img_to_anns.get(img_id, [])
+               if a["category_id"] == cat_id]
+        return gts, dts
+
+    def _compute_iou(self, img_id, cat_id):
+        gts, dts = self._gt_dt(img_id, cat_id)
+        if not gts or not dts:
+            return np.zeros((len(dts), len(gts)))
+        dts = sorted(dts, key=lambda d: -d.get("score", 0))[:self.max_dets[-1]]
+        return bbox_iou([d["bbox"] for d in dts], [g["bbox"] for g in gts],
+                        [int(g.get("iscrowd", 0)) for g in gts])
+
+    @staticmethod
+    def _gt_ignored(g, area_rng) -> int:
+        return int(bool(int(g.get("iscrowd", 0)) or not (
+            area_rng[0] <= g.get("area", 0) <= area_rng[1])))
+
+    def _evaluate_img(self, img_id, cat_id, area_rng, ious):
+        gts, dts = self._gt_dt(img_id, cat_id)
+        if not gts and not dts:
+            return None
+        # ignore flags are local: the caller's annotations stay untouched
+        ig = np.asarray([self._gt_ignored(g, area_rng) for g in gts])
+        # gts sorted: non-ignored first (stable)
+        gt_order = np.argsort(ig, kind="stable")
+        gts = [gts[i] for i in gt_order]
+        dts = sorted(dts, key=lambda d: -d.get("score", 0))[:self.max_dets[-1]]
+        iou = ious[:, gt_order] if len(ious) else ious
+
+        T = len(self.iou_thrs)
+        G, D = len(gts), len(dts)
+        gt_match = np.zeros((T, G), np.int64)
+        dt_match = np.zeros((T, D), np.int64)
+        gt_ignore = ig[gt_order] if G else ig
+        dt_ignore = np.zeros((T, D))
+        for ti, thr in enumerate(self.iou_thrs):
+            for di in range(D):
+                best, best_iou = -1, min(thr, 1 - 1e-10)
+                for gi in range(G):
+                    if gt_match[ti, gi] > 0 and not gts[gi].get("iscrowd", 0):
+                        continue
+                    # stop at ignored gts once a real match was found
+                    if best > -1 and not gt_ignore[best] and gt_ignore[gi]:
+                        break
+                    if iou[di, gi] < best_iou:
+                        continue
+                    best_iou = iou[di, gi]
+                    best = gi
+                if best == -1:
+                    continue
+                dt_ignore[ti, di] = gt_ignore[best]
+                dt_match[ti, di] = gts[best]["id"]
+                gt_match[ti, best] = dts[di]["id"]
+        # unmatched dts outside the area range are ignored
+        dt_out = np.asarray([
+            not (area_rng[0] <= d.get("area", d["bbox"][2] * d["bbox"][3])
+                 <= area_rng[1]) for d in dts]) if D else np.zeros(0, bool)
+        if D:
+            dt_ignore = np.logical_or(dt_ignore, np.logical_and(
+                dt_match == 0, dt_out[None, :].repeat(T, 0)))
+        return {
+            "dt_scores": np.asarray([d.get("score", 0) for d in dts]),
+            "dt_match": dt_match,
+            "dt_ignore": dt_ignore,
+            "gt_ignore": gt_ignore,
+            "num_gt": int((~gt_ignore.astype(bool)).sum()),
+        }
+
+    # -- protocol -----------------------------------------------------------
+
+    def evaluate(self) -> None:
+        ious = {(img, cat): self._compute_iou(img, cat)
+                for img in self.img_ids for cat in self.cat_ids}
+        self._results = {}
+        for cat in self.cat_ids:
+            for ai, area in enumerate(self.area_rng):
+                for img in self.img_ids:
+                    self._results[(img, cat, ai)] = self._evaluate_img(
+                        img, cat, area, ious[(img, cat)])
+
+    def accumulate(self) -> None:
+        T, R = len(self.iou_thrs), len(self.rec_thrs)
+        K, A, M = len(self.cat_ids), len(self.area_rng), len(self.max_dets)
+        precision = -np.ones((T, R, K, A, M))
+        recall = -np.ones((T, K, A, M))
+        for ki, cat in enumerate(self.cat_ids):
+            for ai in range(A):
+                results = [self._results.get((img, cat, ai))
+                           for img in self.img_ids]
+                results = [r for r in results if r is not None]
+                if not results:
+                    continue
+                num_gt = sum(r["num_gt"] for r in results)
+                if num_gt == 0:
+                    continue
+                for mi, max_det in enumerate(self.max_dets):
+                    dtm = np.concatenate(
+                        [r["dt_match"][:, :max_det] for r in results], axis=1)
+                    dti = np.concatenate(
+                        [r["dt_ignore"][:, :max_det] for r in results], axis=1)
+                    sc = np.concatenate(
+                        [r["dt_scores"][:max_det] for r in results])
+                    o = np.argsort(-sc, kind="mergesort")
+                    dtm, dti = dtm[:, o], dti[:, o]
+                    tps = np.logical_and(dtm > 0, ~dti.astype(bool))
+                    fps = np.logical_and(dtm == 0, ~dti.astype(bool))
+                    tp_sum = np.cumsum(tps, axis=1).astype(float)
+                    fp_sum = np.cumsum(fps, axis=1).astype(float)
+                    for ti in range(T):
+                        tp, fp = tp_sum[ti], fp_sum[ti]
+                        rc = tp / num_gt
+                        pr = tp / np.maximum(tp + fp, np.spacing(1))
+                        recall[ti, ki, ai, mi] = rc[-1] if len(rc) else 0
+                        # precision envelope (monotone non-increasing)
+                        pr = pr.tolist()
+                        for i in range(len(pr) - 1, 0, -1):
+                            pr[i - 1] = max(pr[i - 1], pr[i])
+                        inds = np.searchsorted(rc, self.rec_thrs, side="left")
+                        q = np.zeros(R)
+                        for ri, pi in enumerate(inds):
+                            if pi < len(pr):
+                                q[ri] = pr[pi]
+                        precision[ti, :, ki, ai, mi] = q
+        self.eval = {"precision": precision, "recall": recall}
+
+    def _summarize(self, ap: bool, iou_thr=None, area="all", max_det=100):
+        ai = self.area_lbl.index(area)
+        mi = self.max_dets.index(max_det)
+        s = self.eval["precision" if ap else "recall"]
+        if iou_thr is not None:
+            s = s[np.isclose(self.iou_thrs, iou_thr)]
+        s = s[:, :, :, ai, mi] if ap else s[:, :, ai, mi]
+        valid = s[s > -1]
+        return float(valid.mean()) if valid.size else -1.0
+
+    def summarize(self) -> np.ndarray:
+        s = self._summarize
+        self.stats = np.array([
+            s(True), s(True, 0.5), s(True, 0.75),
+            s(True, area="small"), s(True, area="medium"),
+            s(True, area="large"),
+            s(False, max_det=1), s(False, max_det=10), s(False, max_det=100),
+            s(False, area="small"), s(False, area="medium"),
+            s(False, area="large"),
+        ])
+        return self.stats
+
+
+class CocoEvaluator:
+    """Accumulating evaluator (the reference's ``CocoEvaluator``,
+    ``object/coco_eval.py:19-155``): feed per-batch predictions keyed by
+    image id, then accumulate and summarize."""
+
+    METRIC_KEYS = ["ap", "ap50", "ap75", "aps", "apm", "apl",
+                   "ar1", "ar10", "ar100", "ars", "arm", "arl"]
+
+    def __init__(self, coco_gt: COCO, iou_types: Sequence[str] = ("bbox",)):
+        for iou_type in iou_types:
+            _refuse_iou_type(iou_type)
+        self.coco_gt = coco_gt
+        self.iou_types = list(iou_types)
+        self.results: List[dict] = []
+        self.coco_eval: Dict[str, COCOeval] = {}
+
+    def update(self, predictions: Dict[int, dict]) -> None:
+        """predictions: ``{image_id: {'boxes' xyxy, 'scores', 'labels'}}``
+        (numpy or anything numpy converts)."""
+        for img_id, pred in predictions.items():
+            for key, iou_type in (("masks", "segm"), ("segm_rles", "segm"),
+                                  ("keypoints", "keypoints")):
+                if key in pred:
+                    _refuse_iou_type(iou_type)
+            boxes = np.asarray(pred["boxes"], np.float64).reshape(-1, 4)
+            scores = np.asarray(pred["scores"], np.float64).reshape(-1)
+            labels = np.asarray(pred["labels"], np.int64).reshape(-1)
+            # xyxy -> xywh (reference object/coco_eval.py:158-160)
+            xywh = boxes.copy()
+            xywh[:, 2:] -= xywh[:, :2]
+            for box, score, label in zip(xywh, scores, labels):
+                self.results.append({
+                    "image_id": int(img_id), "category_id": int(label),
+                    "bbox": [float(v) for v in box], "score": float(score)})
+
+    def synchronize_between_processes(self) -> None:
+        """Nothing to merge in one process; a multi-process merge of the
+        result lists comes with ROADMAP.md A8."""
+        import torch.distributed as dist
+        if (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            raise NotImplementedError(
+                "merging COCO results across processes is not ported yet "
+                "(ROADMAP.md A8, parallelism)")
+
+    def accumulate(self) -> None:
+        coco_dt = self.coco_gt.load_res(self.results)
+        for iou_type in self.iou_types:
+            ev = COCOeval(self.coco_gt, coco_dt, iou_type)
+            ev.evaluate()
+            ev.accumulate()
+            ev.summarize()
+            self.coco_eval[iou_type] = ev
+
+    def summarize(self) -> Dict[str, Dict[str, float]]:
+        return {iou_type: dict(zip(self.METRIC_KEYS, ev.stats.tolist()))
+                for iou_type, ev in self.coco_eval.items()}

@@ -1,0 +1,308 @@
+"""Detection train/eval engine, counterpart of
+``vit_torch_tpu/detection/engine.py:DetectionTrainer`` (the reference's
+``object/engine.py:14-110`` and ``object_detr/engine.py``): the DETR
+train step with the host Hungarian matcher, the epoch loop with epoch-0
+linear LR warmup, loss logging and the non-finite-loss stop, and the COCO
+bbox evaluation.
+
+One forward a step, upstream DETR's order: the training forward, the
+matching costs from its detached outputs on the device, one copy of the
+``(L, B, Q, N)`` costs to the host, the exact assignment there
+(:func:`~vit_torch_tpu_torch.detection.matcher.hungarian_match`), then
+the set losses of every decoder layer and the backward on the same graph.
+(The JAX host path runs the training forward twice, once for the costs and
+once inside the differentiated step, with one dropout key, so that both
+see the same predictions.)
+
+Optimisers as the JAX trainer builds them: ``adamw`` is global-norm
+clipping at ``grad_clip`` (``g · max_norm / norm`` where the norm exceeds
+it, optax's arithmetic) then AdamW with decoupled weight decay; ``sgd`` is
+momentum SGD with torch's coupled weight decay (the reference fork's
+recipe, ``object_detr/main.py:239-252``).  The device auction matcher,
+chunked steps and detection checkpoints come with ROADMAP.md A10d; the
+data-parallel mesh helpers with A8.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from vit_torch_tpu_torch.data.augment import normalize
+from vit_torch_tpu_torch.data.datasets import NORM_VALUES
+from vit_torch_tpu_torch.detection.boxes import xyxy_to_cxcywh
+from vit_torch_tpu_torch.detection.coco_eval import CocoEvaluator
+from vit_torch_tpu_torch.detection.detr import detr_losses, postprocess
+from vit_torch_tpu_torch.detection.matcher import (cost_matrices,
+                                                   hungarian_match)
+from vit_torch_tpu_torch.detection.transforms import (random_erasing,
+                                                      random_hflip,
+                                                      random_zoom_crop)
+from vit_torch_tpu_torch.models.layers import set_generator
+from vit_torch_tpu_torch.train.optimizers import set_learning_rate
+
+
+def prep_targets(labels: torch.Tensor, boxes: torch.Tensor,
+                 box_mask: torch.Tensor, mask: torch.Tensor,
+                 image_size: int) -> Dict[str, torch.Tensor]:
+    """Loss targets: boxes normalised to [0, 1] and turned to cxcywh."""
+    return {"labels": labels,
+            "boxes_cxcywh": xyxy_to_cxcywh(boxes / image_size),
+            "box_mask": box_mask, "mask": mask}
+
+
+def clip_grad_global_norm(params, max_norm: float) -> torch.Tensor:
+    """optax's ``clip_by_global_norm``: every gradient becomes
+    ``g / norm * max_norm`` when the global norm is not below
+    ``max_norm`` (torch's ``clip_grad_norm_`` divides by ``norm + 1e-6``).
+    No host sync, a few multi-tensor launches.  Returns the norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    torch._foreach_div_(grads, torch.where(keep, torch.ones_like(norm), norm))
+    torch._foreach_mul_(grads, torch.where(keep, torch.ones_like(norm),
+                                           torch.full_like(norm, max_norm)))
+    return norm
+
+
+def _to_host(tensors: Dict[str, torch.Tensor]):
+    """Start the copy of ``tensors`` to the host; returns the host tensors
+    and the CUDA event that marks their arrival (None on the CPU)."""
+    host = {k: v.to("cpu", non_blocking=True) for k, v in tensors.items()}
+    event = None
+    if any(v.is_cuda for v in tensors.values()):
+        event = torch.cuda.Event()
+        event.record()
+    return host, event
+
+
+class DetectionTrainer:
+    def __init__(self, model: torch.nn.Module, *, image_size: int,
+                 num_classes: int, lr: float = 1e-4,
+                 weight_decay: float = 1e-4, warmup_steps: int = 1000,
+                 grad_clip: float = 0.1, masks: bool = False,
+                 augment: bool = False, aug_crop: bool = False,
+                 aug_erase: bool = False, matcher: str = "host",
+                 opt: str = "adamw", momentum: float = 0.9,
+                 norm_values: Optional[dict] = None, seed: int = 0) -> None:
+        """``model`` is a :class:`~vit_torch_tpu_torch.detection.detr.DETR`
+        on its device.  ``augment`` turns on the horizontal flip;
+        ``aug_crop`` and ``aug_erase`` apply with it or without it.  Every
+        random draw (augmentation, drop-path) comes from one generator on
+        the model's device, seeded with ``seed``."""
+        if masks:
+            raise NotImplementedError("the DETR mask head is not ported yet "
+                                      "(ROADMAP.md A10c, masks and "
+                                      "segmentation)")
+        if matcher != "host":
+            raise NotImplementedError(
+                f"--matcher {matcher} is not ported yet (ROADMAP.md A10d: "
+                f"the device auction matcher)")
+        if opt not in ("adamw", "sgd"):
+            raise ValueError(f"unknown detection optimizer {opt!r}")
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.image_size = image_size
+        self.num_classes = num_classes
+        self.augment = augment
+        self.aug_crop = aug_crop
+        self.aug_erase = aug_erase
+        self.matcher = matcher
+        self.warmup_steps = max(int(warmup_steps), 1)
+        self.grad_clip = grad_clip if opt == "adamw" else None
+        self.norm = norm_values or NORM_VALUES["imagenet"]
+        self.erase_value = [255.0 * m for m in self.norm["mean"]]
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        set_generator(model, self.generator)
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        if opt == "sgd":
+            self.optimizer = torch.optim.SGD(self.params, lr=lr,
+                                             momentum=momentum,
+                                             weight_decay=weight_decay)
+        else:
+            self.optimizer = torch.optim.AdamW(self.params, lr=lr,
+                                               weight_decay=weight_decay)
+        self.base_lr = lr
+        # host time a step spent waiting for the costs (the forward's end
+        # and the copy) and solving the assignments, summed over the steps
+        self.host_ms = {"costs_wait": 0.0, "match": 0.0, "steps": 0}
+        self.last_eval_profile: Dict[str, float] = {}
+
+    def set_lr(self, lr: float) -> None:
+        set_learning_rate(self.optimizer, lr)
+
+    # ------------------------------------------------------------------
+    def _batch(self, batch: dict) -> Dict[str, torch.Tensor]:
+        dev = self.device
+        return {
+            "image": torch.as_tensor(batch["image"]).to(dev),
+            "boxes": torch.as_tensor(batch["boxes"]).float().to(dev),
+            "labels": torch.as_tensor(batch["labels"]).long().to(dev),
+            "box_mask": torch.as_tensor(batch["box_mask"]).float().to(dev),
+            "mask": torch.as_tensor(batch["mask"]).float().to(dev)}
+
+    def _augmented(self, b: Dict[str, torch.Tensor]):
+        images, boxes, box_mask = b["image"], b["boxes"], b["box_mask"]
+        if self.augment:
+            images, boxes = random_hflip(self.generator, images, boxes,
+                                         self.image_size)
+        if self.aug_crop:
+            images, boxes, box_mask = random_zoom_crop(
+                self.generator, images, boxes, box_mask, self.image_size)
+        if self.aug_erase:
+            # the dataset mean, so that the patch normalises to zero
+            images = random_erasing(self.generator, images,
+                                    value=self.erase_value)
+        return images, boxes, box_mask
+
+    def match(self, layers, targets) -> torch.Tensor:
+        """The ``(L, B, Q)`` assignment of every decoder layer's
+        predictions: costs on the device from detached outputs, one copy
+        to the host, the exact assignment there."""
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            costs = torch.stack([
+                cost_matrices(o["pred_logits"].detach(),
+                              o["pred_boxes"].detach(), targets["labels"],
+                              targets["boxes_cxcywh"], targets["box_mask"])
+                for o in layers])
+            costs = costs.cpu().numpy()
+            box_mask = targets["box_mask"].cpu().numpy()
+        t1 = time.perf_counter()
+        assign = np.stack([hungarian_match(c, box_mask) for c in costs])
+        self.host_ms["costs_wait"] += 1e3 * (t1 - t0)
+        self.host_ms["match"] += 1e3 * (time.perf_counter() - t1)
+        self.host_ms["steps"] += 1
+        return torch.from_numpy(assign).to(self.device)
+
+    def losses(self, outputs, targets, assign):
+        """Sum of the set losses of every decoder layer and the last
+        layer's terms."""
+        layers = list(outputs.get("aux_outputs", [])) + [outputs]
+        total, logs = 0.0, {}
+        for li, o in enumerate(layers):
+            terms = detr_losses(o, targets, assign[li], self.num_classes)
+            total = total + terms["loss"]
+            logs = terms
+        return total, logs
+
+    def train_step(self, batch: dict) -> Dict[str, torch.Tensor]:
+        """One step on a host batch (:class:`~vit_torch_tpu_torch.detection.
+        coco_data.CocoLoader`'s dict): augment, forward, match, losses,
+        backward, clip, update.  Returns the last layer's loss terms and
+        ``loss_total`` as device tensors."""
+        self.model.train()
+        b = self._batch(batch)
+        images, boxes, box_mask = self._augmented(b)
+        x = normalize(images, **self.norm)
+        targets = prep_targets(b["labels"], boxes, box_mask, b["mask"],
+                               self.image_size)
+        outputs = self.model(x)
+        layers = list(outputs.get("aux_outputs", [])) + [outputs]
+        assign = self.match(layers, targets)
+        total, logs = self.losses(outputs, targets, assign)
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        if self.grad_clip is not None:
+            clip_grad_global_norm(self.params, self.grad_clip)
+        self.optimizer.step()
+        return {**logs, "loss_total": total.detach()}
+
+    def train_one_epoch(self, loader, epoch: int, print_freq: int = 10,
+                        warmup: bool = True,
+                        log_fn: Optional[Callable] = None
+                        ) -> Dict[str, float]:
+        """The reference's ``train_one_epoch`` (``object/engine.py:14-55``):
+        linear warmup over ``min(len(loader), warmup_steps)`` steps in
+        epoch 0, mean loss terms, ``sys.exit(1)`` on a non-finite loss."""
+        n_batches = len(loader)
+        totals: Dict[str, float] = {}
+        count = 0
+        for i, batch in enumerate(loader):
+            if warmup and epoch == 0:
+                frac = (i + 1) / max(min(n_batches, self.warmup_steps), 1)
+                self.set_lr(self.base_lr * min(frac, 1.0))
+            logs = self.train_step(batch)
+            keys = list(logs)
+            logs = dict(zip(keys, torch.stack(
+                [logs[k].float() for k in keys]).tolist()))
+            if not np.isfinite(logs["loss_total"]):
+                print(f"Loss is {logs['loss_total']}, stopping training")
+                print(logs)
+                sys.exit(1)
+            for k, v in logs.items():
+                totals[k] = totals.get(k, 0.0) + v
+            count += 1
+            if log_fn and (i % print_freq == 0 or i == n_batches - 1):
+                log_fn(i, n_batches, logs)
+        return {k: v / max(count, 1) for k, v in totals.items()}
+
+    @torch.no_grad()
+    def predict(self, batch: dict) -> Dict[str, torch.Tensor]:
+        """Scored boxes in original pixels for a host batch, eval mode."""
+        self.model.eval()
+        images = torch.as_tensor(batch["image"]).to(self.device)
+        outputs = self.model(normalize(images, **self.norm))
+        return postprocess(
+            outputs, self.image_size,
+            torch.as_tensor(batch["scale"]).to(self.device),
+            torch.as_tensor(batch["pad"]).to(self.device))
+
+    def evaluate(self, loader, coco_gt, iou_types=("bbox",),
+                 score_threshold: float = 0.0,
+                 label_to_cat: Optional[Dict[int, int]] = None,
+                 panoptic: bool = False) -> Dict[str, Dict[str, float]]:
+        """The reference's ``evaluate`` (``object/engine.py:70-110``):
+        predictions, ``CocoEvaluator`` update, accumulate, summarize;
+        ``label_to_cat`` maps the model's contiguous labels back to COCO
+        ids.  One batch deep: batch i + 1's forward is queued, and its
+        predictions start for the host, before batch i's host work.
+        ``last_eval_profile`` splits the host time: waiting for the
+        predictions, the per-image updates, the final accumulate."""
+        if panoptic:
+            raise NotImplementedError("panoptic evaluation is not ported yet "
+                                      "(ROADMAP.md A10c)")
+        evaluator = CocoEvaluator(coco_gt, iou_types)
+        prof = {"t_get": 0.0, "t_host": 0.0, "t_final": 0.0, "images": 0}
+        self.last_eval_profile = prof
+
+        def drain(batch, host, event):
+            t0 = time.perf_counter()
+            if event is not None:
+                event.synchronize()
+            preds = {k: v.numpy() for k, v in host.items()}
+            t1 = time.perf_counter()
+            for b in range(len(batch["image_id"])):
+                if batch["mask"][b] == 0:
+                    continue
+                keep = preds["scores"][b] >= score_threshold
+                labels = preds["labels"][b][keep]
+                if label_to_cat:
+                    labels = np.asarray([label_to_cat.get(int(l), int(l))
+                                         for l in labels])
+                evaluator.update({int(batch["image_id"][b]): {
+                    "boxes": preds["boxes"][b][keep],
+                    "scores": preds["scores"][b][keep],
+                    "labels": labels}})
+                prof["images"] += 1
+            prof["t_get"] += t1 - t0
+            prof["t_host"] += time.perf_counter() - t1
+
+        pending = None
+        for batch in loader:
+            host, event = _to_host(self.predict(batch))
+            if pending is not None:
+                drain(*pending)
+            pending = (batch, host, event)
+        if pending is not None:
+            drain(*pending)
+        t0 = time.perf_counter()
+        evaluator.synchronize_between_processes()
+        evaluator.accumulate()
+        out = evaluator.summarize()
+        prof["t_final"] = time.perf_counter() - t0
+        return out

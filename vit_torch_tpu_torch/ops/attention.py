@@ -1,18 +1,19 @@
 """Multi-head attention compute op, counterpart of
 ``vit_torch_tpu/ops/attention.py``.
 
-Layout: ``(batch, seq, heads, head_dim)``.  On CUDA, attention without a
-bias or mask always runs the flash kernel (:mod:`.flash_attention`), at
-every sequence length: the TPU package's ``VITX_FLASH_MIN_SEQ`` crossover
-was measured on a TPU and does not carry over.  Gradients flow through it:
-the kernel has a backward kernel.  Swin's biased and masked window
-attention does not come through here: it has its own kernels
-(:mod:`.window_attention`, :mod:`.window_block`).  No model of the JAX
-package passes a bias or mask to this function; on CUDA such a call
-raises until a slice that needs it brings a kernel (the detection slice,
-ROADMAP.md A10, is the first candidate).  On the CPU the plain softmax
-attention below runs, as the JAX package's ``_xla_attention`` does off the
-TPU.
+Layout: ``(batch, seq, heads, head_dim)``, q's sequence of its own
+length (DETR's cross-attention: 100 queries against the memory tokens).
+On CUDA, attention without a bias or mask always runs the flash kernel
+(:mod:`.flash_attention`), at every sequence length: the TPU package's
+``VITX_FLASH_MIN_SEQ`` crossover was measured on a TPU and does not carry
+over.  Gradients flow through it: the kernel has a backward kernel.
+Swin's biased and masked window attention does not come through here: it
+has its own kernels (:mod:`.window_attention`, :mod:`.window_block`).  No
+model of either package passes a bias or mask to this function (DETR's
+attention passes neither; the JAX segmentation head's attention map
+computes its own softmax), so on CUDA such a call raises: it has no
+kernel.  On the CPU the plain softmax attention below runs, as the JAX
+package's ``_xla_attention`` does off the TPU.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           mask: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """Scaled dot-product attention over ``(B, N, H, Dh)`` tensors.
+    """Scaled dot-product attention of q ``(B, Nq, H, Dh)`` over k and v
+    ``(B, Nk, H, Dh)``.
 
     ``bias`` is an additive logits bias broadcastable to ``(B, H, Nq, Nk)``;
     ``mask`` is a boolean mask broadcastable to the same shape whose
@@ -42,9 +44,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise NotImplementedError(
                 "generic attention with a bias or mask has no CUDA kernel: "
                 "Swin's window attention has its own "
-                "(ops/window_attention.py), and a kernel for this call comes "
-                "with the first slice that needs it (detection, ROADMAP.md "
-                "A10)")
+                "(ops/window_attention.py), and no other model passes a "
+                "bias or a mask here")
         return flash_attention(q, k, v, scale=scale)
     return _plain_attention(q, k, v, scale=scale, bias=bias, mask=mask)
 

@@ -18,6 +18,10 @@ give the designs, the ragged-edge waste and the bounds.  The TPU's
 ``block_q`` and head-blocking knobs are tilings of the same functions and
 have no counterpart here.
 
+q is ``(B, H, Nq, D)`` and k and v ``(B, H, Nk, D)``: self-attention has
+Nq = Nk, DETR's cross-attention 100 queries against the Hf·Wf memory
+tokens (the Pallas kernel masks keys past its ``kv_len`` in the same way).
+
 Dispatch is by the tensors' device: a CPU tensor runs the plain version
 (:func:`flash_attention_bhnd_reference`, :func:`flash_attention_bwd_reference`);
 a CUDA tensor launches the kernel, or raises if the kernel does not take
@@ -75,22 +79,25 @@ class Plan(NamedTuple):
 
 
 def launch_plan(B: int, H: int, N: int, D: int, *,
-                backward: bool = False, sms: int = _H100_SMS) -> Plan:
-    """The kernels' launch plan for ``(B, H, N, D)`` (the one the wrappers
-    pass to the C entry points).  Forward: items of 128 query rows of one
-    head (a warpgroup with no row before N takes no products), walked by
-    one persistent block per SM (``sms``) or per item where there are
-    fewer; 64-key tiles (the last one masked), as many stages as key
-    tiles up to 8.  Backward: blocks of 128 keys (a warpgroup with no key
-    before N takes no products), 64-query tiles, as many stages as query
-    tiles up to 4, and a dQ accumulator of ``ceil(N / 64) * 64`` rows.
-    Both pad the products to ``ceil(N / 64) * 64`` rows and keys.  Shapes
-    the kernels do not take raise."""
+                Nk: Optional[int] = None, backward: bool = False,
+                sms: int = _H100_SMS) -> Plan:
+    """The kernels' launch plan for ``N`` queries against ``Nk`` keys (the
+    one the wrappers pass to the C entry points); ``Nk`` None means
+    ``N``, self-attention.  Forward: items of 128 query rows of one head
+    (a warpgroup with no row before N takes no products), walked by one
+    persistent block per SM (``sms``) or per item where there are fewer;
+    64-key tiles (the last one masked), as many stages as key tiles up to
+    8.  Backward: blocks of 128 keys (a warpgroup with no key before Nk
+    takes no products), 64-query tiles, as many stages as query tiles up
+    to 4, and a dQ accumulator of ``ceil(N / 64) * 64`` rows.  Both pad
+    the products to ``ceil(N / 64) * 64`` rows and ``ceil(Nk / 64) * 64``
+    keys.  Shapes the kernels do not take raise."""
+    Nk = N if Nk is None else Nk
     if D not in _HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {_HEAD_DIMS}")
-    if B < 1 or H < 1 or N < 1:
-        raise ValueError(f"no flash attention launch for B, H, N = "
-                         f"{B}, {H}, {N}")
+    if B < 1 or H < 1 or N < 1 or Nk < 1:
+        raise ValueError(f"no flash attention launch for B, H, Nq, Nk = "
+                         f"{B}, {H}, {N}, {Nk}")
     if backward and B * H > _MAX_BH:
         raise ValueError(f"B*H = {B * H} exceeds {_MAX_BH}")
     tile = 64 * D * 2                       # 64 rows of one operand
@@ -101,10 +108,10 @@ def launch_plan(B: int, H: int, N: int, D: int, *,
         # K and V of 128 keys, two dS^T buffers (128 x 64 bf16), barriers
         smem = (_ALIGN + 4 * tile + 2 * _BWD_K * _BWD_Q * 2
                 + stages * stage + (2 * _BWD_STAGES + 1) * 8)
-        plan = Plan(_BWD_Q, _BWD_K, stages, (-(-N // _BWD_K), B * H), smem,
-                    n_qt * _BWD_Q)
+        plan = Plan(_BWD_Q, _BWD_K, stages, (-(-Nk // _BWD_K), B * H),
+                    smem, n_qt * _BWD_Q)
     else:
-        stages = min(_FWD_STAGES, -(-N // _FWD_K))
+        stages = min(_FWD_STAGES, -(-Nk // _FWD_K))
         # two slots of two Q tiles, stages of a K and a V tile, barriers
         smem = (_ALIGN + 4 * tile + stages * 2 * tile
                 + (2 * _FWD_STAGES + 4) * 8)
@@ -128,11 +135,11 @@ def flash_attention_bhnd_reference(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, *,
                                    scale: Optional[float] = None,
                                    return_lse: bool = False):
-    """Plain version over ``(B, H, N, D)``: fp32 scores, max-subtracted
-    softmax, P rounded to V's dtype for the PV product, normalised after it
-    (the TPU kernel's arithmetic).  ``return_lse`` also returns the fp32
-    ``(B, H, N)`` log-sum-exp of the scaled scores, as the kernel writes
-    it for training."""
+    """Plain version over q ``(B, H, Nq, D)`` and k, v ``(B, H, Nk, D)``:
+    fp32 scores, max-subtracted softmax, P rounded to V's dtype for the PV
+    product, normalised after it (the TPU kernel's arithmetic).
+    ``return_lse`` also returns the fp32 ``(B, H, Nq)`` log-sum-exp of the
+    scaled scores, as the kernel writes it for training."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
@@ -151,7 +158,8 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   scale: Optional[float] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
-    """Plain backward over ``(B, H, N, D)``, the TPU kernels' arithmetic
+    """Plain backward over q, dO ``(B, H, Nq, D)`` and k, v ``(B, H, Nk,
+    D)``, the TPU kernels' arithmetic
     (``_bwd_fused_kernel``): P recomputed in fp32 and normalised;
     dV = P(in dO's dtype)ᵀ·dO; dP = dO·Vᵀ in fp32; Di = rowsum(P∘dP);
     dS = P∘(dP − Di)·scale rounded to Q's dtype; dQ = dS·K, dK = dSᵀ·Q,
@@ -171,14 +179,23 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(*named):
-    """What both kernels take: bf16 CUDA tensors of one (B, H, N, D)
-    shape (launch_plan checks D)."""
-    shape, dev = named[0][1].shape, named[0][1].device
-    for name, x in named:
-        if x.shape != shape or x.dim() != 4:
-            raise ValueError(f"{name} must have q's (B, H, N, D) shape "
-                             f"{tuple(shape)}, got {tuple(x.shape)}")
+def _check(queries, keys):
+    """What both kernels take: bf16 CUDA tensors, ``queries`` (the first
+    one q) of q's (B, H, Nq, D) shape and ``keys`` (the first one k) of
+    k's (B, H, Nk, D), one B, H and D (launch_plan checks D).  Each is a
+    sequence of (name, tensor)."""
+    q, k = queries[0][1], keys[0][1]
+    dev = q.device
+    if q.dim() != 4 or k.dim() != 4 or (k.shape[:2], k.shape[3]) != (
+            q.shape[:2], q.shape[3]):
+        raise ValueError(f"q (B, H, Nq, D) and k (B, H, Nk, D) must agree "
+                         f"in B, H and D, got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    for (name, x), shape in ([(nx, q.shape) for nx in queries]
+                             + [(nx, k.shape) for nx in keys]):
+        if x.shape != shape:
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                             f"{tuple(x.shape)}")
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
         if x.dtype != torch.bfloat16:
@@ -217,7 +234,7 @@ def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
 def _fwd_fn():
     """The forward's C entry point, built and loaded on first use."""
     fn = _build.load("flash_attention_fwd").flash_attention_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -227,7 +244,7 @@ def _fwd_fn():
 def _bwd_fn():
     """The backward's C entry point, built and loaded on first use."""
     fn = _build.load("flash_attention_bwd").flash_attention_bwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -237,20 +254,22 @@ def _launch_fwd(q, k, v, o, lse, scale: float) -> None:
     """Launch the forward kernel on the current stream with
     :func:`launch_plan`'s plan; ``o`` may be any view with unit stride
     along D (e.g. into a (B, N, H, D) buffer); ``lse`` is a contiguous
-    fp32 (B, H, N) buffer or None."""
-    _check(("q", q), ("k", k), ("v", v), ("o", o))
+    fp32 (B, H, Nq) buffer or None."""
+    _check((("q", q), ("o", o)), (("k", k), ("v", v)))
     if lse is not None:
         _check_lse(lse, q)
     B, H, N, D = q.shape
+    Nk = k.shape[2]
     if not B * H * N:
         return
     strides = _strides(("q", q), ("k", k), ("v", v), ("o", o))
-    plan = _plan_arg(launch_plan(B, H, N, D, sms=sm_count(q.device)))
+    plan = _plan_arg(launch_plan(B, H, N, D, Nk=Nk,
+                                 sms=sm_count(q.device)))
     fn = _fwd_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 None if lse is None else lse.data_ptr(), B, H, N, D,
+                 None if lse is None else lse.data_ptr(), B, H, N, Nk, D,
                  ctypes.cast(strides, ctypes.c_void_p),
                  ctypes.cast(plan, ctypes.c_void_p), float(scale), stream)
     if err != 0:
@@ -266,13 +285,15 @@ def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float) -> None:
     any views with unit stride along D."""
     named = (("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
              ("dq", dq), ("dk", dk), ("dv", dv))
-    _check(*named)
+    _check((("q", q), ("o", o), ("do", do), ("dq", dq)),
+           (("k", k), ("v", v), ("dk", dk), ("dv", dv)))
     _check_lse(lse, q)
     B, H, N, D = q.shape
+    Nk = k.shape[2]
     if not B * H * N:
         return
     strides = _strides(*named)
-    plan = launch_plan(B, H, N, D, backward=True)
+    plan = launch_plan(B, H, N, D, Nk=Nk, backward=True)
     stats = torch.empty((B * H, 2, plan.dq_rows), dtype=torch.float32,
                         device=q.device)
     dq_acc = torch.empty((B * H, plan.dq_rows, D), dtype=torch.float32,
@@ -283,7 +304,7 @@ def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, scale: float) -> None:
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), stats.data_ptr(),
                  dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), B, H, N, D,
+                 dv.data_ptr(), B, H, N, Nk, D,
                  ctypes.cast(strides, ctypes.c_void_p),
                  ctypes.cast(_plan_arg(plan), ctypes.c_void_p), float(scale),
                  stream)
@@ -297,9 +318,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: Optional[float] = None,
                         out: Optional[torch.Tensor] = None,
                         return_lse: bool = False):
-    """The forward over ``(B, H, N, D)`` views into ``out`` (a new
-    contiguous tensor when None).  ``return_lse`` also returns the fp32
-    ``(B, H, N)`` log-sum-exp, natural log, that the backward reads."""
+    """The forward over q ``(B, H, Nq, D)`` and k, v ``(B, H, Nk, D)``
+    views into ``out`` (q's shape; a new contiguous tensor when None).
+    ``return_lse`` also returns the fp32 ``(B, H, Nq)`` log-sum-exp,
+    natural log, that the backward reads."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -324,8 +346,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dq: Optional[torch.Tensor] = None,
                         dk: Optional[torch.Tensor] = None,
                         dv: Optional[torch.Tensor] = None):
-    """Gradients of attention over ``(B, H, N, D)`` views, from the
-    forward's output ``o`` and log-sum-exp ``lse``.  ``dq``, ``dk`` and
+    """Gradients of attention over q, o, dO ``(B, H, Nq, D)`` and k, v
+    ``(B, H, Nk, D)`` views, from the forward's output ``o`` and
+    log-sum-exp ``lse``.  ``dq``, ``dk`` and
     ``dv`` are written in place when given (any views with unit stride
     along D), else allocated.  Returns ``(dq, dk, dv)``.
 
@@ -340,7 +363,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      for g, buf in zip(grads, (dq, dk, dv)))
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for device {q.device}")
-    dq, dk, dv = (torch.empty(q.shape, dtype=x.dtype, device=x.device)
+    dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device)
                   if buf is None else buf
                   for x, buf in ((q, dq), (k, dk), (v, dv)))
     _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, scale)
@@ -359,7 +382,8 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Differentiable attention over ``(B, H, N, D)`` views."""
+    """Differentiable attention over q ``(B, H, Nq, D)`` and k, v ``(B, H,
+    Nk, D)`` views."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -410,8 +434,8 @@ def _needs_grad(*xs) -> bool:
 
 def flash_attention_bhnd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: Optional[float] = None) -> torch.Tensor:
-    """Attention over ``(B, H, N, D)`` tensors, the kernel's native layout;
-    differentiable.
+    """Attention of q ``(B, H, Nq, D)`` over k, v ``(B, H, Nk, D)``, the
+    kernel's native layout; differentiable.
 
     ``flash_attention_bhnd.launches`` counts forward kernel launches."""
     if scale is None:
@@ -426,8 +450,8 @@ flash_attention_bhnd.launches = 0
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Attention over ``(B, N, H, D)`` tensors (the JAX package's layout);
-    differentiable.
+    """Attention of q ``(B, Nq, H, D)`` over k, v ``(B, Nk, H, D)`` (the
+    JAX package's layout); differentiable.
 
     On CUDA the kernel reads the inputs through their strides and, without
     grad, writes a contiguous ``(B, N, H, D)`` result, so no transposed

@@ -1,8 +1,7 @@
 """Run-telemetry subsystem, the port's own copy of
 ``vit_torch_tpu/utils/stats.py`` (the port imports nothing of the JAX
 package).  ``default_hardware`` reports the torch device; the detection
-meters (``SmoothedValue``, ``MetricLogger``) come with the detection
-slice.
+meters are ``SmoothedValue`` and ``MetricLogger``.
 
 Capability parity with the reference's ``utils_stats.py`` (``TimerLog``,
 ``CounterLog``, ``Metrics``, ``StatMetrics``, ``Stats``): per-split,
@@ -404,3 +403,93 @@ def default_hardware(device=None) -> str:
         name = torch.cuda.get_device_name(dev).replace(" ", "")
         return f"{torch.cuda.device_count()}x{name}"
     return f"1x{dev.type}"
+
+
+class SmoothedValue:
+    """Windowed meter with a global average (the reference's
+    detection-side ``SmoothedValue``, ``object/torch_utils.py:15-74``)."""
+
+    def __init__(self, window_size: int = 20,
+                 fmt: str = "{median:.4f} ({global_avg:.4f})"):
+        self.window: List[float] = []
+        self.window_size = window_size
+        self.total = 0.0
+        self.count = 0
+        self.fmt = fmt
+
+    def update(self, value: float, n: int = 1) -> None:
+        self.window.append(float(value))
+        if len(self.window) > self.window_size:
+            self.window.pop(0)
+        self.total += float(value) * n
+        self.count += n
+
+    @property
+    def median(self) -> float:
+        import statistics
+        return statistics.median(self.window) if self.window else 0.0
+
+    @property
+    def avg(self) -> float:
+        return sum(self.window) / len(self.window) if self.window else 0.0
+
+    @property
+    def global_avg(self) -> float:
+        return self.total / self.count if self.count else 0.0
+
+    @property
+    def value(self) -> float:
+        return self.window[-1] if self.window else 0.0
+
+    def __str__(self) -> str:
+        return self.fmt.format(median=self.median, avg=self.avg,
+                               global_avg=self.global_avg, value=self.value)
+
+
+def _device_memory() -> str:
+    """The CUDA caching allocator's peak, where there is a GPU."""
+    import torch
+    if not torch.cuda.is_available():
+        return ""
+    return f"max mem: {torch.cuda.max_memory_allocated() / 2 ** 20:.0f}MB"
+
+
+class MetricLogger:
+    """Iteration logger with ETA and meters (the reference's
+    ``MetricLogger.log_every``, ``object/torch_utils.py:147-218``, its
+    memory read from the CUDA allocator)."""
+
+    def __init__(self, delimiter: str = "  ") -> None:
+        self.meters: Dict[str, SmoothedValue] = {}
+        self.delimiter = delimiter
+
+    def update(self, **kwargs: float) -> None:
+        for k, v in kwargs.items():
+            self.meters.setdefault(k, SmoothedValue()).update(float(v))
+
+    def __getattr__(self, name: str):
+        meters = object.__getattribute__(self, "__dict__").get("meters", {})
+        if name in meters:
+            return meters[name]
+        raise AttributeError(name)
+
+    def __str__(self) -> str:
+        return self.delimiter.join(f"{k}: {m}"
+                                   for k, m in self.meters.items())
+
+    def log_every(self, iterable, print_freq: int, header: str = ""):
+        n = len(iterable) if hasattr(iterable, "__len__") else None
+        iter_time = SmoothedValue(fmt="{avg:.4f}")
+        start = time.time()
+        end = start
+        for i, obj in enumerate(iterable):
+            yield obj
+            iter_time.update(time.time() - end)
+            end = time.time()
+            if i % print_freq == 0 or (n and i == n - 1):
+                eta = format_time(iter_time.avg * (n - i - 1)) if n else "--"
+                total = f"{i}/{n}" if n else str(i)
+                print(f"\r{header} [{total}] eta: {eta} {self} "
+                      f"time: {iter_time} {_device_memory()}", end="",
+                      flush=True)
+        print(f"\r{header} done in {format_time(time.time() - start)}")
