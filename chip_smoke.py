@@ -158,7 +158,23 @@
    plain versions against the fp32 step (``detr_step_vs_plain``); runs an
    eval forward with W8A8 off and on (``detr_w8a8``); prints a ``detr``
    summary line;
-15. prints one JSON line with each kernel's numbers, then the card's name
+15. Faster R-CNN and Keypoint R-CNN (ROADMAP A10b): writes a synthetic
+   COCO set with keypoints at 512 px and trains each full-width model
+   (FPN 256, 1000 pre-NMS and 256 proposals, 100 detections; the
+   keypoint head 8 x 512 convs at 14 x 14 over 128 RoIs) for one epoch
+   at bs8 and evaluates it through ``cli.coco --head faster_rcnn``: over
+   resnext50_32x4d (no hand kernel: ``frcnn_train``), over Swin-T (B8 and
+   the core forward, B6 backward, 12 a pass: ``frcnn_swin_train``) and
+   with ``--keypoints`` (``kprcnn_train``, the keypoint AP); times and
+   profiles the ResNeXt step with and without keypoints, the padded NMS
+   loop's launches and share, peak memory, and whether the step reads the
+   device before its loss (``frcnn_step``); holds the Swin route's FPN
+   maps, RPN outputs and backbone gradients on the kernels against the
+   plain versions (``frcnn_vs_plain``); runs the eval forward with W8A8
+   off and on (Q1 and Q2 at the box head's 2048 x 12,544 -> 1024 and
+   2048 x 1024 -> 1024, each held against its plain versions:
+   ``frcnn_w8a8``); prints a ``frcnn`` summary line;
+16. prints one JSON line with each kernel's numbers, then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -482,6 +498,23 @@ DETR_ARGS = ["--backbone", DETR_BACKBONE, "--image_size", str(DETR_SIZE),
              "--bs", str(DETR_BS), "--epochs", "1", "--no_initial_eval",
              "--num_queries", "100", "--hidden_dim", "256", "--enc_layers",
              str(DETR_LAYERS), "--dec_layers", str(DETR_LAYERS)]
+# Faster R-CNN / Keypoint R-CNN (ROADMAP A10b) at the JAX CLI's full
+# settings, 512 px bs8, on a synthetic COCO set with keypoints
+FRCNN_SIZE, FRCNN_BS = 512, 8
+FRCNN_TRAIN_N, FRCNN_VAL_N = 64, 32
+FRCNN_BACKBONE = RESNEXT_ARCH
+FRCNN_ARGS = ["--head", "faster_rcnn", "--image_size", str(FRCNN_SIZE),
+              "--bs", str(FRCNN_BS), "--epochs", "1", "--no_initial_eval"]
+# the box head's two QLinear products in the bs8 eval forward: 8 x 256
+# RoIs, box_fc1 over 7 x 7 x 256 RoI features, box_fc2
+FRCNN_W8A8_SHAPES = [(FRCNN_BS * 256, 7 * 7 * 256, 1024),
+                     (FRCNN_BS * 256, 1024, 1024)]
+# the Swin route's FPN maps and RPN outputs, kernels vs plain versions
+# through the same bf16 model (max |diff| relative to max |plain|, as the
+# served Swin logits are held), and its backbone gradients under a fixed
+# upstream gradient (relative norm, whole and per parameter's median, the
+# classifiers' STEP_GRAD_RTOL)
+FRCNN_PLAIN_RTOL = SWIN_LOGITS_RTOL
 
 
 def _say(*parts) -> None:
@@ -4079,6 +4112,324 @@ def detr_phases(workdir: str):
             "w8a8": detr_w8a8_forward(root)}
 
 
+def write_frcnn_data(workdir: str) -> str:
+    """A synthetic COCO root with keypoints at 512 px: ``train``
+    (FRCNN_TRAIN_N pictures) and ``validation`` (FRCNN_VAL_N, another
+    seed); every picture has a box whose keypoints lie inside it
+    (``tests/test_torch_port_keypoint.py``)."""
+    from vit_torch_tpu_torch.detection.coco_data import make_synthetic_coco
+    root = os.path.join(workdir, "frcnn_coco")
+    make_synthetic_coco(os.path.join(root, "train"), n_images=FRCNN_TRAIN_N,
+                        size=FRCNN_SIZE, seed=0, keypoints=True)
+    make_synthetic_coco(os.path.join(root, "validation"),
+                        n_images=FRCNN_VAL_N, size=FRCNN_SIZE, seed=1,
+                        keypoints=True)
+    return root
+
+
+def _frcnn_want(backbone: str, train_steps: int, eval_batches: int):
+    """Launches of Faster R-CNN: none over ResNeXt (cuDNN and cuBLAS);
+    over Swin-T at 512 px every block through B8 (one core launch a
+    forward, one B6 a train step), as in DETR."""
+    if backbone != DETR_BACKBONE:
+        return _want()
+    forwards = train_steps + eval_batches
+    return _want(window_block_spatial=SWIN_T_DEPTH * forwards,
+                 window_attention=SWIN_T_DEPTH * forwards,
+                 window_attention_bwd=SWIN_T_DEPTH * train_steps)
+
+
+def frcnn_through_cli(root: str, workdir: str, backbone: str,
+                      keypoints: bool = False):
+    """One epoch of the synthetic train set at bs8 and the evaluation of
+    the validation set through ``cli.coco --head faster_rcnn`` (the JAX
+    CLI's full settings): launch counts, epoch seconds, the 12 bbox
+    numbers and, with ``keypoints``, the 10 keypoint numbers (finite; AP
+    itself is not gated: seeded weights, one epoch)."""
+    from vit_torch_tpu_torch.cli import coco as cli_coco
+    name = ("kprcnn_train" if keypoints else "frcnn_swin_train"
+            if backbone == DETR_BACKBONE else "frcnn_train")
+    steps, evals = FRCNN_TRAIN_N // FRCNN_BS, FRCNN_VAL_N // FRCNN_BS
+    want = _frcnn_want(backbone, steps, evals)
+    fp = os.path.join(workdir, f"{name}.json")
+    _reset_counts()
+    t0 = time.perf_counter()
+    cli_coco.main(FRCNN_ARGS + ["--backbone", backbone, "--data_root", root,
+                                "--stats_fp", fp]
+                  + (["--keypoints"] if keypoints else []))
+    seconds = time.perf_counter() - t0
+    counts = _read_counts()
+    with open(fp) as f:
+        record = json.load(f)
+    logs = record["logs"]
+    val = logs[0]["val"] if logs else {}
+    row = {"backbone": backbone, "seconds": seconds,
+           "epoch_seconds": logs[0]["time"] if logs else None,
+           "launches": counts, "want": want, "telem": record["telem"],
+           "train": logs[0]["train"] if logs else None,
+           "bbox": val.get("bbox"), "keypoints": val.get("keypoints")}
+    _say(json.dumps({name: row}))
+    if counts != want:
+        raise AssertionError(f"{name}: kernel launches {counts} != {want}")
+    sizes = {"bbox": 12, "keypoints": 10 if keypoints else None}
+    if not (len(logs) == 1 and np.isfinite(logs[0]["train"]["loss_total"])
+            and all((row[k] is None) if n is None else (
+                len(row[k]) == n and all(np.isfinite(v)
+                                         for v in row[k].values()))
+                    for k, n in sizes.items())):
+        raise AssertionError(f"{name}: bad stats {record}")
+    return row
+
+
+def _frcnn_setup(root: str, backbone: str = FRCNN_BACKBONE,
+                 keypoints: bool = False, seed: int = 0):
+    """A seeded full-width Faster R-CNN (Keypoint R-CNN with
+    ``keypoints``) in bf16 on the card, its trainer (the flip on, the
+    schema's keypoint swap) and the train set's first bs8 batch."""
+    import torch
+    from vit_torch_tpu_torch.detection.coco_data import (CocoDetectionDataset,
+                                                         CocoLoader)
+    from vit_torch_tpu_torch.detection.engine import FasterRCNNTrainer
+    from vit_torch_tpu_torch.detection.faster_rcnn import (FasterRCNNConfig,
+                                                           build_faster_rcnn)
+    from vit_torch_tpu_torch.detection.keypoint import kp_flip_inds_from_names
+    ds = CocoDetectionDataset(os.path.join(root, "train", "data"),
+                              os.path.join(root, "train", "labels.json"),
+                              image_size=FRCNN_SIZE,
+                              load_keypoints=keypoints)
+    batch = next(iter(CocoLoader(ds, FRCNN_BS, num_workers=0)))
+    cfg = FasterRCNNConfig(num_classes=ds.num_classes,
+                           image_size=FRCNN_SIZE,
+                           num_keypoints=ds.num_keypoints)
+    model = build_faster_rcnn(cfg, backbone, torch.bfloat16,
+                              torch.Generator().manual_seed(seed), "cuda")
+    trainer = FasterRCNNTrainer(
+        model, cfg=cfg, lr=1e-4, augment=True,
+        kp_flip_inds=kp_flip_inds_from_names(ds.kp_names) if keypoints
+        else None)
+    return model, trainer, batch
+
+
+def _nms_loop(B: int, n: int, outputs: int, thresh: float):
+    """The padded NMS at one of the step's shapes on random boxes of the
+    512 px canvas (a fixed trip count: the data does not change its
+    work): CUDA-event ms a call, its launches and device busy ms from the
+    profiler."""
+    import torch
+    from vit_torch_tpu_torch.detection.boxes import nms_padded
+    gen = torch.Generator().manual_seed(0)
+    xy = torch.rand((B, n, 2), generator=gen) * 400
+    boxes = torch.cat([xy, xy + 8 + 100 * torch.rand((B, n, 2),
+                                                     generator=gen)],
+                      -1).cuda()
+    scores = torch.randn((B, n), generator=gen).cuda()
+    events = _cuda_events(lambda: nms_padded(boxes, scores, thresh,
+                                             outputs), iters=2)
+    return {"shape": [B, n, outputs],
+            "ms": _time_ms(lambda: nms_padded(boxes, scores, thresh,
+                                              outputs), iters=5),
+            "launches": sum(e.count for e in events) / 2,
+            "device_busy_ms": sum(e.self_device_time_total
+                                  for e in events) / 1e3 / 2}
+
+
+def _step_syncs(trainer, batch):
+    """Whether a train step reads the device before its loss terms are
+    logged: the step under ``torch.cuda.set_sync_debug_mode("error")``;
+    the message of the first synchronising call, or None."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trainer.train_step(batch)
+        return None
+    except RuntimeError as e:
+        return str(e)[:200]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def steady_state_frcnn(root: str, keypoints: bool, iters: int = 5):
+    """The Faster R-CNN (Keypoint R-CNN) train step over resnext50_32x4d
+    at 512 px bs8 (flip, forward, matching and sampling, losses,
+    backward, clip, SGD): CUDA-event and host ms over ``iters`` steps
+    after warm-up, the launches of one step (none of a hand kernel), peak
+    memory, a profile by kernel group with the device's idle share, the
+    padded NMS loop's ms, launches and share of the step (the RPN's 256
+    outputs from 1000 candidates an image, and the decode's 100 from 256
+    in eval), and whether the step synchronises before its loss read."""
+    import torch
+    model, trainer, batch = _frcnn_setup(root, keypoints=keypoints)
+    for _ in range(3):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    _reset_counts()
+    trainer.train_step(batch)
+    per_step = _read_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        logs = trainer.train_step(batch)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / iters
+    row = {"arch": f"{'kp' if keypoints else 'f'}rcnn_{FRCNN_BACKBONE}",
+           "image_size": FRCNN_SIZE, "bs": FRCNN_BS, "opt": "sgd",
+           "iters": iters, "step_ms": step_ms,
+           "host_step_ms": 1e3 * (time.perf_counter() - t0) / iters,
+           "loss_total": float(logs["loss_total"]),
+           "launches_per_step": per_step,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "profile": _profile_calls(lambda: trainer.train_step(batch))}
+    cfg = trainer.cfg
+    rpn = _nms_loop(FRCNN_BS, cfg.rpn_pre_nms_topk, cfg.num_proposals,
+                    cfg.rpn_nms_thresh)
+    row["nms_rpn"] = rpn
+    row["nms_share_of_step"] = rpn["ms"] / step_ms
+    row["nms_decode"] = _nms_loop(FRCNN_BS, cfg.num_proposals,
+                                  cfg.detections, 0.5)
+    row["syncs_before_loss_read"] = _step_syncs(trainer, batch)
+    _say(json.dumps({"frcnn_step": row}))
+    if per_step != _want():
+        raise AssertionError(f"launches per Faster R-CNN step {per_step}")
+    if not np.isfinite(row["loss_total"]):
+        raise AssertionError(f"Faster R-CNN step loss {row['loss_total']}")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return row
+
+
+def compare_frcnn_swin_with_plain(root: str):
+    """Faster R-CNN over Swin-T at 512 px bs8 (bf16, eval mode: no
+    drop-path), on the kernels and on the plain versions of the window
+    blocks: the FPN maps and the RPN logits and deltas (max |diff| over
+    max |plain|, within FRCNN_PLAIN_RTOL), and the backbone's gradients
+    under one fixed upstream gradient on its four stage maps (relative
+    norm of the whole and median per parameter, within STEP_GRAD_RTOL).
+    A whole step is not compared: top-k and NMS choose other proposals
+    once a logit moves by a rounding."""
+    import torch
+    from vit_torch_tpu_torch.data.augment import normalize
+    model, trainer, batch = _frcnn_setup(root, backbone=DETR_BACKBONE,
+                                         seed=1)
+    model.eval()
+    x = normalize(torch.as_tensor(batch["image"]).cuda(), **trainer.norm)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    upstream = None
+
+    def run():
+        nonlocal upstream
+        model.zero_grad(set_to_none=True)
+        maps = model.backbone(x)
+        if upstream is None:
+            upstream = [torch.randn(m.shape, generator=gen, device="cuda")
+                        for m in maps]
+        sum((m.float() * g).sum() for m, g in zip(maps, upstream)).backward()
+        with torch.no_grad():
+            feats = model.fpn([m.detach() for m in maps])
+            logits, deltas = model.rpn(feats)
+        grads = {n: p.grad.detach().float().clone()
+                 for n, p in model.backbone.named_parameters()
+                 if p.grad is not None}
+        return [f.float() for f in feats] + [logits.float(),
+                                             deltas.float()], grads
+
+    _reset_counts()
+    outs_k, grads_k = run()
+    counts = _read_counts()
+    with _plain_window_blocks():
+        outs_p, grads_p = run()
+    if _read_counts() != counts:
+        raise AssertionError("the plain Faster R-CNN pass launched a kernel")
+    want = _want(window_block_spatial=SWIN_T_DEPTH,
+                 window_attention=SWIN_T_DEPTH,
+                 window_attention_bwd=SWIN_T_DEPTH)
+    if counts != want:
+        raise AssertionError(f"launches in the kernel pass {counts}")
+    out_err = [((k - p).abs().max() / p.abs().max()).item()
+               for k, p in zip(outs_k, outs_p)]
+    rel = {n: ((grads_k[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+           for n, g in grads_p.items() if g.norm() > 0}
+    whole = (torch.cat([(grads_k[n] - grads_p[n]).flatten() for n in rel])
+             .norm() / torch.cat([grads_p[n].flatten() for n in rel])
+             .norm()).item()
+    worst = max(rel, key=rel.get)
+    row = {"arch": f"frcnn_{DETR_BACKBONE}", "bs": FRCNN_BS,
+           "fpn_rpn_rel_err": out_err, "whole_grad_rel_err": whole,
+           "median_grad_rel_err": float(np.median(list(rel.values()))),
+           "max_grad_rel_err": rel[worst], "worst_param": worst,
+           "params": len(rel), "launches": counts,
+           "bounds": {"fpn_rpn": FRCNN_PLAIN_RTOL, "grad": STEP_GRAD_RTOL}}
+    _say(json.dumps({"frcnn_vs_plain": row}))
+    if not (max(out_err) <= FRCNN_PLAIN_RTOL and whole <= STEP_GRAD_RTOL
+            and row["median_grad_rel_err"] <= STEP_GRAD_RTOL):
+        raise AssertionError(f"Faster R-CNN over Swin, kernels vs plain: "
+                             f"{row}")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return row
+
+
+def frcnn_w8a8_forward(root: str):
+    """One full-width Faster R-CNN eval forward over resnext50_32x4d at
+    bs8 with ``VITX_W8A8`` off and on: under it box_fc1 and box_fc2 run
+    Q2 once and Q1 twice each (activations, weight) at 2048 RoIs; the
+    proposals are the same (the RPN is not quantised), the class logits'
+    cosine against the fp forward above W8A8_MIN_COSINE; both forwards
+    timed on CUDA events; then Q1 and Q2 at the two products' shapes
+    held against their plain versions (``kernel check w8a8``)."""
+    import torch
+    from vit_torch_tpu_torch.data.augment import normalize
+    model, trainer, batch = _frcnn_setup(root, seed=2)
+    model.eval()
+    x = normalize(torch.as_tensor(batch["image"]).cuda(), **trainer.norm)
+    out, counts, ms = {}, {}, {}
+    for on in (False, True):
+        with mock.patch.dict(os.environ, {"VITX_W8A8": "1" if on else ""}), \
+                torch.inference_mode():
+            _reset_counts()
+            o = model(x)
+            out[on] = (o["cls_logits"].float().cpu().numpy(),
+                       o["proposal_index"].cpu().numpy())
+            torch.cuda.synchronize()
+            counts[on] = _read_counts()
+            ms[on] = _time_ms(lambda: model(x), iters=5)
+    q = counts[True]
+    row = {"arch": f"frcnn_{FRCNN_BACKBONE}", "bs": FRCNN_BS,
+           "launches_w8a8": {k: v for k, v in q.items() if v},
+           "launches_fp": {k: v for k, v in counts[False].items() if v},
+           "same_proposals": bool((out[True][1] == out[False][1]).all()),
+           "cosine": _cosine(out[True][0], out[False][0]),
+           "forward_ms_fp_w8a8": [ms[False], ms[True]]}
+    _say(json.dumps({"frcnn_w8a8": row}))
+    if (q != _want(w8a8_gemm=2, w8a8_quantize_rows=4)
+            or counts[False] != _want() or not row["same_proposals"]
+            or not np.isfinite(out[True][0]).all()
+            or row["cosine"] <= W8A8_MIN_COSINE):
+        raise AssertionError(f"Faster R-CNN W8A8: {row}")
+    del model, trainer
+    torch.cuda.empty_cache()
+    row["kernel_rows"] = [check_w8a8_kernels(shape, seed=100 + i)
+                          for i, shape in enumerate(FRCNN_W8A8_SHAPES)]
+    return row
+
+
+def frcnn_phases(workdir: str):
+    """Every Faster R-CNN phase on one synthetic root."""
+    root = write_frcnn_data(workdir)
+    return {"train": frcnn_through_cli(root, workdir, FRCNN_BACKBONE),
+            "swin_train": frcnn_through_cli(root, workdir, DETR_BACKBONE),
+            "kp_train": frcnn_through_cli(root, workdir, FRCNN_BACKBONE,
+                                          keypoints=True),
+            "step": steady_state_frcnn(root, keypoints=False),
+            "kp_step": steady_state_frcnn(root, keypoints=True),
+            "vs_plain": compare_frcnn_swin_with_plain(root),
+            "w8a8": frcnn_w8a8_forward(root)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4260,6 +4611,8 @@ def main() -> int:
     w8a8_families = w8a8_every_family()
     with tempfile.TemporaryDirectory() as workdir:
         detr = detr_phases(workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        frcnn = frcnn_phases(workdir)
 
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -4360,8 +4713,10 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "case": head["case"],
             "device_ms": head.get("device_ms"),
-            "launches_by_path": {p: c[kernel]
-                                 for p, c in swin_paths.items()},
+            "launches_by_path": {
+                **{p: c[kernel] for p, c in swin_paths.items()},
+                "detr_train": detr["train"]["launches"][kernel],
+                "frcnn_swin_train": frcnn["swin_train"]["launches"][kernel]},
             "ms_device_plain_library_bound_by_case": [
                 [r["case"], r["ms"], r.get("device_ms"), r["plain_ms"],
                  r["library_ms"], r["bound_ms"]] for r in by_case]})
@@ -4394,8 +4749,11 @@ def main() -> int:
         "library_backend": head["library_backend"],
         "case": gemm_rows[0]["case"], "launch": head["launch"],
         "ptxas": window_ptxas["window_gemm"],
-        "launches_by_path": {p: c["window_gemm"]
-                             for p, c in swin_paths.items()},
+        "launches_by_path": {
+            **{p: c["window_gemm"] for p, c in swin_paths.items()},
+            "detr_train": detr["train"]["launches"]["window_gemm"],
+            "frcnn_swin_train": frcnn["swin_train"]["launches"][
+                "window_gemm"]},
         "launch_T_K_N_device_tflops_share_lib_libdevice_indexselect_by_case":
             [[r["case"], [[p["launch"], p["T"], p["K"], p["N"],
                            p["device_ms"], p["tflops"], p["bound_share"],
@@ -4590,7 +4948,15 @@ def main() -> int:
             "ms_device_plain_library_bound_by_shape": [
                 [r["shape"], r[key]["ms"], r[key]["device_ms"],
                  r[key]["plain_ms"], r[key]["library_ms"],
-                 r[key]["bound_ms"]] for r in w8a8_rows]})
+                 r[key]["bound_ms"]] for r in w8a8_rows],
+            # Faster R-CNN's box head (box_fc1, box_fc2) at bs8 x 256 RoIs
+            "frcnn_launches_per_eval_forward": frcnn["w8a8"][
+                "launches_w8a8"][kernel],
+            "frcnn_ms_device_plain_library_bound_bf16linear_by_shape": [
+                [r["shape"], r[key]["ms"], r[key]["device_ms"],
+                 r[key]["plain_ms"], r[key]["library_ms"],
+                 r[key]["bound_ms"], r["q2"]["bf16_linear_ms"]]
+                for r in frcnn["w8a8"]["kernel_rows"]]})
     kernels[-1]["library"] = "torch._int_mm + the same rescale (cuBLASLt)"
     kernels[-1]["max_ulps"] = max(max(r["q2"]["max_ulps_bf16_fp32"])
                                   for r in w8a8_rows)
@@ -4634,6 +5000,31 @@ def main() -> int:
             "loss_rel_err_kernel_plain", "whole_grad_rel_err_kernel_plain",
             "able_median_max_kernel")},
         "w8a8_cosine": detr["w8a8"]["cosine"]}}))
+    # Faster R-CNN / Keypoint R-CNN (ROADMAP A10b): ResNeXt runs no hand
+    # kernel, Swin-T its B8 chain and B6, the eval forward under W8A8 Q1/Q2
+    _say(json.dumps({"frcnn": {
+        "train_seconds": {k: frcnn[k]["seconds"] for k in (
+            "train", "swin_train", "kp_train")},
+        "epoch_seconds": {k: frcnn[k]["epoch_seconds"] for k in (
+            "train", "swin_train", "kp_train")},
+        "bbox_ap": {k: frcnn[k]["bbox"]["ap"] for k in (
+            "train", "swin_train", "kp_train")},
+        "keypoints": frcnn["kp_train"]["keypoints"],
+        "step": {k: {m: frcnn[k][m] for m in (
+            "step_ms", "host_step_ms", "peak_mem_gb", "loss_total",
+            "nms_share_of_step", "syncs_before_loss_read")}
+            for k in ("step", "kp_step")},
+        "device_busy_ms": {k: frcnn[k]["profile"]["device_busy_ms"]
+                           for k in ("step", "kp_step")},
+        "idle_share": {k: frcnn[k]["profile"]["idle_share"]
+                       for k in ("step", "kp_step")},
+        "nms_rpn_decode": [frcnn["step"]["nms_rpn"],
+                           frcnn["step"]["nms_decode"]],
+        "vs_plain": {k: frcnn["vs_plain"][k] for k in (
+            "fpn_rpn_rel_err", "whole_grad_rel_err",
+            "median_grad_rel_err")},
+        "w8a8": {k: frcnn["w8a8"][k] for k in (
+            "launches_w8a8", "cosine", "forward_ms_fp_w8a8")}}}))
     _say(json.dumps({"kernels": kernels}))
     _say(smi)
     _say(json.dumps({"ok": True, "device": {

@@ -290,9 +290,22 @@ PUBLISHED_KEYS = {"dino_vitb8": (150, 150), "dino_vits16": (150, 150),
                   "deit_base_distilled_patch16_224": (151, 155),
                   "xcit_small_24_p16": (705, 707),
                   "resnext50_32x4d": (318, 320)}
+# a full-size detector -> the published backbone it loads
+DETECTORS = {"faster_rcnn_resnext50_32x4d": "resnext50_32x4d"}
 
 
-@pytest.mark.parametrize("name", list(PUBLISHED_KEYS))
+def _meta_model(name, image_size):
+    """The zoo backbone, or the full-size detector, on the meta device."""
+    if name in DETECTORS:
+        from vit_torch_tpu_torch.detection.faster_rcnn import (
+            FasterRCNNConfig, build_faster_rcnn)
+        return build_faster_rcnn(FasterRCNNConfig(), DETECTORS[name],
+                                 device="meta")
+    return VisionModelZoo.get_model(name, image_size=image_size,
+                                    device="meta").model
+
+
+@pytest.mark.parametrize("name", list(PUBLISHED_KEYS) + list(DETECTORS))
 def test_importer_loads_the_published_layout(name, tmp_path, monkeypatch):
     """A full-size backbone on the meta device takes a state dict of the
     published checkpoint's keys and shapes (zeros backed by calloc, in
@@ -300,10 +313,12 @@ def test_importer_loads_the_published_layout(name, tmp_path, monkeypatch):
     key the backbone needs is there with its shape (XCiT's and ResNeXt's
     BatchNorm running statistics and batch counts too), and the keys it
     leaves are the classifier heads (DeiT's two, torchvision's ``fc``)
-    and Swin's computed buffers only."""
-    man = MANIFESTS[name]
-    zm = VisionModelZoo.get_model(name, image_size=man["image_size"],
-                                  device="meta")
+    and Swin's computed buffers only.  The full-size Faster R-CNN over
+    resnext50_32x4d (FPN 256, 91 classes, 512 px) takes the same
+    checkpoint into its trunk."""
+    published = DETECTORS.get(name, name)
+    man = MANIFESTS[published]
+    model = _meta_model(name, man["image_size"])
     prefix = "module." if man["module_prefix"] else ""
     sd = {prefix + k: torch.from_numpy(np.zeros(shape, dtype))
           for k, (shape, dtype) in man["keys"].items()}
@@ -313,15 +328,15 @@ def test_importer_loads_the_published_layout(name, tmp_path, monkeypatch):
     path = tmp_path / "checkpoint.pth"
     path.touch()
     with pytest.warns(UserWarning, match="meta"):
-        torch_import.load_backbone_state_dict(str(path), zm.model,
+        torch_import.load_backbone_state_dict(str(path), model,
                                               man["image_size"])
-    needed = zm.model.backbone.state_dict()
+    needed = model.backbone.state_dict()
     for k, v in needed.items():
         assert tuple(man["keys"][k][0]) == tuple(v.shape), k
     left = set(man["keys"]) - set(needed)
     assert all(k.startswith(("head.", "head_dist.", "fc.")) or k.endswith(
         ("relative_position_index", "attn_mask")) for k in left), left
-    assert (len(needed), len(man["keys"])) == PUBLISHED_KEYS[name]
+    assert (len(needed), len(man["keys"])) == PUBLISHED_KEYS[published]
 
 
 # (B, N, C, heads, packed) -> (columns a warpgroup projects in one pass,

@@ -20,7 +20,9 @@ GEMM's four launches of B9 and the window-attention core's plans (one
 and 64 mask rows, 25- and 49-token windows) against their plain
 versions; the conv families at full width (xcit_small_24_p16 with B12 off
 and on, resnext50_32x4d with the conv+BN fold on and off) against their
-fp32 CPU forwards, and their BN running statistics after one card step.
+fp32 CPU forwards, and their BN running statistics after one card step;
+Faster R-CNN's padded NMS against its CPU result, and a Keypoint R-CNN
+train step that reads nothing from the device before its loss.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere.  They
 import neither JAX nor the JAX package, so they run on a machine without
@@ -1402,3 +1404,56 @@ def test_tiny_detr_on_cuda_matches_cpu(cuda):
         g, w = got[key].float().cpu(), want[key]
         err = ((g - w).abs().max() / w.abs().max()).item()
         assert err <= 5e-2, (key, err)
+
+
+def test_nms_padded_on_cuda_matches_cpu(cuda):
+    """The padded NMS at the RPN's bs8 shape (1000 candidates, 256 kept)
+    and the decode's (256, 100): indices and validity equal the CPU's."""
+    from vit_torch_tpu_torch.detection.boxes import nms_padded
+    gen = torch.Generator().manual_seed(0)
+    for n, m, thresh in ((1000, 256, 0.7), (256, 100, 0.5)):
+        xy = torch.rand((8, n, 2), generator=gen) * 400
+        bx = torch.cat([xy, xy + 4 + 76 * torch.rand((8, n, 2),
+                                                     generator=gen)], -1)
+        sc = torch.randn((8, n), generator=gen)
+        sc[0, :10] = 0.5                         # ties: the first index
+        sc[1] = float("-inf")                    # nothing to keep
+        want = nms_padded(bx, sc, thresh, m)
+        got = nms_padded(bx.to(cuda), sc.to(cuda), thresh, m)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_frcnn_step_does_not_sync_before_its_loss(cuda):
+    """After one warm-up step (constants copied once), a Keypoint R-CNN
+    train step (flip with the keypoint swap, matching, sampling, losses,
+    backward, clip, SGD) runs under ``set_sync_debug_mode("error")``."""
+    from vit_torch_tpu_torch.detection.engine import FasterRCNNTrainer
+    from vit_torch_tpu_torch.detection.faster_rcnn import (FasterRCNNConfig,
+                                                           build_faster_rcnn)
+    cfg = FasterRCNNConfig(num_classes=3, image_size=64, strides=(4, 8),
+                           anchor_sizes=(8.0, 16.0), num_proposals=32,
+                           rpn_pre_nms_topk=64, rpn_batch=32, roi_batch=16,
+                           detections=10, num_keypoints=5,
+                           kp_conv_channels=(8,), kp_rois=8)
+    model = build_faster_rcnn(cfg, "resnet_test", torch.bfloat16,
+                              device=cuda)
+    tr = FasterRCNNTrainer(model, cfg=cfg, augment=True,
+                           kp_flip_inds=(1, 0, 2, 4, 3))
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(0, 36, (2, 4, 2))
+    boxes = np.concatenate([xy, xy + 20], -1).astype(np.float32)
+    kps = np.concatenate([xy[:, :, None] + rng.uniform(0, 20, (2, 4, 5, 2)),
+                          np.full((2, 4, 5, 1), 2.0)], -1).astype(np.float32)
+    batch = {"image": rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8),
+             "boxes": boxes, "labels": np.ones((2, 4), np.int32),
+             "box_mask": np.ones((2, 4), np.float32),
+             "gt_keypoints": kps, "mask": np.ones((2,), np.float32)}
+    tr.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logs = tr.train_step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(logs["loss_total"].item())

@@ -409,8 +409,7 @@ def test_random_transforms_draw_from_the_generator():
     assert a[0].dtype == torch.uint8 and a[0].shape == images.shape
 
 
-@pytest.mark.parametrize("call", ["hflip_masks", "crop_masks",
-                                  "hflip_keypoints"])
+@pytest.mark.parametrize("call", ["hflip_masks", "crop_masks"])
 def test_transforms_refuse_masks_and_keypoints(call):
     g = torch.Generator()
     x, b = torch.zeros((1, 8, 8, 3)), torch.zeros((1, 1, 4))
@@ -418,11 +417,9 @@ def test_transforms_refuse_masks_and_keypoints(call):
     with pytest.raises(NotImplementedError, match="A10"):
         if call == "hflip_masks":
             transforms.random_hflip(g, x, b, 8, masks=m)
-        elif call == "crop_masks":
+        else:
             transforms.random_zoom_crop(g, x, b, torch.ones((1, 1)), 8,
                                         masks=m)
-        else:
-            transforms.random_hflip(g, x, b, 8, keypoints=m)
 
 
 # -- data -------------------------------------------------------------------
@@ -474,25 +471,15 @@ def test_loader_serial_and_threaded_agree(tmp_path):
         [b["labels"] for b in serial]))) <= {0, 1, 2}
 
 
-@pytest.mark.parametrize("call", ["masks", "keypoints", "synthetic_kp",
-                                  "segm_eval", "segm_update",
-                                  "keypoint_res"])
+@pytest.mark.parametrize("call", ["masks", "segm_eval", "segm_update"])
 def test_later_slices_refuse(call, tmp_path):
     gt = coco_eval.COCO(dataset=_toy_dataset())
     with pytest.raises(NotImplementedError, match="A10"):
         if call == "masks":
             coco_data.CocoDetectionDataset("d", "a.json", load_masks=True)
-        elif call == "keypoints":
-            coco_data.CocoDetectionDataset("d", "a.json",
-                                           load_keypoints=True)
-        elif call == "synthetic_kp":
-            coco_data.make_synthetic_coco(str(tmp_path), keypoints=True)
         elif call == "segm_eval":
             coco_eval.COCOeval(gt, gt, "segm")
-        elif call == "segm_update":
+        else:
             coco_eval.CocoEvaluator(gt).update({1: {
                 "boxes": np.zeros((1, 4)), "scores": [1.0], "labels": [1],
                 "masks": np.zeros((1, 4, 4))}})
-        else:
-            gt.load_res([{"image_id": 1, "category_id": 1,
-                          "keypoints": [1.0, 1.0, 2.0]}])

@@ -329,7 +329,6 @@ def test_cli_test_mode_writes_the_stats_json(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--head", "faster_rcnn"], "A10b"), (["--keypoints"], "A10b"),
     (["--masks"], "A10c"), (["--panoptic_root", "p"], "A10c"),
     (["--matcher", "device"], "A10d"), (["--scan", "4"], "A10d"),
     (["--ckpt_dir", "c"], "A10d"), (["--resume", "c"], "A10d"),

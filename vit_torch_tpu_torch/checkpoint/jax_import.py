@@ -34,6 +34,19 @@ initialised by the JAX package run in the port:
   do ``input_proj``, ``class_embed``, ``bbox_embed.fc{0,1,2}``,
   ``encoder_norm`` and ``decoder_norm``), and its ``backbone`` subtree
   maps as the Swin tree it is;
+- Faster R-CNN's ``fpn.lateral_{i}`` / ``fpn.output_{i}`` become
+  ``fpn.lateral.{i}`` / ``fpn.output.{i}`` and Keypoint R-CNN's
+  ``kp_head.conv_{i}`` ``kp_head.conv.{i}`` (convs, by the conv rule);
+  ``rpn.conv`` / ``cls_logits`` / ``bbox_pred``, ``box_fc1``,
+  ``box_fc2``, ``cls_score`` and ``bbox_pred`` keep their names; its
+  ``backbone`` subtree (and ResNet's ``batch_stats``) maps as the ResNet
+  or Swin tree it is;
+- the keypoint head's ``ConvTranspose((4, 4), strides=2, padding="SAME")``
+  kernel ``kp_head.deconv.kernel`` ``(kh, kw, I, O)`` becomes the
+  ``ConvTranspose2d`` weight ``(I, O, kh, kw)`` flipped in space,
+  ``kernel[::-1, ::-1].transpose(2, 3, 0, 1)``: flax applies the kernel
+  as a (dilated-input) convolution's, torch's transposed conv as the
+  gradient of one, which turns it round;
 - the ``batch_stats`` collection's BatchNorm ``mean`` / ``var`` become
   ``running_mean`` / ``running_var``, with a ``num_batches_tracked`` of 0
   beside them (a strict load needs it; flax does not count batches);
@@ -77,6 +90,10 @@ def _torch_key(path: str) -> str:
                  r"\1pos_embeder.token_projection.\2", key)
     key = re.sub(r"(^|\.)layer(\d+)_(\d+)\.", r"\1layer\2.\3.", key)
     key = re.sub(r"(^|\.)(encoder|decoder)_(\d+)\.", r"\1\2.\3.", key)
+    key = re.sub(r"(^|\.)fpn\.(lateral|output)_(\d+)\.", r"\1fpn.\2.\3.",
+                 key)
+    key = re.sub(r"(^|\.)kp_head\.conv_(\d+)\.", r"\1kp_head.conv.\2.",
+                 key)
     return re.sub(r"downsample_(conv|bn)\.", lambda m: (
         f"downsample.{int(m[1] == 'bn')}."), key)
 
@@ -85,8 +102,8 @@ def state_dict_from_jax(params: Mapping[str, Any], image_channels: int = 3,
                         batch_stats: Optional[Mapping[str, Any]] = None
                         ) -> Dict[str, torch.Tensor]:
     """Map a flax classifier tree of any family (``{"backbone": ...,
-    "head": ...}``, or a bare backbone tree) or a DETR tree of
-    numpy-convertible arrays,
+    "head": ...}``, or a bare backbone tree), a DETR or a Faster R-CNN /
+    Keypoint R-CNN tree of numpy-convertible arrays,
     and its ``batch_stats`` collection where the model has BatchNorm
     (XCiT, ResNet), to a state dict."""
     out: Dict[str, torch.Tensor] = {}
@@ -100,6 +117,9 @@ def state_dict_from_jax(params: Mapping[str, Any], image_channels: int = 3,
             key = key[:-len("kernel")] + "proj.weight"
         elif key.endswith("patch_embed.bias"):
             key = key[:-len("bias")] + "proj.bias"
+        elif key.endswith("kp_head.deconv.kernel"):
+            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+            key = key[:-len("kernel")] + "weight"
         elif key.endswith("token_projection.kernel"):
             arr = arr.T[:, :, None, None]
             key = key[:-len("kernel")] + "weight"

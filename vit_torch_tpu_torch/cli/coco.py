@@ -1,25 +1,34 @@
 """COCO detection CLI, counterpart of ``vit_torch_tpu/cli/coco.py`` (the
 reference's ``object/coco_pipeline.py`` flags ``:51-72``, ``--test``
 smoke mode ``:75-82`` and per-epoch stats JSON ``:442-559``;
-``object_detr/main.py``): trains DETR over a Swin feature map on a
-COCO-format directory with the host Hungarian matcher, evaluates COCO
-bbox AP after every epoch (and once before training), and streams the
-train losses and the 12 COCO numbers to a stats JSON.  The flags keep the
-JAX CLI's names and defaults.
+``object_detr/main.py``): trains DETR over a Swin feature map with the
+host Hungarian matcher (``--head detr``, the default), or Faster R-CNN
+over a ResNet or Swin FPN (``--head faster_rcnn``; with ``--keypoints``
+Keypoint R-CNN), on a COCO-format directory, evaluates COCO bbox AP (and
+keypoint AP) after every epoch (and once before training), and streams
+the train losses and the COCO numbers to a stats JSON.  The flags keep
+the JAX CLI's names and defaults.
 
     python -m vit_torch_tpu_torch.cli.coco --data_root /path/coco \\
         --backbone swin_tiny_patch4_window7_224 --epochs 5 --bs 8
+    python -m vit_torch_tpu_torch.cli.coco --data_root /path/coco \\
+        --head faster_rcnn --backbone resnext50_32x4d [--keypoints]
     python -m vit_torch_tpu_torch.cli.coco --test          # on the card
-    python -m vit_torch_tpu_torch.cli.coco --test --device cpu
+    python -m vit_torch_tpu_torch.cli.coco --test --device cpu \\
+        [--head faster_rcnn [--keypoints] [--backbone swin_test3]]
 
 It runs on CUDA unless ``--device cpu``.  ``--dtype`` defaults to
 bfloat16 on CUDA and float32 on the CPU: the flash and window kernels
-take bfloat16, so ``--dtype float32`` on CUDA raises.  ``--test`` writes a
-16-image synthetic set at 64 px and trains 1-2 epochs of a 1 + 1 layer,
+take bfloat16, so ``--dtype float32`` on CUDA raises on the routes that
+run them (DETR, and Faster R-CNN over Swin); Faster R-CNN over a ResNet
+runs no hand kernel and takes either.  ``--test`` writes a 16-image
+synthetic set at 64 px and trains 1-2 epochs: of a 1 + 1 layer,
 hidden-64 DETR with 8 queries and 2 heads (head dim 32, the flash
-kernels' smallest); its backbone is ``swin_test`` on the CPU and Swin-T
-on the card, whose window kernels take head dim 32 only.  The flags of
-later slices raise before any work, naming their ROADMAP.md item.
+kernels' smallest) over ``swin_test`` on the CPU and Swin-T on the card,
+whose window kernels take head dim 32 only; or of Faster R-CNN with the
+JAX CLI's tiny settings over ``resnet_test`` (anchors 8 and 16, 64
+proposals, a two-conv 64-channel keypoint head).  The flags of later
+slices raise before any work, naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -35,8 +44,6 @@ import torch
 
 # flag -> (is it set?, the ROADMAP.md item that ports it)
 UNPORTED_COCO_FLAGS = {
-    "head": (lambda v: v != "detr", "A10b, Faster R-CNN and keypoints"),
-    "keypoints": (bool, "A10b, Faster R-CNN and keypoints"),
     "masks": (bool, "A10c, masks and segmentation"),
     "panoptic_root": (bool, "A10c, masks and segmentation"),
     "matcher": (lambda v: v != "host", "A10d, the device matcher"),
@@ -54,9 +61,12 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="COCO dir: {train,validation}/{data,labels.json}")
     p.add_argument("--backbone", default="swin_tiny_patch4_window7_224")
     p.add_argument("--head", default="detr", choices=["detr", "faster_rcnn"],
-                   help="detection head (faster_rcnn: ROADMAP.md A10b)")
+                   help="detection head: DETR set prediction "
+                        "(object_detr/) or Faster R-CNN (object/)")
     p.add_argument("--keypoints", action="store_true",
-                   help="Keypoint R-CNN head (ROADMAP.md A10b)")
+                   help="add the Keypoint R-CNN head (faster_rcnn only) and "
+                        "score the keypoints iou_type (reference "
+                        "object/coco_utils.py:222-251 get_coco_kp)")
     p.add_argument("--panoptic_root", default="", type=str,
                    help="panoptic dataset root (ROADMAP.md A10c)")
     p.add_argument("--scan", default=1, type=int,
@@ -81,8 +91,9 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="StepLR decay factor")
     p.add_argument("--weight_decay", default=1e-4, type=float)
     p.add_argument("--torch_ckpt", default="", type=str,
-                   help="local Microsoft Swin state_dict for the backbone "
-                        "(the reference trains detection from pretrained "
+                   help="local state_dict for the backbone: Microsoft Swin, "
+                        "or torchvision ResNeXt/WRN for faster_rcnn (the "
+                        "reference trains detection from pretrained "
                         "backbones)")
     p.add_argument("--no_hflip", action="store_true",
                    help="disable the train-time random horizontal flip")
@@ -135,31 +146,110 @@ def check_ported(args: argparse.Namespace) -> None:
                 f"(ROADMAP.md {item})")
 
 
+def check_combinations(args: argparse.Namespace) -> None:
+    """The JAX CLI's refusals of flags that do not go together."""
+    if args.keypoints and args.head != "faster_rcnn":
+        raise SystemExit("--keypoints requires --head faster_rcnn")
+    if args.keypoints and (args.masks or args.panoptic_root):
+        raise SystemExit("--keypoints cannot be combined with --masks/"
+                         "--panoptic_root (no mask+keypoint model)")
+    if args.panoptic_root and args.head == "faster_rcnn":
+        raise SystemExit("--panoptic_root requires --head detr (the "
+                         "faster_rcnn head produces no mask predictions)")
+    if args.masks and args.head == "faster_rcnn":
+        raise SystemExit("--masks requires --head detr (the faster_rcnn "
+                         "head produces no mask predictions)")
+
+
+def _runs_window_kernels(args) -> bool:
+    """Whether the model runs the bf16-only flash or window kernels on
+    CUDA: DETR always, Faster R-CNN over a Swin backbone."""
+    from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS
+    return args.head == "detr" or args.backbone in SWIN_CONFIGS
+
+
 def _dtype(args, device: torch.device) -> torch.dtype:
     if args.dtype is None:
         return torch.bfloat16 if device.type == "cuda" else torch.float32
-    if device.type == "cuda" and args.dtype == "float32":
+    if (device.type == "cuda" and args.dtype == "float32"
+            and _runs_window_kernels(args)):
         raise ValueError("--dtype float32 on CUDA: the flash and window "
                          "kernels take bfloat16 activations")
     return torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
 
 
+def _frcnn_backbone(args) -> str:
+    """The Faster R-CNN trunk: the Swin or ResNet config named, else
+    ``resnet_test`` under ``--test`` and ``resnext50_32x4d`` otherwise,
+    as the JAX CLI picks it."""
+    from vit_torch_tpu_torch.models.resnet import RESNET_CONFIGS
+    from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS
+    if args.backbone in SWIN_CONFIGS or args.backbone in RESNET_CONFIGS:
+        return args.backbone
+    return "resnet_test" if args.test else "resnext50_32x4d"
+
+
+def _faster_rcnn_config(args, train_ds):
+    """``FasterRCNNConfig`` as the JAX CLI builds it (``:257-300``): one
+    FPN level a backbone stage at strides 4·2^i, anchors 32·2^i (8·2^i
+    under ``--test``), and ``--test``'s tiny counts."""
+    from vit_torch_tpu_torch.detection.faster_rcnn import FasterRCNNConfig
+    from vit_torch_tpu_torch.models.resnet import RESNET_CONFIGS
+    from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS
+    arch = _frcnn_backbone(args)
+    n_stages = (len(SWIN_CONFIGS[arch].depths) if arch in SWIN_CONFIGS
+                else len(RESNET_CONFIGS[arch].layers))
+    strides = tuple(4 * 2 ** i for i in range(n_stages))
+    base = 8.0 if args.test else 32.0
+    sizes = tuple(base * 2 ** i for i in range(n_stages))
+    kp_kw = {}
+    if args.keypoints:
+        kp_kw = dict(num_keypoints=train_ds.num_keypoints,
+                     kp_conv_channels=(64,) * 2 if args.test else (512,) * 8,
+                     kp_rois=16 if args.test else 128)
+    return FasterRCNNConfig(
+        num_classes=train_ds.num_classes, image_size=args.image_size,
+        strides=strides, anchor_sizes=sizes,
+        num_proposals=64 if args.test else 256,
+        rpn_pre_nms_topk=128 if args.test else 1000,
+        rpn_batch=64 if args.test else 256,
+        roi_batch=32 if args.test else 128,
+        detections=20 if args.test else 100, **kp_kw)
+
+
+def _kp_flip_inds(train_ds):
+    """The keypoints' left/right swap under the flip: COCO's for a
+    17-keypoint schema without names, else derived from the names (the
+    JAX CLI's ``:302-311``); None keeps the order."""
+    from vit_torch_tpu_torch.detection.keypoint import (
+        COCO_KP_FLIP_INDS, kp_flip_inds_from_names)
+    if train_ds.num_keypoints == 17 and not train_ds.kp_names:
+        return COCO_KP_FLIP_INDS
+    if train_ds.kp_names:
+        return kp_flip_inds_from_names(train_ds.kp_names)
+    return None
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = get_args_parser().parse_args(argv)
+    check_combinations(args)
     check_ported(args)
     from vit_torch_tpu_torch.detection.coco_data import (
         CocoDetectionDataset, CocoLoader, make_synthetic_coco)
     from vit_torch_tpu_torch.detection.detr import DETRConfig, build_detr
-    from vit_torch_tpu_torch.detection.engine import DetectionTrainer
+    from vit_torch_tpu_torch.detection.engine import (DetectionTrainer,
+                                                      FasterRCNNTrainer)
+    from vit_torch_tpu_torch.detection.faster_rcnn import build_faster_rcnn
     from vit_torch_tpu_torch.device import resolve_device
     from vit_torch_tpu_torch.utils.stats import default_hardware
 
     device = resolve_device(args.device)
-    dtype = _dtype(args, device)
+    frcnn = args.head == "faster_rcnn"
     num_heads = 8
     if args.test:
         tmp = tempfile.mkdtemp(prefix="coco_smoke_")
-        img_dir, ann_file = make_synthetic_coco(tmp, n_images=16, size=64)
+        img_dir, ann_file = make_synthetic_coco(tmp, n_images=16, size=64,
+                                                keypoints=args.keypoints)
         train_dirs = val_dirs = (img_dir, ann_file)
         args.epochs = min(args.epochs, 2)
         args.bs = min(args.bs, 4)
@@ -168,9 +258,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         args.enc_layers, args.dec_layers = 1, 1
         args.hidden_dim, args.num_queries = 64, 8
         num_heads = 2
-        if (args.backbone == get_args_parser().get_default("backbone")
-                and device.type == "cpu"):
-            args.backbone = "swin_test"
+        if args.backbone == get_args_parser().get_default("backbone"):
+            if frcnn:
+                args.backbone = "resnet_test"
+            elif device.type == "cpu":
+                args.backbone = "swin_test"
     else:
         if not args.data_root:
             raise ValueError("--data_root required (or --test)")
@@ -180,11 +272,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     os.path.join(args.data_root, "validation",
                                  "labels.json"))
 
+    dtype = _dtype(args, device)
     cats = args.labels or None
     train_ds = CocoDetectionDataset(*train_dirs, image_size=args.image_size,
                                     max_boxes=args.max_boxes,
                                     limit=args.limit_train,
-                                    category_ids=cats)
+                                    category_ids=cats,
+                                    load_keypoints=args.keypoints)
     val_ds = CocoDetectionDataset(*val_dirs, image_size=args.image_size,
                                   max_boxes=args.max_boxes,
                                   limit=args.limit_test, category_ids=cats)
@@ -193,25 +287,38 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"train: {len(train_ds)} images, val: {len(val_ds)} images, "
           f"{train_ds.num_classes} classes")
 
-    cfg = DETRConfig(num_classes=train_ds.num_classes,
-                     num_queries=args.num_queries,
-                     hidden_dim=args.hidden_dim, num_heads=num_heads,
-                     enc_layers=args.enc_layers, dec_layers=args.dec_layers,
-                     pre_norm=args.pre_norm,
-                     position_embedding=args.position_embedding)
-    model = build_detr(cfg, args.backbone, args.image_size, dtype,
-                       torch.Generator().manual_seed(0), device)
+    if frcnn:
+        cfg = _faster_rcnn_config(args, train_ds)
+        model = build_faster_rcnn(cfg, _frcnn_backbone(args), dtype,
+                                  torch.Generator().manual_seed(0), device)
+    else:
+        cfg = DETRConfig(num_classes=train_ds.num_classes,
+                         num_queries=args.num_queries,
+                         hidden_dim=args.hidden_dim, num_heads=num_heads,
+                         enc_layers=args.enc_layers,
+                         dec_layers=args.dec_layers, pre_norm=args.pre_norm,
+                         position_embedding=args.position_embedding)
+        model = build_detr(cfg, args.backbone, args.image_size, dtype,
+                           torch.Generator().manual_seed(0), device)
     if args.torch_ckpt:
         from vit_torch_tpu_torch.checkpoint.torch_import import (
             load_backbone_state_dict)
         load_backbone_state_dict(args.torch_ckpt, model, args.image_size)
-        print(f"loaded pretrained swin backbone from {args.torch_ckpt}")
-    trainer = DetectionTrainer(model, image_size=args.image_size,
-                               num_classes=train_ds.num_classes, lr=args.lr,
-                               augment=not args.no_hflip,
-                               aug_crop=args.aug_crop,
-                               aug_erase=args.aug_erase, opt=args.opt,
-                               weight_decay=args.weight_decay)
+        print(f"loaded pretrained {model.backbone.family} backbone from "
+              f"{args.torch_ckpt}")
+    if frcnn:
+        # the JAX CLI's FasterRCNNTrainer call: SGD at --lr with its own
+        # momentum and decay (0.9, 5e-4), the flip with the keypoint swap
+        trainer = FasterRCNNTrainer(
+            model, cfg=cfg, lr=args.lr, augment=not args.no_hflip,
+            kp_flip_inds=_kp_flip_inds(train_ds) if args.keypoints else None)
+    else:
+        trainer = DetectionTrainer(model, image_size=args.image_size,
+                                   num_classes=train_ds.num_classes,
+                                   lr=args.lr, augment=not args.no_hflip,
+                                   aug_crop=args.aug_crop,
+                                   aug_erase=args.aug_erase, opt=args.opt,
+                                   weight_decay=args.weight_decay)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model: {n_params / 1e6:.1f}M params ({args.head}, {dtype}, "
           f"{device})")
@@ -232,7 +339,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         print(f"\r  [{i + 1}/{n}] " + " ".join(
             f"{k}[{v:.4f}]" for k, v in logs.items()), end="", flush=True)
 
-    eval_kw = dict(label_to_cat=val_ds.label_to_cat, iou_types=("bbox",))
+    iou_types = ("bbox", "keypoints") if args.keypoints else ("bbox",)
+    eval_kw = dict(label_to_cat=val_ds.label_to_cat, iou_types=iou_types)
     if not args.no_initial_eval:
         metrics = trainer.evaluate(val_loader, val_ds.coco, **eval_kw)
         record["initial"] = metrics
@@ -253,8 +361,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                "train": train_logs, "val": metrics})
         save()
         ap = metrics.get("bbox", {})
-        print(f"epoch {epoch}: loss {train_logs['loss_total']:.4f} "
-              f"AP {ap.get('ap', 0):.4f} AP50 {ap.get('ap50', 0):.4f}")
+        line = (f"epoch {epoch}: loss {train_logs['loss_total']:.4f} "
+                f"AP {ap.get('ap', 0):.4f} AP50 {ap.get('ap50', 0):.4f}")
+        if "keypoints" in metrics:
+            line += f" kpAP {metrics['keypoints'].get('ap', 0):.4f}"
+        print(line)
 
     record["telem"]["completed"] = True
     save()

@@ -24,14 +24,22 @@ import torch
 import torch.nn.functional as F
 
 
+@functools.lru_cache(maxsize=16)
+def _norm_constants(mean: tuple, std: tuple, device: torch.device):
+    """255·mean and 1 / (255·std) on ``device``, copied there once: a
+    copy a call would make every step wait for the device."""
+    mean_t = torch.tensor(mean, dtype=torch.float32) * 255.0
+    inv_std = 1.0 / (torch.tensor(std, dtype=torch.float32) * 255.0)
+    return mean_t.to(device), inv_std.to(device)
+
+
 def normalize(images: torch.Tensor, mean: Sequence[float],
               std: Sequence[float], dtype=torch.float32) -> torch.Tensor:
     """uint8 [0, 255] → normalised float, channels last:
     ``(x - 255 mean) / (255 std)``, in fp32, then cast to ``dtype``."""
-    dev = images.device
-    mean = torch.tensor(mean, dtype=torch.float32, device=dev) * 255.0
-    inv_std = 1.0 / (torch.tensor(std, dtype=torch.float32, device=dev)
-                     * 255.0)
+    mean, inv_std = _norm_constants(tuple(float(m) for m in mean),
+                                    tuple(float(s) for s in std),
+                                    images.device)
     return ((images.float() - mean) * inv_std).to(dtype)
 
 

@@ -1,5 +1,6 @@
 """Detection, counterpart of ``vit_torch_tpu/detection/``: DETR over a
-Swin feature map with the host Hungarian matcher, and COCO bbox
-evaluation (ROADMAP.md A10a).  Faster R-CNN and keypoints (A10b), masks
-and panoptic (A10c), and the device matcher, detection bundles and
-checkpoints (A10d) are later slices."""
+Swin feature map with the host Hungarian matcher (ROADMAP.md A10a),
+Faster R-CNN and Keypoint R-CNN over a ResNet or Swin FPN (A10b), and
+COCO bbox and keypoint evaluation.  Masks and panoptic (A10c), and the
+device matcher, detection bundles and checkpoints (A10d) are later
+slices."""

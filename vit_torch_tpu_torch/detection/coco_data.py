@@ -9,8 +9,10 @@ Batches are numpy on the host: ``image`` (B, S, S, 3) uint8, ``boxes``
 (B, N, 4) xyxy letterbox pixels, ``labels`` (B, N) int32 with 0 the
 background, ``box_mask`` (B, N), ``mask`` (B,) (padding of the last
 batch), ``image_id``, ``scale``, ``pad`` and ``orig_size`` for mapping
-predictions back to the original pixels.  Instance masks (``load_masks``)
-come with ROADMAP.md A10c and keypoints (``load_keypoints``) with A10b.
+predictions back to the original pixels.  With ``load_keypoints`` a
+batch also has ``gt_keypoints`` (B, N, K, 3) in letterbox pixels, K from
+the categories' keypoint names (17, COCO's person, where none are
+given).  Instance masks (``load_masks``) come with ROADMAP.md A10c.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ import numpy as np
 from vit_torch_tpu_torch.detection.coco_eval import COCO
 
 _MASKS = "A10c, masks and segmentation"
-_KEYPOINTS = "A10b, Faster R-CNN and keypoints"
 
 
 def letterbox_params(h: int, w: int, size: int):
@@ -40,7 +41,10 @@ class CocoDetectionDataset:
     """In-memory index over a COCO directory (``images_dir/*.jpg`` and a
     ``labels.json``-style annotation file, the reference's DETR layout
     ``object_detr/datasets/coco.py:198-201``), with the class-subset
-    filter (``category_ids``), ``limit`` and seeded shuffling."""
+    filter (``category_ids``), ``limit`` and seeded shuffling.  With
+    ``load_keypoints``, ``num_keypoints`` and ``kp_names`` come from the
+    category with the most keypoint names (reference
+    ``object/coco_utils.py:222-251``), 17 where no category names any."""
 
     def __init__(self, images_dir: str, ann_file: str, image_size: int = 512,
                  max_boxes: int = 64, limit: int = 0,
@@ -51,13 +55,21 @@ class CocoDetectionDataset:
         if load_masks:
             raise NotImplementedError(
                 f"instance masks are not ported yet (ROADMAP.md {_MASKS})")
-        if load_keypoints:
-            raise NotImplementedError(
-                f"keypoints are not ported yet (ROADMAP.md {_KEYPOINTS})")
         self.images_dir = images_dir
         self.image_size = image_size
         self.max_boxes = max_boxes
+        self.load_keypoints = load_keypoints
         self.coco = COCO(ann_file)
+        self.num_keypoints = 0
+        self.kp_names: list = []
+        if load_keypoints:
+            for cat in self.coco.cats.values():
+                names = cat.get("keypoints", [])
+                if len(names) > self.num_keypoints:
+                    self.num_keypoints = len(names)
+                    self.kp_names = list(names)
+            if self.num_keypoints == 0:
+                self.num_keypoints = 17
         ids = self.coco.get_img_ids()
         if category_ids:
             category_ids = set(category_ids)
@@ -104,6 +116,8 @@ class CocoDetectionDataset:
         boxes = np.zeros((self.max_boxes, 4), np.float32)
         labels = np.zeros((self.max_boxes,), np.int32)
         box_mask = np.zeros((self.max_boxes,), np.float32)
+        kps = (np.zeros((self.max_boxes, self.num_keypoints, 3), np.float32)
+               if self.load_keypoints else None)
         anns = [a for a in self.coco.img_to_anns.get(img_id, [])
                 if not a.get("iscrowd", 0)][:self.max_boxes]
         for i, ann in enumerate(anns):
@@ -112,7 +126,15 @@ class CocoDetectionDataset:
                         (x + bw) * scale + pad_x, (y + bh) * scale + pad_y]
             labels[i] = self.cat_to_label.get(ann["category_id"], 0)
             box_mask[i] = 1.0
+            if kps is not None and ann.get("keypoints"):
+                k = np.asarray(ann["keypoints"], np.float32).reshape(
+                    -1, 3)[:self.num_keypoints]
+                k[:, 0] = k[:, 0] * scale + pad_x
+                k[:, 1] = k[:, 1] * scale + pad_y
+                kps[i, :len(k)] = k
+        extra = {} if kps is None else {"gt_keypoints": kps}
         return {
+            **extra,
             "image": canvas,
             "boxes": np.clip(boxes, 0, S),
             "labels": labels,
@@ -225,14 +247,13 @@ def make_synthetic_coco(tmp_dir: str, n_images: int = 8, size: int = 64,
     """Write a synthetic COCO-format set (``tmp_dir/data/*.jpg`` and
     ``tmp_dir/labels.json``) for smoke runs without network access:
     axis-aligned bright rectangles on dark noise, 1-3 a picture, so that
-    even short training shows learning.  Returns ``(images_dir,
-    ann_file)``.  The same seed writes the same files as the JAX
-    package's ``make_synthetic_coco``."""
+    even short training shows learning.  With ``keypoints`` every
+    annotation has five visible keypoints (``tl``, ``tr``, ``center``,
+    ``bl``, ``br``: the corners one pixel in and a bright dot drawn at the
+    centre).  Returns ``(images_dir, ann_file)``.  The same seed writes
+    the same files as the JAX package's ``make_synthetic_coco``."""
     import json
     from PIL import Image
-    if keypoints:
-        raise NotImplementedError(
-            f"keypoints are not ported yet (ROADMAP.md {_KEYPOINTS})")
     rng = np.random.default_rng(seed)
     img_dir = os.path.join(tmp_dir, "data")
     os.makedirs(img_dir, exist_ok=True)
@@ -250,13 +271,22 @@ def make_synthetic_coco(tmp_dir: str, n_images: int = 8, size: int = 64,
             color = np.zeros(3)
             color[cls % 3] = min(200 + 55 * (cls // 3), 255)  # no uint8 wrap
             img[y:y + bh, x:x + bw] = color
-            annotations.append({
+            ann = {
                 "id": ann_id, "image_id": i + 1, "category_id": cls + 1,
                 "bbox": [float(x), float(y), float(bw), float(bh)],
                 "segmentation": [[float(x), float(y), float(x + bw),
                                   float(y), float(x + bw), float(y + bh),
                                   float(x), float(y + bh)]],
-                "area": float(bw * bh), "iscrowd": 0})
+                "area": float(bw * bh), "iscrowd": 0}
+            if keypoints:
+                cx, cy = x + bw / 2, y + bh / 2
+                img[int(cy) - 1:int(cy) + 1, int(cx) - 1:int(cx) + 1] = 255
+                pts = [(x + 1, y + 1), (x + bw - 1, y + 1), (cx, cy),
+                       (x + 1, y + bh - 1), (x + bw - 1, y + bh - 1)]
+                ann["keypoints"] = [float(v) for p in pts
+                                    for v in (p[0], p[1], 2)]
+                ann["num_keypoints"] = len(pts)
+            annotations.append(ann)
             ann_id += 1
         fname = f"{i + 1:06d}.jpg"
         Image.fromarray(img.astype(np.uint8)).save(
@@ -265,6 +295,9 @@ def make_synthetic_coco(tmp_dir: str, n_images: int = 8, size: int = 64,
                        "height": size, "width": size})
     categories = [{"id": c + 1, "name": f"class{c}"}
                   for c in range(n_classes)]
+    if keypoints:
+        for cat in categories:
+            cat["keypoints"] = ["tl", "tr", "center", "bl", "br"]
     ann_file = os.path.join(tmp_dir, "labels.json")
     with open(ann_file, "w") as f:
         json.dump({"images": images, "annotations": annotations,

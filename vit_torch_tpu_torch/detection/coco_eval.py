@@ -1,16 +1,21 @@
-"""COCO bbox evaluation, counterpart of
+"""COCO bbox and keypoint evaluation, counterpart of
 ``vit_torch_tpu/detection/coco_eval.py`` (its ``COCO``, ``COCOeval`` and
-``CocoEvaluator`` for ``iou_type="bbox"``).
+``CocoEvaluator`` for ``iou_type`` ``"bbox"`` and ``"keypoints"``).
 
 The published COCO protocol: greedy score-descending matching per IoU
 threshold with iscrowd and area-range ignore handling, 101-point
 interpolated precision, and the 12-number summary (AP, AP50, AP75,
 APs/m/l, AR1/10/100, ARs/m/l) that the reference flattens into its stats
-JSON (``object/coco_pipeline.py:495-515``).  The bbox IoU with crowd
-regions is the numpy body of the JAX package's ``_mask._bbox_iou``
+JSON (``object/coco_pipeline.py:495-515``).  The keypoint protocol
+(pycocotools' ``computeOks``): the OKS with the published per-keypoint
+sigmas (0.05 each where a schema has other than 17 keypoints), 20
+detections an image, no "small" bucket, gts without a labelled keypoint
+ignored, and the 10-number summary (AP, AP50, AP75, APm, APl, AR, AR50,
+AR75, ARm, ARl).  The bbox IoU with crowd regions is the numpy body of
+the JAX package's ``_mask._bbox_iou``
 (``vit_torch_tpu/detection/_mask.py:289-302``); the port loads no native
-library.  Mask IoU (``segm``) comes with ROADMAP.md A10c and the keypoint
-OKS with A10b; a multi-process merge with A8.
+library.  Mask IoU (``segm``) comes with ROADMAP.md A10c; a multi-process
+merge with A8.
 """
 
 from __future__ import annotations
@@ -21,15 +26,14 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-_LATER = {"segm": "A10c, masks and segmentation",
-          "keypoints": "A10b, Faster R-CNN and keypoints"}
+_LATER = {"segm": "A10c, masks and segmentation"}
 
 
 def _refuse_iou_type(iou_type: str) -> None:
     if iou_type in _LATER:
         raise NotImplementedError(f"iou_type {iou_type!r} is not ported yet "
                                   f"(ROADMAP.md {_LATER[iou_type]})")
-    if iou_type != "bbox":
+    if iou_type not in ("bbox", "keypoints"):
         raise ValueError(f"unknown iou_type {iou_type!r}")
 
 
@@ -89,7 +93,9 @@ class COCO:
 
     def load_res(self, results: Sequence[dict]) -> "COCO":
         """Build a results COCO from detection dicts ``{image_id,
-        category_id, bbox (xywh), score}``."""
+        category_id, bbox (xywh), score[, keypoints]}``; a result with
+        keypoints and no bbox takes its bbox and area from the keypoints'
+        extent (pycocotools ``loadRes``)."""
         res = COCO(dataset={
             "images": list(self.dataset.get("images", [])),
             "categories": list(self.dataset.get("categories", [])),
@@ -98,13 +104,17 @@ class COCO:
         for i, det in enumerate(results):
             if "segmentation" in det:
                 _refuse_iou_type("segm")
-            if "keypoints" in det:
-                _refuse_iou_type("keypoints")
             ann = dict(det)
             ann["id"] = i + 1
             if "bbox" in ann and "area" not in ann:
                 x, y, w, h = ann["bbox"]
                 ann["area"] = w * h
+            if "keypoints" in ann and "bbox" not in ann:
+                kp = np.asarray(ann["keypoints"], np.float64).reshape(-1, 3)
+                x0, x1 = float(kp[:, 0].min()), float(kp[:, 0].max())
+                y0, y1 = float(kp[:, 1].min()), float(kp[:, 1].max())
+                ann["bbox"] = [x0, y0, x1 - x0, y1 - y0]
+                ann["area"] = (x1 - x0) * (y1 - y0)
             ann.setdefault("iscrowd", 0)
             anns.append(ann)
         res.dataset["annotations"] = anns
@@ -112,8 +122,14 @@ class COCO:
         return res
 
 
+# COCO-17 per-keypoint OKS sigmas (the published constants)
+KPT_OKS_SIGMAS = np.array([
+    .26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62,
+    1.07, 1.07, .87, .87, .89, .89]) / 10.0
+
+
 class COCOeval:
-    """The COCO bbox evaluation protocol."""
+    """The COCO evaluation protocol, bbox or keypoints."""
 
     def __init__(self, coco_gt: COCO, coco_dt: COCO,
                  iou_type: str = "bbox") -> None:
@@ -125,10 +141,16 @@ class COCOeval:
         self.cat_ids = coco_gt.get_cat_ids() or [-1]
         self.iou_thrs = np.linspace(0.5, 0.95, 10)
         self.rec_thrs = np.linspace(0.0, 1.0, 101)
-        self.max_dets = [1, 10, 100]
-        self.area_rng = [[0.0, 1e10], [0.0, 32 ** 2], [32 ** 2, 96 ** 2],
-                         [96 ** 2, 1e10]]
-        self.area_lbl = ["all", "small", "medium", "large"]
+        if iou_type == "keypoints":
+            self.max_dets = [20]
+            self.area_rng = [[0.0, 1e10], [32 ** 2, 96 ** 2],
+                             [96 ** 2, 1e10]]
+            self.area_lbl = ["all", "medium", "large"]
+        else:
+            self.max_dets = [1, 10, 100]
+            self.area_rng = [[0.0, 1e10], [0.0, 32 ** 2],
+                             [32 ** 2, 96 ** 2], [96 ** 2, 1e10]]
+            self.area_lbl = ["all", "small", "medium", "large"]
         self.stats: np.ndarray = np.zeros(12)
         self.eval: dict = {}
 
@@ -146,13 +168,57 @@ class COCOeval:
         if not gts or not dts:
             return np.zeros((len(dts), len(gts)))
         dts = sorted(dts, key=lambda d: -d.get("score", 0))[:self.max_dets[-1]]
+        if self.iou_type == "keypoints":
+            return self._compute_oks(dts, gts)
         return bbox_iou([d["bbox"] for d in dts], [g["bbox"] for g in gts],
                         [int(g.get("iscrowd", 0)) for g in gts])
 
     @staticmethod
-    def _gt_ignored(g, area_rng) -> int:
-        return int(bool(int(g.get("iscrowd", 0)) or not (
-            area_rng[0] <= g.get("area", 0) <= area_rng[1])))
+    def _compute_oks(dts, gts) -> np.ndarray:
+        """The (D, G) Object Keypoint Similarity (pycocotools
+        ``computeOks``): a Gaussian fall-off of each keypoint's distance,
+        scaled by the gt's area and the keypoint's sigma, averaged over
+        the gt's labelled keypoints; against a gt with none labelled, the
+        distance outside the gt box grown by its size on every side."""
+        ious = np.zeros((len(dts), len(gts)))
+        for j, gt in enumerate(gts):
+            g = np.asarray(gt["keypoints"], np.float64).reshape(-1, 3)
+            xg, yg, vg = g[:, 0], g[:, 1], g[:, 2]
+            k = len(g)
+            sigmas = (KPT_OKS_SIGMAS if k == len(KPT_OKS_SIGMAS)
+                      else np.full(k, 0.05))
+            variances = (2 * sigmas) ** 2
+            x0, y0, bw, bh = gt["bbox"]
+            x1, y1 = x0 + bw, y0 + bh
+            area = gt.get("area", bw * bh)
+            for i, dt in enumerate(dts):
+                d = np.asarray(dt["keypoints"], np.float64).reshape(-1, 3)
+                xd, yd = d[:, 0], d[:, 1]
+                if vg.sum() > 0:
+                    dx, dy = xd - xg, yd - yg
+                else:
+                    z = np.zeros(k)
+                    dx = (np.maximum(z, (x0 - bw) - xd)
+                          + np.maximum(z, xd - (x1 + bw)))
+                    dy = (np.maximum(z, (y0 - bh) - yd)
+                          + np.maximum(z, yd - (y1 + bh)))
+                e = (dx ** 2 + dy ** 2) / variances / (area + np.spacing(1)) / 2
+                if vg.sum() > 0:
+                    e = e[vg > 0]
+                ious[i, j] = np.mean(np.exp(-e)) if e.size else 0.0
+        return ious
+
+    def _gt_ignored(self, g, area_rng) -> int:
+        ig = int(g.get("iscrowd", 0)) or not (
+            area_rng[0] <= g.get("area", 0) <= area_rng[1])
+        if self.iou_type == "keypoints" and not ig:
+            # a gt with no labelled keypoint is ignored, not missed
+            nk = g.get("num_keypoints")
+            if nk is None and "keypoints" in g:
+                kp = np.asarray(g["keypoints"], np.float64).reshape(-1, 3)
+                nk = int((kp[:, 2] > 0).sum())
+            ig = nk == 0 if nk is not None else ig
+        return int(bool(ig))
 
     def _evaluate_img(self, img_id, cat_id, area_rng, ious):
         gts, dts = self._gt_dt(img_id, cat_id)
@@ -274,6 +340,17 @@ class COCOeval:
 
     def summarize(self) -> np.ndarray:
         s = self._summarize
+        if self.iou_type == "keypoints":
+            self.stats = np.array([
+                s(True, max_det=20), s(True, 0.5, max_det=20),
+                s(True, 0.75, max_det=20),
+                s(True, area="medium", max_det=20),
+                s(True, area="large", max_det=20),
+                s(False, max_det=20), s(False, 0.5, max_det=20),
+                s(False, 0.75, max_det=20),
+                s(False, area="medium", max_det=20),
+                s(False, area="large", max_det=20)])
+            return self.stats
         self.stats = np.array([
             s(True), s(True, 0.5), s(True, 0.75),
             s(True, area="small"), s(True, area="medium"),
@@ -292,6 +369,8 @@ class CocoEvaluator:
 
     METRIC_KEYS = ["ap", "ap50", "ap75", "aps", "apm", "apl",
                    "ar1", "ar10", "ar100", "ars", "arm", "arl"]
+    KP_METRIC_KEYS = ["ap", "ap50", "ap75", "apm", "apl",
+                      "ar", "ar50", "ar75", "arm", "arl"]
 
     def __init__(self, coco_gt: COCO, iou_types: Sequence[str] = ("bbox",)):
         for iou_type in iou_types:
@@ -302,23 +381,29 @@ class CocoEvaluator:
         self.coco_eval: Dict[str, COCOeval] = {}
 
     def update(self, predictions: Dict[int, dict]) -> None:
-        """predictions: ``{image_id: {'boxes' xyxy, 'scores', 'labels'}}``
-        (numpy or anything numpy converts)."""
+        """predictions: ``{image_id: {'boxes' xyxy, 'scores', 'labels'
+        [, 'keypoints' (N, K, 3)]}}`` (numpy or anything numpy
+        converts)."""
         for img_id, pred in predictions.items():
-            for key, iou_type in (("masks", "segm"), ("segm_rles", "segm"),
-                                  ("keypoints", "keypoints")):
+            for key in ("masks", "segm_rles"):
                 if key in pred:
-                    _refuse_iou_type(iou_type)
+                    _refuse_iou_type("segm")
             boxes = np.asarray(pred["boxes"], np.float64).reshape(-1, 4)
             scores = np.asarray(pred["scores"], np.float64).reshape(-1)
             labels = np.asarray(pred["labels"], np.int64).reshape(-1)
+            keypoints = pred.get("keypoints")
             # xyxy -> xywh (reference object/coco_eval.py:158-160)
             xywh = boxes.copy()
             xywh[:, 2:] -= xywh[:, :2]
-            for box, score, label in zip(xywh, scores, labels):
-                self.results.append({
+            for i, (box, score, label) in enumerate(zip(xywh, scores,
+                                                        labels)):
+                result = {
                     "image_id": int(img_id), "category_id": int(label),
-                    "bbox": [float(v) for v in box], "score": float(score)})
+                    "bbox": [float(v) for v in box], "score": float(score)}
+                if keypoints is not None:
+                    result["keypoints"] = [float(v) for v in np.asarray(
+                        keypoints[i], np.float64).reshape(-1)]
+                self.results.append(result)
 
     def synchronize_between_processes(self) -> None:
         """Nothing to merge in one process; a multi-process merge of the
@@ -340,5 +425,7 @@ class CocoEvaluator:
             self.coco_eval[iou_type] = ev
 
     def summarize(self) -> Dict[str, Dict[str, float]]:
-        return {iou_type: dict(zip(self.METRIC_KEYS, ev.stats.tolist()))
+        return {iou_type: dict(zip(self.KP_METRIC_KEYS
+                                   if iou_type == "keypoints"
+                                   else self.METRIC_KEYS, ev.stats.tolist()))
                 for iou_type, ev in self.coco_eval.items()}

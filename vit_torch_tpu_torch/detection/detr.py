@@ -268,8 +268,8 @@ def build_detr(config: DETRConfig,
     from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, SwinTransformer
     if backbone not in SWIN_CONFIGS:
         raise ValueError(f"unsupported DETR backbone {backbone!r} (use a "
-                         f"swin config; the ResNet trunks serve Faster R-CNN, "
-                         f"ROADMAP.md A10b)")
+                         f"swin config, or --head faster_rcnn for the "
+                         f"ResNet trunks)")
     trunk = SwinTransformer(SWIN_CONFIGS[backbone], image_size=image_size,
                             dtype=dtype, features_only=True)
     model = DETR(config, trunk, dtype=dtype)

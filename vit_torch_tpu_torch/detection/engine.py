@@ -1,9 +1,11 @@
 """Detection train/eval engine, counterpart of
-``vit_torch_tpu/detection/engine.py:DetectionTrainer`` (the reference's
-``object/engine.py:14-110`` and ``object_detr/engine.py``): the DETR
-train step with the host Hungarian matcher, the epoch loop with epoch-0
-linear LR warmup, loss logging and the non-finite-loss stop, and the COCO
-bbox evaluation.
+``vit_torch_tpu/detection/engine.py``'s ``DetectionTrainer`` and
+``FasterRCNNTrainer`` (the reference's ``object/engine.py:14-110`` and
+``object_detr/engine.py``): the DETR train step with the host Hungarian
+matcher, the Faster R-CNN / Keypoint R-CNN train step with its matching
+and sampling on the device, the epoch loop with epoch-0 linear LR
+warmup, loss logging and the non-finite-loss stop, and the COCO bbox and
+keypoint evaluation.
 
 One forward a step, upstream DETR's order: the training forward, the
 matching costs from its detached outputs on the device, one copy of the
@@ -18,9 +20,12 @@ Optimisers as the JAX trainer builds them: ``adamw`` is global-norm
 clipping at ``grad_clip`` (``g · max_norm / norm`` where the norm exceeds
 it, optax's arithmetic) then AdamW with decoupled weight decay; ``sgd`` is
 momentum SGD with torch's coupled weight decay (the reference fork's
-recipe, ``object_detr/main.py:239-252``).  The device auction matcher,
-chunked steps and detection checkpoints come with ROADMAP.md A10d; the
-data-parallel mesh helpers with A8.
+recipe, ``object_detr/main.py:239-252``).  Faster R-CNN's is the
+reference's SGD (``object/coco_pipeline.py:464-476``: momentum 0.9,
+coupled weight decay 5e-4) after a global-norm clip at 10, optax's order
+clip → add decay → momentum.  The device auction matcher, chunked steps
+and detection checkpoints come with ROADMAP.md A10d; the data-parallel
+mesh helpers with A8.
 """
 
 from __future__ import annotations
@@ -37,9 +42,14 @@ from vit_torch_tpu_torch.data.datasets import NORM_VALUES
 from vit_torch_tpu_torch.detection.boxes import xyxy_to_cxcywh
 from vit_torch_tpu_torch.detection.coco_eval import CocoEvaluator
 from vit_torch_tpu_torch.detection.detr import detr_losses, postprocess
+from vit_torch_tpu_torch.detection.faster_rcnn import (draw_noise,
+                                                       faster_rcnn_losses,
+                                                       faster_rcnn_predict)
 from vit_torch_tpu_torch.detection.matcher import (cost_matrices,
                                                    hungarian_match)
-from vit_torch_tpu_torch.detection.transforms import (random_erasing,
+from vit_torch_tpu_torch.detection.transforms import (apply_hflip,
+                                                      draw_hflip,
+                                                      random_erasing,
                                                       random_hflip,
                                                       random_zoom_crop)
 from vit_torch_tpu_torch.models.layers import set_generator
@@ -67,6 +77,47 @@ def clip_grad_global_norm(params, max_norm: float) -> torch.Tensor:
     torch._foreach_mul_(grads, torch.where(keep, torch.ones_like(norm),
                                            torch.full_like(norm, max_norm)))
     return norm
+
+
+def _to_device(array, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host array on ``device``; to CUDA through pinned memory, so that
+    the copy waits neither for the host nor for the device's queue."""
+    t = torch.as_tensor(array)
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def _epoch(train_step, loader, epoch: int, set_lr, base_lr: float,
+           warmup_steps: int, print_freq: int, warmup: bool,
+           log_fn: Optional[Callable]) -> Dict[str, float]:
+    """The reference's ``train_one_epoch`` (``object/engine.py:14-55``):
+    linear warmup over ``min(len(loader), warmup_steps)`` steps in epoch
+    0, the mean of every logged term (one read of the device a step),
+    ``sys.exit(1)`` on a non-finite ``loss_total``."""
+    n_batches = len(loader)
+    totals: Dict[str, float] = {}
+    count = 0
+    for i, batch in enumerate(loader):
+        if warmup and epoch == 0:
+            frac = (i + 1) / max(min(n_batches, warmup_steps), 1)
+            set_lr(base_lr * min(frac, 1.0))
+        logs = train_step(batch)
+        keys = list(logs)
+        logs = dict(zip(keys, torch.stack(
+            [logs[k].float() for k in keys]).tolist()))
+        if not np.isfinite(logs["loss_total"]):
+            print(f"Loss is {logs['loss_total']}, stopping training")
+            print(logs)
+            sys.exit(1)
+        for k, v in logs.items():
+            totals[k] = totals.get(k, 0.0) + v
+        count += 1
+        if log_fn and (i % print_freq == 0 or i == n_batches - 1):
+            log_fn(i, n_batches, logs)
+    return {k: v / max(count, 1) for k, v in totals.items()}
 
 
 def _to_host(tensors: Dict[str, torch.Tensor]):
@@ -139,11 +190,11 @@ class DetectionTrainer:
     def _batch(self, batch: dict) -> Dict[str, torch.Tensor]:
         dev = self.device
         return {
-            "image": torch.as_tensor(batch["image"]).to(dev),
-            "boxes": torch.as_tensor(batch["boxes"]).float().to(dev),
-            "labels": torch.as_tensor(batch["labels"]).long().to(dev),
-            "box_mask": torch.as_tensor(batch["box_mask"]).float().to(dev),
-            "mask": torch.as_tensor(batch["mask"]).float().to(dev)}
+            "image": _to_device(batch["image"], dev),
+            "boxes": _to_device(batch["boxes"], dev, torch.float32),
+            "labels": _to_device(batch["labels"], dev, torch.long),
+            "box_mask": _to_device(batch["box_mask"], dev, torch.float32),
+            "mask": _to_device(batch["mask"], dev, torch.float32)}
 
     def _augmented(self, b: Dict[str, torch.Tensor]):
         images, boxes, box_mask = b["image"], b["boxes"], b["box_mask"]
@@ -216,30 +267,11 @@ class DetectionTrainer:
                         warmup: bool = True,
                         log_fn: Optional[Callable] = None
                         ) -> Dict[str, float]:
-        """The reference's ``train_one_epoch`` (``object/engine.py:14-55``):
-        linear warmup over ``min(len(loader), warmup_steps)`` steps in
-        epoch 0, mean loss terms, ``sys.exit(1)`` on a non-finite loss."""
-        n_batches = len(loader)
-        totals: Dict[str, float] = {}
-        count = 0
-        for i, batch in enumerate(loader):
-            if warmup and epoch == 0:
-                frac = (i + 1) / max(min(n_batches, self.warmup_steps), 1)
-                self.set_lr(self.base_lr * min(frac, 1.0))
-            logs = self.train_step(batch)
-            keys = list(logs)
-            logs = dict(zip(keys, torch.stack(
-                [logs[k].float() for k in keys]).tolist()))
-            if not np.isfinite(logs["loss_total"]):
-                print(f"Loss is {logs['loss_total']}, stopping training")
-                print(logs)
-                sys.exit(1)
-            for k, v in logs.items():
-                totals[k] = totals.get(k, 0.0) + v
-            count += 1
-            if log_fn and (i % print_freq == 0 or i == n_batches - 1):
-                log_fn(i, n_batches, logs)
-        return {k: v / max(count, 1) for k, v in totals.items()}
+        """One epoch of :meth:`train_step` (:func:`_epoch`), the warmup
+        over ``min(len(loader), warmup_steps)`` steps."""
+        return _epoch(self.train_step, loader, epoch, self.set_lr,
+                      self.base_lr, self.warmup_steps, print_freq, warmup,
+                      log_fn)
 
     @torch.no_grad()
     def predict(self, batch: dict) -> Dict[str, torch.Tensor]:
@@ -257,7 +289,8 @@ class DetectionTrainer:
                  label_to_cat: Optional[Dict[int, int]] = None,
                  panoptic: bool = False) -> Dict[str, Dict[str, float]]:
         """The reference's ``evaluate`` (``object/engine.py:70-110``):
-        predictions, ``CocoEvaluator`` update, accumulate, summarize;
+        predictions, ``CocoEvaluator`` update (with the keypoints where
+        the predictions have them), accumulate, summarize;
         ``label_to_cat`` maps the model's contiguous labels back to COCO
         ids.  One batch deep: batch i + 1's forward is queued, and its
         predictions start for the host, before batch i's host work.
@@ -284,10 +317,12 @@ class DetectionTrainer:
                 if label_to_cat:
                     labels = np.asarray([label_to_cat.get(int(l), int(l))
                                          for l in labels])
-                evaluator.update({int(batch["image_id"][b]): {
-                    "boxes": preds["boxes"][b][keep],
-                    "scores": preds["scores"][b][keep],
-                    "labels": labels}})
+                update = {"boxes": preds["boxes"][b][keep],
+                          "scores": preds["scores"][b][keep],
+                          "labels": labels}
+                if "keypoints" in preds:
+                    update["keypoints"] = preds["keypoints"][b][keep]
+                evaluator.update({int(batch["image_id"][b]): update})
                 prof["images"] += 1
             prof["t_get"] += t1 - t0
             prof["t_host"] += time.perf_counter() - t1
@@ -306,3 +341,124 @@ class DetectionTrainer:
         out = evaluator.summarize()
         prof["t_final"] = time.perf_counter() - t0
         return out
+
+
+class FasterRCNNTrainer:
+    """The Faster R-CNN / Keypoint R-CNN engine (the reference's
+    ``object/coco_pipeline.py:442-559`` with ``object/engine.py``): one
+    step is the flip, the forward, the losses with the matching and the
+    balanced sampling on the device, the backward, the clip and the SGD
+    update; nothing in it reads the device before the loss terms are
+    logged.  BatchNorm trains in train mode, its running statistics
+    updated as the JAX ``batch_stats`` are.
+
+    Every random draw of a step comes from one generator on the model's
+    device, seeded with ``seed``, in :meth:`draw`: the flip (B,), the RPN
+    sampling noise (B, ΣA) and the RoI noise (B, num_proposals).  The
+    JAX trainer splits its key per step, image and stage instead; a test
+    feeds those draws in by replacing :meth:`draw`."""
+
+    GRAD_CLIP = 10.0          # the global-norm clip of the JAX chain
+
+    def __init__(self, model: torch.nn.Module, *, cfg, lr: float = 2e-3,
+                 momentum: float = 0.9, weight_decay: float = 5e-4,
+                 augment: bool = False, kp_flip_inds=None,
+                 norm_values: Optional[dict] = None, seed: int = 0) -> None:
+        """``model`` is a :class:`~vit_torch_tpu_torch.detection.
+        faster_rcnn.FasterRCNN` on its device; ``kp_flip_inds`` the
+        keypoints' left/right swap under the flip (None keeps their
+        order)."""
+        self.model = model
+        self.cfg = cfg
+        self.device = next(model.parameters()).device
+        self.image_size = cfg.image_size
+        self.augment = augment
+        self.kp_flip = (None if kp_flip_inds is None else torch.as_tensor(
+            list(kp_flip_inds), dtype=torch.long).to(self.device))
+        self.norm = norm_values or NORM_VALUES["imagenet"]
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        set_generator(model, self.generator)
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        # coupled decay: g + wd·p before the momentum, as the JAX chain's
+        # add_decayed_weights then sgd
+        self.optimizer = torch.optim.SGD(self.params, lr=lr,
+                                         momentum=momentum,
+                                         weight_decay=weight_decay)
+        self.base_lr = lr
+        self.warmup_steps = 1000
+        self.last_eval_profile: Dict[str, float] = {}
+
+    def set_lr(self, lr: float) -> None:
+        set_learning_rate(self.optimizer, lr)
+
+    def _batch(self, batch: dict) -> Dict[str, torch.Tensor]:
+        dev = self.device
+        out = DetectionTrainer._batch(self, batch)
+        if "gt_keypoints" in batch:
+            out["keypoints"] = _to_device(batch["gt_keypoints"], dev,
+                                          torch.float32)
+        return out
+
+    def draw(self, batch_size: int) -> Dict[str, torch.Tensor]:
+        """One step's random draws (see the class)."""
+        flip = draw_hflip(self.generator, batch_size, self.device)
+        return {"flip": flip, **draw_noise(self.generator, self.cfg,
+                                           batch_size, self.device)}
+
+    def losses(self, batch: dict, draws: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """The train-mode forward and :func:`~vit_torch_tpu_torch.
+        detection.faster_rcnn.faster_rcnn_losses` of a host batch under
+        ``draws`` (the flip applies where ``augment``)."""
+        self.model.train()
+        b = self._batch(batch)
+        images, boxes, kps = b["image"], b["boxes"], b.get("keypoints")
+        if self.augment:
+            flipped = apply_hflip(draws["flip"], images, boxes,
+                                  self.image_size, kps, self.kp_flip)
+            images, boxes = flipped[:2]
+            if kps is not None:
+                kps = flipped[2]
+        outputs = self.model(normalize(images, **self.norm))
+        targets = {"boxes": boxes, "labels": b["labels"],
+                   "box_mask": b["box_mask"], "mask": b["mask"]}
+        if kps is not None:
+            targets["keypoints"] = kps
+        return faster_rcnn_losses(outputs, targets, self.cfg, draws)
+
+    def train_step(self, batch: dict) -> Dict[str, torch.Tensor]:
+        """One step on a host batch; returns the loss terms and
+        ``loss_total`` as device tensors."""
+        losses = self.losses(batch, self.draw(len(batch["image"])))
+        self.optimizer.zero_grad(set_to_none=True)
+        losses["loss"].backward()
+        clip_grad_global_norm(self.params, self.GRAD_CLIP)
+        self.optimizer.step()
+        logs = {k: v.detach() for k, v in losses.items() if k != "loss"}
+        logs["loss_total"] = losses["loss"].detach()
+        return logs
+
+    def train_one_epoch(self, loader, epoch: int, print_freq: int = 10,
+                        warmup: bool = True,
+                        log_fn: Optional[Callable] = None
+                        ) -> Dict[str, float]:
+        """One epoch of :meth:`train_step` (:func:`_epoch`), the warmup
+        over ``min(len(loader), 1000)`` steps."""
+        return _epoch(self.train_step, loader, epoch, self.set_lr,
+                      self.base_lr, self.warmup_steps, print_freq, warmup,
+                      log_fn)
+
+    @torch.no_grad()
+    def predict(self, batch: dict) -> Dict[str, torch.Tensor]:
+        """Scored boxes (and keypoints) in original pixels for a host
+        batch, eval mode."""
+        self.model.eval()
+        images = _to_device(batch["image"], self.device)
+        outputs = self.model(normalize(images, **self.norm))
+        return faster_rcnn_predict(
+            outputs, self.cfg,
+            _to_device(batch["scale"], self.device, torch.float32),
+            _to_device(batch["pad"], self.device, torch.float32))
+
+    # COCO evaluation is the DETR engine's
+    evaluate = DetectionTrainer.evaluate

@@ -12,8 +12,9 @@ that a test can feed the JAX package's draws into the port's arithmetic;
 centres, a triangle kernel (the zoom is at least 1, so the kernel is not
 widened), weights renormalised where the canvas edge cuts the kernel, and
 samples outside the canvas zero; the separable weight matrices are
-applied with two ``einsum``.  Instance masks and keypoints come with
-ROADMAP.md A10c and A10b.
+applied with two ``einsum``.  The flip also mirrors Keypoint R-CNN's
+``(B, N, K, 3)`` keypoints, with the schema's left/right swap.  Instance
+masks come with ROADMAP.md A10c.
 """
 
 from __future__ import annotations
@@ -24,13 +25,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 
-def _refuse(masks=None, keypoints=None) -> None:
+def _refuse(masks=None) -> None:
     if masks is not None:
         raise NotImplementedError("instance masks are not ported yet "
                                   "(ROADMAP.md A10c, masks and segmentation)")
-    if keypoints is not None:
-        raise NotImplementedError("keypoints are not ported yet (ROADMAP.md "
-                                  "A10b, Faster R-CNN and keypoints)")
 
 
 def _uniform(generator, shape, device, lo=0.0, hi=1.0) -> torch.Tensor:
@@ -47,24 +45,41 @@ def draw_hflip(generator: torch.Generator, batch: int,
 
 
 def apply_hflip(flip: torch.Tensor, images: torch.Tensor,
-                boxes: torch.Tensor, image_size: int):
+                boxes: torch.Tensor, image_size: int,
+                keypoints: Optional[torch.Tensor] = None,
+                kp_flip_inds: Optional[Sequence[int]] = None):
     """Flip the chosen samples' images along W and mirror their boxes'
-    x coordinates about S (the centred letterbox is symmetric)."""
+    x coordinates about S (the centred letterbox is symmetric).  With
+    ``keypoints`` (B, N, K, 3), mirror their x about S too and reorder
+    the K axis by ``kp_flip_inds`` (the left/right swap; none keeps the
+    order; a sequence or a tensor), and return them third."""
     images = torch.where(flip[:, None, None, None], images.flip(2), images)
     flipped = torch.stack([image_size - boxes[..., 2], boxes[..., 1],
                            image_size - boxes[..., 0], boxes[..., 3]], -1)
     boxes = torch.where(flip[:, None, None], flipped, boxes)
-    return images, boxes
+    if keypoints is None:
+        return images, boxes
+    kf = torch.stack([image_size - keypoints[..., 0], keypoints[..., 1],
+                      keypoints[..., 2]], -1)
+    if kp_flip_inds is not None:
+        # a tensor on the keypoints' device saves a copy a call
+        kf = kf.index_select(2, torch.as_tensor(kp_flip_inds,
+                                                device=kf.device))
+    keypoints = torch.where(flip[:, None, None, None], kf, keypoints)
+    return images, boxes, keypoints
 
 
 def random_hflip(generator: torch.Generator, images: torch.Tensor,
                  boxes: torch.Tensor, image_size: int,
                  masks: Optional[torch.Tensor] = None, prob: float = 0.5,
-                 keypoints: Optional[torch.Tensor] = None):
-    """Per-sample random horizontal flip; returns ``(images, boxes)``."""
-    _refuse(masks, keypoints)
+                 keypoints: Optional[torch.Tensor] = None,
+                 kp_flip_inds: Optional[Sequence[int]] = None):
+    """Per-sample random horizontal flip; returns ``(images, boxes)``,
+    and the keypoints third where given."""
+    _refuse(masks)
     flip = draw_hflip(generator, images.shape[0], images.device, prob)
-    return apply_hflip(flip, images, boxes, image_size)
+    return apply_hflip(flip, images, boxes, image_size, keypoints,
+                       kp_flip_inds)
 
 
 # -- zoom-crop --------------------------------------------------------------
