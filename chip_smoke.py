@@ -174,7 +174,24 @@
    off and on (Q1 and Q2 at the box head's 2048 x 12,544 -> 1024 and
    2048 x 1024 -> 1024, each held against its plain versions:
    ``frcnn_w8a8``); prints a ``frcnn`` summary line;
-16. prints one JSON line with each kernel's numbers, then the card's name
+16. DETR instance masks and panoptic (ROADMAP A10c): on the DETR
+   phase's synthetic COCO set (its polygons the gt masks) trains
+   full-width DETRSegm (8 mask heads) over Swin-T at bs8 for one epoch
+   and evaluates bbox and segm AP and PQ through ``cli.coco --masks``
+   (the flash pair, B8, the core and B6 launched as in DETR:
+   ``segm_train``); times and profiles the step with the mask branch's
+   own time and share, peak memory, the host matcher and the step's
+   synchronising calls (``segm_step``); holds one bs8 step on the
+   kernels and one on the plain versions against the fp32 step: the mask
+   logits, the mask losses, the mask branch's and backbone's gradients
+   (``segm_vs_plain``); scores one model's predictions with PQ and
+   without, whose segm APs must agree exactly, with their host-time
+   split and the copied mask bytes (``segm_eval``); writes a synthetic panoptic split at 512 px and runs
+   ``cli.coco --panoptic_root`` for one epoch (``panoptic_train``: PQ,
+   SQ, RQ); runs the eval forward with W8A8 off and on (``segm_w8a8``:
+   the cosines of the logits and of the mask logits, Q1/Q2 launches);
+   prints a ``segm`` summary line;
+17. prints one JSON line with each kernel's numbers, then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -515,6 +532,20 @@ FRCNN_W8A8_SHAPES = [(FRCNN_BS * 256, 7 * 7 * 256, 1024),
 # upstream gradient (relative norm, whole and per parameter's median, the
 # classifiers' STEP_GRAD_RTOL)
 FRCNN_PLAIN_RTOL = SWIN_LOGITS_RTOL
+# DETR instance masks and panoptic (ROADMAP A10c): DETRSegm (the JAX CLI's
+# 8 mask heads) with DETR's settings on the DETR phases' synthetic COCO set
+# (its polygons are the gt masks), and a synthetic panoptic split at 512
+# px, cut to 32 + 16 pictures to fit the time limit
+SEGM_ARGS = DETR_ARGS + ["--masks"]
+PAN_TRAIN_N, PAN_VAL_N = 32, 16
+# the bs8 DETRSegm step against the fp32 step (compare_segm_step_with_plain):
+# the mean focal and dice losses of the matched masks, bf16 logits through
+# the conv head against fp32 ones, within 2%; the pred_masks logits and the
+# mask branch's and backbone's gradients (relative norm of the group)
+# within the classifiers' STEP_GRAD_RTOL or twice the plain bf16 step's
+# own distance from fp32, whichever is larger
+SEGM_LOSS_RTOL = 2e-2
+SEGM_RTOL = STEP_GRAD_RTOL
 
 
 def _say(*parts) -> None:
@@ -1441,6 +1472,16 @@ def _kernel_group(name: str) -> str:
         return "talking_heads"
     if "fused_mlp_kernel" in name:
         return "fused_mlp"
+    if "GroupNorm" in name or "group_norm" in low or any(k in name for k in (
+            "RowwiseMomentsCUDAKernel", "ComputeFusedParamsCUDAKernel",
+            "ComputeInternalGradientsCUDAKernel",
+            "ComputeBackwardFusedParamsCUDAKernel",
+            "Compute1dBackwardFusedParamsCUDAKernel")):
+        # PyTorch's GroupNorm (DETRSegm's mask head): its statistics and
+        # fused-parameter kernels and the elementwise lambdas of its
+        # forward and backward (the port's LayerNorm takes the vectorised
+        # layer-norm kernels, not the row-moments one)
+        return "group_norm"
     if any(t in low for t in ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
                               "bn_bwd", "bn_fwd")):
         return "batch_norm"         # cuDNN's and PyTorch's BN, train and eval
@@ -4430,6 +4471,467 @@ def frcnn_phases(workdir: str):
             "w8a8": frcnn_w8a8_forward(root)}
 
 
+# --------------------------------------------------------------------------
+# DETR instance masks and panoptic (ROADMAP A10c)
+# --------------------------------------------------------------------------
+
+def _segm_setup(root: str, seed: int = 0):
+    """A seeded full-width DETRSegm over Swin-T at 512 px in bf16 on the
+    card, its trainer (AdamW, the flip on, the mask losses) and the train
+    set's first bs8 batch with its gt masks."""
+    import torch
+    from vit_torch_tpu_torch.detection.coco_data import (CocoDetectionDataset,
+                                                         CocoLoader)
+    from vit_torch_tpu_torch.detection.detr import DETRConfig, build_detr
+    from vit_torch_tpu_torch.detection.engine import DetectionTrainer
+    ds = CocoDetectionDataset(os.path.join(root, "train", "data"),
+                              os.path.join(root, "train", "labels.json"),
+                              image_size=DETR_SIZE, load_masks=True)
+    batch = next(iter(CocoLoader(ds, DETR_BS, num_workers=0)))
+    model = build_detr(DETRConfig(num_classes=ds.num_classes),
+                       DETR_BACKBONE, DETR_SIZE, torch.bfloat16,
+                       torch.Generator().manual_seed(seed), "cuda",
+                       masks=True)
+    trainer = DetectionTrainer(model, image_size=DETR_SIZE,
+                               num_classes=ds.num_classes, augment=True,
+                               masks=True)
+    return model, trainer, batch
+
+
+def _segm_stats_row(name, record, seconds, counts, want):
+    """The stats JSON of a mask run, checked: a finite loss with the mask
+    losses, the 12 bbox and 12 segm numbers and PQ, SQ, RQ finite."""
+    logs = record["logs"]
+    val = logs[0]["val"] if logs else {}
+    row = {"seconds": seconds,
+           "epoch_seconds": logs[0]["time"] if logs else None,
+           "launches": counts, "want": want, "telem": record["telem"],
+           "train": logs[0]["train"] if logs else None,
+           "bbox": val.get("bbox"), "segm": val.get("segm"),
+           "panoptic": val.get("panoptic")}
+    _say(json.dumps({name: row}))
+    if counts != want:
+        raise AssertionError(f"{name}: kernel launches {counts} != {want}")
+    if not (len(logs) == 1 and all(np.isfinite(logs[0]["train"][k]) for k in
+                                   ("loss_total", "loss_mask", "loss_dice"))
+            and all(len(row[k] or {}) == 12 and all(
+                np.isfinite(v) for v in row[k].values())
+                for k in ("bbox", "segm"))
+            and all(np.isfinite((row["panoptic"] or {}).get(k, np.nan))
+                    for k in ("pq", "sq", "rq"))):
+        raise AssertionError(f"{name}: bad stats {record}")
+    return row
+
+
+def segm_train_through_cli(root: str, workdir: str):
+    """Full-width DETRSegm (DETR's settings and 8 mask heads) over Swin-T
+    at 512 px, bs8, one epoch of the synthetic train set (polygon masks)
+    and the bbox, segm and PQ evaluation of the validation set through
+    ``cli.coco --masks``: the launches of the flash pair, B8, the core and
+    B6 are DETR's (the mask branch runs no hand kernel); the stats JSON
+    (AP and PQ themselves are not gated: seeded weights, one epoch)."""
+    from vit_torch_tpu_torch.cli import coco as cli_coco
+    want = _detr_want(DETR_TRAIN_N // DETR_BS, DETR_VAL_N // DETR_BS)
+    fp = os.path.join(workdir, "segm_stats.json")
+    _reset_counts()
+    t0 = time.perf_counter()
+    cli_coco.main(SEGM_ARGS + ["--data_root", root, "--stats_fp", fp])
+    seconds = time.perf_counter() - t0
+    counts = _read_counts()
+    with open(fp) as f:
+        record = json.load(f)
+    return _segm_stats_row("segm_train", record, seconds, counts, want)
+
+
+def _sync_warnings(trainer, batch) -> list:
+    """The synchronising calls of one train step, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.train_step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message)[:120] for w in seen
+            if "called a synchronizing" in str(w.message)]
+
+
+def _mask_branch_ms(model, trainer, batch, iters: int = 5):
+    """CUDA-event ms of the mask branch alone on the step's own inputs
+    (the backbone's stage maps, the memory and the last decoder state,
+    detached): the attention map, the stack and the conv head forward and
+    backward with the mask losses, and the losses alone (forward and
+    backward on the head's detached logits)."""
+    import torch
+    from vit_torch_tpu_torch.data.augment import normalize
+    from vit_torch_tpu_torch.detection.engine import prep_targets
+    from vit_torch_tpu_torch.detection.segmentation import mask_losses
+    model.train()
+    b = trainer._batch(batch)
+    x = normalize(b["image"], **trainer.norm)
+    targets = prep_targets(b["labels"], b["boxes"], b["box_mask"],
+                           b["mask"], DETR_SIZE)
+    with torch.no_grad():
+        stages = model.backbone(x)
+        out, memory, hs = model.detect(stages[-1])
+    assign = trainer.match(list(out["aux_outputs"]) + [out], targets)
+    params = [p for n, p in model.named_parameters()
+              if n.startswith(("bbox_attention", "mask_head"))]
+
+    def branch():
+        pm = model.mask_logits(stages, memory, hs)
+        ml = mask_losses(pm, b["gt_masks"], assign[-1], targets["box_mask"],
+                         targets["mask"])
+        torch.autograd.grad(ml["loss_mask"] + ml["loss_dice"], params)
+        return pm
+
+    pm = branch().detach().requires_grad_(True)
+
+    def losses():
+        ml = mask_losses(pm, b["gt_masks"], assign[-1], targets["box_mask"],
+                         targets["mask"])
+        torch.autograd.grad(ml["loss_mask"] + ml["loss_dice"], pm)
+
+    return {"branch_fwd_bwd_ms": _time_ms(branch, iters=iters),
+            "losses_fwd_bwd_ms": _time_ms(losses, iters=iters)}
+
+
+def steady_state_segm(root: str, detr_step: dict, iters: int = 10):
+    """The DETRSegm train step at bs8 (flip of images and gt masks,
+    forward, the costs on the card, the solves on the host, the set
+    losses of 6 layers and the mask losses of the last, backward, clip,
+    AdamW): CUDA-event and host ms over ``iters`` steps after warm-up, the
+    host's costs wait and solves, launches per step, peak memory, a
+    profile by kernel group with the device's busy time and idle share,
+    the mask branch's own ms (fwd + bwd; again with the upsampling's
+    doublings gathered; the losses alone) and its share of the busy time, the busy time beside the DETR step's
+    (``detr_step``), and the step's synchronising calls as
+    ``set_sync_debug_mode("warn")`` reports them, against those of the
+    same step without the mask losses (the host matcher's copies are the
+    only reads of the device before the loss; the mask losses add
+    none)."""
+    import torch
+    from vit_torch_tpu_torch.detection import segmentation
+    model, trainer, batch = _segm_setup(root)
+    for _ in range(3):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    _reset_counts()
+    trainer.train_step(batch)
+    per_step = _read_counts()
+    trainer.host_ms = {"costs_wait": 0.0, "match": 0.0, "steps": 0}
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    smi = [_smi_sample()]
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        logs = trainer.train_step(batch)
+    end.record()
+    torch.cuda.synchronize()
+    host_step_ms = 1e3 * (time.perf_counter() - t0) / iters
+    smi.append(_smi_sample())
+    host = trainer.host_ms
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profile = _profile_calls(lambda: trainer.train_step(batch))
+    branch = _mask_branch_ms(model, trainer, batch)
+    # the mask head's doublings through resize_nearest's gather path (its
+    # backward index_add_'s atomics) in place of F.interpolate's
+    with mock.patch.object(segmentation, "resize_nearest",
+                           lambda x, size: segmentation.gather_nearest(
+                               x, *size)):
+        branch["branch_fwd_bwd_ms_gather_only"] = _mask_branch_ms(
+            model, trainer, batch)["branch_fwd_bwd_ms"]
+    syncs = _sync_warnings(trainer, batch)
+    trainer.masks = False
+    syncs_without = _sync_warnings(trainer, batch)
+    trainer.masks = True
+    busy = profile["device_busy_ms"]
+    row = {"arch": f"detr_segm_{DETR_BACKBONE}", "image_size": DETR_SIZE,
+           "bs": DETR_BS, "opt": "adamw", "iters": iters,
+           "step_ms": start.elapsed_time(end) / iters,
+           "host_step_ms": host_step_ms,
+           "costs_wait_ms_per_step": host["costs_wait"] / host["steps"],
+           "matcher_host_ms_per_step": host["match"] / host["steps"],
+           "loss_total": float(logs["loss_total"]),
+           "loss_mask": float(logs["loss_mask"]),
+           "loss_dice": float(logs["loss_dice"]),
+           "launches_per_step": per_step, "peak_mem_gb": peak,
+           "smi_before_after": smi, "profile": profile,
+           "mask_branch": branch,
+           "mask_branch_share_of_busy": branch["branch_fwd_bwd_ms"] / busy,
+           "busy_ms_segm_detr": [busy,
+                                 detr_step["profile"]["device_busy_ms"]],
+           "syncs_per_step": len(syncs), "syncs": syncs,
+           "syncs_per_step_without_mask_losses": len(syncs_without)}
+    _say(json.dumps({"segm_step": row}))
+    if per_step != _detr_want(1, 0):
+        raise AssertionError(f"launches per DETRSegm step {per_step}")
+    if not all(np.isfinite(row[k]) for k in ("loss_total", "loss_mask",
+                                             "loss_dice")):
+        raise AssertionError(f"DETRSegm step losses {row}")
+    if len(syncs) > len(syncs_without):
+        raise AssertionError(f"the mask losses read the device: {syncs} "
+                             f"against {syncs_without}")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return row
+
+
+def compare_segm_step_with_plain(root: str):
+    """One bs8 DETRSegm train step (no augmentation, the same drop-path
+    masks, the kernel forward's assignment for every run, no optimizer
+    step) on the kernels, on their plain versions in bf16 and on the
+    plain versions in fp32, the reference, as ``detr_step_vs_plain``
+    does: the total loss within DETR_STEP_LOSS_RTOL of fp32 and each mask
+    loss within SEGM_LOSS_RTOL; the ``pred_masks`` logits (max |diff| over
+    max |fp32|), the mask branch's gradients (``bbox_attention`` and
+    ``mask_head``) and the backbone's (relative norm of the group)
+    within the larger of SEGM_RTOL and twice the plain bf16 step's own
+    distance from fp32: the kernels may add no more than bf16's own
+    rounding does."""
+    import torch
+    from vit_torch_tpu_torch.data.augment import normalize
+    from vit_torch_tpu_torch.detection.detr import DETRConfig, build_detr
+    from vit_torch_tpu_torch.detection.engine import prep_targets
+    from vit_torch_tpu_torch.models.layers import set_generator
+    model, trainer, batch = _segm_setup(root, seed=1)
+    ref = build_detr(DETRConfig(num_classes=model.config.num_classes),
+                     DETR_BACKBONE, DETR_SIZE, torch.float32, device="cuda",
+                     masks=True)
+    ref.load_state_dict(model.state_dict())
+    set_generator(ref, trainer.generator)
+    b = trainer._batch(batch)
+    x = normalize(b["image"], **trainer.norm)
+    targets = prep_targets(b["labels"], b["boxes"], b["box_mask"],
+                           b["mask"], DETR_SIZE)
+
+    def forward(m):
+        m.train()
+        trainer.generator.manual_seed(7)          # the same drop-path masks
+        return m(x)
+
+    def run(m, out):
+        m.zero_grad(set_to_none=True)
+        loss, logs = trainer.losses(out, targets, assign, b["gt_masks"])
+        loss.backward()
+        grads = {n: p.grad.detach().float().clone()
+                 for n, p in m.named_parameters() if p.grad is not None}
+        return ({"loss": loss.item(), "loss_mask": logs["loss_mask"].item(),
+                 "loss_dice": logs["loss_dice"].item()},
+                out["pred_masks"].detach().float(), grads)
+
+    _reset_counts()
+    out = forward(model)
+    assign = trainer.match(list(out["aux_outputs"]) + [out], targets)
+    kern = run(model, out)
+    counts = _read_counts()
+    with _plain_detr():
+        plain = run(model, forward(model))
+        fp32 = run(ref, forward(ref))
+    if _read_counts() != counts:
+        raise AssertionError("the plain DETRSegm steps launched a kernel")
+    if counts != _detr_want(1, 0):
+        raise AssertionError(f"launches in the kernel DETRSegm step "
+                             f"{counts}")
+
+    def group(grads, prefix):
+        names = [n for n in fp32[2] if n.startswith(prefix)]
+        got = torch.cat([grads[n].flatten() for n in names])
+        want = torch.cat([fp32[2][n].flatten() for n in names])
+        return ((got - want).norm() / want.norm()).item()
+
+    groups = {"mask_branch": ("bbox_attention", "mask_head"),
+              "backbone": ("backbone",)}
+    row = {"arch": f"detr_segm_{DETR_BACKBONE}", "bs": DETR_BS,
+           "losses_kernel_plain_fp32": [kern[0], plain[0], fp32[0]],
+           "loss_rel_err_kernel_plain": {
+               k: [abs(s[0][k] - fp32[0][k]) / abs(fp32[0][k])
+                   for s in (kern, plain)] for k in fp32[0]},
+           "pred_masks_rel_err_kernel_plain": [_rel_err(kern[1], fp32[1]),
+                                               _rel_err(plain[1], fp32[1])],
+           "grad_rel_err_kernel_plain": {
+               g: [group(kern[2], p), group(plain[2], p)]
+               for g, p in groups.items()},
+           "launches": counts}
+    _say(json.dumps({"segm_vs_plain": row}))
+    rel = row["loss_rel_err_kernel_plain"]
+    bounded = [row["pred_masks_rel_err_kernel_plain"]] + list(
+        row["grad_rel_err_kernel_plain"].values())
+    if not (np.isfinite(kern[0]["loss"])
+            and rel["loss"][0] <= DETR_STEP_LOSS_RTOL
+            and rel["loss_mask"][0] <= SEGM_LOSS_RTOL
+            and rel["loss_dice"][0] <= SEGM_LOSS_RTOL
+            and all(k <= max(SEGM_RTOL, 2 * p) for k, p in bounded)):
+        raise AssertionError(
+            f"DETRSegm kernel step vs the fp32 step: {row} (limits loss "
+            f"{DETR_STEP_LOSS_RTOL}, mask losses {SEGM_LOSS_RTOL}, masks "
+            f"and gradients max({SEGM_RTOL}, 2 x plain))")
+    del model, ref, trainer
+    torch.cuda.empty_cache()
+    return row
+
+
+def segm_eval(root: str):
+    """The validation set's predictions of one seeded DETRSegm scored by
+    ``evaluate(iou_types=("bbox", "segm"))`` with PQ and without (unpack,
+    un-letterbox, encode; PQ paints and matches the segments too): the
+    two segm and bbox APs must agree exactly.  Each setting's ``t_get`` /
+    ``t_host`` / ``t_final``, the packed bytes copied a batch, and on the
+    first batch the mask pixels that differ between the kernels' and the
+    plain versions' forward (both post-processed on the card), and
+    between the card's post-process and the CPU's of the same logits."""
+    import torch
+    from vit_torch_tpu_torch.data.augment import normalize
+    from vit_torch_tpu_torch.detection.coco_data import (CocoDetectionDataset,
+                                                         CocoLoader)
+    from vit_torch_tpu_torch.detection.segmentation import postprocess_segm
+    model, trainer, _ = _segm_setup(root, seed=3)
+    val = CocoDetectionDataset(os.path.join(root, "validation", "data"),
+                               os.path.join(root, "validation",
+                                            "labels.json"),
+                               image_size=DETR_SIZE)
+    batches = list(CocoLoader(val, DETR_BS, num_workers=0))
+    out, prof = {}, {}
+    for panoptic in (True, False):
+        _reset_counts()
+        out[panoptic] = trainer.evaluate(
+            batches, val.coco, iou_types=("bbox", "segm"),
+            label_to_cat=val.label_to_cat, panoptic=panoptic)
+        prof[panoptic] = dict(trainer.last_eval_profile,
+                              launches=_read_counts())
+    packed = trainer.predict(batches[0])["masks_packed"]
+    x = normalize(torch.as_tensor(batches[0]["image"]).cuda(),
+                  **trainer.norm)
+    model.eval()
+    with torch.inference_mode():
+        logits = model(x)["pred_masks"]
+        kern = postprocess_segm(logits, DETR_SIZE)
+        cpu = postprocess_segm(logits.float().cpu(), DETR_SIZE)
+        with _plain_detr():
+            plain = postprocess_segm(model(x)["pred_masks"], DETR_SIZE)
+    row = {"arch": f"detr_segm_{DETR_BACKBONE}", "bs": DETR_BS,
+           "images": len(val), "with_pq": out[True],
+           "without_pq": out[False],
+           "profile_with_without_pq": [prof[True], prof[False]],
+           "mask_bytes_per_batch": packed.numel() * packed.element_size(),
+           "mask_pixels": kern.numel(),
+           "pixels_differ_kernel_vs_plain": int((kern != plain).sum()),
+           "pixels_differ_card_vs_cpu_postprocess": int(
+               (kern.cpu() != cpu).sum())}
+    _say(json.dumps({"segm_eval": row}))
+    want = _detr_want(0, DETR_VAL_N // DETR_BS)
+    if not (out[True]["segm"] == out[False]["segm"]
+            and out[True]["bbox"] == out[False]["bbox"]
+            and "panoptic" in out[True]
+            and all(p["launches"] == want for p in prof.values())):
+        raise AssertionError(f"segm_eval: with and without PQ disagree: "
+                             f"{row}")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return row
+
+
+def write_panoptic_data(workdir: str) -> str:
+    """A synthetic panoptic root at 512 px (``make_synthetic_panoptic``:
+    1-3 thing rectangles and one stuff segment a picture): ``train``
+    (PAN_TRAIN_N pictures) and ``validation`` (PAN_VAL_N, another
+    seed)."""
+    from vit_torch_tpu_torch.detection.panoptic_data import (
+        make_synthetic_panoptic)
+    root = os.path.join(workdir, "panoptic")
+    make_synthetic_panoptic(os.path.join(root, "train"),
+                            n_images=PAN_TRAIN_N, size=DETR_SIZE, seed=0)
+    make_synthetic_panoptic(os.path.join(root, "validation"),
+                            n_images=PAN_VAL_N, size=DETR_SIZE, seed=1)
+    return root
+
+
+def panoptic_train_through_cli(root: str, workdir: str):
+    """``cli.coco --panoptic_root`` at DETRSegm's full width: one epoch
+    of the panoptic train split (segment masks cut from the PNGs) and the
+    bbox, segm and PQ evaluation of the validation split on its
+    instance-gt view; launches as DETR's; PQ, SQ and RQ printed."""
+    from vit_torch_tpu_torch.cli import coco as cli_coco
+    want = _detr_want(-(-PAN_TRAIN_N // DETR_BS), -(-PAN_VAL_N // DETR_BS))
+    fp = os.path.join(workdir, "panoptic_stats.json")
+    _reset_counts()
+    t0 = time.perf_counter()
+    cli_coco.main(DETR_ARGS + ["--panoptic_root", root, "--stats_fp", fp])
+    seconds = time.perf_counter() - t0
+    counts = _read_counts()
+    with open(fp) as f:
+        record = json.load(f)
+    if not record["info"]["masks"]:
+        raise AssertionError("--panoptic_root did not turn --masks on")
+    return _segm_stats_row("panoptic_train", record, seconds, counts, want)
+
+
+def segm_w8a8_forward(root: str):
+    """One full-width DETRSegm eval forward at bs8 with ``VITX_W8A8`` off
+    and on: the transformer's QLinears take Q1/Q2 (one Q2 and two Q1
+    launches each), the mask branch none; the cosines of the class logits
+    and of the ``pred_masks`` logits against the fp forward must exceed
+    W8A8_MIN_COSINE; both forwards timed on CUDA events."""
+    import torch
+    from vit_torch_tpu_torch.data.augment import normalize
+    from vit_torch_tpu_torch.models.layers import QLinear
+    model, trainer, batch = _segm_setup(root, seed=2)
+    model.eval()
+    sites = sum(isinstance(m, QLinear) for m in model.modules())
+    branch = sum(isinstance(m, QLinear) for name, m in model.named_modules()
+                 if name.startswith(("bbox_attention", "mask_head")))
+    x = normalize(torch.as_tensor(batch["image"]).cuda(), **trainer.norm)
+    out, counts, ms = {}, {}, {}
+    for on in (False, True):
+        with mock.patch.dict(os.environ, {"VITX_W8A8": "1" if on else ""}), \
+                torch.inference_mode():
+            _reset_counts()
+            o = model(x)
+            out[on] = {k: o[k].float().cpu().numpy()
+                       for k in ("pred_logits", "pred_masks")}
+            torch.cuda.synchronize()
+            counts[on] = _read_counts()
+            ms[on] = _time_ms(lambda: model(x), iters=5)
+    cos = {k: _cosine(out[True][k], out[False][k]) for k in out[True]}
+    q = counts[True]
+    row = {"arch": f"detr_segm_{DETR_BACKBONE}", "bs": DETR_BS,
+           "qlinear": sites, "qlinear_in_mask_branch": branch,
+           "launches_w8a8": {k: v for k, v in q.items() if v},
+           "launches_fp": {k: v for k, v in counts[False].items() if v},
+           "cosine_logits_masks": [cos["pred_logits"], cos["pred_masks"]],
+           "forward_ms_fp_w8a8": [ms[False], ms[True]]}
+    _say(json.dumps({"segm_w8a8": row}))
+    if (branch or q["w8a8_gemm"] != sites
+            or q["w8a8_quantize_rows"] != 2 * sites
+            or counts[False]["w8a8_gemm"] != 0
+            or q["flash_attention_fwd"] != DETR_FLASH
+            or not all(np.isfinite(v).all() for v in out[True].values())
+            or min(cos.values()) <= W8A8_MIN_COSINE):
+        raise AssertionError(f"DETRSegm W8A8: {row}")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return row
+
+
+def segm_phases(workdir: str, detr_step: dict):
+    """Every DETRSegm phase: on the DETR phases' synthetic COCO set
+    (written again: polygon masks) and on a synthetic panoptic root."""
+    root = write_detr_data(workdir)
+    pan_root = write_panoptic_data(workdir)
+    return {"train": segm_train_through_cli(root, workdir),
+            "step": steady_state_segm(root, detr_step),
+            "vs_plain": compare_segm_step_with_plain(root),
+            "eval": segm_eval(root),
+            "panoptic_train": panoptic_train_through_cli(pan_root, workdir),
+            "w8a8": segm_w8a8_forward(root)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4613,6 +5115,8 @@ def main() -> int:
         detr = detr_phases(workdir)
     with tempfile.TemporaryDirectory() as workdir:
         frcnn = frcnn_phases(workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        segm = segm_phases(workdir, detr["step"])
 
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -4630,8 +5134,13 @@ def main() -> int:
             "finetune": finetune["flash_attention_fwd"],
             "lineareval": lineareval["flash_attention_fwd"],
             **{p: c["flash_attention_fwd"] for p, c in extra_paths.items()},
-            "detr_train": detr["train"]["launches"]["flash_attention_fwd"]},
+            "detr_train": detr["train"]["launches"]["flash_attention_fwd"],
+            "segm_train": segm["train"]["launches"]["flash_attention_fwd"],
+            "panoptic_train": segm["panoptic_train"]["launches"][
+                "flash_attention_fwd"]},
         "detr_launches_per_step": detr["step"]["launches_per_step"][
+            "flash_attention_fwd"],
+        "segm_launches_per_step": segm["step"]["launches_per_step"][
             "flash_attention_fwd"],
         "detr_shape_ms_device_plain_library_libdevice_bound": [
             [r["shape"], r["ms"], r["device_ms"], r["plain_ms"],
@@ -4663,8 +5172,13 @@ def main() -> int:
             "finetune": finetune["flash_attention_bwd"],
             "lineareval": lineareval["flash_attention_bwd"],
             **{p: c["flash_attention_bwd"] for p, c in extra_paths.items()},
-            "detr_train": detr["train"]["launches"]["flash_attention_bwd"]},
+            "detr_train": detr["train"]["launches"]["flash_attention_bwd"],
+            "segm_train": segm["train"]["launches"]["flash_attention_bwd"],
+            "panoptic_train": segm["panoptic_train"]["launches"][
+                "flash_attention_bwd"]},
         "detr_launches_per_step": detr["step"]["launches_per_step"][
+            "flash_attention_bwd"],
+        "segm_launches_per_step": segm["step"]["launches_per_step"][
             "flash_attention_bwd"],
         "detr_shape_ms_device_plain_library_libdevice_bound": [
             [r["shape"], r["bwd_ms"], r["bwd_device_ms"], r["bwd_plain_ms"],
@@ -4716,7 +5230,10 @@ def main() -> int:
             "launches_by_path": {
                 **{p: c[kernel] for p, c in swin_paths.items()},
                 "detr_train": detr["train"]["launches"][kernel],
-                "frcnn_swin_train": frcnn["swin_train"]["launches"][kernel]},
+                "frcnn_swin_train": frcnn["swin_train"]["launches"][kernel],
+                "segm_train": segm["train"]["launches"][kernel],
+                "panoptic_train": segm["panoptic_train"]["launches"][
+                    kernel]},
             "ms_device_plain_library_bound_by_case": [
                 [r["case"], r["ms"], r.get("device_ms"), r["plain_ms"],
                  r["library_ms"], r["bound_ms"]] for r in by_case]})
@@ -4753,6 +5270,9 @@ def main() -> int:
             **{p: c["window_gemm"] for p, c in swin_paths.items()},
             "detr_train": detr["train"]["launches"]["window_gemm"],
             "frcnn_swin_train": frcnn["swin_train"]["launches"][
+                "window_gemm"],
+            "segm_train": segm["train"]["launches"]["window_gemm"],
+            "panoptic_train": segm["panoptic_train"]["launches"][
                 "window_gemm"]},
         "launch_T_K_N_device_tflops_share_lib_libdevice_indexselect_by_case":
             [[r["case"], [[p["launch"], p["T"], p["K"], p["N"],
@@ -5025,6 +5545,37 @@ def main() -> int:
             "median_grad_rel_err")},
         "w8a8": {k: frcnn["w8a8"][k] for k in (
             "launches_w8a8", "cosine", "forward_ms_fp_w8a8")}}}))
+    # DETR instance masks and panoptic (ROADMAP A10c): the flash pair, B8,
+    # the core and B6 as in DETR; the mask branch runs cuDNN convs and
+    # PyTorch's GroupNorm
+    st = segm["step"]
+    _say(json.dumps({"segm": {
+        "train_seconds": {k: segm[k]["seconds"]
+                          for k in ("train", "panoptic_train")},
+        "bbox_ap_segm_ap_pq": {k: [segm[k]["bbox"]["ap"],
+                                   segm[k]["segm"]["ap"],
+                                   segm[k]["panoptic"]["pq"]]
+                               for k in ("train", "panoptic_train")},
+        "panoptic": segm["panoptic_train"]["panoptic"],
+        "step": {k: st[k] for k in (
+            "step_ms", "host_step_ms", "costs_wait_ms_per_step",
+            "matcher_host_ms_per_step", "peak_mem_gb", "loss_total",
+            "mask_branch", "mask_branch_share_of_busy", "busy_ms_segm_detr",
+            "syncs_per_step", "syncs_per_step_without_mask_losses")},
+        "device_busy_ms": st["profile"]["device_busy_ms"],
+        "idle_share": st["profile"]["idle_share"],
+        "groups_ms": st["profile"]["groups_ms"],
+        "vs_fp32": {k: segm["vs_plain"][k] for k in (
+            "loss_rel_err_kernel_plain", "pred_masks_rel_err_kernel_plain",
+            "grad_rel_err_kernel_plain")},
+        "eval_profile_with_without_pq": segm["eval"][
+            "profile_with_without_pq"],
+        "eval_mask_bytes_per_batch": segm["eval"]["mask_bytes_per_batch"],
+        "eval_pixels_differ_kernel_vs_plain": segm["eval"][
+            "pixels_differ_kernel_vs_plain"],
+        "w8a8": {k: segm["w8a8"][k] for k in (
+            "launches_w8a8", "cosine_logits_masks",
+            "forward_ms_fp_w8a8")}}}))
     _say(json.dumps({"kernels": kernels}))
     _say(smi)
     _say(json.dumps({"ok": True, "device": {

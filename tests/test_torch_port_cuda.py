@@ -1457,3 +1457,92 @@ def test_frcnn_step_does_not_sync_before_its_loss(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(logs["loss_total"].item())
+
+
+def _plain_flash(q, k, v, *, scale=None):
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return fa.flash_attention_bhnd_reference(qt, kt, vt,
+                                             scale=scale).transpose(1, 2)
+
+
+def test_tiny_detr_segm_step_on_cuda_matches_cpu(cuda):
+    """A DETRSegm of hidden 64, 2 heads and 8 mask heads over a Swin-T
+    trunk at 64 px, bs2 (maps 16, 8, 4 and 2: three laterals): the set and
+    mask losses under one assignment, the mask logits and the gradients
+    of the mask branch and the backbone, in bf16 on the card on the
+    kernels (flash, B8 and the core forward, B6 backward) and on their
+    plain versions, each against the same weights in fp32 on the CPU.  A
+    bf16 step of this small seeded model is itself far off fp32: on an
+    H100 the plain bf16 step's mask-branch gradients were 0.0791 and its
+    backbone gradients 0.294 from fp32 (relative norms), the kernels'
+    0.0761 and 0.294, and the mask logits 0.0128 and 0.0119 (of max).
+    So the kernels are held to 5e-2 or to twice the plain bf16 step's
+    distance, whichever is larger (chip_smoke's segm_vs_plain bound);
+    the loss to 2e-2.  The test prints both rows.  Eval mode: no
+    drop-path draw to differ between the devices."""
+    from unittest import mock
+    from vit_torch_tpu_torch.detection.detr import (DETRConfig, build_detr,
+                                                    detr_losses)
+    from vit_torch_tpu_torch.detection.segmentation import mask_losses
+    from vit_torch_tpu_torch.ops import attention as attention_mod
+    cfg = DETRConfig(num_classes=3, num_queries=8, hidden_dim=64,
+                     num_heads=2, enc_layers=1, dec_layers=2, ffn_dim=128)
+    ref = build_detr(cfg, "swin_tiny_patch4_window7_224", 64, torch.float32,
+                     masks=True)
+    model = build_detr(cfg, "swin_tiny_patch4_window7_224", 64,
+                       masks=True).to(cuda)
+    model.load_state_dict(ref.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 64, 64, 3), generator=gen)
+    gt = (torch.rand((2, 3, 64, 64), generator=gen) < 0.3).to(torch.uint8)
+    tg = {"labels": torch.tensor([[1, 2, 3], [2, 3, 1]]),
+          "boxes_cxcywh": torch.rand((2, 3, 4), generator=gen) * 0.5 + 0.2,
+          "box_mask": torch.ones((2, 3)), "mask": torch.ones((2,))}
+    assign = torch.full((2, 2, 8), -1, dtype=torch.long)
+    assign[:, :, [0, 3, 5]] = torch.tensor([2, 0, 1])
+
+    def step(m, device):
+        m.eval().zero_grad(set_to_none=True)
+        out = m(x.to(device))
+        t = {k: v.to(device) for k, v in tg.items()}
+        a = assign.to(device)
+        layers = out["aux_outputs"] + [out]
+        loss = sum(detr_losses(o, t, a[i], 3)["loss"]
+                   for i, o in enumerate(layers))
+        ml = mask_losses(out["pred_masks"], gt.to(device), a[-1],
+                         t["box_mask"], t["mask"])
+        loss = loss + ml["loss_mask"] + ml["loss_dice"]
+        loss.backward()
+        grads = {n: p.grad.float().cpu() for n, p in m.named_parameters()
+                 if p.grad is not None}
+        return loss.item(), out["pred_masks"].float().cpu(), grads
+
+    before = (fa.flash_attention_bhnd.launches,
+              wa.window_attention_bwd.launches)
+    kern = step(model, cuda)
+    assert fa.flash_attention_bhnd.launches - before[0] == 1 + 2 * 2
+    assert wa.window_attention_bwd.launches - before[1] == 12
+    with mock.patch.object(attention_mod, "flash_attention", _plain_flash), \
+            mock.patch.object(wb, "window_block_spatial",
+                              wb.window_block_spatial_reference):
+        plain = step(model, cuda)
+    assert fa.flash_attention_bhnd.launches - before[0] == 1 + 2 * 2
+    want = step(ref, "cpu")
+
+    def errs(got):
+        out = [abs(got[0] - want[0]) / abs(want[0]),
+               ((got[1] - want[1]).abs().max()
+                / want[1].abs().max()).item()]
+        for prefix in (("bbox_attention", "mask_head"), ("backbone",)):
+            names = [n for n in want[2] if n.startswith(prefix)]
+            g = torch.cat([got[2][n].flatten() for n in names])
+            w = torch.cat([want[2][n].flatten() for n in names])
+            out.append(((g - w).norm() / w.norm()).item())
+        return out
+
+    k_err, p_err = errs(kern), errs(plain)
+    print("segm step vs fp32 (loss, pred_masks, mask branch grads, "
+          "backbone grads): kernels", k_err, "plain", p_err)
+    assert k_err[0] <= 2e-2, (k_err, p_err)
+    for k, p in zip(k_err[1:], p_err[1:]):
+        assert k <= max(5e-2, 2 * p), (k_err, p_err)

@@ -7,8 +7,7 @@ with crowd gts (all 12 numbers); the numpy Hungarian against
 ``scipy.optimize.linear_sum_assignment`` (equal total cost) and the JAX
 ``hungarian_match``; ``cost_matrices``; the three train transforms with
 the JAX draws fed into the port's arithmetic, the zoom-crop's resampled
-pixels too; the synthetic set and the letterbox loader's batches; and the
-refusals of the later slices.  Inputs come from numpy with a seed; each
+pixels too; the synthetic set and the letterbox loader's batches.  Inputs come from numpy with a seed; each
 JAX function is traced once in the file.
 """
 
@@ -409,19 +408,6 @@ def test_random_transforms_draw_from_the_generator():
     assert a[0].dtype == torch.uint8 and a[0].shape == images.shape
 
 
-@pytest.mark.parametrize("call", ["hflip_masks", "crop_masks"])
-def test_transforms_refuse_masks_and_keypoints(call):
-    g = torch.Generator()
-    x, b = torch.zeros((1, 8, 8, 3)), torch.zeros((1, 1, 4))
-    m = torch.zeros((1, 1, 8, 8))
-    with pytest.raises(NotImplementedError, match="A10"):
-        if call == "hflip_masks":
-            transforms.random_hflip(g, x, b, 8, masks=m)
-        else:
-            transforms.random_zoom_crop(g, x, b, torch.ones((1, 1)), 8,
-                                        masks=m)
-
-
 # -- data -------------------------------------------------------------------
 
 def test_synthetic_set_and_loader_match_jax(tmp_path):
@@ -469,17 +455,3 @@ def test_loader_serial_and_threaded_agree(tmp_path):
     assert first["image"].shape == (2, 48, 48, 3)
     assert set(np.unique(np.concatenate(
         [b["labels"] for b in serial]))) <= {0, 1, 2}
-
-
-@pytest.mark.parametrize("call", ["masks", "segm_eval", "segm_update"])
-def test_later_slices_refuse(call, tmp_path):
-    gt = coco_eval.COCO(dataset=_toy_dataset())
-    with pytest.raises(NotImplementedError, match="A10"):
-        if call == "masks":
-            coco_data.CocoDetectionDataset("d", "a.json", load_masks=True)
-        elif call == "segm_eval":
-            coco_eval.COCOeval(gt, gt, "segm")
-        else:
-            coco_eval.CocoEvaluator(gt).update({1: {
-                "boxes": np.zeros((1, 4)), "scores": [1.0], "labels": [1],
-                "masks": np.zeros((1, 4, 4))}})

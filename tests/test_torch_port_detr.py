@@ -258,7 +258,7 @@ def test_sgd_and_clip_follow_optax():
             group["weight_decay"]) == ("SGD", 0.9, 0.1)
 
 
-@pytest.mark.parametrize("kw", [{"masks": True}, {"matcher": "device"}])
+@pytest.mark.parametrize("kw", [{"matcher": "device"}])
 def test_trainer_refuses_later_slices(kw):
     cfg, jmodel = _jax_model()
     model = _port_model(cfg, _seeded_params(jmodel))
@@ -329,7 +329,6 @@ def test_cli_test_mode_writes_the_stats_json(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--masks"], "A10c"), (["--panoptic_root", "p"], "A10c"),
     (["--matcher", "device"], "A10d"), (["--scan", "4"], "A10d"),
     (["--ckpt_dir", "c"], "A10d"), (["--resume", "c"], "A10d"),
     (["--export_bundle", "b"], "A10d"), (["--mesh", "data=2"], "A8")])

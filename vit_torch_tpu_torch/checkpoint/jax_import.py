@@ -34,6 +34,12 @@ initialised by the JAX package run in the port:
   do ``input_proj``, ``class_embed``, ``bbox_embed.fc{0,1,2}``,
   ``encoder_norm`` and ``decoder_norm``), and its ``backbone`` subtree
   maps as the Swin tree it is;
+- DETRSegm's tree is DETR's with ``bbox_attention.{q,k}_linear`` (Dense
+  kernels, transposed) and ``mask_head.{lay1..5, adapter1..3, out_lay}``
+  (convs, by the conv rule) and ``mask_head.gn1..5`` (GroupNorm
+  ``scale`` becomes ``weight``), all keeping their names; ``lay1``'s
+  input channels are the memory's, then the attention heads', in both
+  packages;
 - Faster R-CNN's ``fpn.lateral_{i}`` / ``fpn.output_{i}`` become
   ``fpn.lateral.{i}`` / ``fpn.output.{i}`` and Keypoint R-CNN's
   ``kp_head.conv_{i}`` ``kp_head.conv.{i}`` (convs, by the conv rule);
@@ -102,8 +108,8 @@ def state_dict_from_jax(params: Mapping[str, Any], image_channels: int = 3,
                         batch_stats: Optional[Mapping[str, Any]] = None
                         ) -> Dict[str, torch.Tensor]:
     """Map a flax classifier tree of any family (``{"backbone": ...,
-    "head": ...}``, or a bare backbone tree), a DETR or a Faster R-CNN /
-    Keypoint R-CNN tree of numpy-convertible arrays,
+    "head": ...}``, or a bare backbone tree), a DETR, DETRSegm or Faster
+    R-CNN / Keypoint R-CNN tree of numpy-convertible arrays,
     and its ``batch_stats`` collection where the model has BatchNorm
     (XCiT, ResNet), to a state dict."""
     out: Dict[str, torch.Tensor] = {}

@@ -2,20 +2,23 @@
 reference's ``object/coco_pipeline.py`` flags ``:51-72``, ``--test``
 smoke mode ``:75-82`` and per-epoch stats JSON ``:442-559``;
 ``object_detr/main.py``): trains DETR over a Swin feature map with the
-host Hungarian matcher (``--head detr``, the default), or Faster R-CNN
-over a ResNet or Swin FPN (``--head faster_rcnn``; with ``--keypoints``
-Keypoint R-CNN), on a COCO-format directory, evaluates COCO bbox AP (and
-keypoint AP) after every epoch (and once before training), and streams
-the train losses and the COCO numbers to a stats JSON.  The flags keep
-the JAX CLI's names and defaults.
+host Hungarian matcher (``--head detr``, the default; with ``--masks``
+DETRSegm, the instance-mask head), or Faster R-CNN over a ResNet or Swin
+FPN (``--head faster_rcnn``; with ``--keypoints`` Keypoint R-CNN), on a
+COCO-format directory (or, with ``--panoptic_root``, a panoptic-PNG one,
+which implies ``--masks``), evaluates COCO bbox AP (segm AP and PQ with
+masks, keypoint AP with keypoints) after every epoch (and once before
+training), and streams the train losses and the COCO numbers to a stats
+JSON.  The flags keep the JAX CLI's names and defaults.
 
     python -m vit_torch_tpu_torch.cli.coco --data_root /path/coco \\
-        --backbone swin_tiny_patch4_window7_224 --epochs 5 --bs 8
+        --backbone swin_tiny_patch4_window7_224 --epochs 5 --bs 8 [--masks]
+    python -m vit_torch_tpu_torch.cli.coco --panoptic_root /path/panoptic
     python -m vit_torch_tpu_torch.cli.coco --data_root /path/coco \\
         --head faster_rcnn --backbone resnext50_32x4d [--keypoints]
-    python -m vit_torch_tpu_torch.cli.coco --test          # on the card
+    python -m vit_torch_tpu_torch.cli.coco --test [--masks]  # on the card
     python -m vit_torch_tpu_torch.cli.coco --test --device cpu \\
-        [--head faster_rcnn [--keypoints] [--backbone swin_test3]]
+        [--masks | --head faster_rcnn [--keypoints] [--backbone swin_test3]]
 
 It runs on CUDA unless ``--device cpu``.  ``--dtype`` defaults to
 bfloat16 on CUDA and float32 on the CPU: the flash and window kernels
@@ -24,8 +27,9 @@ run them (DETR, and Faster R-CNN over Swin); Faster R-CNN over a ResNet
 runs no hand kernel and takes either.  ``--test`` writes a 16-image
 synthetic set at 64 px and trains 1-2 epochs: of a 1 + 1 layer,
 hidden-64 DETR with 8 queries and 2 heads (head dim 32, the flash
-kernels' smallest) over ``swin_test`` on the CPU and Swin-T on the card,
-whose window kernels take head dim 32 only; or of Faster R-CNN with the
+kernels' smallest) over ``swin_test`` (``swin_test3`` with masks: the
+mask head's laterals want three stages) on the CPU and Swin-T on the
+card, whose window kernels take head dim 32 only; or of Faster R-CNN with the
 JAX CLI's tiny settings over ``resnet_test`` (anchors 8 and 16, 64
 proposals, a two-conv 64-channel keypoint head).  The flags of later
 slices raise before any work, naming their ROADMAP.md item.
@@ -44,8 +48,6 @@ import torch
 
 # flag -> (is it set?, the ROADMAP.md item that ports it)
 UNPORTED_COCO_FLAGS = {
-    "masks": (bool, "A10c, masks and segmentation"),
-    "panoptic_root": (bool, "A10c, masks and segmentation"),
     "matcher": (lambda v: v != "host", "A10d, the device matcher"),
     "scan": (lambda v: v > 1, "A10d, chunked-scan training"),
     "ckpt_dir": (bool, "A10d, detection checkpoints"),
@@ -68,7 +70,9 @@ def get_args_parser() -> argparse.ArgumentParser:
                         "score the keypoints iou_type (reference "
                         "object/coco_utils.py:222-251 get_coco_kp)")
     p.add_argument("--panoptic_root", default="", type=str,
-                   help="panoptic dataset root (ROADMAP.md A10c)")
+                   help="panoptic dataset root: {train,validation}/{data,"
+                        "panoptic,panoptic.json} (reference --dataset_file "
+                        "coco_panoptic); implies --masks and scores PQ")
     p.add_argument("--scan", default=1, type=int,
                    help="train steps per dispatch; >1 is ROADMAP.md A10d")
     p.add_argument("--matcher", default="host", choices=["host", "device"],
@@ -79,7 +83,8 @@ def get_args_parser() -> argparse.ArgumentParser:
                         "the reference fork's (momentum .9, coupled wd; "
                         "object_detr/main.py:239-252)")
     p.add_argument("--masks", action="store_true",
-                   help="DETR instance-mask head (ROADMAP.md A10c)")
+                   help="DETR instance-mask head (DETRSegm, reference "
+                        "object_detr --masks); adds segm AP and PQ")
     p.add_argument("--image_size", default=512, type=int)
     p.add_argument("--bs", default=8, type=int)
     p.add_argument("--epochs", default=10, type=int)
@@ -230,10 +235,24 @@ def _kp_flip_inds(train_ds):
     return None
 
 
+def _panoptic_split(args, split: str, limit: int):
+    """``--panoptic_root``'s ``split`` (``train`` or ``validation``)."""
+    from vit_torch_tpu_torch.detection.panoptic_data import (
+        CocoPanopticDataset)
+    root = os.path.join(args.panoptic_root, split)
+    return CocoPanopticDataset(
+        os.path.join(root, "data"), os.path.join(root, "panoptic"),
+        os.path.join(root, "panoptic.json"), image_size=args.image_size,
+        max_boxes=args.max_boxes, limit=limit)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = get_args_parser().parse_args(argv)
     check_combinations(args)
     check_ported(args)
+    if args.panoptic_root:
+        # panoptic segments train the mask head, in --test runs too
+        args.masks = True
     from vit_torch_tpu_torch.detection.coco_data import (
         CocoDetectionDataset, CocoLoader, make_synthetic_coco)
     from vit_torch_tpu_torch.detection.detr import DETRConfig, build_detr
@@ -262,10 +281,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             if frcnn:
                 args.backbone = "resnet_test"
             elif device.type == "cpu":
-                args.backbone = "swin_test"
+                args.backbone = "swin_test3" if args.masks else "swin_test"
     else:
-        if not args.data_root:
-            raise ValueError("--data_root required (or --test)")
+        if not (args.data_root or args.panoptic_root):
+            raise ValueError("--data_root or --panoptic_root required (or "
+                             "--test)")
         train_dirs = (os.path.join(args.data_root, "train", "data"),
                       os.path.join(args.data_root, "train", "labels.json"))
         val_dirs = (os.path.join(args.data_root, "validation", "data"),
@@ -274,14 +294,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     dtype = _dtype(args, device)
     cats = args.labels or None
-    train_ds = CocoDetectionDataset(*train_dirs, image_size=args.image_size,
-                                    max_boxes=args.max_boxes,
-                                    limit=args.limit_train,
-                                    category_ids=cats,
-                                    load_keypoints=args.keypoints)
-    val_ds = CocoDetectionDataset(*val_dirs, image_size=args.image_size,
-                                  max_boxes=args.max_boxes,
-                                  limit=args.limit_test, category_ids=cats)
+    if args.panoptic_root and not args.test:
+        # the evaluation runs on the panoptic set's instance-gt view
+        train_ds = _panoptic_split(args, "train", args.limit_train)
+        val_ds = _panoptic_split(args, "validation", args.limit_test)
+    else:
+        train_ds = CocoDetectionDataset(
+            *train_dirs, image_size=args.image_size,
+            max_boxes=args.max_boxes, limit=args.limit_train,
+            category_ids=cats, load_masks=args.masks,
+            load_keypoints=args.keypoints)
+        val_ds = CocoDetectionDataset(*val_dirs, image_size=args.image_size,
+                                      max_boxes=args.max_boxes,
+                                      limit=args.limit_test,
+                                      category_ids=cats)
     train_loader = CocoLoader(train_ds, args.bs, shuffle=True)
     val_loader = CocoLoader(val_ds, args.bs)
     print(f"train: {len(train_ds)} images, val: {len(val_ds)} images, "
@@ -299,7 +325,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          dec_layers=args.dec_layers, pre_norm=args.pre_norm,
                          position_embedding=args.position_embedding)
         model = build_detr(cfg, args.backbone, args.image_size, dtype,
-                           torch.Generator().manual_seed(0), device)
+                           torch.Generator().manual_seed(0), device,
+                           masks=args.masks)
     if args.torch_ckpt:
         from vit_torch_tpu_torch.checkpoint.torch_import import (
             load_backbone_state_dict)
@@ -315,7 +342,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     else:
         trainer = DetectionTrainer(model, image_size=args.image_size,
                                    num_classes=train_ds.num_classes,
-                                   lr=args.lr, augment=not args.no_hflip,
+                                   lr=args.lr, masks=args.masks,
+                                   augment=not args.no_hflip,
                                    aug_crop=args.aug_crop,
                                    aug_erase=args.aug_erase, opt=args.opt,
                                    weight_decay=args.weight_decay)
@@ -339,8 +367,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         print(f"\r  [{i + 1}/{n}] " + " ".join(
             f"{k}[{v:.4f}]" for k, v in logs.items()), end="", flush=True)
 
-    iou_types = ("bbox", "keypoints") if args.keypoints else ("bbox",)
-    eval_kw = dict(label_to_cat=val_ds.label_to_cat, iou_types=iou_types)
+    # mask models add segm and PQ (reference object/engine.py:58-67 adds
+    # segm; object_detr/datasets/panoptic_eval.py scores PQ)
+    iou_types = (("bbox",) + (("segm",) if args.masks else ())
+                 + (("keypoints",) if args.keypoints else ()))
+    eval_kw = dict(label_to_cat=val_ds.label_to_cat, iou_types=iou_types,
+                   panoptic=args.masks)
     if not args.no_initial_eval:
         metrics = trainer.evaluate(val_loader, val_ds.coco, **eval_kw)
         record["initial"] = metrics
@@ -363,8 +395,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         ap = metrics.get("bbox", {})
         line = (f"epoch {epoch}: loss {train_logs['loss_total']:.4f} "
                 f"AP {ap.get('ap', 0):.4f} AP50 {ap.get('ap50', 0):.4f}")
+        if "segm" in metrics:
+            line += f" segmAP {metrics['segm'].get('ap', 0):.4f}"
         if "keypoints" in metrics:
             line += f" kpAP {metrics['keypoints'].get('ap', 0):.4f}"
+        if "panoptic" in metrics:
+            line += f" PQ {metrics['panoptic'].get('pq', 0):.4f}"
         print(line)
 
     record["telem"]["completed"] = True

@@ -12,7 +12,9 @@ batch), ``image_id``, ``scale``, ``pad`` and ``orig_size`` for mapping
 predictions back to the original pixels.  With ``load_keypoints`` a
 batch also has ``gt_keypoints`` (B, N, K, 3) in letterbox pixels, K from
 the categories' keypoint names (17, COCO's person, where none are
-given).  Instance masks (``load_masks``) come with ROADMAP.md A10c.
+given).  With ``load_masks``, ``gt_masks`` (B, N, S, S) uint8: each
+annotation's polygons rasterised by PIL in letterbox pixels, or its RLE
+decoded, NEAREST-resized with PIL and pasted into the canvas.
 """
 
 from __future__ import annotations
@@ -23,8 +25,6 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from vit_torch_tpu_torch.detection.coco_eval import COCO
-
-_MASKS = "A10c, masks and segmentation"
 
 
 def letterbox_params(h: int, w: int, size: int):
@@ -52,12 +52,10 @@ class CocoDetectionDataset:
                  keep_empty: bool = False, seed: int = 0,
                  shuffle: bool = False, load_masks: bool = False,
                  load_keypoints: bool = False) -> None:
-        if load_masks:
-            raise NotImplementedError(
-                f"instance masks are not ported yet (ROADMAP.md {_MASKS})")
         self.images_dir = images_dir
         self.image_size = image_size
         self.max_boxes = max_boxes
+        self.load_masks = load_masks
         self.load_keypoints = load_keypoints
         self.coco = COCO(ann_file)
         self.num_keypoints = 0
@@ -96,6 +94,30 @@ class CocoDetectionDataset:
     def __len__(self) -> int:
         return len(self.ids)
 
+    @staticmethod
+    def _rasterize(segm, scale, pad_x, pad_y, size) -> np.ndarray:
+        """A polygon or RLE segmentation as a (size, size) uint8 mask in
+        letterbox pixels."""
+        from PIL import Image, ImageDraw
+        from vit_torch_tpu_torch.detection import _mask
+        if isinstance(segm, dict):                     # RLE at original size
+            m = _mask.decode(segm)
+            h, w = m.shape[:2]
+            nh, nw = int(round(h * scale)), int(round(w * scale))
+            img = Image.fromarray(m * 255).resize((nw, nh), Image.NEAREST)
+            canvas = np.zeros((size, size), np.uint8)
+            canvas[pad_y:pad_y + nh, pad_x:pad_x + nw] = (
+                np.asarray(img) > 0).astype(np.uint8)
+            return canvas
+        img = Image.new("L", (size, size), 0)
+        draw = ImageDraw.Draw(img)
+        for poly in segm:
+            pts = [(poly[i] * scale + pad_x, poly[i + 1] * scale + pad_y)
+                   for i in range(0, len(poly) - 1, 2)]
+            if len(pts) >= 3:
+                draw.polygon(pts, outline=1, fill=1)
+        return np.asarray(img, np.uint8)
+
     def _load_image(self, info: dict) -> np.ndarray:
         from PIL import Image
         path = os.path.join(self.images_dir, info.get("file_name"))
@@ -116,6 +138,8 @@ class CocoDetectionDataset:
         boxes = np.zeros((self.max_boxes, 4), np.float32)
         labels = np.zeros((self.max_boxes,), np.int32)
         box_mask = np.zeros((self.max_boxes,), np.float32)
+        masks = (np.zeros((self.max_boxes, S, S), np.uint8)
+                 if self.load_masks else None)
         kps = (np.zeros((self.max_boxes, self.num_keypoints, 3), np.float32)
                if self.load_keypoints else None)
         anns = [a for a in self.coco.img_to_anns.get(img_id, [])
@@ -126,13 +150,18 @@ class CocoDetectionDataset:
                         (x + bw) * scale + pad_x, (y + bh) * scale + pad_y]
             labels[i] = self.cat_to_label.get(ann["category_id"], 0)
             box_mask[i] = 1.0
+            if masks is not None and "segmentation" in ann:
+                masks[i] = self._rasterize(ann["segmentation"], scale,
+                                           pad_x, pad_y, S)
             if kps is not None and ann.get("keypoints"):
                 k = np.asarray(ann["keypoints"], np.float32).reshape(
                     -1, 3)[:self.num_keypoints]
                 k[:, 0] = k[:, 0] * scale + pad_x
                 k[:, 1] = k[:, 1] * scale + pad_y
                 kps[i, :len(k)] = k
-        extra = {} if kps is None else {"gt_keypoints": kps}
+        extra = {} if masks is None else {"gt_masks": masks}
+        if kps is not None:
+            extra["gt_keypoints"] = kps
         return {
             **extra,
             "image": canvas,

@@ -1,6 +1,7 @@
-"""COCO bbox and keypoint evaluation, counterpart of
+"""COCO bbox, segm and keypoint evaluation, counterpart of
 ``vit_torch_tpu/detection/coco_eval.py`` (its ``COCO``, ``COCOeval`` and
-``CocoEvaluator`` for ``iou_type`` ``"bbox"`` and ``"keypoints"``).
+``CocoEvaluator`` for ``iou_type`` ``"bbox"``, ``"segm"`` and
+``"keypoints"``).
 
 The published COCO protocol: greedy score-descending matching per IoU
 threshold with iscrowd and area-range ignore handling, 101-point
@@ -11,11 +12,11 @@ JSON (``object/coco_pipeline.py:495-515``).  The keypoint protocol
 sigmas (0.05 each where a schema has other than 17 keypoints), 20
 detections an image, no "small" bucket, gts without a labelled keypoint
 ignored, and the 10-number summary (AP, AP50, AP75, APm, APl, AR, AR50,
-AR75, ARm, ARl).  The bbox IoU with crowd regions is the numpy body of
-the JAX package's ``_mask._bbox_iou``
-(``vit_torch_tpu/detection/_mask.py:289-302``); the port loads no native
-library.  Mask IoU (``segm``) comes with ROADMAP.md A10c; a multi-process
-merge with A8.
+AR75, ARm, ARl).  The IoUs are :mod:`~vit_torch_tpu_torch.detection.
+_mask`'s: boxes, and RLE masks (polygons rasterised at the image's size)
+with crowd regions; a segm result's area is its mask's (``area_segm``),
+so that segm buckets by mask area.  A multi-process merge comes with
+ROADMAP.md A8.
 """
 
 from __future__ import annotations
@@ -26,38 +27,15 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-_LATER = {"segm": "A10c, masks and segmentation"}
+from vit_torch_tpu_torch.detection import _mask
+from vit_torch_tpu_torch.detection._mask import bbox_iou
+
+IOU_TYPES = ("bbox", "segm", "keypoints")
 
 
-def _refuse_iou_type(iou_type: str) -> None:
-    if iou_type in _LATER:
-        raise NotImplementedError(f"iou_type {iou_type!r} is not ported yet "
-                                  f"(ROADMAP.md {_LATER[iou_type]})")
-    if iou_type not in ("bbox", "keypoints"):
+def _check_iou_type(iou_type: str) -> None:
+    if iou_type not in IOU_TYPES:
         raise ValueError(f"unknown iou_type {iou_type!r}")
-
-
-def bbox_iou(dt: np.ndarray, gt: np.ndarray,
-             iscrowd: Sequence[int]) -> np.ndarray:
-    """(D, G) IoU of xywh boxes; against a crowd gt the denominator is the
-    detection's own area (pycocotools ``bbIou``)."""
-    dt = np.asarray(dt, np.float64).reshape(-1, 4)
-    gt = np.asarray(gt, np.float64).reshape(-1, 4)
-    if len(dt) == 0 or len(gt) == 0:
-        return np.zeros((len(dt), len(gt)))
-    dx0, dy0 = dt[:, 0:1], dt[:, 1:2]
-    dx1, dy1 = dx0 + dt[:, 2:3], dy0 + dt[:, 3:4]
-    gx0, gy0 = gt[None, :, 0], gt[None, :, 1]
-    gx1, gy1 = gx0 + gt[None, :, 2], gy0 + gt[None, :, 3]
-    iw = np.maximum(np.minimum(dx1, gx1) - np.maximum(dx0, gx0), 0)
-    ih = np.maximum(np.minimum(dy1, gy1) - np.maximum(dy0, gy0), 0)
-    inter = iw * ih
-    da = (dt[:, 2] * dt[:, 3])[:, None]
-    ga = (gt[:, 2] * gt[:, 3])[None, :]
-    crowd = (np.asarray(iscrowd, bool)[None, :] if len(iscrowd)
-             else np.zeros((1, len(gt)), bool))
-    denom = np.where(crowd, da, da + ga - inter)
-    return np.where(denom > 0, inter / np.maximum(denom, 1e-12), 0.0)
 
 
 class COCO:
@@ -93,7 +71,9 @@ class COCO:
 
     def load_res(self, results: Sequence[dict]) -> "COCO":
         """Build a results COCO from detection dicts ``{image_id,
-        category_id, bbox (xywh), score[, keypoints]}``; a result with
+        category_id, bbox (xywh), score[, segmentation][, keypoints]}``;
+        a result with a segmentation keeps its mask's area in
+        ``area_segm`` (and in ``area`` where it has none); one with
         keypoints and no bbox takes its bbox and area from the keypoints'
         extent (pycocotools ``loadRes``)."""
         res = COCO(dataset={
@@ -102,13 +82,16 @@ class COCO:
             "annotations": []})
         anns = []
         for i, det in enumerate(results):
-            if "segmentation" in det:
-                _refuse_iou_type("segm")
             ann = dict(det)
             ann["id"] = i + 1
             if "bbox" in ann and "area" not in ann:
                 x, y, w, h = ann["bbox"]
                 ann["area"] = w * h
+            if "segmentation" in ann:
+                # one result dict serves every iou type, so the mask's
+                # area rides in a key of its own
+                ann["area_segm"] = _mask.area(ann["segmentation"])
+                ann.setdefault("area", ann["area_segm"])
             if "keypoints" in ann and "bbox" not in ann:
                 kp = np.asarray(ann["keypoints"], np.float64).reshape(-1, 3)
                 x0, x1 = float(kp[:, 0].min()), float(kp[:, 0].max())
@@ -129,11 +112,11 @@ KPT_OKS_SIGMAS = np.array([
 
 
 class COCOeval:
-    """The COCO evaluation protocol, bbox or keypoints."""
+    """The COCO evaluation protocol, bbox, segm or keypoints."""
 
     def __init__(self, coco_gt: COCO, coco_dt: COCO,
                  iou_type: str = "bbox") -> None:
-        _refuse_iou_type(iou_type)
+        _check_iou_type(iou_type)
         self.coco_gt = coco_gt
         self.coco_dt = coco_dt
         self.iou_type = iou_type
@@ -170,8 +153,21 @@ class COCOeval:
         dts = sorted(dts, key=lambda d: -d.get("score", 0))[:self.max_dets[-1]]
         if self.iou_type == "keypoints":
             return self._compute_oks(dts, gts)
-        return bbox_iou([d["bbox"] for d in dts], [g["bbox"] for g in gts],
-                        [int(g.get("iscrowd", 0)) for g in gts])
+        iscrowd = [int(g.get("iscrowd", 0)) for g in gts]
+        if self.iou_type == "bbox":
+            return bbox_iou([d["bbox"] for d in dts],
+                            [g["bbox"] for g in gts], iscrowd)
+        img = self.coco_gt.imgs[img_id]
+        h, w = img["height"], img["width"]
+        return _mask.rle_iou([self._to_rle(d["segmentation"], h, w)
+                              for d in dts],
+                             [self._to_rle(g["segmentation"], h, w)
+                              for g in gts], iscrowd)
+
+    @staticmethod
+    def _to_rle(segm, h, w) -> dict:
+        return segm if isinstance(segm, dict) else _mask.poly_to_rle(segm,
+                                                                     h, w)
 
     @staticmethod
     def _compute_oks(dts, gts) -> np.ndarray:
@@ -256,10 +252,17 @@ class COCOeval:
                 dt_ignore[ti, di] = gt_ignore[best]
                 dt_match[ti, di] = gts[best]["id"]
                 gt_match[ti, best] = dts[di]["id"]
-        # unmatched dts outside the area range are ignored
+        # unmatched dts outside the area range are ignored; segm buckets
+        # by the mask's area
+        def dt_area(d):
+            if self.iou_type == "segm" and "area_segm" in d:
+                return d["area_segm"]
+            return d.get("area", d["bbox"][2] * d["bbox"][3]
+                         if "bbox" in d else 0)
+
         dt_out = np.asarray([
-            not (area_rng[0] <= d.get("area", d["bbox"][2] * d["bbox"][3])
-                 <= area_rng[1]) for d in dts]) if D else np.zeros(0, bool)
+            not (area_rng[0] <= dt_area(d) <= area_rng[1])
+            for d in dts]) if D else np.zeros(0, bool)
         if D:
             dt_ignore = np.logical_or(dt_ignore, np.logical_and(
                 dt_match == 0, dt_out[None, :].repeat(T, 0)))
@@ -374,7 +377,7 @@ class CocoEvaluator:
 
     def __init__(self, coco_gt: COCO, iou_types: Sequence[str] = ("bbox",)):
         for iou_type in iou_types:
-            _refuse_iou_type(iou_type)
+            _check_iou_type(iou_type)
         self.coco_gt = coco_gt
         self.iou_types = list(iou_types)
         self.results: List[dict] = []
@@ -382,12 +385,11 @@ class CocoEvaluator:
 
     def update(self, predictions: Dict[int, dict]) -> None:
         """predictions: ``{image_id: {'boxes' xyxy, 'scores', 'labels'
+        [, 'masks' (N, H, W) binary at the original resolution]
         [, 'keypoints' (N, K, 3)]}}`` (numpy or anything numpy
         converts)."""
         for img_id, pred in predictions.items():
-            for key in ("masks", "segm_rles"):
-                if key in pred:
-                    _refuse_iou_type("segm")
+            masks = pred.get("masks")
             boxes = np.asarray(pred["boxes"], np.float64).reshape(-1, 4)
             scores = np.asarray(pred["scores"], np.float64).reshape(-1)
             labels = np.asarray(pred["labels"], np.int64).reshape(-1)
@@ -400,6 +402,9 @@ class CocoEvaluator:
                 result = {
                     "image_id": int(img_id), "category_id": int(label),
                     "bbox": [float(v) for v in box], "score": float(score)}
+                if masks is not None:
+                    result["segmentation"] = _mask.encode(
+                        np.asarray(masks[i], np.uint8))
                 if keypoints is not None:
                     result["keypoints"] = [float(v) for v in np.asarray(
                         keypoints[i], np.float64).reshape(-1)]

@@ -231,9 +231,14 @@ class DETR(nn.Module):
         return sine_position_embedding(h, w, self.config.hidden_dim,
                                        device=device)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def detect(self, feats: torch.Tensor):
+        """The transformer and the heads over a backbone map ``(B, Hf, Wf,
+        C')``: the predictions of every decoder layer, the encoder memory
+        ``(B, Hf·Wf, hidden)`` and the last decoder layer's normed output
+        ``(B, Q, hidden)`` (what the mask branch of
+        :class:`~vit_torch_tpu_torch.detection.segmentation.DETRSegm`
+        reads)."""
         cfg = self.config
-        feats = self.backbone(x)                        # (B, Hf, Wf, C')
         B, Hf, Wf, Cf = feats.shape
         src = self.input_proj(feats.reshape(B, Hf * Wf, Cf).to(self.dtype))
         pos = self.position(Hf, Wf, src.device).to(src.dtype)
@@ -254,25 +259,37 @@ class DETR(nn.Module):
         out = dict(outputs[-1])
         if cfg.aux_loss:
             out["aux_outputs"] = outputs[:-1]
-        return out
+        return out, memory, h
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.detect(self.backbone(x))[0]
 
 
 def build_detr(config: DETRConfig,
                backbone: str = "swin_tiny_patch4_window7_224",
                image_size: int = 512, dtype: torch.dtype = torch.bfloat16,
                generator: Optional[torch.Generator] = None,
-               device=None) -> DETR:
+               device=None, masks: bool = False,
+               num_mask_heads: int = 8) -> DETR:
     """DETR over the port's ``SwinTransformer(features_only=True)`` of the
     Swin config ``backbone`` for ``image_size`` inputs, initialised from
-    ``generator`` (seed 0 when None) by :func:`init_detr`, on ``device``."""
+    ``generator`` (seed 0 when None) by :func:`init_detr`, on ``device``.
+    With ``masks``, :class:`~vit_torch_tpu_torch.detection.segmentation.
+    DETRSegm` over the Swin's stage maps (``multi_features=True``) with
+    ``num_mask_heads`` attention-map heads."""
     from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, SwinTransformer
     if backbone not in SWIN_CONFIGS:
         raise ValueError(f"unsupported DETR backbone {backbone!r} (use a "
                          f"swin config, or --head faster_rcnn for the "
                          f"ResNet trunks)")
     trunk = SwinTransformer(SWIN_CONFIGS[backbone], image_size=image_size,
-                            dtype=dtype, features_only=True)
-    model = DETR(config, trunk, dtype=dtype)
+                            dtype=dtype, features_only=not masks,
+                            multi_features=masks)
+    if masks:
+        from vit_torch_tpu_torch.detection.segmentation import DETRSegm
+        model = DETRSegm(config, trunk, num_mask_heads, dtype=dtype)
+    else:
+        model = DETR(config, trunk, dtype=dtype)
     init_detr(model, generator or torch.Generator().manual_seed(0))
     return model.to(device) if device is not None else model
 
@@ -284,23 +301,26 @@ def init_detr(model: DETR, generator: torch.Generator) -> None:
     it; Xavier-uniform on the transformer's attention and FFN weights
     (upstream DETR re-initialises every matrix of its transformer so);
     flax's ``lecun_normal`` (truncated normal of std ``1/sqrt(fan_in)``)
-    on ``input_proj`` and the heads; N(0, 1) on ``query_embed``, whose
-    spread is the anchor structure of set prediction; U[0, 1) on the
-    learned position tables; biases 0 and LayerNorm weights 1."""
+    on ``input_proj``, the heads, the mask branch's attention-map
+    projections and its convs (flax's defaults); N(0, 1) on
+    ``query_embed``, whose spread is the anchor structure of set
+    prediction; U[0, 1) on the learned position tables; biases 0 and
+    LayerNorm and GroupNorm weights 1."""
     init_weights(model.backbone, generator)
     for name, mod in model.named_modules():
         if name.startswith("backbone"):
             continue
-        if isinstance(mod, LayerNorm):
+        if isinstance(mod, (LayerNorm, nn.GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-        elif isinstance(mod, Linear):
+        elif isinstance(mod, (Linear, nn.Conv2d)):
             if mod.bias is not None:
                 mod.bias.zero_()
             if isinstance(mod, QLinear) and name != "input_proj":
                 nn.init.xavier_uniform_(mod.weight, generator=generator)
             else:
-                std = 1.0 / math.sqrt(mod.in_features) / .87962566103423978
+                fan_in = mod.weight[0].numel()
+                std = 1.0 / math.sqrt(fan_in) / .87962566103423978
                 nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std,
                                       b=2 * std, generator=generator)
     model.query_embed.normal_(0.0, 1.0, generator=generator)

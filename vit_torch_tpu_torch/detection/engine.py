@@ -2,10 +2,11 @@
 ``vit_torch_tpu/detection/engine.py``'s ``DetectionTrainer`` and
 ``FasterRCNNTrainer`` (the reference's ``object/engine.py:14-110`` and
 ``object_detr/engine.py``): the DETR train step with the host Hungarian
-matcher, the Faster R-CNN / Keypoint R-CNN train step with its matching
-and sampling on the device, the epoch loop with epoch-0 linear LR
-warmup, loss logging and the non-finite-loss stop, and the COCO bbox and
-keypoint evaluation.
+matcher (with ``masks``, DETRSegm's focal and dice losses on the last
+layer's assignment), the Faster R-CNN / Keypoint R-CNN train step with
+its matching and sampling on the device, the epoch loop with epoch-0
+linear LR warmup, loss logging and the non-finite-loss stop, and the
+COCO bbox, segm and keypoint evaluation with panoptic quality.
 
 One forward a step, upstream DETR's order: the training forward, the
 matching costs from its detached outputs on the device, one copy of the
@@ -39,6 +40,7 @@ import torch
 
 from vit_torch_tpu_torch.data.augment import normalize
 from vit_torch_tpu_torch.data.datasets import NORM_VALUES
+from vit_torch_tpu_torch.detection import _mask
 from vit_torch_tpu_torch.detection.boxes import xyxy_to_cxcywh
 from vit_torch_tpu_torch.detection.coco_eval import CocoEvaluator
 from vit_torch_tpu_torch.detection.detr import detr_losses, postprocess
@@ -47,11 +49,17 @@ from vit_torch_tpu_torch.detection.faster_rcnn import (draw_noise,
                                                        faster_rcnn_predict)
 from vit_torch_tpu_torch.detection.matcher import (cost_matrices,
                                                    hungarian_match)
-from vit_torch_tpu_torch.detection.transforms import (apply_hflip,
+from vit_torch_tpu_torch.detection.panoptic_eval import (PQStat,
+                                                         masks_to_segment_map)
+from vit_torch_tpu_torch.detection.segmentation import (mask_losses,
+                                                        pack_mask_bits,
+                                                        postprocess_segm)
+from vit_torch_tpu_torch.detection.transforms import (apply_erasing,
+                                                      apply_hflip,
+                                                      apply_zoom_crop,
+                                                      draw_erasing,
                                                       draw_hflip,
-                                                      random_erasing,
-                                                      random_hflip,
-                                                      random_zoom_crop)
+                                                      draw_zoom_crop)
 from vit_torch_tpu_torch.models.layers import set_generator
 from vit_torch_tpu_torch.train.optimizers import set_learning_rate
 
@@ -90,6 +98,18 @@ def _to_device(array, device: torch.device, dtype=None) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def _device_batch(batch: dict, device: torch.device
+                  ) -> Dict[str, torch.Tensor]:
+    """The images, boxes, labels and masks of a host batch on ``device``
+    (:func:`_to_device`), the tensors both trainers' steps read."""
+    return {
+        "image": _to_device(batch["image"], device),
+        "boxes": _to_device(batch["boxes"], device, torch.float32),
+        "labels": _to_device(batch["labels"], device, torch.long),
+        "box_mask": _to_device(batch["box_mask"], device, torch.float32),
+        "mask": _to_device(batch["mask"], device, torch.float32)}
+
+
 def _epoch(train_step, loader, epoch: int, set_lr, base_lr: float,
            warmup_steps: int, print_freq: int, warmup: bool,
            log_fn: Optional[Callable]) -> Dict[str, float]:
@@ -120,6 +140,52 @@ def _epoch(train_step, loader, epoch: int, set_lr, base_lr: float,
     return {k: v / max(count, 1) for k, v in totals.items()}
 
 
+def _unletterbox_masks(masks: np.ndarray, scale: float, pad: np.ndarray,
+                       orig_size: np.ndarray) -> np.ndarray:
+    """(N, S, S) letterbox masks → (N, h, w) binary masks at the original
+    resolution: the content region cropped and resized back by one
+    index gather, nearest at half-pixel centres (``floor((dst + 0.5) ·
+    src / dst)``), as the JAX package's ``_unletterbox_masks``."""
+    masks = np.asarray(masks, np.uint8)
+    h, w = int(orig_size[0]), int(orig_size[1])
+    nh, nw = int(round(h * float(scale))), int(round(w * float(scale)))
+    px, py = int(pad[0]), int(pad[1])
+    if masks.shape[0] == 0 or nh <= 0 or nw <= 0:
+        return np.zeros((masks.shape[0], h, w), np.uint8)
+    crop = masks[:, py:py + nh, px:px + nw]
+    ys = np.clip(np.floor((np.arange(h) + 0.5) * nh / h).astype(np.int64),
+                 0, nh - 1)
+    xs = np.clip(np.floor((np.arange(w) + 0.5) * nw / w).astype(np.int64),
+                 0, nw - 1)
+    return (crop[:, ys[:, None], xs[None, :]] > 0).astype(np.uint8)
+
+
+def _pq_prepare(coco_gt, img_id: int, pred: Dict[str, np.ndarray]):
+    """One image's PQ inputs: the gt segment map rasterised from the COCO
+    annotations (later annotations paint over earlier ones) and the
+    predicted one painted from the instance masks (the higher score
+    last)."""
+    info = coco_gt.imgs[img_id]
+    h, w = int(info["height"]), int(info["width"])
+    gt_map = np.zeros((h, w), np.int32)
+    gt_segments: Dict[int, int] = {}
+    crowd_ids = []
+    for sid, ann in enumerate(coco_gt.img_to_anns.get(img_id, []), start=1):
+        segm = ann.get("segmentation")
+        if segm is None:
+            continue
+        rle = segm if isinstance(segm, dict) else _mask.poly_to_rle(segm, h,
+                                                                   w)
+        gt_map[_mask.decode(rle).astype(bool)] = sid
+        gt_segments[sid] = int(ann["category_id"])
+        if ann.get("iscrowd", 0):
+            crowd_ids.append(sid)
+    pred_map, pred_segments = masks_to_segment_map(
+        pred["masks"], [int(l) for l in pred["labels"]],
+        [float(s) for s in pred["scores"]], (h, w))
+    return gt_map, gt_segments, pred_map, pred_segments, crowd_ids
+
+
 def _to_host(tensors: Dict[str, torch.Tensor]):
     """Start the copy of ``tensors`` to the host; returns the host tensors
     and the CUDA event that marks their arrival (None on the CPU)."""
@@ -141,14 +207,12 @@ class DetectionTrainer:
                  opt: str = "adamw", momentum: float = 0.9,
                  norm_values: Optional[dict] = None, seed: int = 0) -> None:
         """``model`` is a :class:`~vit_torch_tpu_torch.detection.detr.DETR`
-        on its device.  ``augment`` turns on the horizontal flip;
+        on its device, with ``masks`` a :class:`~vit_torch_tpu_torch.
+        detection.segmentation.DETRSegm` (batches then carry
+        ``gt_masks``).  ``augment`` turns on the horizontal flip;
         ``aug_crop`` and ``aug_erase`` apply with it or without it.  Every
-        random draw (augmentation, drop-path) comes from one generator on
-        the model's device, seeded with ``seed``."""
-        if masks:
-            raise NotImplementedError("the DETR mask head is not ported yet "
-                                      "(ROADMAP.md A10c, masks and "
-                                      "segmentation)")
+        random draw (augmentation in :meth:`draw`, drop-path) comes from
+        one generator on the model's device, seeded with ``seed``."""
         if matcher != "host":
             raise NotImplementedError(
                 f"--matcher {matcher} is not ported yet (ROADMAP.md A10d: "
@@ -159,6 +223,7 @@ class DetectionTrainer:
         self.device = next(model.parameters()).device
         self.image_size = image_size
         self.num_classes = num_classes
+        self.masks = masks
         self.augment = augment
         self.aug_crop = aug_crop
         self.aug_erase = aug_erase
@@ -188,27 +253,49 @@ class DetectionTrainer:
 
     # ------------------------------------------------------------------
     def _batch(self, batch: dict) -> Dict[str, torch.Tensor]:
-        dev = self.device
-        return {
-            "image": _to_device(batch["image"], dev),
-            "boxes": _to_device(batch["boxes"], dev, torch.float32),
-            "labels": _to_device(batch["labels"], dev, torch.long),
-            "box_mask": _to_device(batch["box_mask"], dev, torch.float32),
-            "mask": _to_device(batch["mask"], dev, torch.float32)}
+        out = _device_batch(batch, self.device)
+        if self.masks:
+            out["gt_masks"] = _to_device(batch["gt_masks"], self.device,
+                                         torch.uint8)
+        return out
 
-    def _augmented(self, b: Dict[str, torch.Tensor]):
-        images, boxes, box_mask = b["image"], b["boxes"], b["box_mask"]
+    def draw(self, batch_size: int) -> Dict[str, Dict[str, torch.Tensor]]:
+        """One step's augmentation draws from the trainer's generator, in
+        this order: the flip's ``flip`` (B,) where ``augment``, the
+        zoom-crop's where ``aug_crop``, the erasing's where ``aug_erase``
+        (:mod:`~vit_torch_tpu_torch.detection.transforms`'s ``draw_*``).
+        A test replaces it to feed the JAX trainer's draws in."""
+        dev, out = self.device, {}
         if self.augment:
-            images, boxes = random_hflip(self.generator, images, boxes,
-                                         self.image_size)
+            out["flip"] = draw_hflip(self.generator, batch_size, dev)
         if self.aug_crop:
-            images, boxes, box_mask = random_zoom_crop(
-                self.generator, images, boxes, box_mask, self.image_size)
+            out["crop"] = draw_zoom_crop(self.generator, batch_size,
+                                         self.image_size, dev)
         if self.aug_erase:
+            out["erase"] = draw_erasing(self.generator, batch_size, dev)
+        return out
+
+    def _augmented(self, b: Dict[str, torch.Tensor], draws):
+        """Images, boxes, box_mask and the gt masks (None without
+        ``masks``) under one step's ``draws``; the masks move with the
+        images."""
+        images, boxes, box_mask = b["image"], b["boxes"], b["box_mask"]
+        gt_masks = b.get("gt_masks")
+        if "flip" in draws:
+            flipped = apply_hflip(draws["flip"], images, boxes,
+                                  self.image_size, masks=gt_masks)
+            images, boxes = flipped[:2]
+            gt_masks = flipped[2] if gt_masks is not None else None
+        if "crop" in draws:
+            cropped = apply_zoom_crop(draws["crop"], images, boxes, box_mask,
+                                      self.image_size, gt_masks)
+            images, boxes, box_mask = cropped[:3]
+            gt_masks = cropped[3] if gt_masks is not None else None
+        if "erase" in draws:
             # the dataset mean, so that the patch normalises to zero
-            images = random_erasing(self.generator, images,
-                                    value=self.erase_value)
-        return images, boxes, box_mask
+            images = apply_erasing(draws["erase"], images,
+                                   value=self.erase_value)
+        return images, boxes, box_mask, gt_masks
 
     def match(self, layers, targets) -> torch.Tensor:
         """The ``(L, B, Q)`` assignment of every decoder layer's
@@ -230,38 +317,48 @@ class DetectionTrainer:
         self.host_ms["steps"] += 1
         return torch.from_numpy(assign).to(self.device)
 
-    def losses(self, outputs, targets, assign):
+    def losses(self, outputs, targets, assign, gt_masks=None):
         """Sum of the set losses of every decoder layer and the last
-        layer's terms."""
+        layer's terms; with ``gt_masks`` and ``pred_masks`` in the
+        outputs, plus the mask losses on the last layer's assignment
+        (``loss_mask``, ``loss_dice``)."""
         layers = list(outputs.get("aux_outputs", [])) + [outputs]
         total, logs = 0.0, {}
         for li, o in enumerate(layers):
             terms = detr_losses(o, targets, assign[li], self.num_classes)
             total = total + terms["loss"]
             logs = terms
+        if gt_masks is not None and "pred_masks" in outputs:
+            ml = mask_losses(outputs["pred_masks"], gt_masks, assign[-1],
+                             targets["box_mask"], targets["mask"])
+            total = total + ml["loss_mask"] + ml["loss_dice"]
+            logs = {**logs, **ml}
         return total, logs
 
     def train_step(self, batch: dict) -> Dict[str, torch.Tensor]:
         """One step on a host batch (:class:`~vit_torch_tpu_torch.detection.
         coco_data.CocoLoader`'s dict): augment, forward, match, losses,
-        backward, clip, update.  Returns the last layer's loss terms and
-        ``loss_total`` as device tensors."""
+        backward, clip, update.  Returns the last layer's loss terms (and
+        the mask losses) and ``loss_total`` as device tensors."""
         self.model.train()
         b = self._batch(batch)
-        images, boxes, box_mask = self._augmented(b)
+        images, boxes, box_mask, gt_masks = self._augmented(
+            b, self.draw(len(batch["image"])))
         x = normalize(images, **self.norm)
         targets = prep_targets(b["labels"], boxes, box_mask, b["mask"],
                                self.image_size)
         outputs = self.model(x)
         layers = list(outputs.get("aux_outputs", [])) + [outputs]
         assign = self.match(layers, targets)
-        total, logs = self.losses(outputs, targets, assign)
+        total, logs = self.losses(outputs, targets, assign,
+                                  gt_masks if self.masks else None)
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
         if self.grad_clip is not None:
             clip_grad_global_norm(self.params, self.grad_clip)
         self.optimizer.step()
-        return {**logs, "loss_total": total.detach()}
+        return {**{k: v.detach() for k, v in logs.items()},
+                "loss_total": total.detach()}
 
     def train_one_epoch(self, loader, epoch: int, print_freq: int = 10,
                         warmup: bool = True,
@@ -275,14 +372,21 @@ class DetectionTrainer:
 
     @torch.no_grad()
     def predict(self, batch: dict) -> Dict[str, torch.Tensor]:
-        """Scored boxes in original pixels for a host batch, eval mode."""
+        """Scored boxes in original pixels for a host batch, eval mode.
+        With ``masks``, the (B, Q, S, S) masks at the letterbox's
+        resolution bit-packed row-major for the copy to the host
+        (``masks_packed``)."""
         self.model.eval()
         images = torch.as_tensor(batch["image"]).to(self.device)
         outputs = self.model(normalize(images, **self.norm))
-        return postprocess(
+        preds = postprocess(
             outputs, self.image_size,
             torch.as_tensor(batch["scale"]).to(self.device),
             torch.as_tensor(batch["pad"]).to(self.device))
+        if self.masks and "pred_masks" in outputs:
+            preds["masks_packed"] = pack_mask_bits(
+                postprocess_segm(outputs["pred_masks"], self.image_size))
+        return preds
 
     def evaluate(self, loader, coco_gt, iou_types=("bbox",),
                  score_threshold: float = 0.0,
@@ -292,53 +396,88 @@ class DetectionTrainer:
         predictions, ``CocoEvaluator`` update (with the keypoints where
         the predictions have them), accumulate, summarize;
         ``label_to_cat`` maps the model's contiguous labels back to COCO
-        ids.  One batch deep: batch i + 1's forward is queued, and its
-        predictions start for the host, before batch i's host work.
-        ``last_eval_profile`` splits the host time: waiting for the
-        predictions, the per-image updates, the final accumulate."""
-        if panoptic:
-            raise NotImplementedError("panoptic evaluation is not ported yet "
-                                      "(ROADMAP.md A10c)")
+        ids.  With ``"segm"`` in ``iou_types`` the predicted masks are
+        scored as RLEs at the original resolution (the reference's
+        ``object/engine.py:58-67``); with ``panoptic`` they are also
+        painted into segment maps and scored as PQ (``out["panoptic"]``:
+        pq, sq, rq, n).  Each image's masks are unpacked, taken back to
+        the original pixels (:func:`_unletterbox_masks`) and encoded by
+        :class:`~vit_torch_tpu_torch.detection.coco_eval.CocoEvaluator`
+        (the JAX package's pixel route, with PQ or without).  One batch
+        deep: batch i + 1's forward is queued, and its predictions start
+        for the host, before batch i's host work, whose per-image part
+        runs on a pool of 8 threads.  ``last_eval_profile`` splits the
+        host time: waiting for the predictions (``t_get``), the per-image
+        updates (``t_host``), the final accumulate with PQ
+        (``t_final``)."""
+        from concurrent.futures import ThreadPoolExecutor
         evaluator = CocoEvaluator(coco_gt, iou_types)
+        want_masks = "segm" in iou_types or panoptic
+        pq = PQStat() if panoptic else None
+        S = self.image_size
         prof = {"t_get": 0.0, "t_host": 0.0, "t_final": 0.0, "images": 0}
         self.last_eval_profile = prof
 
-        def drain(batch, host, event):
+        def prep_image(args):
+            """One image's update (and PQ inputs): score filter, label
+            map, the masks' pixels."""
+            preds, batch, b = args
+            keep = preds["scores"][b] >= score_threshold
+            labels = preds["labels"][b][keep]
+            if label_to_cat:
+                labels = np.asarray([label_to_cat.get(int(l), int(l))
+                                     for l in labels])
+            update = {"boxes": preds["boxes"][b][keep],
+                      "scores": preds["scores"][b][keep],
+                      "labels": labels}
+            if "keypoints" in preds:
+                update["keypoints"] = preds["keypoints"][b][keep]
+            geometry = (batch["scale"][b], batch["pad"][b],
+                        batch["orig_size"][b])
+            if want_masks and "masks_packed" in preds:
+                # the packed width is byte-padded: slice back to S
+                pix = np.unpackbits(preds["masks_packed"][b][keep],
+                                    axis=-1)[..., :S]
+                update["masks"] = _unletterbox_masks(pix, *geometry)
+            img_id = int(batch["image_id"][b])
+            pq_args = (_pq_prepare(coco_gt, img_id, update)
+                       if pq is not None and "masks" in update else None)
+            return img_id, update, pq_args
+
+        def drain(pool, batch, host, event):
             t0 = time.perf_counter()
             if event is not None:
                 event.synchronize()
             preds = {k: v.numpy() for k, v in host.items()}
             t1 = time.perf_counter()
-            for b in range(len(batch["image_id"])):
-                if batch["mask"][b] == 0:
-                    continue
-                keep = preds["scores"][b] >= score_threshold
-                labels = preds["labels"][b][keep]
-                if label_to_cat:
-                    labels = np.asarray([label_to_cat.get(int(l), int(l))
-                                         for l in labels])
-                update = {"boxes": preds["boxes"][b][keep],
-                          "scores": preds["scores"][b][keep],
-                          "labels": labels}
-                if "keypoints" in preds:
-                    update["keypoints"] = preds["keypoints"][b][keep]
-                evaluator.update({int(batch["image_id"][b]): update})
-                prof["images"] += 1
+            todo = [(preds, batch, b) for b in range(len(batch["image_id"]))
+                    if batch["mask"][b] != 0]
+            # the per-image work on the pool; the evaluator and PQ
+            # accumulate here, in image order
+            for img_id, update, pq_args in pool.map(prep_image, todo):
+                if pq_args is not None:
+                    pq.update(*pq_args)
+                evaluator.update({img_id: update})
+            prof["images"] += len(todo)
             prof["t_get"] += t1 - t0
             prof["t_host"] += time.perf_counter() - t1
 
-        pending = None
-        for batch in loader:
-            host, event = _to_host(self.predict(batch))
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            pending = None
+            for batch in loader:
+                host, event = _to_host(self.predict(batch))
+                if pending is not None:
+                    drain(pool, *pending)
+                pending = (batch, host, event)
             if pending is not None:
-                drain(*pending)
-            pending = (batch, host, event)
-        if pending is not None:
-            drain(*pending)
+                drain(pool, *pending)
         t0 = time.perf_counter()
         evaluator.synchronize_between_processes()
         evaluator.accumulate()
         out = evaluator.summarize()
+        if pq is not None:
+            out["panoptic"] = {k: v for k, v in pq.summarize().items()
+                               if k != "per_class"}
         prof["t_final"] = time.perf_counter() - t0
         return out
 
@@ -392,10 +531,9 @@ class FasterRCNNTrainer:
         set_learning_rate(self.optimizer, lr)
 
     def _batch(self, batch: dict) -> Dict[str, torch.Tensor]:
-        dev = self.device
-        out = DetectionTrainer._batch(self, batch)
+        out = _device_batch(batch, self.device)
         if "gt_keypoints" in batch:
-            out["keypoints"] = _to_device(batch["gt_keypoints"], dev,
+            out["keypoints"] = _to_device(batch["gt_keypoints"], self.device,
                                           torch.float32)
         return out
 

@@ -12,9 +12,11 @@ that a test can feed the JAX package's draws into the port's arithmetic;
 centres, a triangle kernel (the zoom is at least 1, so the kernel is not
 widened), weights renormalised where the canvas edge cuts the kernel, and
 samples outside the canvas zero; the separable weight matrices are
-applied with two ``einsum``.  The flip also mirrors Keypoint R-CNN's
-``(B, N, K, 3)`` keypoints, with the schema's left/right swap.  Instance
-masks come with ROADMAP.md A10c.
+applied with two ``einsum``.  The flip also mirrors DETR's ``(B, N, S, S)``
+instance masks and Keypoint R-CNN's ``(B, N, K, 3)`` keypoints, with the
+schema's left/right swap; the zoom-crop resamples each mask plane with
+the images' weights and thresholds it at 0.5.  Masks move with their
+images: one draw applies to both.
 """
 
 from __future__ import annotations
@@ -23,12 +25,6 @@ import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
-
-
-def _refuse(masks=None) -> None:
-    if masks is not None:
-        raise NotImplementedError("instance masks are not ported yet "
-                                  "(ROADMAP.md A10c, masks and segmentation)")
 
 
 def _uniform(generator, shape, device, lo=0.0, hi=1.0) -> torch.Tensor:
@@ -47,18 +43,24 @@ def draw_hflip(generator: torch.Generator, batch: int,
 def apply_hflip(flip: torch.Tensor, images: torch.Tensor,
                 boxes: torch.Tensor, image_size: int,
                 keypoints: Optional[torch.Tensor] = None,
-                kp_flip_inds: Optional[Sequence[int]] = None):
+                kp_flip_inds: Optional[Sequence[int]] = None,
+                masks: Optional[torch.Tensor] = None):
     """Flip the chosen samples' images along W and mirror their boxes'
     x coordinates about S (the centred letterbox is symmetric).  With
-    ``keypoints`` (B, N, K, 3), mirror their x about S too and reorder
-    the K axis by ``kp_flip_inds`` (the left/right swap; none keeps the
-    order; a sequence or a tensor), and return them third."""
+    ``masks`` (B, N, S, S), flip them along W too and return them third.
+    With ``keypoints`` (B, N, K, 3), mirror their x about S too and
+    reorder the K axis by ``kp_flip_inds`` (the left/right swap; none
+    keeps the order; a sequence or a tensor), and return them last."""
     images = torch.where(flip[:, None, None, None], images.flip(2), images)
     flipped = torch.stack([image_size - boxes[..., 2], boxes[..., 1],
                            image_size - boxes[..., 0], boxes[..., 3]], -1)
     boxes = torch.where(flip[:, None, None], flipped, boxes)
+    out = (images, boxes)
+    if masks is not None:
+        out += (torch.where(flip[:, None, None, None], masks.flip(-1),
+                            masks),)
     if keypoints is None:
-        return images, boxes
+        return out
     kf = torch.stack([image_size - keypoints[..., 0], keypoints[..., 1],
                       keypoints[..., 2]], -1)
     if kp_flip_inds is not None:
@@ -66,7 +68,7 @@ def apply_hflip(flip: torch.Tensor, images: torch.Tensor,
         kf = kf.index_select(2, torch.as_tensor(kp_flip_inds,
                                                 device=kf.device))
     keypoints = torch.where(flip[:, None, None, None], kf, keypoints)
-    return images, boxes, keypoints
+    return out + (keypoints,)
 
 
 def random_hflip(generator: torch.Generator, images: torch.Tensor,
@@ -75,11 +77,10 @@ def random_hflip(generator: torch.Generator, images: torch.Tensor,
                  keypoints: Optional[torch.Tensor] = None,
                  kp_flip_inds: Optional[Sequence[int]] = None):
     """Per-sample random horizontal flip; returns ``(images, boxes)``,
-    and the keypoints third where given."""
-    _refuse(masks)
+    then the masks and the keypoints where given."""
     flip = draw_hflip(generator, images.shape[0], images.device, prob)
     return apply_hflip(flip, images, boxes, image_size, keypoints,
-                       kp_flip_inds)
+                       kp_flip_inds, masks)
 
 
 # -- zoom-crop --------------------------------------------------------------
@@ -143,11 +144,13 @@ def resample_linear(images: torch.Tensor, zoom: torch.Tensor,
 
 def apply_zoom_crop(draw: Dict[str, torch.Tensor], images: torch.Tensor,
                     boxes: torch.Tensor, box_mask: torch.Tensor,
-                    image_size: int):
+                    image_size: int, masks: Optional[torch.Tensor] = None):
     """Resample the chosen samples' windows to the full canvas (cast back
     to the images' dtype), shift, scale and clip their boxes, and drop
     the boxes the crop left no more than a pixel wide or high from
-    ``box_mask``.  Returns ``(images, boxes, box_mask)``."""
+    ``box_mask``.  Returns ``(images, boxes, box_mask)``, and with
+    ``masks`` (B, N, S, S) fourth the masks, each plane resampled as the
+    images are and thresholded at > 0.5 (in the masks' dtype)."""
     apply, zoom, off = draw["apply"], draw["zoom"], draw["off"]
     S = float(image_size)
     zoomed = resample_linear(images, zoom, off).to(images.dtype)
@@ -161,7 +164,13 @@ def apply_zoom_crop(draw: Dict[str, torch.Tensor], images: torch.Tensor,
     boxes = torch.where(apply[:, None, None], new_boxes, boxes)
     box_mask = torch.where(apply[:, None],
                            box_mask * survives.to(box_mask.dtype), box_mask)
-    return images, boxes, box_mask
+    if masks is None:
+        return images, boxes, box_mask
+    # the planes as channels: (B, S, S, N), each resampled on its own
+    planes = resample_linear(masks.permute(0, 2, 3, 1), zoom, off)
+    zm = (planes > 0.5).to(masks.dtype).permute(0, 3, 1, 2)
+    masks = torch.where(apply[:, None, None, None], zm, masks)
+    return images, boxes, box_mask, masks
 
 
 def random_zoom_crop(generator: torch.Generator, images: torch.Tensor,
@@ -170,11 +179,11 @@ def random_zoom_crop(generator: torch.Generator, images: torch.Tensor,
                      scale_range: Tuple[float, float] = (0.6, 1.0),
                      prob: float = 0.5):
     """Per-sample RandomSelect of identity and a random crop + resize;
-    returns ``(images, boxes, box_mask)``."""
-    _refuse(masks)
+    returns ``(images, boxes, box_mask)``, and the masks fourth where
+    given."""
     draw = draw_zoom_crop(generator, images.shape[0], image_size,
                           images.device, scale_range, prob)
-    return apply_zoom_crop(draw, images, boxes, box_mask, image_size)
+    return apply_zoom_crop(draw, images, boxes, box_mask, image_size, masks)
 
 
 # -- erasing ----------------------------------------------------------------

@@ -409,6 +409,12 @@ class SwinTransformer(nn.Module):
     def feature_dim(self) -> int:
         return self.config.feature_dim
 
+    @property
+    def stage_dims(self) -> List[int]:
+        """The channels of the ``multi_features`` maps, stage by stage."""
+        return [self.config.embed_dim * 2 ** i
+                for i in range(len(self.config.depths))]
+
     def forward(self, x: torch.Tensor
                 ) -> Union[torch.Tensor, List[torch.Tensor]]:
         x = self.pos_drop(self.patch_embed(x.to(self.dtype)))
