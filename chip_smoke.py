@@ -6,8 +6,8 @@
 2. builds every CUDA kernel (``_build.KERNELS``: the flash-attention
    forward and backward, the Swin window-attention core forward and
    backward, the window GEMM, talking heads, the fused attention block,
-   the fused MLP and W8A8's row quantisation and int8 product) from the
-   sources in the checkout
+   the fused MLP, W8A8's row quantisation and int8 product, and DETR's
+   auction matcher) from the sources in the checkout
    (``nvcc``, ``sm_90a``, one process per source, all started together)
    and prints each kernel's registers, shared memory and spills;
 3. holds each kernel against its plain PyTorch version on the card at the
@@ -191,7 +191,29 @@
    SQ, RQ); runs the eval forward with W8A8 off and on (``segm_w8a8``:
    the cosines of the logits and of the mask logits, Q1/Q2 launches);
    prints a ``segm`` summary line;
-17. prints one JSON line with each kernel's numbers, then the card's name
+17. DETR's device matcher and the rest of detection's life cycle (ROADMAP
+   A10d), on the DETR phase's synthetic set: holds the auction kernel
+   (``csrc/auction.cu``) against its plain version at (6, 8, 100, 64) on
+   random costs over non-prefix masks, integer costs full of ties, more
+   valid gts than queries, no valid gt and the costs of a real DETR step
+   (assignments equal, a permutation on the valid gts, the total within
+   n_valid · ε of the exact assignment), timed on events and from the
+   profiler with its iterations (``kernel check auction``); times the
+   device-matcher step beside the host-matcher step (busy, idle, peak
+   memory, launches, no device read before the loss on the device route:
+   ``detr_device_step``) and holds the bf16 device step against the fp32
+   one (``detr_device_step_vs_plain``); trains through ``cli.coco
+   --matcher device --scan 4 --ckpt_dir``, resumes epoch 1 with
+   ``--export_bundle`` (the restored state bitwise the saved one), exports
+   again under ``VITX_W8A8=1`` (``detr_scan_resume_bundle``: epoch
+   seconds, one read a chunk, checkpoint bytes, save and restore
+   seconds), serves the bundle over HTTP to a burst of 16 pictures at
+   varied aspect ratios and checks the replies against
+   ``trainer.predict`` and the W8A8 bundle's Q1/Q2 launches and cosine
+   (``detr_serve``); runs ``cli.coco --head faster_rcnn --keypoints --scan
+   4 --export_bundle`` and serves the Keypoint R-CNN bundle
+   (``frcnn_scan_bundle``); prints an ``a10d`` summary line;
+18. prints one JSON line with each kernel's numbers, then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -546,6 +568,16 @@ PAN_TRAIN_N, PAN_VAL_N = 32, 16
 # own distance from fp32, whichever is larger
 SEGM_LOSS_RTOL = 2e-2
 SEGM_RTOL = STEP_GRAD_RTOL
+# the device matcher (ROADMAP A10d): the auction at DETR's (L, B, Q, N) =
+# (6, 8, 100, 64) (--max_boxes 64); chunks of SCAN_K steps; served
+# detections against trainer.predict on the same letterboxed batch: the
+# served-logits bound on the scores (5e-2 of max |score|), boxes within
+# 5e-2 of the image size; SERVE_BURST one-picture requests at once
+AUCTION_Q, AUCTION_N = 100, 64
+SCAN_K = 4
+SERVE_SCORE_RTOL = LOGITS_ATOL
+SERVE_BOX_RTOL = 5e-2
+SERVE_BURST = 16
 
 
 def _say(*parts) -> None:
@@ -1472,6 +1504,8 @@ def _kernel_group(name: str) -> str:
         return "talking_heads"
     if "fused_mlp_kernel" in name:
         return "fused_mlp"
+    if "auction_kernel" in name:
+        return "auction"
     if "GroupNorm" in name or "group_norm" in low or any(k in name for k in (
             "RowwiseMomentsCUDAKernel", "ComputeFusedParamsCUDAKernel",
             "ComputeInternalGradientsCUDAKernel",
@@ -1741,6 +1775,7 @@ def _plain_attention():
 
 def _counters():
     """Every kernel wrapper, by the name it has in the kernels line."""
+    from vit_torch_tpu_torch.detection import matcher
     from vit_torch_tpu_torch.ops import attn_block as ab
     from vit_torch_tpu_torch.ops import flash_attention as fa
     from vit_torch_tpu_torch.ops import fused_mlp as fm
@@ -1762,7 +1797,8 @@ def _counters():
             "window_block": wb.window_block,
             "window_gemm": gm.gemm,
             "w8a8_quantize_rows": quant.quantize_rowwise,
-            "w8a8_gemm": quant.int8_gemm}
+            "w8a8_gemm": quant.int8_gemm,
+            "auction": matcher.auction_assign}
 
 
 def _reset_counts():
@@ -3904,9 +3940,10 @@ def detr_train_through_cli(root: str, workdir: str):
     return row
 
 
-def _detr_setup(root: str, seed: int = 0):
+def _detr_setup(root: str, seed: int = 0, matcher: str = "host"):
     """A seeded full-width DETR over Swin-T at 512 px on the card, its
-    trainer (AdamW, the flip on) and one synthetic bs8 batch."""
+    trainer (AdamW, the flip on, ``matcher``) and one synthetic bs8
+    batch."""
     import torch
     from vit_torch_tpu_torch.detection.coco_data import (CocoDetectionDataset,
                                                          CocoLoader)
@@ -3920,7 +3957,8 @@ def _detr_setup(root: str, seed: int = 0):
                        DETR_BACKBONE, DETR_SIZE, torch.bfloat16,
                        torch.Generator().manual_seed(seed), "cuda")
     trainer = DetectionTrainer(model, image_size=DETR_SIZE,
-                               num_classes=ds.num_classes, augment=True)
+                               num_classes=ds.num_classes, augment=True,
+                               matcher=matcher)
     return model, trainer, batch
 
 
@@ -3992,7 +4030,8 @@ def _plain_detr():
     return stack
 
 
-def compare_detr_step_with_plain(root: str):
+def compare_detr_step_with_plain(root: str, matcher: str = "host",
+                                 name: str = "detr_step_vs_plain"):
     """Loss and gradients of one bs8 DETR train step (no augmentation, the
     same drop-path masks, no optimizer step, the kernel forward's
     assignment for every run) on the kernels, on their plain versions in
@@ -4012,13 +4051,14 @@ def compare_detr_step_with_plain(root: str):
     layer's self-attention, whose values are zero) are left out.  The
     classifiers' readings are printed beside them.  The first card run
     of Swin's B8 route and of flash with Nk != Nq under autograd in one
-    model."""
+    model.  ``matcher="device"`` takes the assignment from the auction on
+    the card (one launch) instead of the host solve."""
     import torch
     from vit_torch_tpu_torch.data.augment import normalize
     from vit_torch_tpu_torch.detection.detr import DETRConfig, build_detr
     from vit_torch_tpu_torch.detection.engine import prep_targets
     from vit_torch_tpu_torch.models.layers import set_generator
-    model, trainer, batch = _detr_setup(root, seed=1)
+    model, trainer, batch = _detr_setup(root, seed=1, matcher=matcher)
     ref = build_detr(DETRConfig(num_classes=model.config.num_classes),
                      DETR_BACKBONE, DETR_SIZE, torch.float32, device="cuda")
     ref.load_state_dict(model.state_dict())
@@ -4051,7 +4091,7 @@ def compare_detr_step_with_plain(root: str):
         loss_r, grads_r = loss_and_grads(ref, forward(ref))
     if _read_counts() != counts:
         raise AssertionError("the plain DETR steps launched a kernel")
-    if (counts != _detr_want(1, 0)
+    if (counts != _detr_step_want(matcher)
             or not set(grads_k) == set(grads_p) == set(grads_r)):
         raise AssertionError(f"launches in the kernel DETR step {counts}")
 
@@ -4092,7 +4132,7 @@ def compare_detr_step_with_plain(root: str):
                                           for v in k_p.values())},
            "plain_bf16_vs_fp32_over_step_grad_rtol": len(exact) - len(able),
            "launches": counts}
-    _say(json.dumps({"detr_step_vs_plain": row}))
+    _say(json.dumps({name: row}))
     if not (np.isfinite(loss_k)
             and row["loss_rel_err_kernel_plain"][0] <= DETR_STEP_LOSS_RTOL
             and row["whole_grad_rel_err_kernel_plain"][0] <= STEP_GRAD_RTOL
@@ -4145,12 +4185,20 @@ def detr_w8a8_forward(root: str):
 
 
 def detr_phases(workdir: str):
-    """Every DETR phase on one synthetic root."""
+    """Every DETR phase on one synthetic root; then (ROADMAP A10d) the
+    auction kernel, the device-matcher step beside the host one, the bf16
+    device step against the fp32 one, and the chunked training,
+    checkpoints, resume and bundles through the CLI."""
     root = write_detr_data(workdir)
     return {"train": detr_train_through_cli(root, workdir),
             "step": steady_state_detr(root),
             "step_vs_plain": compare_detr_step_with_plain(root),
-            "w8a8": detr_w8a8_forward(root)}
+            "w8a8": detr_w8a8_forward(root),
+            "auction": check_auction_kernel(root),
+            "device_step": steady_state_detr_device(root),
+            "device_step_vs_plain": compare_detr_step_with_plain(
+                root, matcher="device", name="detr_device_step_vs_plain"),
+            "scan_resume_bundle": detr_scan_resume_bundle(root, workdir)}
 
 
 def write_frcnn_data(workdir: str) -> str:
@@ -4468,7 +4516,8 @@ def frcnn_phases(workdir: str):
             "step": steady_state_frcnn(root, keypoints=False),
             "kp_step": steady_state_frcnn(root, keypoints=True),
             "vs_plain": compare_frcnn_swin_with_plain(root),
-            "w8a8": frcnn_w8a8_forward(root)}
+            "w8a8": frcnn_w8a8_forward(root),
+            "scan_bundle": frcnn_scan_bundle(root, workdir)}
 
 
 # --------------------------------------------------------------------------
@@ -4932,6 +4981,505 @@ def segm_phases(workdir: str, detr_step: dict):
             "w8a8": segm_w8a8_forward(root)}
 
 
+# --------------------------------------------------------------------------
+# The device matcher, chunked training, detection checkpoints and bundles
+# (ROADMAP A10d)
+# --------------------------------------------------------------------------
+
+def _auction_bound_ms(L, B, Q, N) -> float:
+    """The auction's bytes over 3.35 TB/s: the costs and the mask read
+    once, the owners and iteration counts written once."""
+    return (4 * (L * B * Q * N + B * N + L * B * Q + L * B)
+            / H100_BYTES_PER_S * 1e3)
+
+
+def _detr_step_costs(root: str):
+    """The fp32 (L, B, Q, N) costs and the box mask of one train-mode
+    forward of the seeded full-width DETR on a synthetic bs8 batch (the
+    trainer's own cost computation)."""
+    import torch
+    from vit_torch_tpu_torch.data.augment import normalize
+    from vit_torch_tpu_torch.detection.engine import prep_targets
+    from vit_torch_tpu_torch.detection.matcher import cost_matrices
+    model, trainer, batch = _detr_setup(root, seed=3, matcher="device")
+    b = trainer._batch(batch)
+    targets = prep_targets(b["labels"], b["boxes"], b["box_mask"],
+                           b["mask"], DETR_SIZE)
+    with torch.no_grad():
+        model.train()
+        out = model(normalize(b["image"], **trainer.norm))
+        costs = torch.stack([
+            cost_matrices(o["pred_logits"], o["pred_boxes"],
+                          targets["labels"], targets["boxes_cxcywh"],
+                          targets["box_mask"])
+            for o in list(out["aux_outputs"]) + [out]])
+    return costs, targets["box_mask"]
+
+
+def check_auction_case(name: str, cost, mask):
+    """The auction kernel against its plain version on the card, on the
+    same fp32 costs: the assignments and iteration counts equal; every
+    problem a permutation on its valid gts (min(n_valid, Q) of them);
+    where every valid gt gets a query (n_valid <= Q), its total cost
+    within n_valid · ε of the exact ``linear_sum_assignment`` (the ε-CS
+    bound; fp32 sums, so 1e-4 of the optimum beside it).  With more valid
+    gts than queries the auction stops at Q assigned, which ε-CS does not
+    bound: its gap to the optimum is printed (``gap_over_q``).  The
+    kernel timed on events and from the profiler, the plain version once
+    (it reads its cond on the host every iteration)."""
+    import torch
+    from vit_torch_tpu_torch.detection.matcher import (
+        auction_assign, auction_assign_reference, linear_sum_assignment)
+    c = torch.as_tensor(cost, dtype=torch.float32, device="cuda")
+    m = torch.as_tensor(mask, dtype=torch.float32, device="cuda")
+    owner, iters = auction_assign(c, m, return_iters=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, want_iters = auction_assign_reference(c, m, return_iters=True)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    equal = bool(torch.equal(owner, want) and torch.equal(iters, want_iters))
+    o, cn, mn = owner.cpu().numpy(), c.cpu().numpy(), m.cpu().numpy()
+    L, B, Q, N = cn.shape
+    eps_frac = np.float32(1.0 / 500.0)
+    perm_ok, gaps, slack, over_q = True, [], [], []
+    for l in range(L):
+        for b in range(B):
+            valid = np.flatnonzero(mn[b] > 0)
+            taken = o[l, b][o[l, b] >= 0]
+            perm_ok &= (len(taken) == len(set(taken.tolist()))
+                        == min(len(valid), Q)
+                        and bool(np.isin(taken, valid).all()))
+            if not len(valid):
+                continue
+            rows, cols = linear_sum_assignment(cn[l, b][:, valid])
+            best = float(cn[l, b][rows, valid[cols]].astype(np.float64).sum())
+            q = np.flatnonzero(o[l, b] >= 0)
+            total = float(cn[l, b][q, o[l, b][q]].astype(np.float64).sum())
+            benefit = np.where(mn[b][:, None] > 0, -cn[l, b].T, 0.0)
+            eps = max(float(benefit.max() - benefit.min()), 1e-6) * eps_frac
+            if len(valid) > Q:
+                over_q.append(total - best)
+                continue
+            gaps.append(total - best)
+            slack.append(float(len(valid) * eps)
+                         + 1e-4 * max(1.0, abs(best)))
+    within = all(g <= s for g, s in zip(gaps, slack)) and all(
+        g >= -1e-4 * max(1.0, s) for g, s in zip(gaps, slack))
+
+    def run():
+        return auction_assign(c, m)
+
+    its = iters.flatten().float()
+    row = {"case": name, "shape": [L, B, Q, N],
+           "n_valid": [int(v) for v in (mn > 0).sum(-1)],
+           "equal": equal, "permutation": bool(perm_ok),
+           "ecs_within": bool(within),
+           "gap_max_over_bound": max((g / s for g, s in zip(gaps, slack)),
+                                     default=0.0),
+           "gap_over_q": max(over_q, default=None),
+           "iters_min_median_max": [int(its.min()), float(its.median()),
+                                    int(its.max())],
+           "ms": _time_ms(run, iters=20),
+           "device_ms": _device_ms(run, "auction_kernel"),
+           "plain_ms": plain_ms, "bound_ms": _auction_bound_ms(L, B, Q, N),
+           "bound_by": "bytes", "library_ms": None,
+           "smem_bytes": 4 * (N * Q + 2 * Q + 4 * N)}
+    _say("kernel check auction", json.dumps(row))
+    if not (equal and perm_ok and within):
+        raise AssertionError(f"auction {name}: {row}")
+    return row
+
+
+def check_auction_kernel(root: str):
+    """The auction kernel at DETR's (6, 8, 100, 64): random costs with
+    each image's n_valid drawn from 1-64 over a non-prefix mask, integer
+    costs full of ties, more valid gts than queries (Q 40 of 64 gts), no
+    valid gt, and the costs of a real DETR step."""
+    rng = np.random.default_rng(0)
+    L, B, Q, N = DETR_LAYERS, DETR_BS, AUCTION_Q, AUCTION_N
+    mask = np.zeros((B, N), np.float32)
+    for b in range(B):
+        mask[b, rng.choice(N, int(rng.integers(1, N + 1)),
+                           replace=False)] = 1.0
+    step_costs, step_mask = _detr_step_costs(root)
+    cases = [("random", rng.uniform(0, 4, (L, B, Q, N)), mask),
+             ("integer_ties", rng.integers(0, 4, (L, B, Q, N)), mask),
+             ("n_valid_over_q", rng.uniform(0, 4, (L, B, 40, N)),
+              np.ones((B, N))),
+             ("no_valid_gt", rng.uniform(0, 4, (L, B, Q, N)),
+              np.zeros((B, N))),
+             ("detr_step", step_costs, step_mask)]
+    return [check_auction_case(*case) for case in cases]
+
+
+def steady_state_detr_device(root: str, iters: int = 10):
+    """The bs8 DETR train step with the device matcher and with the host
+    matcher, one model each from one seed, timed in turns (device, host,
+    host, device; ``iters`` steps a turn) in one call: step ms on events
+    and on the host clock a turn, busy and idle from the profiler, peak
+    memory, the launches a step (the flash pair, B8, the core, B6 and, on
+    the device route, one auction), and whether the step reads the device
+    before its loss (``_step_syncs``: none on the device route)."""
+    import torch
+    setups, rows = {}, {}
+    for matcher in ("device", "host"):
+        model, trainer, batch = _detr_setup(root, matcher=matcher)
+        for _ in range(3):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        _reset_counts()
+        trainer.train_step(batch)
+        per_step = _read_counts()
+        setups[matcher] = (trainer, batch)
+        rows[matcher] = {
+            "step_ms": [], "host_step_ms": [],
+            "launches_per_step": {k: v for k, v in per_step.items() if v},
+            "syncs_before_loss_read": _step_syncs(trainer, batch),
+            "want": {k: v for k, v in _detr_step_want(matcher).items()
+                     if v}}
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for matcher in ("device", "host", "host", "device"):
+        trainer, batch = setups[matcher]
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            logs = trainer.train_step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        rows[matcher]["host_step_ms"].append(
+            1e3 * (time.perf_counter() - t0) / iters)
+        rows[matcher]["step_ms"].append(start.elapsed_time(end) / iters)
+        rows[matcher]["loss_total"] = float(logs["loss_total"])
+    for matcher, (trainer, batch) in setups.items():
+        prof = _profile_calls(lambda: trainer.train_step(batch))
+        rows[matcher].update(
+            device_busy_ms=prof["device_busy_ms"],
+            idle_share=prof["idle_share"],
+            auction_ms=prof["groups_ms"].get("auction"))
+    row = {"arch": f"detr_{DETR_BACKBONE}", "bs": DETR_BS, "iters": iters,
+           "turns": ["device", "host", "host", "device"],
+           # both models on the card at once
+           "peak_mem_gb_both": torch.cuda.max_memory_allocated() / 1e9,
+           **rows}
+    _say(json.dumps({"detr_device_step": row}))
+    for matcher, r in rows.items():
+        if (r["launches_per_step"] != r["want"]
+                or not np.isfinite(r["loss_total"])):
+            raise AssertionError(f"DETR {matcher}-matcher step: {r}")
+    if rows["device"]["syncs_before_loss_read"] is not None:
+        raise AssertionError("the device-matcher step reads the device "
+                             f"before its loss: {rows['device']}")
+    del setups
+    torch.cuda.empty_cache()
+    return row
+
+
+def _detr_step_want(matcher: str):
+    return {**_detr_want(1, 0), "auction": int(matcher == "device")}
+
+
+def _cpu_copy(obj):
+    """A copy on the host of nested dicts and lists of tensors."""
+    import torch
+    if isinstance(obj, dict):
+        return {k: _cpu_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu_copy(v) for v in obj)
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    return obj
+
+
+def _val_pictures(root: str, n: int):
+    """``n`` pictures at varied aspect ratios: the validation set's
+    512 px pictures cropped to sizes from 3:1 to 1:3."""
+    from PIL import Image
+    data = os.path.join(root, "validation", "data")
+    files = sorted(os.listdir(data))
+    shapes = [(512, 512), (384, 512), (512, 384), (170, 510), (510, 170),
+              (300, 450), (450, 300), (256, 256)]
+    out = []
+    for i in range(n):
+        img = np.asarray(Image.open(os.path.join(data, files[i % len(files)]))
+                         .convert("RGB"))
+        h, w = shapes[i % len(shapes)]
+        out.append(np.ascontiguousarray(img[:h, :w]))
+    return out
+
+
+def _match_detections(reply, raw, S: int):
+    """Each served detection of one picture matched to a distinct query
+    of the raw predictions: the same label, the score within
+    SERVE_SCORE_RTOL of max |score|, the box within SERVE_BOX_RTOL of the
+    image size.  Returns the unmatched count and the largest score and
+    box differences of the matches."""
+    tol_s = SERVE_SCORE_RTOL * float(np.abs(raw["scores"]).max())
+    tol_b = SERVE_BOX_RTOL * S
+    used, missed, ds, db = set(), 0, 0.0, 0.0
+    for s, l, bx in zip(reply["scores"], reply["labels"], reply["boxes"]):
+        d_s = np.abs(raw["scores"] - s)
+        d_b = np.abs(raw["boxes"] - np.asarray(bx)).max(-1)
+        # the closest query within both bounds (a seeded model gives many
+        # queries one score)
+        ok = [q for q in np.argsort(d_s / tol_s + d_b / tol_b)
+              if q not in used and raw["labels"][q] == l
+              and d_s[q] <= tol_s and d_b[q] <= tol_b]
+        if not ok:
+            missed += 1
+            continue
+        used.add(ok[0])
+        ds, db = max(ds, float(d_s[ok[0]])), max(db, float(d_b[ok[0]]))
+    return missed, ds, db
+
+
+def serve_detr_bundle(root: str, bundle: str, bundle_w8a8: str, trainer):
+    """The exported DETR bundle behind ``BundleServer`` on the card: a
+    burst of SERVE_BURST one-picture requests at varied aspect ratios
+    (p50 and p99 latency and the dispatch histogram from ``/stats``);
+    one request of DETR_BS pictures, whose replies must match
+    ``trainer.predict`` on the same letterboxed batch within the served
+    bounds; the W8A8 bundle's Q1/Q2 launches on that batch and its
+    scores' cosine against the fp bundle's."""
+    import torch
+    from vit_torch_tpu_torch.serving import (BundleServer, letterbox_images,
+                                             load_bundle)
+    pics = _val_pictures(root, SERVE_BURST)
+    server = BundleServer(bundle, port=0, max_wait_ms=5.0, device="cuda")
+    server.start()
+    try:
+        addr = server.address
+        results = [None] * len(pics)
+
+        def one(i):
+            results[i] = _post(addr, {"images": [_png_b64(pics[i])],
+                                      "score_threshold": 0.0})
+
+        _post(addr, {"images": [_png_b64(pics[0])]})       # warm-up
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(pics))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        burst_s = time.perf_counter() - t0
+        eight = pics[:DETR_BS]
+        status, body = _post(addr, {"images": [_png_b64(p) for p in eight],
+                                    "score_threshold": 0.0})
+        stats = _get(addr, "/stats")[1]
+        batch = letterbox_images(eight, DETR_SIZE)
+        raw = {k: v.float().cpu().numpy() if v.is_floating_point()
+               else v.cpu().numpy()
+               for k, v in trainer.predict(batch).items()}
+        served_raw = server.model.predict_tree(batch)
+        matches = [_match_detections(
+            pred, {k: v[i] for k, v in raw.items()}, DETR_SIZE)
+            for i, pred in enumerate(body["predictions"])]
+        w8 = load_bundle(bundle_w8a8, device="cuda")
+        _reset_counts()
+        out8 = w8.predict_tree(batch)
+        torch.cuda.synchronize()
+        q_counts = {k: v for k, v in _read_counts().items() if v}
+    finally:
+        server.shutdown()
+    row = {"requests": len(pics), "burst_seconds": burst_s,
+           "statuses": sorted({r[0] for r in results} | {status}),
+           "latency_ms": stats.get("latency_ms"),
+           "dispatches": stats.get("dispatches"),
+           "detections_per_reply": len(body["predictions"][0]["scores"]),
+           "unmatched_max_score_box_diff": [
+               sum(m[0] for m in matches), max(m[1] for m in matches),
+               max(m[2] for m in matches)],
+           "bundle_vs_predict_max_diff": {
+               k: float(np.abs(served_raw[k].astype(np.float64)
+                               - raw[k]).max())
+               for k in ("scores", "boxes")},
+           "w8a8_launches": q_counts,
+           "w8a8_cosine_scores_boxes": [
+               _cosine(out8["scores"], served_raw["scores"]),
+               _cosine(out8["boxes"], served_raw["boxes"])]}
+    _say(json.dumps({"detr_serve": row}))
+    if not (row["statuses"] == [200]
+            and all(len(r[1]["predictions"]) == 1 for r in results)
+            and row["unmatched_max_score_box_diff"][0] == 0
+            and q_counts.get("w8a8_gemm", 0) > 0
+            and q_counts.get("w8a8_quantize_rows", 0) > 0
+            and row["w8a8_cosine_scores_boxes"][0] > W8A8_MIN_COSINE):
+        raise AssertionError(f"detr_serve: {row}")
+    return row
+
+
+def detr_scan_resume_bundle(root: str, workdir: str):
+    """Through ``cli.coco`` at DETR's full width: a per-step epoch with
+    the device matcher (``--scan 1``: one read a step; for the chunked
+    epoch's time), then
+    three calls: (1) ``--matcher device --scan 4 --epochs 1 --ckpt_dir
+    d``; (2) ``--resume
+    d --epochs 2 --scan 4 --ckpt_dir d --export_bundle b`` (epoch 1 only;
+    the state it restored held bitwise against the checkpoint of epoch
+    0); (3) under ``VITX_W8A8=1``, ``--resume d --epochs 2
+    --export_bundle b8`` (no epoch left: exporting only).  Epoch seconds,
+    the device reads an epoch (one a chunk), launches (one auction a
+    step), checkpoint bytes, save and restore seconds; then the bundles
+    served (:func:`serve_detr_bundle`)."""
+    import torch
+    from vit_torch_tpu_torch.cli import coco as cli_coco
+    from vit_torch_tpu_torch.detection import engine
+    from vit_torch_tpu_torch.detection.engine import DetectionTrainer
+    ckpt = os.path.join(workdir, "detr_ckpt")
+    bundle = os.path.join(workdir, "detr_bundle")
+    bundle8 = os.path.join(workdir, "detr_bundle_w8a8")
+    steps, evals = DETR_TRAIN_N // DETR_BS, DETR_VAL_N // DETR_BS
+    argv = DETR_ARGS + ["--data_root", root, "--matcher", "device",
+                        "--scan", str(SCAN_K)]
+    reads = []
+    read_logs = engine._read_logs
+    captured = {}
+    load = DetectionTrainer.load_checkpoint_state
+
+    def counted(chunk):
+        reads.append(len(chunk))
+        return read_logs(chunk)
+
+    def spy(self, state):
+        load(self, state)
+        captured.setdefault("trainers", []).append(self)
+        captured.setdefault("restored", []).append(_cpu_copy(
+            self.checkpoint_state(state["epoch"])))
+
+    runs = {}
+    with mock.patch.object(engine, "_read_logs", counted), \
+            mock.patch.object(DetectionTrainer, "load_checkpoint_state", spy):
+        for name, extra, env in (
+                ("per_step", ["--scan", "1"], {}),
+                ("scan_ckpt", ["--ckpt_dir", ckpt], {}),
+                ("resume_export", ["--epochs", "2", "--resume", ckpt,
+                                   "--ckpt_dir", ckpt, "--export_bundle",
+                                   bundle], {}),
+                ("w8a8_export", ["--epochs", "2", "--resume", ckpt,
+                                 "--export_bundle", bundle8],
+                 {"VITX_W8A8": "1"})):
+            fp = os.path.join(workdir, f"detr_{name}.json")
+            reads.clear()
+            _reset_counts()
+            t0 = time.perf_counter()
+            with mock.patch.dict(os.environ, env):
+                record = cli_coco.main(argv + extra + ["--stats_fp", fp])
+            torch.cuda.synchronize()
+            runs[name] = {"seconds": time.perf_counter() - t0,
+                          "launches": {k: v for k, v in
+                                       _read_counts().items() if v},
+                          "reads": list(reads), "record": record}
+    # run 2 restored epoch 0's checkpoint, run 3 epoch 1's
+    for i, restored in enumerate(captured["restored"]):
+        saved = torch.load(os.path.join(ckpt, str(i), "state.pt"),
+                           map_location="cpu", weights_only=True)
+        _same_state(restored, saved, f"restored epoch {i}")
+    first, second = runs["scan_ckpt"], runs["resume_export"]
+    log0, log1 = first["record"]["logs"], second["record"]["logs"]
+    per_step = runs["per_step"]
+    want1 = {k: v for k, v in {**_detr_want(steps, evals),
+                               "auction": steps}.items() if v}
+    # the export's bucket-1 predict is one more forward
+    want2 = {k: v for k, v in {**_detr_want(steps, evals + 1),
+                               "auction": steps}.items() if v}
+    row = {"epoch_seconds": [log0[0]["time"], log1[0]["time"]],
+           "per_step_epoch_seconds": per_step["record"]["logs"][0]["time"],
+           "run_seconds": {k: r["seconds"] for k, r in runs.items()},
+           "reads_per_epoch": [len(first["reads"]), len(second["reads"])],
+           "per_step_reads": len(per_step["reads"]),
+           "steps_per_read": first["reads"],
+           "launches": {k: r["launches"] for k, r in runs.items()},
+           "want": [want1, want2],
+           "loss_total": [log0[0]["train"]["loss_total"],
+                          log1[0]["train"]["loss_total"]],
+           "epochs_logged": [[r["epoch"] for r in log0],
+                             [r["epoch"] for r in log1]],
+           "ckpt_bytes": os.path.getsize(os.path.join(ckpt, "0",
+                                                      "state.pt")),
+           "ckpt_save_seconds": log0[0].get("ckpt_seconds"),
+           "ckpt_restore_seconds": second["record"]["resumed"]["seconds"],
+           "restored_bitwise": len(captured["restored"]) == 2,
+           "bundle_bytes": [os.path.getsize(os.path.join(b, "weights.pt"))
+                            for b in (bundle, bundle8)],
+           "w8a8_manifest": {k: runs["w8a8_export"]["record"][
+               "export_bundle"][k] for k in ("w8a8", "w8a8_prequant")}}
+    _say(json.dumps({"detr_scan_resume_bundle": row}))
+    if not (first["launches"] == want1 and second["launches"] == want2
+            and per_step["launches"] == want1
+            and per_step["reads"] == [1] * steps
+            and row["reads_per_epoch"] == [steps // SCAN_K] * 2
+            and row["epochs_logged"] == [[0], [1]]
+            and "initial" not in second["record"]
+            and all(np.isfinite(row["loss_total"]))
+            and row["w8a8_manifest"] == {"w8a8": True,
+                                         "w8a8_prequant": True}):
+        raise AssertionError(f"detr_scan_resume_bundle: {row}")
+    row["serve"] = serve_detr_bundle(root, bundle, bundle8,
+                                     captured["trainers"][0])
+    return row
+
+
+def frcnn_scan_bundle(root: str, workdir: str):
+    """``cli.coco --head faster_rcnn --keypoints --scan 4 --export_bundle``
+    over resnext50_32x4d at FRCNN_ARGS's settings (no hand kernel: no
+    launch), one read a chunk; the Keypoint R-CNN bundle served over HTTP
+    (a few pictures; ``keypoints`` in every reply)."""
+    from vit_torch_tpu_torch.cli import coco as cli_coco
+    from vit_torch_tpu_torch.detection import engine
+    from vit_torch_tpu_torch.serving import BundleServer
+    bundle = os.path.join(workdir, "kprcnn_bundle")
+    fp = os.path.join(workdir, "kprcnn_scan.json")
+    steps = FRCNN_TRAIN_N // FRCNN_BS
+    reads = []
+    read_logs = engine._read_logs
+
+    def counted(chunk):
+        reads.append(len(chunk))
+        return read_logs(chunk)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(engine, "_read_logs", counted):
+        record = cli_coco.main(FRCNN_ARGS + [
+            "--backbone", FRCNN_BACKBONE, "--data_root", root, "--keypoints",
+            "--scan", str(SCAN_K), "--export_bundle", bundle,
+            "--stats_fp", fp])
+    seconds = time.perf_counter() - t0
+    counts = {k: v for k, v in _read_counts().items() if v}
+    server = BundleServer(bundle, port=0, device="cuda")
+    server.start()
+    try:
+        pics = _val_pictures(root, 4)
+        status, body = _post(server.address, {
+            "images": [_png_b64(p) for p in pics], "score_threshold": 0.0,
+            "top_k": 10})
+        stats = _get(server.address, "/stats")[1]
+    finally:
+        server.shutdown()
+    preds = body.get("predictions", [])
+    row = {"seconds": seconds, "epoch_seconds": record["logs"][0]["time"],
+           "reads": reads, "launches": counts,
+           "loss_total": record["logs"][0]["train"]["loss_total"],
+           "status": status, "replies": len(preds),
+           "keypoints_shape": (np.asarray(preds[0]["keypoints"]).shape
+                               if preds and "keypoints" in preds[0]
+                               else None),
+           "latency_ms": stats.get("latency_ms"),
+           "manifest_outputs": record["export_bundle"]["outputs"]}
+    _say(json.dumps({"frcnn_scan_bundle": row}, default=list))
+    if not (reads == [SCAN_K] * (steps // SCAN_K) and not counts
+            and status == 200 and len(preds) == len(pics)
+            and all("keypoints" in p and len(p["keypoints"]) == 10
+                    for p in preds)
+            and np.isfinite(row["loss_total"])):
+        raise AssertionError(f"frcnn_scan_bundle: {row}")
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5106,6 +5654,7 @@ def main() -> int:
     extra_paths = lifecycle_and_data_extras()
 
     w8a8_ptxas = ptxas_gate("w8a8", _build.LOGS.get("w8a8", ""))
+    auction_ptxas = ptxas_gate("auction", _build.LOGS.get("auction", ""))
     w8a8_rows = [check_w8a8_kernels(shape, seed=i)
                  for i, shape in enumerate(W8A8_SHAPES)]
     with tempfile.TemporaryDirectory() as workdir:
@@ -5576,6 +6125,53 @@ def main() -> int:
         "w8a8": {k: segm["w8a8"][k] for k in (
             "launches_w8a8", "cosine_logits_masks",
             "forward_ms_fp_w8a8")}}}))
+    # DETR's device matcher (ROADMAP A10d): numbers at the costs of a real
+    # bs8 DETR step, (6, 8, 100, 64), every case beside them; launches from
+    # the chunked DETR epoch through cli.coco (one a step)
+    auction_rows = detr["auction"]
+    head = next(r for r in auction_rows if r["case"] == "detr_step")
+    srb = detr["scan_resume_bundle"]
+    kernels.append({
+        "name": "auction", "route": "cuda",
+        "source": "vit_torch_tpu_torch/csrc/auction.cu",
+        "replaces": "vit_torch_tpu/detection/matcher.py:51",
+        "launches": srb["launches"]["scan_ckpt"]["auction"],
+        # int32 assignments, gated equal to the plain version's
+        "max_abs_err": 0.0,
+        "ms": head["ms"], "device_ms": head["device_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None,
+        "shape": head["shape"],
+        "iters_min_median_max": head["iters_min_median_max"],
+        "ms_device_plain_bound_iters_gap_by_case": [
+            [r["case"], r["ms"], r["device_ms"], r["plain_ms"],
+             r["bound_ms"], r["iters_min_median_max"],
+             r["gap_max_over_bound"]] for r in auction_rows],
+        "ptxas": auction_ptxas,
+        "launches_per_device_step": detr["device_step"]["device"][
+            "launches_per_step"]["auction"]})
+    # the rest of A10d: the device step beside the host one, the chunked
+    # epochs, checkpoints, resume and the served bundles
+    dstep = detr["device_step"]
+    _say(json.dumps({"a10d": {
+        "device_step": {m: {k: dstep[m][k] for k in (
+            "step_ms", "host_step_ms", "device_busy_ms", "idle_share",
+            "auction_ms", "syncs_before_loss_read")}
+            for m in ("device", "host")},
+        "device_step_peak_mem_gb_both": dstep["peak_mem_gb_both"],
+        "device_step_vs_fp32": {k: detr["device_step_vs_plain"][k] for k in (
+            "loss_rel_err_kernel_plain", "whole_grad_rel_err_kernel_plain",
+            "able_median_max_kernel")},
+        "scan_resume": {k: srb[k] for k in (
+            "epoch_seconds", "per_step_epoch_seconds", "reads_per_epoch",
+            "ckpt_bytes",
+            "ckpt_save_seconds", "ckpt_restore_seconds", "bundle_bytes")},
+        "serve": {k: srb["serve"][k] for k in (
+            "latency_ms", "dispatches", "unmatched_max_score_box_diff",
+            "bundle_vs_predict_max_diff", "w8a8_launches",
+            "w8a8_cosine_scores_boxes")},
+        "frcnn_scan_bundle": {k: frcnn["scan_bundle"][k] for k in (
+            "epoch_seconds", "reads", "latency_ms")}}}))
     _say(json.dumps({"kernels": kernels}))
     _say(smi)
     _say(json.dumps({"ok": True, "device": {

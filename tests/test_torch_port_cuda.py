@@ -22,7 +22,9 @@ versions; the conv families at full width (xcit_small_24_p16 with B12 off
 and on, resnext50_32x4d with the conv+BN fold on and off) against their
 fp32 CPU forwards, and their BN running statistics after one card step;
 Faster R-CNN's padded NMS against its CPU result, and a Keypoint R-CNN
-train step that reads nothing from the device before its loss.
+train step that reads nothing from the device before its loss; DETR's
+auction kernel against its plain version, and a device-matcher DETR step
+that reads nothing from the device before its loss.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere.  They
 import neither JAX nor the JAX package, so they run on a machine without
@@ -1546,3 +1548,77 @@ def test_tiny_detr_segm_step_on_cuda_matches_cpu(cuda):
     assert k_err[0] <= 2e-2, (k_err, p_err)
     for k, p in zip(k_err[1:], p_err[1:]):
         assert k <= max(5e-2, 2 * p), (k_err, p_err)
+
+
+@pytest.mark.parametrize("case", ["detr", "ties", "more_gts", "none",
+                                  "large"])
+def test_auction_kernel_matches_plain(cuda, case):
+    """The auction kernel (csrc/auction.cu) against its plain version on
+    the same fp32 costs: assignments and iteration counts equal, at
+    DETR's (6, 8, 100, 64) with a non-prefix mask shared by the layers,
+    integer costs full of ties, more gts than queries, no valid gt, and a
+    shape past 48 KB of shared memory; one launch a call."""
+    from vit_torch_tpu_torch.detection.matcher import (
+        auction_assign, auction_assign_reference)
+    rng = np.random.default_rng(len(case))
+    shape, mask_shape = (6, 8, 100, 64), (8, 64)
+    if case == "detr":
+        cost = rng.uniform(0, 3, shape)
+        mask = rng.random(mask_shape) < 0.4
+    elif case == "ties":
+        cost = rng.integers(0, 4, shape)
+        mask = rng.random(mask_shape) < 0.6
+    elif case == "more_gts":
+        shape, mask_shape = (4, 16, 40), (4, 40)
+        cost, mask = rng.uniform(0, 1, shape), np.ones(mask_shape)
+    elif case == "none":
+        cost, mask = rng.uniform(0, 1, shape), np.zeros(mask_shape)
+    else:
+        shape, mask_shape = (3, 300, 120), (3, 120)
+        cost = rng.standard_normal(shape)
+        mask = rng.random(mask_shape) < 0.5
+    cost = torch.tensor(cost, dtype=torch.float32, device=cuda)
+    mask = torch.tensor(mask, dtype=torch.float32, device=cuda)
+    before = auction_assign.launches
+    got, iters = auction_assign(cost, mask, return_iters=True)
+    assert auction_assign.launches - before == 1
+    want, want_iters = auction_assign_reference(cost, mask,
+                                                return_iters=True)
+    assert torch.equal(got, want) and torch.equal(iters, want_iters)
+    with pytest.raises(ValueError, match="shared memory"):
+        auction_assign(torch.zeros((1, 400, 200), device=cuda),
+                       torch.ones((1, 200), device=cuda))
+
+
+def test_detr_device_matcher_step_does_not_sync_before_its_loss(cuda):
+    """A bf16 device-matcher DETR train step over Swin-T at 64 px (flip,
+    forward, costs and the auction on the card, losses, backward, clip,
+    AdamW) runs under ``set_sync_debug_mode("error")`` after one warm-up
+    step, and launches the auction once."""
+    from vit_torch_tpu_torch.detection.detr import DETRConfig, build_detr
+    from vit_torch_tpu_torch.detection.engine import DetectionTrainer
+    from vit_torch_tpu_torch.detection.matcher import auction_assign
+    cfg = DETRConfig(num_classes=3, num_queries=8, hidden_dim=64,
+                     num_heads=2, enc_layers=1, dec_layers=2, ffn_dim=128)
+    model = build_detr(cfg, "swin_tiny_patch4_window7_224", 64, device=cuda)
+    tr = DetectionTrainer(model, image_size=64, num_classes=3, augment=True,
+                          matcher="device")
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(0, 36, (2, 4, 2))
+    batch = {"image": rng.integers(0, 256, (2, 64, 64, 3)).astype(np.uint8),
+             "boxes": np.concatenate([xy, xy + 20], -1).astype(np.float32),
+             "labels": np.ones((2, 4), np.int32),
+             "box_mask": np.asarray([[1, 0, 1, 1], [0, 1, 1, 0]],
+                                    np.float32),
+             "mask": np.ones((2,), np.float32)}
+    tr.train_step(batch)
+    torch.cuda.synchronize()
+    before = auction_assign.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logs = tr.train_step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert auction_assign.launches - before == 1
+    assert tr.host_ms["steps"] == 0
+    assert np.isfinite(logs["loss_total"].item())

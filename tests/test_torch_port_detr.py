@@ -11,8 +11,8 @@ assignment; three host-matcher AdamW steps of the trainer without
 augmentation against the JAX trainer's losses and parameters;
 ``postprocess``; the W8A8 forward under ``VITX_W8A8=1``; ``cli.coco
 --test --device cpu`` writing the stats JSON that
-``test_coco_smoke_end_to_end`` reads; the CLI's refusals; the detection
-meters.  Everything runs in fp32; each JAX function is traced once.
+``test_coco_smoke_end_to_end`` reads; the CLI's refusal of ``--mesh``
+(A8); the detection meters.  Everything runs in fp32; each JAX function is traced once.
 """
 
 import dataclasses
@@ -258,14 +258,6 @@ def test_sgd_and_clip_follow_optax():
             group["weight_decay"]) == ("SGD", 0.9, 0.1)
 
 
-@pytest.mark.parametrize("kw", [{"matcher": "device"}])
-def test_trainer_refuses_later_slices(kw):
-    cfg, jmodel = _jax_model()
-    model = _port_model(cfg, _seeded_params(jmodel))
-    with pytest.raises(NotImplementedError, match="A10"):
-        DetectionTrainer(model, image_size=SIZE, num_classes=K, **kw)
-
-
 def test_postprocess_matches_jax():
     rng = np.random.default_rng(7)
     out = {"pred_logits": rng.standard_normal((2, Q, K + 1)).astype(
@@ -329,9 +321,7 @@ def test_cli_test_mode_writes_the_stats_json(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--matcher", "device"], "A10d"), (["--scan", "4"], "A10d"),
-    (["--ckpt_dir", "c"], "A10d"), (["--resume", "c"], "A10d"),
-    (["--export_bundle", "b"], "A10d"), (["--mesh", "data=2"], "A8")])
+    (["--mesh", "data=2"], "A8")])
 def test_cli_refuses_later_slices_before_any_work(argv, item, tmp_path,
                                                   monkeypatch):
     from vit_torch_tpu_torch.detection import coco_data

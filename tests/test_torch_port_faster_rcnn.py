@@ -723,7 +723,7 @@ def test_cli_refuses_the_jax_combinations(argv, words, tmp_path,
 def test_cli_dtype_by_route():
     """bf16 by default on CUDA; float32 on CUDA refused on the routes with
     the bf16-only kernels (DETR, Faster R-CNN over Swin), taken by
-    Faster R-CNN over a ResNet; ``--scan > 1`` still raises."""
+    Faster R-CNN over a ResNet."""
     cuda = torch.device("cuda")
     parse = cli_coco.get_args_parser().parse_args
     args = parse(["--head", "faster_rcnn", "--backbone", "resnext50_32x4d",
@@ -734,6 +734,3 @@ def test_cli_dtype_by_route():
     args.dtype = "float32"
     with pytest.raises(ValueError, match="bfloat16"):
         cli_coco._dtype(args, cuda)
-    with pytest.raises(NotImplementedError, match="A10d"):
-        cli_coco.check_ported(parse(["--head", "faster_rcnn", "--scan",
-                                     "4"]))

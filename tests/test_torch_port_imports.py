@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``vit_torch_tpu_torch``
 (and ``chip_smoke``, without running it) pulls in neither JAX nor any
-module of the JAX package.  Runs in a fresh interpreter, since this test
-process has both loaded."""
+module of the JAX package, nor matplotlib (``utils/plots.py`` imports it
+inside its functions: the card's machine has none).  Runs in a fresh
+interpreter, since this test process has both loaded."""
 
 import os
 import subprocess
@@ -21,7 +22,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "vit_torch_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "vit_torch_tpu",
+                                    "matplotlib"))
 print(len(names), bad)
 assert len(names) >= 20, names
 assert not bad, bad

@@ -202,7 +202,10 @@ def test_no_silent_cpu_fallback(bundles, tmp_path):
 
 
 def test_detection_bundles_not_served_yet(tmp_path):
+    """The JAX package's detection bundles (StableHLO programs) are not
+    served by the port: refused as any foreign format."""
     with open(tmp_path / "manifest.json", "w") as f:
-        json.dump({"format": "vit_torch_tpu.serving.detection/1"}, f)
-    with pytest.raises(NotImplementedError, match="detection"):
+        json.dump({"format": "vit_torch_tpu.serving.detection/1",
+                   "batch_sizes": [1]}, f)
+    with pytest.raises(ValueError, match="vit_torch_tpu.serving.detection"):
         load_bundle(str(tmp_path), device="cpu")

@@ -2,14 +2,27 @@
 reference's ``object/coco_pipeline.py`` flags ``:51-72``, ``--test``
 smoke mode ``:75-82`` and per-epoch stats JSON ``:442-559``;
 ``object_detr/main.py``): trains DETR over a Swin feature map with the
-host Hungarian matcher (``--head detr``, the default; with ``--masks``
-DETRSegm, the instance-mask head), or Faster R-CNN over a ResNet or Swin
-FPN (``--head faster_rcnn``; with ``--keypoints`` Keypoint R-CNN), on a
-COCO-format directory (or, with ``--panoptic_root``, a panoptic-PNG one,
-which implies ``--masks``), evaluates COCO bbox AP (segm AP and PQ with
-masks, keypoint AP with keypoints) after every epoch (and once before
-training), and streams the train losses and the COCO numbers to a stats
-JSON.  The flags keep the JAX CLI's names and defaults.
+host Hungarian matcher or, with ``--matcher device``, the auction on the
+card (``--head detr``, the default; with ``--masks`` DETRSegm, the
+instance-mask head), or Faster R-CNN over a ResNet or Swin FPN (``--head
+faster_rcnn``; with ``--keypoints`` Keypoint R-CNN), on a COCO-format
+directory (or, with ``--panoptic_root``, a panoptic-PNG one, which
+implies ``--masks``), evaluates COCO bbox AP (segm AP and PQ with masks,
+keypoint AP with keypoints) after every epoch (and once before training),
+and streams the train losses and the COCO numbers to a stats JSON.  The
+flags keep the JAX CLI's names and defaults.
+
+``--scan K`` (K > 1) trains in chunks of K steps whose logs are read
+once (``train_one_epoch_scan``) with ``--head faster_rcnn`` or
+``--matcher device``, and per step otherwise, as the JAX CLI does.
+``--ckpt_dir D`` saves the model, optimizer, generator and epoch after
+each epoch's evaluation (the last three kept); ``--resume D`` restores
+D's latest and continues at the next epoch, without the initial
+evaluation (a resumed run rebuilds its loader, so its first epoch takes
+epoch 0's permutation, as the JAX loader does).  ``--export_bundle B``
+writes the trained detector as a serving bundle (``serving/export.py``,
+buckets ``--export_bs``; W8A8 under ``VITX_W8A8=1``), which
+``cli.serve --bundle B`` serves over HTTP.
 
     python -m vit_torch_tpu_torch.cli.coco --data_root /path/coco \\
         --backbone swin_tiny_patch4_window7_224 --epochs 5 --bs 8 [--masks]
@@ -19,6 +32,8 @@ JSON.  The flags keep the JAX CLI's names and defaults.
     python -m vit_torch_tpu_torch.cli.coco --test [--masks]  # on the card
     python -m vit_torch_tpu_torch.cli.coco --test --device cpu \\
         [--masks | --head faster_rcnn [--keypoints] [--backbone swin_test3]]
+    python -m vit_torch_tpu_torch.cli.coco --test --device cpu \\
+        --matcher device --scan 2 --ckpt_dir /tmp/c --export_bundle /tmp/b
 
 It runs on CUDA unless ``--device cpu``.  ``--dtype`` defaults to
 bfloat16 on CUDA and float32 on the CPU: the flash and window kernels
@@ -31,8 +46,8 @@ kernels' smallest) over ``swin_test`` (``swin_test3`` with masks: the
 mask head's laterals want three stages) on the CPU and Swin-T on the
 card, whose window kernels take head dim 32 only; or of Faster R-CNN with the
 JAX CLI's tiny settings over ``resnet_test`` (anchors 8 and 16, 64
-proposals, a two-conv 64-channel keypoint head).  The flags of later
-slices raise before any work, naming their ROADMAP.md item.
+proposals, a two-conv 64-channel keypoint head).  ``--mesh`` (a later
+slice) raises before any work, naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -48,11 +63,6 @@ import torch
 
 # flag -> (is it set?, the ROADMAP.md item that ports it)
 UNPORTED_COCO_FLAGS = {
-    "matcher": (lambda v: v != "host", "A10d, the device matcher"),
-    "scan": (lambda v: v > 1, "A10d, chunked-scan training"),
-    "ckpt_dir": (bool, "A10d, detection checkpoints"),
-    "resume": (bool, "A10d, detection checkpoints"),
-    "export_bundle": (bool, "A10d, detection bundles"),
     "mesh": (bool, "A8, parallelism"),
 }
 
@@ -74,10 +84,12 @@ def get_args_parser() -> argparse.ArgumentParser:
                         "panoptic,panoptic.json} (reference --dataset_file "
                         "coco_panoptic); implies --masks and scores PQ")
     p.add_argument("--scan", default=1, type=int,
-                   help="train steps per dispatch; >1 is ROADMAP.md A10d")
+                   help="train steps per chunk (faster_rcnn, or detr with "
+                        "--matcher device; >1 reads the logs once a chunk)")
     p.add_argument("--matcher", default="host", choices=["host", "device"],
                    help="DETR matching: host = exact Hungarian on the host "
-                        "(device: ROADMAP.md A10d)")
+                        "(one copy of the costs a step), device = the "
+                        "auction on the card (no host read)")
     p.add_argument("--opt", default="adamw", choices=["adamw", "sgd"],
                    help="adamw = upstream DETR's recipe (clip 0.1), sgd = "
                         "the reference fork's (momentum .9, coupled wd; "
@@ -109,9 +121,9 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_initial_eval", action="store_true",
                    help="skip the epoch-0 validation pass")
     p.add_argument("--ckpt_dir", default="", type=str,
-                   help="checkpoint dir (ROADMAP.md A10d)")
+                   help="save a checkpoint here after every epoch")
     p.add_argument("--resume", default="", type=str,
-                   help="resume from a checkpoint dir (ROADMAP.md A10d)")
+                   help="resume from this checkpoint dir's latest epoch")
     p.add_argument("--num_queries", default=100, type=int)
     p.add_argument("--pre_norm", action="store_true",
                    help="pre-norm DETR transformer (normalize_before)")
@@ -130,7 +142,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default="", type=str,
                    help="data-parallel mesh (ROADMAP.md A8)")
     p.add_argument("--export_bundle", default="", type=str,
-                   help="serving bundle dir (ROADMAP.md A10d)")
+                   help="write the trained detector as a serving bundle")
     p.add_argument("--export_bs", default="1,8", type=str)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
@@ -345,7 +357,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                    lr=args.lr, masks=args.masks,
                                    augment=not args.no_hflip,
                                    aug_crop=args.aug_crop,
-                                   aug_erase=args.aug_erase, opt=args.opt,
+                                   aug_erase=args.aug_erase,
+                                   matcher=args.matcher, opt=args.opt,
                                    weight_decay=args.weight_decay)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model: {n_params / 1e6:.1f}M params ({args.head}, {dtype}, "
@@ -373,24 +386,52 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                  + (("keypoints",) if args.keypoints else ()))
     eval_kw = dict(label_to_cat=val_ds.label_to_cat, iou_types=iou_types,
                    panoptic=args.masks)
-    if not args.no_initial_eval:
+    start_epoch = 0
+    if args.resume:
+        from vit_torch_tpu_torch.checkpoint.ckpt_io import (
+            latest_step, restore_checkpoint)
+        t0 = time.perf_counter()
+        last = latest_step(args.resume)
+        trainer.load_checkpoint_state(restore_checkpoint(
+            args.resume, last, map_location=device))
+        start_epoch = last + 1       # restore_checkpoint raised if None
+        record["resumed"] = {"from": args.resume, "epoch": start_epoch,
+                             "seconds": time.perf_counter() - t0}
+        print(f"resumed from {args.resume} at epoch {start_epoch}")
+
+    if not args.no_initial_eval and start_epoch == 0:
         metrics = trainer.evaluate(val_loader, val_ds.coco, **eval_kw)
         record["initial"] = metrics
         print(f"initial: AP {metrics.get('bbox', {}).get('ap', 0):.4f}")
         save()
 
-    for epoch in range(args.epochs):
+    # chunked epochs where no step reads the device before its loss
+    use_scan = args.scan > 1 and (frcnn or args.matcher == "device")
+    for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
         # StepLR(lr_step, lr_gamma), reference coco_pipeline.py:464-476
         sched_lr = args.lr * args.lr_gamma ** (epoch // max(args.lr_step, 1))
         trainer.base_lr = sched_lr        # epoch 0's warmup ramps to it
         trainer.set_lr(sched_lr)
-        train_logs = trainer.train_one_epoch(train_loader, epoch,
-                                             log_fn=log_fn)
+        if use_scan:
+            train_logs = trainer.train_one_epoch_scan(
+                train_loader, epoch, steps_per_dispatch=args.scan,
+                log_fn=log_fn)
+        else:
+            train_logs = trainer.train_one_epoch(train_loader, epoch,
+                                                 log_fn=log_fn)
         print()
         metrics = trainer.evaluate(val_loader, val_ds.coco, **eval_kw)
-        record["logs"].append({"epoch": epoch, "time": time.time() - t0,
-                               "train": train_logs, "val": metrics})
+        row = {"epoch": epoch, "time": time.time() - t0,
+               "train": train_logs, "val": metrics}
+        record["logs"].append(row)
+        if args.ckpt_dir:
+            from vit_torch_tpu_torch.checkpoint.ckpt_io import (
+                save_checkpoint)
+            t1 = time.perf_counter()
+            save_checkpoint(args.ckpt_dir, trainer.checkpoint_state(epoch),
+                            epoch)
+            row["ckpt_seconds"] = time.perf_counter() - t1
         save()
         ap = metrics.get("bbox", {})
         line = (f"epoch {epoch}: loss {train_logs['loss_total']:.4f} "
@@ -402,6 +443,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         if "panoptic" in metrics:
             line += f" PQ {metrics['panoptic'].get('pq', 0):.4f}"
         print(line)
+
+    if args.export_bundle:
+        from vit_torch_tpu_torch.serving.export import (export_detector,
+                                                        save_bundle)
+        exported = export_detector(
+            trainer, image_size=args.image_size,
+            batch_sizes=[int(b) for b in args.export_bs.split(",") if b])
+        save_bundle(args.export_bundle, exported)
+        record["export_bundle"] = exported["manifest"]
+        print("serving bundle saved to", args.export_bundle)
 
     record["telem"]["completed"] = True
     save()

@@ -1,9 +1,10 @@
 """Serve a bundle over HTTP: ``python -m vit_torch_tpu_torch.cli.serve
 --bundle /tmp/bundle --port 8000``.
 
-Pairs with ``cli/export.py``.  Runs on the CUDA device unless
-``--device cpu`` is given.  See ``serving/server.py`` for the endpoint
-contract and the micro-batching behavior.
+Pairs with ``cli/export.py`` (classifiers) and ``cli/coco.py
+--export_bundle`` (detectors); prints which kind it serves.  Runs on the
+CUDA device unless ``--device cpu`` is given.  See ``serving/server.py``
+for the endpoint contract and the micro-batching behavior.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ def main(argv=None) -> None:
                           predict_timeout_s=args.predict_timeout_s,
                           device=args.device)
     host, port = server.address
-    print(f"serving classifier bundle {args.bundle} on {args.device} at "
+    kind = "detector" if server.is_detection else "classifier"
+    print(f"serving {kind} bundle {args.bundle} on {args.device} at "
           f"http://{host}:{port} (buckets {list(server.model.batch_sizes)}, "
           f"POST /v1/predict, GET /healthz)", flush=True)
     try:

@@ -276,20 +276,28 @@ def build_detr(config: DETRConfig,
     ``generator`` (seed 0 when None) by :func:`init_detr`, on ``device``.
     With ``masks``, :class:`~vit_torch_tpu_torch.detection.segmentation.
     DETRSegm` over the Swin's stage maps (``multi_features=True``) with
-    ``num_mask_heads`` attention-map heads."""
+    ``num_mask_heads`` attention-map heads.  On the meta device the init
+    is skipped, for a state-dict load next.  ``model.backbone_arch`` keeps
+    ``backbone``'s name (a serving bundle's manifest records it)."""
     from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, SwinTransformer
     if backbone not in SWIN_CONFIGS:
         raise ValueError(f"unsupported DETR backbone {backbone!r} (use a "
                          f"swin config, or --head faster_rcnn for the "
                          f"ResNet trunks)")
-    trunk = SwinTransformer(SWIN_CONFIGS[backbone], image_size=image_size,
-                            dtype=dtype, features_only=not masks,
-                            multi_features=masks)
-    if masks:
-        from vit_torch_tpu_torch.detection.segmentation import DETRSegm
-        model = DETRSegm(config, trunk, num_mask_heads, dtype=dtype)
-    else:
-        model = DETR(config, trunk, dtype=dtype)
+    meta = device is not None and torch.device(device).type == "meta"
+    with torch.device("meta" if meta else "cpu"):
+        trunk = SwinTransformer(SWIN_CONFIGS[backbone],
+                                image_size=image_size, dtype=dtype,
+                                features_only=not masks,
+                                multi_features=masks)
+        if masks:
+            from vit_torch_tpu_torch.detection.segmentation import DETRSegm
+            model = DETRSegm(config, trunk, num_mask_heads, dtype=dtype)
+        else:
+            model = DETR(config, trunk, dtype=dtype)
+    model.backbone_arch = backbone
+    if meta:
+        return model
     init_detr(model, generator or torch.Generator().manual_seed(0))
     return model.to(device) if device is not None else model
 

@@ -2,20 +2,30 @@
 ``vit_torch_tpu/detection/engine.py``'s ``DetectionTrainer`` and
 ``FasterRCNNTrainer`` (the reference's ``object/engine.py:14-110`` and
 ``object_detr/engine.py``): the DETR train step with the host Hungarian
-matcher (with ``masks``, DETRSegm's focal and dice losses on the last
-layer's assignment), the Faster R-CNN / Keypoint R-CNN train step with
-its matching and sampling on the device, the epoch loop with epoch-0
-linear LR warmup, loss logging and the non-finite-loss stop, and the
-COCO bbox, segm and keypoint evaluation with panoptic quality.
+matcher or the device auction matcher (with ``masks``, DETRSegm's focal
+and dice losses on the last layer's assignment), the Faster R-CNN /
+Keypoint R-CNN train step with its matching and sampling on the device,
+the epoch loop with epoch-0 linear LR warmup, loss logging and the
+non-finite-loss stop, its chunked form (``train_one_epoch_scan``), the
+checkpoint state, the predict functions the serving bundles share, and
+the COCO bbox, segm and keypoint evaluation with panoptic quality.
 
 One forward a step, upstream DETR's order: the training forward, the
-matching costs from its detached outputs on the device, one copy of the
-``(L, B, Q, N)`` costs to the host, the exact assignment there
-(:func:`~vit_torch_tpu_torch.detection.matcher.hungarian_match`), then
-the set losses of every decoder layer and the backward on the same graph.
-(The JAX host path runs the training forward twice, once for the costs and
-once inside the differentiated step, with one dropout key, so that both
-see the same predictions.)
+matching costs from its detached outputs on the device, the assignment,
+then the set losses of every decoder layer and the backward on the same
+graph.  ``matcher="host"`` copies the ``(L, B, Q, N)`` costs to the host
+once and solves each exactly there (:func:`~vit_torch_tpu_torch.
+detection.matcher.hungarian_match`); ``matcher="device"`` runs
+:func:`~vit_torch_tpu_torch.detection.matcher.auction_assign` on the
+costs' device, so that nothing reads the device before the loss (the JAX
+``train_step_fused``).  (The JAX host path runs the training forward
+twice, once for the costs and once inside the differentiated step, with
+one dropout key, so that both see the same predictions.)
+
+``train_one_epoch_scan`` is the JAX chunked-scan epoch run as K eager
+steps a chunk: the same steps and draws as the per-step epoch, except that
+epoch 0's warmup sets the LR once a chunk (the value of the chunk's last
+buffered batch), and the logs of a chunk are read from the device once.
 
 Optimisers as the JAX trainer builds them: ``adamw`` is global-norm
 clipping at ``grad_clip`` (``g · max_norm / norm`` where the norm exceeds
@@ -24,16 +34,15 @@ momentum SGD with torch's coupled weight decay (the reference fork's
 recipe, ``object_detr/main.py:239-252``).  Faster R-CNN's is the
 reference's SGD (``object/coco_pipeline.py:464-476``: momentum 0.9,
 coupled weight decay 5e-4) after a global-norm clip at 10, optax's order
-clip → add decay → momentum.  The device auction matcher, chunked steps
-and detection checkpoints come with ROADMAP.md A10d; the data-parallel
-mesh helpers with A8.
+clip → add decay → momentum.  The data-parallel mesh helpers come with
+ROADMAP.md A8.
 """
 
 from __future__ import annotations
 
 import sys
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -47,7 +56,8 @@ from vit_torch_tpu_torch.detection.detr import detr_losses, postprocess
 from vit_torch_tpu_torch.detection.faster_rcnn import (draw_noise,
                                                        faster_rcnn_losses,
                                                        faster_rcnn_predict)
-from vit_torch_tpu_torch.detection.matcher import (cost_matrices,
+from vit_torch_tpu_torch.detection.matcher import (auction_assign,
+                                                   cost_matrices,
                                                    hungarian_match)
 from vit_torch_tpu_torch.detection.panoptic_eval import (PQStat,
                                                          masks_to_segment_map)
@@ -110,6 +120,15 @@ def _device_batch(batch: dict, device: torch.device
         "mask": _to_device(batch["mask"], device, torch.float32)}
 
 
+def _read_logs(chunk) -> list:
+    """The host values of a list of steps' device logs: one stacked copy
+    (one read of the device) for all of them."""
+    keys = list(chunk[0])
+    rows = torch.stack([torch.stack([logs[k].float() for k in keys])
+                        for logs in chunk]).tolist()
+    return [dict(zip(keys, row)) for row in rows]
+
+
 def _epoch(train_step, loader, epoch: int, set_lr, base_lr: float,
            warmup_steps: int, print_freq: int, warmup: bool,
            log_fn: Optional[Callable]) -> Dict[str, float]:
@@ -124,10 +143,7 @@ def _epoch(train_step, loader, epoch: int, set_lr, base_lr: float,
         if warmup and epoch == 0:
             frac = (i + 1) / max(min(n_batches, warmup_steps), 1)
             set_lr(base_lr * min(frac, 1.0))
-        logs = train_step(batch)
-        keys = list(logs)
-        logs = dict(zip(keys, torch.stack(
-            [logs[k].float() for k in keys]).tolist()))
+        logs = _read_logs([train_step(batch)])[0]
         if not np.isfinite(logs["loss_total"]):
             print(f"Loss is {logs['loss_total']}, stopping training")
             print(logs)
@@ -137,6 +153,56 @@ def _epoch(train_step, loader, epoch: int, set_lr, base_lr: float,
         count += 1
         if log_fn and (i % print_freq == 0 or i == n_batches - 1):
             log_fn(i, n_batches, logs)
+    return {k: v / max(count, 1) for k, v in totals.items()}
+
+
+def _scan_epoch(train_step, loader, epoch: int, steps_per_dispatch: int,
+                set_lr, base_lr: float, warmup_steps: int, warmup: bool,
+                log_fn: Optional[Callable]) -> Dict[str, float]:
+    """The JAX ``train_one_epoch_scan`` (``engine.py:459-531``; Faster
+    R-CNN's ``:852-926``) as eager steps: batches are buffered
+    ``steps_per_dispatch`` at a time and a full buffer runs as one chunk
+    of steps whose logs stay on the device and are read once; a tail that
+    does not fill a chunk runs per step (one read a step).  Epoch 0's
+    warmup sets the LR as each batch is buffered, so that a chunk trains
+    at the LR of its last buffered batch.  The non-finite stop and
+    ``log_fn`` (every ``steps_per_dispatch``-th step and the last) follow
+    each read."""
+    n_batches = len(loader)
+    totals: Dict[str, float] = {}
+    count = done = 0
+    buf: list = []
+
+    def accum(logs):
+        nonlocal count, done
+        if not np.isfinite(logs["loss_total"]):
+            print(f"Loss is {logs['loss_total']}, stopping training")
+            print(logs)
+            sys.exit(1)
+        for k, v in logs.items():
+            totals[k] = totals.get(k, 0.0) + v
+        count += 1
+        done += 1
+        if log_fn and (done % steps_per_dispatch == 0 or done == n_batches):
+            log_fn(done - 1, n_batches, logs)
+
+    def flush():
+        if len(buf) < steps_per_dispatch:
+            for batch in buf:
+                accum(_read_logs([train_step(batch)])[0])
+        else:
+            for logs in _read_logs([train_step(batch) for batch in buf]):
+                accum(logs)
+        buf.clear()
+
+    for batch in loader:
+        if warmup and epoch == 0:
+            frac = (done + len(buf) + 1) / max(min(n_batches, warmup_steps), 1)
+            set_lr(base_lr * min(frac, 1.0))
+        buf.append(batch)
+        if len(buf) == steps_per_dispatch:
+            flush()
+    flush()
     return {k: v / max(count, 1) for k, v in totals.items()}
 
 
@@ -186,6 +252,43 @@ def _pq_prepare(coco_gt, img_id: int, pred: Dict[str, np.ndarray]):
     return gt_map, gt_segments, pred_map, pred_segments, crowd_ids
 
 
+@torch.no_grad()
+def predict_detr(model: torch.nn.Module, norm: dict, image_size: int,
+                 batch: dict, masks: bool = False
+                 ) -> Dict[str, torch.Tensor]:
+    """DETR's predictions for a host batch (``image`` uint8 (B, S, S, 3),
+    ``scale`` (B,), ``pad`` (B, 2)), eval mode: scored boxes in original
+    pixels and, with ``masks``, the (B, Q, S, S) masks at the letterbox's
+    resolution bit-packed row-major for the copy to the host
+    (``masks_packed``).  The trainer's ``predict`` and the serving bundle
+    both run it."""
+    model.eval()
+    dev = next(model.parameters()).device
+    images = torch.as_tensor(batch["image"]).to(dev)
+    outputs = model(normalize(images, **norm))
+    preds = postprocess(outputs, image_size,
+                        torch.as_tensor(batch["scale"]).to(dev),
+                        torch.as_tensor(batch["pad"]).to(dev))
+    if masks and "pred_masks" in outputs:
+        preds["masks_packed"] = pack_mask_bits(
+            postprocess_segm(outputs["pred_masks"], image_size))
+    return preds
+
+
+@torch.no_grad()
+def predict_faster_rcnn(model: torch.nn.Module, norm: dict,
+                        batch: dict) -> Dict[str, torch.Tensor]:
+    """Faster R-CNN's scored boxes (and keypoints) in original pixels for
+    a host batch, eval mode; shared by the trainer and the bundle."""
+    model.eval()
+    dev = next(model.parameters()).device
+    images = _to_device(batch["image"], dev)
+    outputs = model(normalize(images, **norm))
+    return faster_rcnn_predict(
+        outputs, model.config, _to_device(batch["scale"], dev, torch.float32),
+        _to_device(batch["pad"], dev, torch.float32))
+
+
 def _to_host(tensors: Dict[str, torch.Tensor]):
     """Start the copy of ``tensors`` to the host; returns the host tensors
     and the CUDA event that marks their arrival (None on the CPU)."""
@@ -212,11 +315,11 @@ class DetectionTrainer:
         ``gt_masks``).  ``augment`` turns on the horizontal flip;
         ``aug_crop`` and ``aug_erase`` apply with it or without it.  Every
         random draw (augmentation in :meth:`draw`, drop-path) comes from
-        one generator on the model's device, seeded with ``seed``."""
-        if matcher != "host":
-            raise NotImplementedError(
-                f"--matcher {matcher} is not ported yet (ROADMAP.md A10d: "
-                f"the device auction matcher)")
+        one generator on the model's device, seeded with ``seed``.
+        ``matcher`` is ``"host"`` (exact, one copy of the costs) or
+        ``"device"`` (the auction, no host read)."""
+        if matcher not in ("host", "device"):
+            raise ValueError(f"unknown matcher {matcher!r}")
         if opt not in ("adamw", "sgd"):
             raise ValueError(f"unknown detection optimizer {opt!r}")
         self.model = model
@@ -243,8 +346,9 @@ class DetectionTrainer:
             self.optimizer = torch.optim.AdamW(self.params, lr=lr,
                                                weight_decay=weight_decay)
         self.base_lr = lr
-        # host time a step spent waiting for the costs (the forward's end
-        # and the copy) and solving the assignments, summed over the steps
+        # host time a host-matcher step spent waiting for the costs (the
+        # forward's end and the copy) and solving the assignments, summed
+        # over the steps (the device matcher charges nothing here)
         self.host_ms = {"costs_wait": 0.0, "match": 0.0, "steps": 0}
         self.last_eval_profile: Dict[str, float] = {}
 
@@ -299,8 +403,9 @@ class DetectionTrainer:
 
     def match(self, layers, targets) -> torch.Tensor:
         """The ``(L, B, Q)`` assignment of every decoder layer's
-        predictions: costs on the device from detached outputs, one copy
-        to the host, the exact assignment there."""
+        predictions: fp32 costs on the device from detached outputs, then
+        the auction there (``matcher="device"``), or one copy to the host
+        and the exact assignment there."""
         t0 = time.perf_counter()
         with torch.no_grad():
             costs = torch.stack([
@@ -308,6 +413,8 @@ class DetectionTrainer:
                               o["pred_boxes"].detach(), targets["labels"],
                               targets["boxes_cxcywh"], targets["box_mask"])
                 for o in layers])
+            if self.matcher == "device":
+                return auction_assign(costs, targets["box_mask"])
             costs = costs.cpu().numpy()
             box_mask = targets["box_mask"].cpu().numpy()
         t1 = time.perf_counter()
@@ -370,23 +477,40 @@ class DetectionTrainer:
                       self.base_lr, self.warmup_steps, print_freq, warmup,
                       log_fn)
 
-    @torch.no_grad()
+    def train_one_epoch_scan(self, loader, epoch: int,
+                             steps_per_dispatch: int = 8,
+                             warmup: bool = True,
+                             log_fn: Optional[Callable] = None
+                             ) -> Dict[str, float]:
+        """The chunked epoch (:func:`_scan_epoch`) for the device matcher;
+        the host matcher reads the device every step, so it raises, as
+        the JAX trainer does."""
+        if self.matcher != "device":
+            raise ValueError("train_one_epoch_scan requires matcher='device'"
+                             " (host Hungarian needs a round-trip per step)")
+        return _scan_epoch(self.train_step, loader, epoch,
+                           steps_per_dispatch, self.set_lr, self.base_lr,
+                           self.warmup_steps, warmup, log_fn)
+
+    def checkpoint_state(self, epoch: int) -> Dict[str, Any]:
+        """What a detection checkpoint holds after ``epoch``: the model's
+        state dict (BatchNorm buffers included), the optimizer's, the
+        generator's state (the JAX ``rng``) and the epoch."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state(), "epoch": epoch}
+
+    def load_checkpoint_state(self, state: Dict[str, Any]) -> None:
+        """Restore :meth:`checkpoint_state`'s dict."""
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        # a CUDA generator's state is a CPU ByteTensor
+        self.generator.set_state(state["generator"].cpu())
+
     def predict(self, batch: dict) -> Dict[str, torch.Tensor]:
-        """Scored boxes in original pixels for a host batch, eval mode.
-        With ``masks``, the (B, Q, S, S) masks at the letterbox's
-        resolution bit-packed row-major for the copy to the host
-        (``masks_packed``)."""
-        self.model.eval()
-        images = torch.as_tensor(batch["image"]).to(self.device)
-        outputs = self.model(normalize(images, **self.norm))
-        preds = postprocess(
-            outputs, self.image_size,
-            torch.as_tensor(batch["scale"]).to(self.device),
-            torch.as_tensor(batch["pad"]).to(self.device))
-        if self.masks and "pred_masks" in outputs:
-            preds["masks_packed"] = pack_mask_bits(
-                postprocess_segm(outputs["pred_masks"], self.image_size))
-        return preds
+        """:func:`predict_detr` of the trainer's model."""
+        return predict_detr(self.model, self.norm, self.image_size, batch,
+                            self.masks)
 
     def evaluate(self, loader, coco_gt, iou_types=("bbox",),
                  score_threshold: float = 0.0,
@@ -586,17 +710,22 @@ class FasterRCNNTrainer:
                       self.base_lr, self.warmup_steps, print_freq, warmup,
                       log_fn)
 
-    @torch.no_grad()
-    def predict(self, batch: dict) -> Dict[str, torch.Tensor]:
-        """Scored boxes (and keypoints) in original pixels for a host
-        batch, eval mode."""
-        self.model.eval()
-        images = _to_device(batch["image"], self.device)
-        outputs = self.model(normalize(images, **self.norm))
-        return faster_rcnn_predict(
-            outputs, self.cfg,
-            _to_device(batch["scale"], self.device, torch.float32),
-            _to_device(batch["pad"], self.device, torch.float32))
+    def train_one_epoch_scan(self, loader, epoch: int,
+                             steps_per_dispatch: int = 8,
+                             warmup: bool = True,
+                             log_fn: Optional[Callable] = None
+                             ) -> Dict[str, float]:
+        """The chunked epoch (:func:`_scan_epoch`); nothing in a step
+        reads the device before its loss."""
+        return _scan_epoch(self.train_step, loader, epoch,
+                           steps_per_dispatch, self.set_lr, self.base_lr,
+                           self.warmup_steps, warmup, log_fn)
 
-    # COCO evaluation is the DETR engine's
+    def predict(self, batch: dict) -> Dict[str, torch.Tensor]:
+        """:func:`predict_faster_rcnn` of the trainer's model."""
+        return predict_faster_rcnn(self.model, self.norm, batch)
+
+    # checkpoints and COCO evaluation are the DETR engine's
+    checkpoint_state = DetectionTrainer.checkpoint_state
+    load_checkpoint_state = DetectionTrainer.load_checkpoint_state
     evaluate = DetectionTrainer.evaluate

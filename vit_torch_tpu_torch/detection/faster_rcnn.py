@@ -709,12 +709,14 @@ def build_faster_rcnn(config: FasterRCNNConfig,
     the stage maps of ``backbone`` at ``config.image_size``, initialised
     on the CPU from ``generator`` (seed 0 when None) by
     :func:`init_faster_rcnn`, then moved to ``device``.  On the meta
-    device the init is skipped, for a state-dict load next."""
+    device the init is skipped, for a state-dict load next.
+    ``model.backbone_arch`` keeps ``backbone``'s name."""
     from vit_torch_tpu_torch.models.zoo import reset_buffers
     meta = device is not None and torch.device(device).type == "meta"
     with torch.device("meta" if meta else "cpu"):
         trunk, channels = make_backbone(backbone, config.image_size, dtype)
         model = FasterRCNN(config, trunk, channels, dtype=dtype)
+    model.backbone_arch = backbone
     if meta:
         return model
     init_faster_rcnn(model, generator or torch.Generator().manual_seed(0))

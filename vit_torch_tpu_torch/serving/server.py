@@ -1,6 +1,7 @@
-"""HTTP inference server over classifier bundles, counterpart of
-``vit_torch_tpu/serving/server.py``: the same endpoints, JSON and request
-micro-batching, on one CUDA device (or the CPU when asked).
+"""HTTP inference server over classifier and detector bundles,
+counterpart of ``vit_torch_tpu/serving/server.py``: the same endpoints,
+JSON and request micro-batching, on one CUDA device (or the CPU when
+asked).
 
 Endpoints (JSON over HTTP/1.1):
 
@@ -12,9 +13,17 @@ Endpoints (JSON over HTTP/1.1):
     window, and the dispatch batch-size histogram.
 
 ``POST /v1/predict`` with body ``{"images": [<base64 image bytes>, ...]}``
-    Each entry is a base64-encoded image file (anything PIL decodes).  The
-    reply is ``{"predictions": [{"logits": [...], "label": int}, ...]}``;
-    inputs are bicubic-resized host-side to the bundle's image size.
+    Each entry is a base64-encoded image file (anything PIL decodes).
+    Classifier bundles reply ``{"predictions": [{"logits": [...], "label":
+    int}, ...]}``; inputs are bicubic-resized host-side to the bundle's
+    image size.  Detector bundles letterbox each picture
+    (``serving.letterbox_images``) and reply per image ``{"scores",
+    "labels", "boxes"}`` (xyxy in the picture's own pixels) above
+    ``score_threshold`` (default 0.5) in score order, cut to ``top_k``
+    when given, with ``keypoints`` (Keypoint R-CNN) and ``masks_packed``
+    (DETRSegm: base64 bit-packed masks at the letterbox's resolution with
+    ``shape``, ``dtype`` and ``letterbox_size``).  A ``score_threshold``
+    or ``top_k`` that is not a number is a 400.
 """
 
 from __future__ import annotations
@@ -34,7 +43,8 @@ import numpy as np
 import torch
 
 from vit_torch_tpu_torch.data.datasets import resize_images
-from vit_torch_tpu_torch.serving.export import ServingModel, load_bundle
+from vit_torch_tpu_torch.serving.export import (DETECTION_FORMAT,
+                                                letterbox_images, load_bundle)
 
 
 class MicroBatcher:
@@ -157,16 +167,18 @@ def _decode_image(b64: str) -> np.ndarray:
 
 
 class BundleServer:
-    """Serve one classifier bundle over HTTP with micro-batching, on
-    ``device`` (CUDA when omitted; raises where there is none)."""
+    """Serve one classifier or detector bundle over HTTP with
+    micro-batching, on ``device`` (CUDA when omitted; raises where there
+    is none)."""
 
     def __init__(self, bundle_dir: str, host: str = "127.0.0.1",
                  port: int = 8000, max_batch: Optional[int] = None,
                  max_wait_ms: float = 5.0,
                  predict_timeout_s: float = 120.0,
                  device: Optional[Union[str, torch.device]] = None):
-        self.model: ServingModel = load_bundle(bundle_dir, device=device)
+        self.model = load_bundle(bundle_dir, device=device)
         self.manifest: Dict = self.model.manifest
+        self.is_detection = self.manifest["format"] == DETECTION_FORMAT
         self.image_size = int(self.manifest["image_size"])
         if max_batch is None:
             max_batch = max(self.model.batch_sizes)
@@ -188,6 +200,11 @@ class BundleServer:
 
     def _run_batch(self, images: Sequence[np.ndarray]) -> List[Dict]:
         self.stats.record_dispatch(len(images))
+        if self.is_detection:
+            out = self.model.predict_tree(
+                letterbox_images(list(images), self.image_size))
+            return [{k: v[i] for k, v in out.items()}
+                    for i in range(len(images))]
         S = self.image_size
         stacked = np.stack([resize_images(img[None], S)[0]
                             for img in images])
@@ -216,10 +233,34 @@ class BundleServer:
             self._thread.join(timeout=5)
 
 
-def _format_prediction(raw: Dict) -> Dict:
-    logits = raw["logits"]
-    return {"logits": [float(v) for v in logits],
-            "label": int(np.argmax(logits))}
+def _format_prediction(server: BundleServer, raw: Dict, thr: float,
+                       top_k: Optional[int]) -> Dict:
+    """One image's reply: a classifier's logits and label, or a
+    detector's detections above ``thr`` in score order (``top_k`` of
+    them when given), with keypoints and base64 packed masks."""
+    if not server.is_detection:
+        logits = raw["logits"]
+        return {"logits": [float(v) for v in logits],
+                "label": int(np.argmax(logits))}
+    scores = raw["scores"]
+    order = np.argsort(-scores)
+    keep = order[scores[order] >= thr]
+    if top_k is not None:
+        keep = keep[:top_k]
+    out = {"scores": [float(s) for s in scores[keep]],
+           "labels": [int(l) for l in raw["labels"][keep]],
+           "boxes": [[float(c) for c in b] for b in raw["boxes"][keep]]}
+    if "keypoints" in raw:           # (D, K, 3): x, y, score
+        out["keypoints"] = raw["keypoints"][keep].tolist()
+    if "masks_packed" in raw:
+        # (Q, S, ceil(S / 8)) uint8 at the letterbox's resolution; clients
+        # unpack with np.unpackbits along the last axis
+        kept = np.ascontiguousarray(raw["masks_packed"][keep])
+        out["masks_packed"] = {
+            "b64": base64.b64encode(kept.tobytes()).decode(),
+            "shape": list(kept.shape), "dtype": "uint8",
+            "letterbox_size": server.image_size}
+    return out
 
 
 def _make_handler(server: BundleServer):
@@ -257,6 +298,11 @@ def _make_handler(server: BundleServer):
                 b64s = req["images"]
                 if not isinstance(b64s, list) or not b64s:
                     raise ValueError("'images' must be a non-empty list")
+                # request-field validation belongs with the 400s: a bad
+                # score_threshold is a client error
+                thr = float(req.get("score_threshold", 0.5))
+                top_k = req.get("top_k")
+                top_k = None if top_k is None else int(top_k)
                 images = [_decode_image(b) for b in b64s]
             except Exception as e:
                 server.stats.record_error()
@@ -265,8 +311,8 @@ def _make_handler(server: BundleServer):
             try:
                 futs = [server._batcher.submit(img) for img in images]
                 preds = [_format_prediction(
-                    f.result(timeout=server.predict_timeout_s))
-                    for f in futs]
+                    server, f.result(timeout=server.predict_timeout_s),
+                    thr, top_k) for f in futs]
             except FuturesTimeoutError:
                 server.stats.record_error()
                 self._reply(504, {"error": "inference timed out after "
