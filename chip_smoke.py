@@ -213,7 +213,20 @@
    (``detr_serve``); runs ``cli.coco --head faster_rcnn --keypoints --scan
    4 --export_bundle`` and serves the Keypoint R-CNN bundle
    (``frcnn_scan_bundle``); prints an ``a10d`` summary line;
-18. prints one JSON line with each kernel's numbers, then the card's name
+18. parallelism (ROADMAP A8), dino_vitb8 @224 bs32 through ``cli.main``
+   on the resume phase's one-batch epoch: ``--mesh data=1`` over a
+   world-1 NCCL group (``mesh_dp_world1``: the flash pair's launches the
+   plain trainer's, the losses and weights within the resume phase's
+   bounds of the same seed's run without ``--mesh``, the step's ms both
+   ways) and the same with ``--fsdp`` (``mesh_fsdp_world1``: over one
+   rank FSDP shards nothing, as in the JAX package, and the peak memory
+   both ways); then two spawned ranks on ``cuda:0`` over gloo (two local
+   ranks on one card choose it: NCCL refuses them) train three steps of 16
+   images each against the single-process bs32 steps within the bf16
+   step bounds (``dp_two_ranks_one_card``: losses, each parameter's
+   relative gradient distance, step ms and the gradient all-reduce's
+   ms); prints an ``a8`` summary line;
+19. prints one JSON line with each kernel's numbers, then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -224,6 +237,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import base64
+import gc
 import http.client
 import io
 import json
@@ -5480,6 +5494,252 @@ def frcnn_scan_bundle(root: str, workdir: str):
     return row
 
 
+# --------------------------------------------------------------------------
+# parallelism (ROADMAP A8)
+# --------------------------------------------------------------------------
+
+# the resume phase's one-batch epoch (no augmentation, no dropout), one
+# epoch; MESH_ITERS steady-state steps are timed on each trainer.  The
+# weights after it are held to the resume phase's bounds against the run
+# without --mesh (RESUME_ATOL, RESUME_UPDATE_RTOL: the flash backward's dQ
+# atomics flip the sign of near-zero gradients, and AdamW's first update
+# is +-lr an element); the losses to the bf16 step's STEP_LOSS_ATOL (the
+# val loss after that update moved by 6.2e-4 on an H100)
+MESH_ARGS = RESUME_ARGS + ["--epoch", "1"]
+MESH_ITERS = 6
+# two ranks on one card: 16 images each, the single-process step's bs32
+DP_RANKS, DP_STEPS = 2, 3
+
+
+def _mesh_want():
+    from vit_torch_tpu_torch.models.vit import VIT_CONFIGS
+    depth = VIT_CONFIGS[ARCH].depth
+    return _want(flash_attention_fwd=2 * depth, flash_attention_bwd=depth)
+
+
+def _full_weights(trainer):
+    """The single-process state dict of a trainer (laid out or not)."""
+    if trainer.layout is not None:
+        from vit_torch_tpu_torch.parallel.api import full_state
+        return full_state(trainer.model, None, trainer.layout)[0]
+    return {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+
+
+def _step_batch(seed: int = 0):
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    images = torch.randint(0, 256, (TRAIN_BS, IMAGE_SIZE, IMAGE_SIZE, 3),
+                           generator=gen, dtype=torch.uint8)
+    labels = torch.randint(0, 10, (TRAIN_BS,), generator=gen)
+    return (images.cuda(), labels.cuda(), torch.ones(TRAIN_BS).cuda())
+
+
+def _steady_ms(trainer, batch, iters: int = MESH_ITERS):
+    """A train step's ms on events and the peak memory over it (GB)."""
+    import torch
+    trainer.model.train()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_ms(lambda: trainer.train_step(*batch), iters)
+    return ms, torch.cuda.max_memory_allocated() / 1e9
+
+
+def mesh_world1(workdir: str):
+    """``mesh_dp_world1`` and ``mesh_fsdp_world1``: cli.main without a
+    mesh, with ``--mesh data=1`` and with ``--mesh data=1 --fsdp`` over
+    one world-1 NCCL group each; launches, losses, weights, step ms."""
+    import torch
+    import torch.distributed as dist
+    from vit_torch_tpu_torch.cli import main as cli_main
+    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+    init = VisionModelZoo.get_model(
+        ARCH, classifier=[512, 10], image_size=IMAGE_SIZE, device="cpu",
+        generator=torch.Generator().manual_seed(0)).model.state_dict()
+    runs = {}
+    for mode, extra in (("plain", []), ("dp", ["--mesh", "data=1"]),
+                        ("fsdp", ["--mesh", "data=1", "--fsdp"])):
+        # keep each world-1 group until its steps are timed
+        with mock.patch.object(cli_main.dist, "destroy_process_group",
+                               lambda *a, **k: None):
+            trainer, counts, seconds = _cli_trainer(
+                MESH_ARGS + extra, f"{workdir}/mesh_{mode}.json",
+                f"mesh_{mode}", _mesh_want(), augment_off=True)
+        with open(f"{workdir}/mesh_{mode}.json") as f:
+            stats = json.load(f)
+        info = {"seconds": seconds, "launches": counts,
+                "losses": [stats[s][0]["loss"] for s in ("train", "val")],
+                "weights": _full_weights(trainer)}
+        if trainer.layout is not None:
+            info["backend"] = dist.get_backend()
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"--mesh on CUDA formed a "
+                                     f"{dist.get_backend()} group")
+            if mode == "fsdp":
+                # over one rank FSDP shards nothing, as in the JAX package
+                from torch.distributed.tensor import DTensor
+                info["fsdp_params"] = sum(
+                    isinstance(p, DTensor)
+                    for p in trainer.model.parameters())
+                if info["fsdp_params"]:
+                    raise AssertionError(f"--fsdp over one rank sharded "
+                                         f"{info['fsdp_params']} tensors")
+        info["step_ms"], info["peak_gb"] = _steady_ms(trainer, _step_batch())
+        if trainer.layout is not None:
+            dist.destroy_process_group()
+        runs[mode] = info
+        # _cli_trainer's recording subclass keeps each trainer in a
+        # reference cycle: collect it, or its state (1.4 GB at dino_vitb8)
+        # counts in the next mode's peak
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {}
+    plain = runs["plain"]
+    for mode in ("dp", "fsdp"):
+        r = runs[mode]
+        loss_diff = max(abs(a - b) for a, b in zip(r["losses"],
+                                                   plain["losses"]))
+        keys = [k for k, v in plain["weights"].items()
+                if v.is_floating_point()]
+        max_abs = max(float((r["weights"][k].float()
+                             - plain["weights"][k].float()).abs().max())
+                      for k in keys)
+        diff = sum(float(((r["weights"][k] - plain["weights"][k]).float()
+                          ** 2).sum()) for k in keys) ** 0.5
+        update = sum(float(((plain["weights"][k] - init[k]).float()
+                            ** 2).sum()) for k in keys) ** 0.5
+        row = {"launches": r["launches"], "losses_mesh_plain":
+               [r["losses"], plain["losses"]], "loss_max_diff": loss_diff,
+               "weights_max_abs_diff": max_abs,
+               "update_rel_diff": diff / update,
+               "limits": [STEP_LOSS_ATOL, RESUME_ATOL, RESUME_UPDATE_RTOL],
+               "backend": r["backend"],
+               "step_ms_mesh_plain": [r["step_ms"], plain["step_ms"]],
+               "peak_gb_mesh_plain": [r["peak_gb"], plain["peak_gb"]],
+               "seconds_mesh_plain": [r["seconds"], plain["seconds"]]}
+        if mode == "fsdp":
+            row["fsdp_params"] = r["fsdp_params"]
+        name = f"mesh_{mode}_world1"
+        _say(json.dumps({name: row}))
+        if r["launches"] != plain["launches"]:
+            raise AssertionError(f"{name}: launches {r['launches']} != the "
+                                 f"plain trainer's {plain['launches']}")
+        if not (loss_diff <= STEP_LOSS_ATOL and max_abs <= RESUME_ATOL
+                and diff / update <= RESUME_UPDATE_RTOL):
+            raise AssertionError(f"{name}: losses or weights past their "
+                                 f"bounds: {row}")
+        out[name] = row
+    return out
+
+
+def _dp_trainer(device, mesh=None):
+    import torch
+    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+    from vit_torch_tpu_torch.train.trainer import Trainer
+    zm = VisionModelZoo.get_model(
+        ARCH, classifier=[512, 10], image_size=IMAGE_SIZE,
+        dtype=torch.bfloat16, device=device,
+        generator=torch.Generator().manual_seed(0))
+    return Trainer(zm, epochs=1, lr=1e-4, opt="adamw", seed=0, mesh=mesh,
+                   augment_fn=lambda g, x: x.float() / 255.0,
+                   print_progress=False)
+
+
+def _dp_steps(trainer, batch):
+    """DP_STEPS steps: losses, the first step's gradients (after the
+    all-reduce), the later steps' ms."""
+    import torch
+    losses, grads, ms = [], None, []
+    for i in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(*batch)
+        losses.append((m["loss_sum"] / m["count"]).item())
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            grads = {n: p.grad.float().cpu()
+                     for n, p in trainer.model.named_parameters()}
+    return {"losses": losses, "grads": grads, "step_ms": ms[1:]}
+
+
+def _dp_rank(rank: int, port: int, workdir: str) -> None:
+    """One rank of ``dp_two_ranks_one_card`` (spawned)."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_RANKS),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port), LOCAL_WORLD_SIZE=str(DP_RANKS))
+    import torch
+    import torch.distributed as dist
+    from vit_torch_tpu_torch.parallel.api import _all_reduce_flat
+    from vit_torch_tpu_torch.parallel.multihost import setup_mesh
+    mesh, device, _ = setup_mesh("data=2", torch.device("cuda"))
+    trainer = _dp_trainer(device, mesh)
+    # the step takes this rank's rows of the global batch
+    res = _dp_steps(trainer, tuple(trainer.layout.shard(t)
+                                   for t in _step_batch()))
+    grads = [p.grad for p in trainer.model.parameters()]
+    res["allreduce_ms"] = _time_ms(lambda: _all_reduce_flat(
+        grads, trainer.layout.replica_group, 1), 3, warmup=1)
+    res["device"] = str(device)
+    res["backend"] = dist.get_backend()
+    res["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+    if rank == 0:
+        torch.save(res, os.path.join(workdir, "dp_rank0.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_two_ranks_one_card(workdir: str):
+    """Two spawned ranks on cuda:0 over gloo against the single-process
+    bs32 steps (STEP_LOSS_ATOL, STEP_GRAD_RTOL)."""
+    import multiprocessing
+
+    import torch
+    from vit_torch_tpu_torch.parallel.multihost import free_port
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=_dp_rank, args=(r, port, workdir))
+             for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if [p.exitcode for p in procs] != [0] * DP_RANKS:
+        raise AssertionError(f"dp_two_ranks_one_card: rank exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    seconds = time.perf_counter() - t0
+    dp = torch.load(os.path.join(workdir, "dp_rank0.pt"), weights_only=False)
+    single = _dp_steps(_dp_trainer(torch.device("cuda")), _step_batch())
+    loss_diff = max(abs(a - b) for a, b in zip(dp["losses"],
+                                               single["losses"]))
+    rel = {n: float((dp["grads"][n] - g).norm() / g.norm().clamp_min(1e-30))
+           for n, g in single["grads"].items()}
+    worst = max(rel, key=rel.get)
+    row = {"ranks": DP_RANKS, "device": dp["device"],
+           "backend": dp["backend"], "seconds": seconds,
+           "losses_dp_single": [dp["losses"], single["losses"]],
+           "loss_max_diff": loss_diff,
+           "grad_rel_max": [worst, rel[worst]],
+           "grad_rel_median": float(np.median(list(rel.values()))),
+           "limits": [STEP_LOSS_ATOL, STEP_GRAD_RTOL],
+           "step_ms_dp_single": [dp["step_ms"], single["step_ms"]],
+           "allreduce_ms": dp["allreduce_ms"],
+           "allreduce_bytes": dp["grad_bytes"]}
+    _say(json.dumps({"dp_two_ranks_one_card": row}))
+    if not (loss_diff <= STEP_LOSS_ATOL and rel[worst] <= STEP_GRAD_RTOL):
+        raise AssertionError(f"dp_two_ranks_one_card past its bounds: {row}")
+    return row
+
+
+def parallel_phases(workdir: str):
+    out = mesh_world1(workdir)
+    out["dp_two_ranks_one_card"] = dp_two_ranks_one_card(workdir)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6172,6 +6432,9 @@ def main() -> int:
             "w8a8_cosine_scores_boxes")},
         "frcnn_scan_bundle": {k: frcnn["scan_bundle"][k] for k in (
             "epoch_seconds", "reads", "latency_ms")}}}))
+    with tempfile.TemporaryDirectory() as workdir:
+        a8 = parallel_phases(workdir)
+    _say(json.dumps({"a8": a8}))
     _say(json.dumps({"kernels": kernels}))
     _say(smi)
     _say(json.dumps({"ok": True, "device": {

@@ -1622,3 +1622,61 @@ def test_detr_device_matcher_step_does_not_sync_before_its_loss(cuda):
     assert auction_assign.launches - before == 1
     assert tr.host_ms["steps"] == 0
     assert np.isfinite(logs["loss_total"].item())
+
+
+# --------------------------------------------------------------------------
+# parallelism (ROADMAP A8): a world-1 NCCL group on the card
+
+@pytest.mark.parametrize("fsdp", [False, True], ids=["dp", "fsdp"])
+def test_mesh_world1_nccl_step_matches_plain(cuda, fsdp, monkeypatch):
+    """``--mesh data=1`` (and ``--fsdp``, which shards nothing over one
+    rank) on the card: the group is NCCL,
+    the flash kernels launch as in the plain step, and two bf16 steps of
+    vit_tiny_test give the plain steps' losses and weights (the flash
+    backward's dQ atomics make runs differ by rounding)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+    from vit_torch_tpu_torch.parallel.api import full_state
+    from vit_torch_tpu_torch.parallel.mesh import make_mesh
+    from vit_torch_tpu_torch.parallel.multihost import init_distributed_mode
+    from vit_torch_tpu_torch.train.trainer import Trainer
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = (torch.randn(8, 32, 32, 3, generator=gen, device=cuda),
+             torch.randint(0, 10, (8,), generator=gen, device=cuda),
+             torch.ones(8, device=cuda))
+
+    def run(mesh):
+        zm = VisionModelZoo.get_model(
+            "vit_tiny_test", classifier=[10], image_size=32,
+            dtype=torch.bfloat16, device=cuda,
+            generator=torch.Generator().manual_seed(0))
+        tr = Trainer(zm, opt="adamw", lr=1e-3, mesh=mesh, fsdp=fsdp,
+                     fsdp_min_size=1024, print_progress=False)
+        # over one rank FSDP shards nothing, as in the JAX package
+        assert not any(isinstance(p, DTensor) for p in tr.model.parameters())
+        tr.model.train()
+        fa.flash_attention_bwd.launches = 0
+        losses = [(lambda m: (m["loss_sum"] / m["count"]).item())(
+            tr.train_step(*batch)) for _ in range(2)]
+        launches = fa.flash_attention_bwd.launches
+        state = (full_state(tr.model, None, tr.layout)[0] if mesh
+                 else {k: v.cpu() for k, v in tr.model.state_dict().items()})
+        return losses, launches, state
+
+    want = run(None)
+    info = init_distributed_mode(cuda)
+    try:
+        assert info["backend"] == "nccl" and info["world_size"] == 1
+        got = run(make_mesh("data=1", "cuda"))
+    finally:
+        dist.destroy_process_group()
+    assert got[1] == want[1] == 2 * 2
+    np.testing.assert_allclose(got[0], want[0], atol=1e-3)
+    for k, v in want[2].items():
+        np.testing.assert_allclose(got[2][k].float().numpy(),
+                                   v.float().numpy(), atol=5e-3, err_msg=k)

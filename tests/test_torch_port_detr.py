@@ -320,14 +320,17 @@ def test_cli_test_mode_writes_the_stats_json(tmp_path):
     assert d["telem"]["hardware"] == "1xcpu"
 
 
+# --mesh was refused until the parallelism slice landed; a mesh with any
+# axis but data is refused before any work, with the JAX CLI's message
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh", "data=2"], "A8")])
+    pytest.param(["--mesh", "data=2,model=2"], "data-parallel meshes only",
+                 id="argv0-A8")])
 def test_cli_refuses_later_slices_before_any_work(argv, item, tmp_path,
                                                   monkeypatch):
     from vit_torch_tpu_torch.detection import coco_data
     monkeypatch.setattr(coco_data, "make_synthetic_coco", None)
     fp = tmp_path / "s.json"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(SystemExit, match=item):
         cli_coco.main(["--test", "--device", "cpu", "--stats_fp", str(fp)]
                       + argv)
     assert not fp.exists()

@@ -175,15 +175,27 @@ def test_cli_export_then_load(tmp_path):
     assert logits.shape == (3, 3) and np.isfinite(logits).all()
 
 
-# --w8a8 itself works (tests/test_torch_port_quant.py); a data-parallel
-# W8A8 bundle is refused with the other parallelism flags
+# --w8a8 itself works (tests/test_torch_port_quant.py); data-parallel
+# bundles (W8A8 too) export since the parallelism slice, and --platforms
+# stays refused: the port's bundle is weights, which every device loads
 @pytest.mark.parametrize("flag", [["--platforms", "cpu,cuda"],
                                   ["--num_devices", "2"],
                                   ["--w8a8", "--num_devices", "2"]])
 def test_cli_export_refuses_later_slices(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="A8"):
-        cli_export.main(["--arch", "vit_tiny_test", "--device", "cpu",
-                         "--out", str(tmp_path), *flag])
+    argv = ["--arch", "vit_tiny_test", "--image_size", "32", "--device",
+            "cpu", "--out", str(tmp_path), "--bs", "1,4", *flag]
+    if "--platforms" in flag:
+        with pytest.raises(NotImplementedError, match="bundle is weights"):
+            cli_export.main(argv)
+        return
+    cli_export.main(argv)
+    with open(tmp_path / "manifest.json") as f:
+        manifest = json.load(f)
+    assert manifest["num_devices"] == 2
+    assert manifest["w8a8"] == ("--w8a8" in flag)
+    model = load_bundle(str(tmp_path), device="cpu", devices=["cpu", "cpu"])
+    assert len(model.replicas) == 2
+    assert model.predict(np.zeros((3, 32, 32, 3), np.uint8)).shape == (3, 10)
 
 
 def test_no_silent_cpu_fallback(bundles, tmp_path):
@@ -209,3 +221,39 @@ def test_detection_bundles_not_served_yet(tmp_path):
                    "batch_sizes": [1]}, f)
     with pytest.raises(ValueError, match="vit_torch_tpu.serving.detection"):
         load_bundle(str(tmp_path), device="cpu")
+
+
+def _dp_pair(tmp_path, num_devices):
+    zm = VisionModelZoo.get_model("vit_tiny_test", classifier=[5],
+                                  image_size=32, dtype=torch.float32,
+                                  device="cpu",
+                                  generator=torch.Generator().manual_seed(3))
+    out = str(tmp_path / f"b{num_devices}")
+    save_bundle(out, export_classifier(zm, batch_sizes=(2, 8), norm=NORM,
+                                       num_devices=num_devices))
+    return out
+
+
+@pytest.mark.parametrize("n_images", [3, 8, 11])
+def test_data_parallel_bundle_matches_one_device(n_images, tmp_path):
+    """A ``num_devices=2`` bundle replicated onto two CPU devices splits
+    each bucket over them and gives the one-device bundle's logits (the
+    same fp32 model on the same rows: bitwise)."""
+    one = load_bundle(_dp_pair(tmp_path, 1), device="cpu")
+    two = load_bundle(_dp_pair(tmp_path, 2), device="cpu",
+                      devices=["cpu", "cpu"])
+    assert two.manifest["num_devices"] == 2 and len(two.replicas) == 2
+    assert two.replicas[0][0] is not two.replicas[1][0]
+    images = np.random.default_rng(n_images).integers(
+        0, 256, (n_images, 32, 32, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(two.predict(images), one.predict(images))
+
+
+def test_data_parallel_bundle_needs_its_devices(tmp_path):
+    """Fewer devices than the manifest asks for raise, as the JAX
+    bundle's ``_data_sharding`` does."""
+    path = _dp_pair(tmp_path, 2)
+    with pytest.raises(ValueError, match="bundle needs 2 devices, have 1"):
+        load_bundle(path, device="cpu")
+    with pytest.raises(ValueError, match="bundle needs 2 devices, have 1"):
+        load_bundle(path, device="cpu", devices=["cpu"])

@@ -41,8 +41,7 @@ from vit_torch_tpu_torch.train.optimizers import (OPTIMIZERS, get_optimizer,
                                                   set_learning_rate)
 from vit_torch_tpu_torch.train.scan import epoch_indices
 from vit_torch_tpu_torch.train.schedules import get_lr_factor_fn
-from vit_torch_tpu_torch.utils.args import (ARGS, UNPORTED_FLAGS, check_ported,
-                                            classification_config)
+from vit_torch_tpu_torch.utils.args import ARGS, classification_config
 from torch_threads import fit_threads_to_workers
 
 fit_threads_to_workers()
@@ -416,27 +415,24 @@ def test_cli_pretrained_loads_the_torch_ckpt(tmp_path, monkeypatch):
 
 
 # the checkpoint, AutoAugment, bundle and tire flags were refused until
-# their slice landed; they are kept here as the accepted side of the check
-LANDED_FLAGS = ["aug_auto", "ckpt_dir", "export_bundle", "resume",
-                "save_every"]
+# their slice landed, the parallelism flags until theirs did (the CLI runs
+# them in tests/test_torch_port_parallel.py); every one is now the
+# accepted side of the check: it parses to its value
+LANDED_FLAGS = ["aug_auto", "ckpt_dir", "export_bundle", "fsdp", "mesh",
+                "pipe_microbatches", "resume", "save_every"]
 
 
-@pytest.mark.parametrize("flag", sorted(set(UNPORTED_FLAGS) | set(
-    LANDED_FLAGS)) + ["dataset"])
+@pytest.mark.parametrize("flag", sorted(LANDED_FLAGS) + ["dataset"])
 def test_cli_refuses_flags_of_later_slices(flag, tmp_path):
     value = {"fsdp": [], "dataset": ["tire"], "save_every": ["2"],
              "pipe_microbatches": ["2"], "aug_auto": ["cifar10"]}.get(
                  flag, ["x"])
     argv = CLI_FLAGS + [f"--{flag}", *value,
                         "--stats_fp", str(tmp_path / "s.json")]
-    if flag in UNPORTED_FLAGS:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
-            main(argv)
-    else:
-        A = ARGS(classification_config())
-        A.set_and_parse_args(argv)
-        check_ported(A.args)                  # raises nothing
-        assert A.args[flag] == {"save_every": 2}.get(flag, value[0])
+    A = ARGS(classification_config())
+    A.set_and_parse_args(argv)
+    assert A.args[flag] == {"save_every": 2, "pipe_microbatches": 2,
+                            "fsdp": True}.get(flag, (value or [None])[0])
 
 
 def test_cli_needs_a_gpu_unless_asked_for_cpu(monkeypatch, tmp_path):

@@ -11,6 +11,8 @@ path is a CUDA kernel written by hand for Hopper (``csrc/``), built with
 - ``checkpoint/`` JAX parameter trees and torch checkpoints into the models
 - ``data/``       normalisation constants and the eval resize
 - ``serving/``    classifier bundles and the micro-batching HTTP server
+- ``parallel/``   data, tensor, sequence and pipeline parallelism and FSDP
+                  over ``torch.distributed``
 - ``cli/``        ``export`` and ``serve`` entry points
 
 It imports nothing of JAX or of ``vit_torch_tpu``.

@@ -46,8 +46,15 @@ kernels' smallest) over ``swin_test`` (``swin_test3`` with masks: the
 mask head's laterals want three stages) on the CPU and Swin-T on the
 card, whose window kernels take head dim 32 only; or of Faster R-CNN with the
 JAX CLI's tiny settings over ``resnet_test`` (anchors 8 and 16, 64
-proposals, a two-conv 64-channel keypoint head).  ``--mesh`` (a later
-slice) raises before any work, naming its ROADMAP.md item.
+proposals, a two-conv 64-channel keypoint head).
+
+``--mesh data=N`` trains data-parallel over ``torch.distributed``
+(``torchrun --nproc_per_node N``, or ``data=1`` in a plain process; NCCL
+on CUDA, gloo on the CPU): every rank holds the whole model, takes its
+rows of each global batch and solves its own images' assignments, the
+losses divide by global counts and the gradients are averaged
+(``detection/engine.py``).  Any other axis exits before any work with the
+JAX CLI's message; rank 0 alone writes the stats, checkpoints and bundle.
 """
 
 from __future__ import annotations
@@ -60,11 +67,7 @@ import time
 from typing import Optional, Sequence
 
 import torch
-
-# flag -> (is it set?, the ROADMAP.md item that ports it)
-UNPORTED_COCO_FLAGS = {
-    "mesh": (bool, "A8, parallelism"),
-}
+import torch.distributed as dist
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -140,7 +143,9 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats_fp", default=f"./logs/coco/stats_"
                    f"{time.strftime('%y%m%d_%H%M%S')}.json")
     p.add_argument("--mesh", default="", type=str,
-                   help="data-parallel mesh (ROADMAP.md A8)")
+                   help="data-parallel device mesh spec, e.g. 'data=8' or ''"
+                        " = single device (params replicated, batch "
+                        "sharded, gradient all-reduce)")
     p.add_argument("--export_bundle", default="", type=str,
                    help="write the trained detector as a serving bundle")
     p.add_argument("--export_bs", default="1,8", type=str)
@@ -154,17 +159,13 @@ def get_args_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for a flag of a later slice."""
-    for flag, (is_set, item) in UNPORTED_COCO_FLAGS.items():
-        if is_set(getattr(args, flag)):
-            raise NotImplementedError(
-                f"--{flag} {getattr(args, flag)} is not ported yet "
-                f"(ROADMAP.md {item})")
-
-
 def check_combinations(args: argparse.Namespace) -> None:
     """The JAX CLI's refusals of flags that do not go together."""
+    for part in filter(None, args.mesh.split(",")):
+        axis, _, size = part.partition("=")
+        if axis.strip() != "data" and size.strip() != "1":
+            raise SystemExit("detection supports data-parallel meshes only "
+                             "(e.g. --mesh data=8)")
     if args.keypoints and args.head != "faster_rcnn":
         raise SystemExit("--keypoints requires --head faster_rcnn")
     if args.keypoints and (args.masks or args.panoptic_root):
@@ -261,7 +262,17 @@ def _panoptic_split(args, split: str, limit: int):
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = get_args_parser().parse_args(argv)
     check_combinations(args)
-    check_ported(args)
+    from vit_torch_tpu_torch.device import resolve_device
+    from vit_torch_tpu_torch.parallel.multihost import setup_mesh
+    mesh, device, formed = setup_mesh(args.mesh, resolve_device(args.device))
+    try:
+        return _run(args, mesh, device)
+    finally:
+        if formed:
+            dist.destroy_process_group()
+
+
+def _run(args: argparse.Namespace, mesh, device: torch.device) -> dict:
     if args.panoptic_root:
         # panoptic segments train the mask head, in --test runs too
         args.masks = True
@@ -271,10 +282,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from vit_torch_tpu_torch.detection.engine import (DetectionTrainer,
                                                       FasterRCNNTrainer)
     from vit_torch_tpu_torch.detection.faster_rcnn import build_faster_rcnn
-    from vit_torch_tpu_torch.device import resolve_device
+    from vit_torch_tpu_torch.parallel.multihost import is_main_process
     from vit_torch_tpu_torch.utils.stats import default_hardware
 
-    device = resolve_device(args.device)
+    main_rank = is_main_process()
     frcnn = args.head == "faster_rcnn"
     num_heads = 8
     if args.test:
@@ -320,6 +331,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                       max_boxes=args.max_boxes,
                                       limit=args.limit_test,
                                       category_ids=cats)
+    if mesh is not None and args.bs % mesh.shape["data"]:
+        raise SystemExit(f"--bs {args.bs} must be a multiple of the "
+                         f"data axis size ({mesh.shape['data']})")
     train_loader = CocoLoader(train_ds, args.bs, shuffle=True)
     val_loader = CocoLoader(val_ds, args.bs)
     print(f"train: {len(train_ds)} images, val: {len(val_ds)} images, "
@@ -350,7 +364,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         # momentum and decay (0.9, 5e-4), the flip with the keypoint swap
         trainer = FasterRCNNTrainer(
             model, cfg=cfg, lr=args.lr, augment=not args.no_hflip,
-            kp_flip_inds=_kp_flip_inds(train_ds) if args.keypoints else None)
+            kp_flip_inds=_kp_flip_inds(train_ds) if args.keypoints else None,
+            mesh=mesh)
     else:
         trainer = DetectionTrainer(model, image_size=args.image_size,
                                    num_classes=train_ds.num_classes,
@@ -359,7 +374,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                    aug_crop=args.aug_crop,
                                    aug_erase=args.aug_erase,
                                    matcher=args.matcher, opt=args.opt,
-                                   weight_decay=args.weight_decay)
+                                   weight_decay=args.weight_decay,
+                                   mesh=mesh)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model: {n_params / 1e6:.1f}M params ({args.head}, {dtype}, "
           f"{device})")
@@ -370,6 +386,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
               "logs": []}
 
     def save():
+        if not main_rank:
+            return
         os.makedirs(os.path.dirname(os.path.abspath(args.stats_fp)),
                     exist_ok=True)
         record["telem"]["time_updated"] = time.time()
@@ -425,7 +443,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         row = {"epoch": epoch, "time": time.time() - t0,
                "train": train_logs, "val": metrics}
         record["logs"].append(row)
-        if args.ckpt_dir:
+        if args.ckpt_dir and main_rank:
             from vit_torch_tpu_torch.checkpoint.ckpt_io import (
                 save_checkpoint)
             t1 = time.perf_counter()
@@ -444,7 +462,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             line += f" PQ {metrics['panoptic'].get('pq', 0):.4f}"
         print(line)
 
-    if args.export_bundle:
+    if args.export_bundle and main_rank:
         from vit_torch_tpu_torch.serving.export import (export_detector,
                                                         save_bundle)
         exported = export_detector(

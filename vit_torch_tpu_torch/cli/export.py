@@ -62,8 +62,9 @@ def main(argv=None) -> None:
     p.add_argument("--torch_ckpt", default=None,
                    help="torch checkpoint for the backbone weights")
     p.add_argument("--platforms", default=None,
-                   help="multi-platform export; not ported (the bundle is "
-                        "weights, which every device loads; ROADMAP A8)")
+                   help="the JAX package's multi-platform StableHLO export; "
+                        "refused: the port's bundle is weights, which every "
+                        "device loads")
     p.add_argument("--w8a8", action="store_true",
                    help="serve through the int8 path (weights prequantised "
                         "by default)")
@@ -74,19 +75,17 @@ def main(argv=None) -> None:
                    choices=[None, "bfloat16", "float32"],
                    help="cast stored weights (bfloat16 halves the bundle)")
     p.add_argument("--num_devices", type=int, default=1,
-                   help="data-parallel bundles (>1) are not ported yet "
-                        "(ROADMAP A8)")
+                   help="data-parallel bundle: serving replicates the model "
+                        "onto this many devices and splits each batch")
     p.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
     p.add_argument("--out", required=True, help="bundle output directory")
     args = p.parse_args(argv)
 
     if args.platforms:
-        raise NotImplementedError("--platforms belongs to the parallelism "
-                                  "slice of the port (ROADMAP.md, A8)")
-    if args.num_devices > 1:
-        raise NotImplementedError("--num_devices > 1 belongs to the "
-                                  "parallelism slice of the port "
-                                  "(ROADMAP.md, A8)")
+        raise NotImplementedError("--platforms exports StableHLO for several "
+                                  "platforms in the JAX package; the port's "
+                                  "bundle is weights, which every device "
+                                  "loads, so there is nothing to select")
 
     from vit_torch_tpu_torch.checkpoint.torch_import import (
         load_backbone_state_dict)
@@ -108,7 +107,7 @@ def main(argv=None) -> None:
         zm, batch_sizes=[int(b) for b in args.bs.split(",") if b],
         norm=_norm_for(NORM_VALUES, args.dataset),
         param_dtype=args.param_dtype, prequant=not args.no_prequant,
-        w8a8=True if args.w8a8 else None)
+        w8a8=True if args.w8a8 else None, num_devices=args.num_devices)
     save_bundle(args.out, exported)
     sizes = {f: os.path.getsize(os.path.join(args.out, f))
              for f in sorted(os.listdir(args.out))}

@@ -26,14 +26,32 @@ normalisation) that ``cli.serve --bundle B`` serves; under
 the JAX export is under the flag.  ``--aug_auto
 POLICY`` adds AutoAugment to the train augmentation.  ``--dataset tire
 --data_path DIR`` builds LBP channel stacks (``--tire_settings 0-3``;
-7 channels for setting 0) from an ImageFolder (``data/tire.py``).  The
-parallelism flags raise (``utils/args.py:check_ported``).
+7 channels for setting 0) from an ImageFolder (``data/tire.py``).
+
+``--mesh SPEC`` (``'data=4'``, ``'data=2,model=2'``, ...) trains over a
+``torch.distributed`` mesh (``parallel/``): launched by ``torchrun`` over
+its world, or as a world of one when run plainly (``--mesh data=1``);
+``--fsdp`` shards the large parameters and their optimizer moments over
+the batch axes (alone it implies the world of one), and
+``--pipe_microbatches M`` sets the GPipe microbatches of a ``pipe`` axis.
+On CUDA the group is NCCL (gloo where torchrun's local ranks outnumber
+the cards and share them), on the CPU gloo:
+
+    torchrun --nproc_per_node 4 -m vit_torch_tpu_torch.cli.main \
+        --mesh data=2,model=2 --device cpu --dataset synthetic \
+        --arch vit_tiny_test --image_size 32 --bs 16 --epoch 1
+
+As in the JAX CLI, ``--scan`` runs only without a mesh or on a pure data
+mesh without ``--fsdp``, and ``--fsdp`` refuses ``--cache_features``.
+Rank 0 alone writes the stats file, checkpoints and the bundle.
 """
 
 from __future__ import annotations
 
 import json
 from typing import Optional, Sequence
+
+import torch.distributed as dist
 
 import torch
 
@@ -42,10 +60,11 @@ from vit_torch_tpu_torch.data.augment import (make_eval_transform,
 from vit_torch_tpu_torch.data.datasets import Datasets
 from vit_torch_tpu_torch.device import resolve_device
 from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+from vit_torch_tpu_torch.parallel.multihost import (is_main_process,
+                                                    setup_mesh)
 from vit_torch_tpu_torch.serving.export import export_classifier, save_bundle
 from vit_torch_tpu_torch.train.trainer import Trainer
-from vit_torch_tpu_torch.utils.args import (ARGS, check_ported,
-                                            classification_config)
+from vit_torch_tpu_torch.utils.args import ARGS, classification_config
 from vit_torch_tpu_torch.utils.stats import Stats, default_hardware
 
 
@@ -53,10 +72,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Stats:
     A = ARGS(classification_config())
     A.set_and_parse_args(argv)
     args = A.args
-    check_ported(args)
     print("args:", json.dumps(A.info, indent=4))
 
     device = resolve_device(args["device"])
+    mesh, device, formed = setup_mesh(args["mesh"], device,
+                                      force=args["fsdp"])
+    try:
+        return _run(A, args, device, mesh)
+    finally:
+        if formed:
+            dist.destroy_process_group()
+
+
+def _run(A, args, device, mesh) -> Stats:
     dtype = torch.bfloat16 if args["dtype"] == "bfloat16" else torch.float32
 
     image_channels = 3
@@ -95,7 +123,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Stats:
                                  data.image_size)
 
     stats = Stats(
-        splits=("train", "val"), stats_fp=args["stats_fp"], info=A.info,
+        splits=("train", "val"),
+        stats_fp=args["stats_fp"] if is_main_process() else None,
+        info=A.info,
         telem={
             "hardware": default_hardware(device),
             "mode": "lineareval" if args["lineareval"] else "finetune",
@@ -118,25 +148,48 @@ def main(argv: Optional[Sequence[str]] = None) -> Stats:
         seed=args["seed"], stats=stats, augment_fn=augment_fn,
         eval_transform=make_eval_transform(**data.norm_values, dtype=dtype),
         ckpt_dir=args["ckpt_dir"], save_every=args["save_every"],
-        resume=args["resume"],
+        resume=args["resume"], mesh=mesh, fsdp=args["fsdp"],
+        pipe_microbatches=args["pipe_microbatches"],
     )
     # as in the JAX CLI, the scan path trains on data.sets, which ignores
-    # --limit_train / --limit_test
+    # --limit_train / --limit_test; it handles no mesh and pure data
+    # meshes, the others run the per-step path
+    use_scan = args["scan"] and not args["fsdp"] and (
+        mesh is None or all(mesh.shape[a] == 1
+                            for a in ("model", "seq", "pipe")))
     sets = {"train": data.sets["train"], "val": data.sets["test"]}
     if args["lineareval"] and args["cache_features"]:
+        if args["fsdp"]:
+            # the cached path runs unsharded steps: silently dropping the
+            # requested sharding would defeat its purpose
+            raise SystemExit("--fsdp is not supported with --cache_features "
+                             "(the cached lineareval path is single-program);"
+                             " drop one of the two flags")
         trainer.fit_lineareval_cached(sets, args["bs"])
-    elif args["scan"]:
+    elif use_scan:
         trainer.fit_scan(sets, args["bs"])
     else:
         trainer.fit(data.loaders)
     print("\nresults:", json.dumps(stats.update_results(), indent=2))
     if args["export_bundle"]:
-        exported = export_classifier(
-            zoo_model,
-            batch_sizes=[int(b) for b in args["export_bs"].split(",") if b],
-            norm=data.norm_values)
-        save_bundle(args["export_bundle"], exported)
-        print("serving bundle saved to", args["export_bundle"])
+        export_zm = zoo_model
+        if trainer.layout is not None:
+            # the bundle holds the single-process model: gather it (every
+            # rank), rebuild it whole on rank 0
+            from vit_torch_tpu_torch.parallel.api import full_state
+            state, _ = full_state(trainer.model, None, trainer.layout)
+            export_zm = VisionModelZoo.get_model(
+                args["arch"], classifier=classifier,
+                image_size=data.image_size, dtype=dtype, device="cpu",
+                image_channels=image_channels)
+            export_zm.model.load_state_dict(state)
+        if is_main_process():
+            exported = export_classifier(
+                export_zm, norm=data.norm_values,
+                batch_sizes=[int(b) for b in args["export_bs"].split(",")
+                             if b])
+            save_bundle(args["export_bundle"], exported)
+            print("serving bundle saved to", args["export_bundle"])
     if args["stats_fp"]:
         print("stats saved to", args["stats_fp"])
     return stats

@@ -13,6 +13,9 @@ DropPath is inactive, PyTorch ops around the window-block kernel B8 for the
 others) and their backward through the window-attention backward kernel
 (B6); linear eval, cached linear eval and eval run the forward kernels
 only.  ``--device cpu`` runs the same paths through the plain versions.
+The parallelism flags (``--mesh``, ``--fsdp``, ``--pipe_microbatches``)
+work as in ``cli.main``, which this entry point calls; under tensor
+parallelism every block takes B8 over its rank's heads.
 """
 
 from __future__ import annotations

@@ -12,7 +12,10 @@ centres (:func:`crop`, :func:`hflip`, :func:`vflip`, :func:`cutout_at`),
 with a thin random wrapper on top that draws them from a
 ``torch.Generator`` on the batch's device.  JAX and torch draw different
 numbers from one seed, so the tests pin the deterministic ops against the
-JAX ops on the same offsets and flags.
+JAX ops on the same offsets and flags.  A whole train transform is a
+:class:`DrawnAugment`: its draws for a batch, then their application, so
+that the ranks of a data mesh draw for the global batch and each applies
+its rows (``train/steps.py``).
 """
 
 from __future__ import annotations
@@ -89,48 +92,69 @@ def cutout_at(images: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor,
                                     device=dev), images)
 
 
-def _randint(gen: torch.Generator, high: int, n: int,
+def draw_int(gen: torch.Generator, high: int, n: int,
              device) -> torch.Tensor:
+    """``n`` integers in ``[0, high)``: offsets and centres."""
     return torch.randint(0, high, (n,), generator=gen, device=device)
 
 
 def random_crop(gen: torch.Generator, images: torch.Tensor, pad: int,
                 fill: int = 128) -> torch.Tensor:
     B, dev = images.shape[0], images.device
-    offs_y = _randint(gen, 2 * pad + 1, B, dev)
-    offs_x = _randint(gen, 2 * pad + 1, B, dev)
+    offs_y = draw_int(gen, 2 * pad + 1, B, dev)
+    offs_x = draw_int(gen, 2 * pad + 1, B, dev)
     return crop(images, offs_y, offs_x, pad, fill)
+
+
+def draw_flip(gen: torch.Generator, batch: int, device,
+              p: float = 0.5) -> torch.Tensor:
+    """:func:`random_hflip`'s (and :func:`random_vflip`'s) flags."""
+    return torch.rand(batch, generator=gen, device=device) < p
 
 
 def random_hflip(gen: torch.Generator, images: torch.Tensor,
                  p: float = 0.5) -> torch.Tensor:
-    flip = torch.rand(images.shape[0], generator=gen,
-                      device=images.device) < p
-    return hflip(images, flip)
+    return hflip(images, draw_flip(gen, images.shape[0], images.device, p))
 
 
 def random_vflip(gen: torch.Generator, images: torch.Tensor,
                  p: float = 0.5) -> torch.Tensor:
-    flip = torch.rand(images.shape[0], generator=gen,
-                      device=images.device) < p
-    return vflip(images, flip)
+    return vflip(images, draw_flip(gen, images.shape[0], images.device, p))
 
 
 def random_crop_to(gen: torch.Generator, images: torch.Tensor,
                    size: int) -> torch.Tensor:
     """Random crop of a larger image down to ``size``, no padding."""
     B, H, W, C = images.shape
-    offs_y = _randint(gen, H - size + 1, B, images.device)
-    offs_x = _randint(gen, W - size + 1, B, images.device)
+    offs_y = draw_int(gen, H - size + 1, B, images.device)
+    offs_x = draw_int(gen, W - size + 1, B, images.device)
     return crop_to(images, offs_y, offs_x, size, size)
 
 
 def cutout(gen: torch.Generator, images: torch.Tensor, size: int,
            fill_value: float = 0.0) -> torch.Tensor:
     B, H, W, C = images.shape
-    cy = _randint(gen, H, B, images.device)
-    cx = _randint(gen, W, B, images.device)
+    cy = draw_int(gen, H, B, images.device)
+    cx = draw_int(gen, W, B, images.device)
     return cutout_at(images, cy, cx, size, fill_value)
+
+
+class DrawnAugment:
+    """A random transform as ``draw(generator, batch, (H, W), device)``,
+    a dict of tensors whose leading dim is ``batch``, and ``apply(images,
+    draws)``; ``augment(generator, images)`` does both.  The draws come
+    from the generator in the order the random wrappers above take them,
+    so the whole transform draws the same numbers as the wrappers
+    chained."""
+
+    def __init__(self, draw: Callable, apply: Callable) -> None:
+        self.draw = draw
+        self.apply = apply
+
+    def __call__(self, gen: torch.Generator,
+                 images: torch.Tensor) -> torch.Tensor:
+        return self.apply(images, self.draw(gen, images.shape[0],
+                                            images.shape[1:3], images.device))
 
 
 def make_train_augment(
@@ -138,7 +162,7 @@ def make_train_augment(
     crop_pad: Optional[int] = None, hflip: bool = True,
     cutout_size: int = 0, auto_policy: Optional[str] = None,
     dtype=torch.float32,
-) -> Callable[[torch.Generator, torch.Tensor], torch.Tensor]:
+) -> DrawnAugment:
     """The reference's train transform stack as one device function,
     ``augment(generator, uint8 images) -> float images``, in the JAX
     package's order: crop → flip → AutoAugment → normalize → cutout.
@@ -147,26 +171,47 @@ def make_train_augment(
     ``auto_policy`` ∈ {imagenet, cifar10, stl10, svhn} enables AutoAugment
     (``autoaugment.py``) on the batch's device.
     """
-    do_flip = hflip
     auto_fn = None
     if auto_policy:
         from vit_torch_tpu_torch.data.autoaugment import make_autoaugment
         auto_fn = make_autoaugment(auto_policy)
+    return _train_augment(mean, std, crop_pad, hflip, cutout_size, auto_fn,
+                          dtype)
 
-    def augment(gen: torch.Generator, images: torch.Tensor) -> torch.Tensor:
-        H = images.shape[1]
-        pad = crop_pad if crop_pad is not None else max(2, H // 12)
-        x = random_crop(gen, images, pad, fill=128)
+
+def _train_augment(mean, std, crop_pad: Optional[int], do_flip: bool,
+                   cutout_size: int, auto_fn: Optional[DrawnAugment],
+                   dtype) -> DrawnAugment:
+    def pad_of(H: int) -> int:
+        return crop_pad if crop_pad is not None else max(2, H // 12)
+
+    def draw(gen: torch.Generator, B: int, hw, dev) -> dict:
+        H, W = hw
+        span = 2 * pad_of(H) + 1
+        out = {"crop_y": draw_int(gen, span, B, dev),
+               "crop_x": draw_int(gen, span, B, dev)}
         if do_flip:
-            x = random_hflip(gen, x)
+            out["flip"] = draw_flip(gen, B, dev)
         if auto_fn is not None:
-            x = auto_fn(gen, x)
+            out["auto"] = auto_fn.draw(gen, B, hw, dev)
+        if cutout_size > 0:
+            out["cut_y"] = draw_int(gen, H, B, dev)
+            out["cut_x"] = draw_int(gen, W, B, dev)
+        return out
+
+    def apply(images: torch.Tensor, d: dict) -> torch.Tensor:
+        x = crop(images, d["crop_y"], d["crop_x"], pad_of(images.shape[1]),
+                 fill=128)
+        if do_flip:
+            x = hflip(x, d["flip"])
+        if auto_fn is not None:
+            x = auto_fn.apply(x, d["auto"])
         x = normalize(x, mean, std, dtype=dtype)
         if cutout_size > 0:
-            x = cutout(gen, x, cutout_size)
+            x = cutout_at(x, d["cut_y"], d["cut_x"], cutout_size)
         return x
 
-    return augment
+    return DrawnAugment(draw, apply)
 
 
 def make_eval_transform(mean: Sequence[float], std: Sequence[float],

@@ -22,11 +22,13 @@ uint8 levels after each of the two ops.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from vit_torch_tpu_torch.data.augment import DrawnAugment
 
 FILL = 128.0
 
@@ -372,19 +374,24 @@ def apply_policy(images: torch.Tensor, tables: Dict[str, torch.Tensor],
     return x.to(torch.uint8)
 
 
-def make_autoaugment(policy: str = "imagenet"
-                     ) -> Callable[[torch.Generator, torch.Tensor],
-                                   torch.Tensor]:
-    """Batched AutoAugment: ``fn(generator, uint8 images) -> uint8``."""
+def make_autoaugment(policy: str = "imagenet") -> DrawnAugment:
+    """Batched AutoAugment, a :class:`~vit_torch_tpu_torch.data.augment.
+    DrawnAugment`: ``fn(generator, uint8 images) -> uint8``, its draws
+    (:func:`draw`) kept batch-major."""
     cpu_tables = policy_tables(policy)
     on_device: Dict[torch.device, Dict[str, torch.Tensor]] = {}
 
-    def augment(gen: torch.Generator, images: torch.Tensor) -> torch.Tensor:
-        dev = images.device
+    def tables_on(dev) -> Dict[str, torch.Tensor]:
         if dev not in on_device:
             on_device[dev] = {k: v.to(dev) for k, v in cpu_tables.items()}
-        tables = on_device[dev]
-        idx, u, s = draw(gen, images.shape[0], tables["op"].shape[1], dev)
-        return apply_policy(images, tables, idx, u, s)
+        return on_device[dev]
 
-    return augment
+    def draw_batch(gen: torch.Generator, batch: int, hw, dev) -> dict:
+        idx, u, s = draw(gen, batch, cpu_tables["op"].shape[1], dev)
+        return {"idx": idx, "u": u.t(), "s": s.t()}
+
+    def apply(images: torch.Tensor, d: dict) -> torch.Tensor:
+        return apply_policy(images, tables_on(images.device), d["idx"],
+                            d["u"].t(), d["s"].t())
+
+    return DrawnAugment(draw_batch, apply)

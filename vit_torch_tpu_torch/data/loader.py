@@ -27,10 +27,18 @@ class ArrayDataLoader:
 
     def __init__(self, images: np.ndarray, labels: np.ndarray, batch_size: int,
                  shuffle: bool = False, seed: int = 0, drop_last: bool = False,
-                 limit: int = 0) -> None:
+                 limit: int = 0, process_shard: bool = False) -> None:
         assert len(images) == len(labels)
         if limit and limit > 0:
             images, labels = images[:limit], labels[:limit]
+        if process_shard:
+            # multi-process data sharding: each rank loads its slice (the
+            # reference's DistributedSampler branch,
+            # utils_datasets.py:866-891)
+            import torch.distributed as dist
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                rank, world = dist.get_rank(), dist.get_world_size()
+                images, labels = images[rank::world], labels[rank::world]
         self.images = np.ascontiguousarray(images)
         self.labels = np.asarray(labels, np.int32)
         self.batch_size = batch_size

@@ -37,7 +37,7 @@ intensity changes, so it only touched the raw r/g/b channels.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -128,15 +128,16 @@ class TireDatasets:
             val_loader = PrefetchLoader(val_loader)
         self.loaders = {"train": train_loader, "val": val_loader}
 
-    def make_augment_fn(self, dtype=torch.float32
-                        ) -> Callable[[torch.Generator, torch.Tensor],
-                                      torch.Tensor]:
-        """The train augmentation on the batch's device, ``fn(generator,
-        uint8 images) -> images``: random crop to ``image_size``, flips and
-        normalisation of the LBP stack; with ``aug_auto``, AutoAugment and
-        LBP of the RGB crop between the flips and the normalisation."""
-        from vit_torch_tpu_torch.data.augment import (
-            normalize, random_crop_to, random_hflip, random_vflip)
+    def make_augment_fn(self, dtype=torch.float32):
+        """The train augmentation on the batch's device, a
+        :class:`~vit_torch_tpu_torch.data.augment.DrawnAugment`
+        ``fn(generator, uint8 images) -> images``: random crop to
+        ``image_size``, flips and normalisation of the LBP stack; with
+        ``aug_auto``, AutoAugment and LBP of the RGB crop between the flips
+        and the normalisation."""
+        from vit_torch_tpu_torch.data.augment import (DrawnAugment, crop_to,
+                                                      draw_flip, draw_int,
+                                                      hflip, normalize, vflip)
         size = self.image_size
         mean, std = self.norm_values["mean"], self.norm_values["std"]
         auto_fn = lbp_fn = None
@@ -149,14 +150,25 @@ class TireDatasets:
                                        point_mult=TIRE_LBP_POINT_MULT,
                                        methods=self.methods)
 
-        def augment(gen: torch.Generator, images: torch.Tensor
-                    ) -> torch.Tensor:
-            x = images
-            if x.shape[1] > size:
-                x = random_crop_to(gen, x, size)
-            x = random_vflip(gen, random_hflip(gen, x))
+        def draw(gen: torch.Generator, B: int, hw, dev) -> dict:
+            H, W = hw
+            out = {}
+            if H > size:
+                out["crop_y"] = draw_int(gen, H - size + 1, B, dev)
+                out["crop_x"] = draw_int(gen, W - size + 1, B, dev)
+            out["hflip"] = draw_flip(gen, B, dev)
+            out["vflip"] = draw_flip(gen, B, dev)
             if auto_fn is not None:
-                x = lbp_fn(auto_fn(gen, x))
+                out["auto"] = auto_fn.draw(gen, B, (size, size), dev)
+            return out
+
+        def apply(images: torch.Tensor, d: dict) -> torch.Tensor:
+            x = images
+            if "crop_y" in d:
+                x = crop_to(x, d["crop_y"], d["crop_x"], size, size)
+            x = vflip(hflip(x, d["hflip"]), d["vflip"])
+            if auto_fn is not None:
+                x = lbp_fn(auto_fn.apply(x, d["auto"]))
             return normalize(x, mean, std, dtype=dtype)
 
-        return augment
+        return DrawnAugment(draw, apply)

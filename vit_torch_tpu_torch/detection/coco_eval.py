@@ -411,14 +411,14 @@ class CocoEvaluator:
                 self.results.append(result)
 
     def synchronize_between_processes(self) -> None:
-        """Nothing to merge in one process; a multi-process merge of the
-        result lists comes with ROADMAP.md A8."""
-        import torch.distributed as dist
-        if (dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1):
-            raise NotImplementedError(
-                "merging COCO results across processes is not ported yet "
-                "(ROADMAP.md A8, parallelism)")
+        """Multi-process merge: every rank's result list gathered on every
+        rank (the reference's pickle all_gather,
+        ``object/coco_eval.py:163-182``); nothing to do in one process."""
+        from vit_torch_tpu_torch.parallel.multihost import all_gather_objects
+        merged = []
+        for part in all_gather_objects(self.results):
+            merged.extend(part)
+        self.results = merged
 
     def accumulate(self) -> None:
         coco_dt = self.coco_gt.load_res(self.results)

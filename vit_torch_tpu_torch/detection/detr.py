@@ -37,6 +37,7 @@ from vit_torch_tpu_torch.detection.boxes import (cxcywh_to_xyxy,
 from vit_torch_tpu_torch.models.layers import (LayerNorm, Linear, QLinear,
                                                init_weights)
 from vit_torch_tpu_torch.ops.attention import dot_product_attention
+from vit_torch_tpu_torch.parallel.collectives import global_sum
 
 
 @functools.lru_cache(maxsize=16)
@@ -369,10 +370,11 @@ def detr_losses(outputs: Dict[str, torch.Tensor],
         sample_mask = torch.ones((B,), device=logits.device)
     sample_mask = sample_mask.float()
     weights = torch.where(matched, 1.0, eos_coef) * sample_mask[:, None]
-    loss_ce = (nll * weights).sum() / weights.sum().clamp_min(1.0)
+    loss_ce = (nll * weights).sum() / global_sum(weights.sum()).clamp_min(1.0)
 
     box_mask = targets["box_mask"].float()
-    num_boxes = (box_mask * sample_mask[:, None]).sum().clamp_min(1.0)
+    num_boxes = global_sum((box_mask * sample_mask[:, None]).sum()
+                           ).clamp_min(1.0)
     tgt_boxes = torch.gather(targets["boxes_cxcywh"].float(), 1,
                              safe[..., None].expand(-1, -1, 4))
     pair_mask = matched.float() * sample_mask[:, None]
@@ -384,7 +386,10 @@ def detr_losses(outputs: Dict[str, torch.Tensor],
     loss_giou = ((1.0 - giou.reshape(B, Q)) * pair_mask).sum() / num_boxes
     with torch.no_grad():
         pred_nonempty = (logits.argmax(-1) != 0).float().sum(1)
-        cardinality = (pred_nonempty - box_mask.sum(1)).abs().mean()
+        # over the global image count (a fill, not a copy from the host:
+        # the step reads nothing before its loss)
+        card = (pred_nonempty - box_mask.sum(1)).abs()
+        cardinality = card.sum() / global_sum(card.new_full((), float(B)))
     total = w_class * loss_ce + w_bbox * loss_bbox + w_giou * loss_giou
     return {"loss": total, "loss_ce": loss_ce, "loss_bbox": loss_bbox,
             "loss_giou": loss_giou, "cardinality_error": cardinality}

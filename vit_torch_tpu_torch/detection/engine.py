@@ -34,8 +34,18 @@ momentum SGD with torch's coupled weight decay (the reference fork's
 recipe, ``object_detr/main.py:239-252``).  Faster R-CNN's is the
 reference's SGD (``object/coco_pipeline.py:464-476``: momentum 0.9,
 coupled weight decay 5e-4) after a global-norm clip at 10, optax's order
-clip → add decay → momentum.  The data-parallel mesh helpers come with
-ROADMAP.md A8.
+clip → add decay → momentum.
+
+With a ``mesh`` (a pure ``data`` mesh, ``parallel/``) every rank draws a
+step's augmentation and noise for the global batch and keeps its rows,
+solves its own images' assignments, and divides its loss terms by the
+global counts (``collectives.global_denominators``: DETR's ``num_boxes``
+and class weights, the images of Faster R-CNN); its loss drives the
+backward scaled by the number of ranks, the gradients are averaged over
+them before the clip, BatchNorm's statistics are the global batch's, and
+the logged terms are summed over the ranks, so that a step equals the
+single-process step on the global batch, as the JAX step does under
+GSPMD.
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ from vit_torch_tpu_torch.detection.transforms import (apply_erasing,
                                                       draw_hflip,
                                                       draw_zoom_crop)
 from vit_torch_tpu_torch.models.layers import set_generator
+from vit_torch_tpu_torch.parallel.collectives import global_denominators
 from vit_torch_tpu_torch.train.optimizers import set_learning_rate
 
 
@@ -118,6 +129,46 @@ def _device_batch(batch: dict, device: torch.device
         "labels": _to_device(batch["labels"], device, torch.long),
         "box_mask": _to_device(batch["box_mask"], device, torch.float32),
         "mask": _to_device(batch["mask"], device, torch.float32)}
+
+
+def _data_layout(model: torch.nn.Module, mesh):
+    """The detection trainers' :class:`~vit_torch_tpu_torch.parallel.api.
+    Layout` (None without a mesh); only the ``data`` axis may be larger
+    than one."""
+    if mesh is None:
+        return None
+    if any(mesh.shape[a] != 1 for a in ("model", "seq", "pipe")):
+        raise ValueError("detection supports data-parallel meshes only "
+                         "(e.g. --mesh data=8)")
+    from vit_torch_tpu_torch.parallel.api import prepare_model
+    return prepare_model(model, mesh)
+
+
+def _step_update(layout, params, optimizer, total: torch.Tensor,
+                 clip: Optional[float]) -> None:
+    """Backward (scaled by the batch shards under a mesh), the gradient
+    average, the global-norm clip, the update."""
+    optimizer.zero_grad(set_to_none=True)
+    if layout is None:
+        total.backward()
+    else:
+        from vit_torch_tpu_torch.parallel.api import sync_gradients
+        (total * layout.loss_scale).backward()
+        sync_gradients(params, layout)
+    if clip is not None:
+        clip_grad_global_norm(params, clip)
+    optimizer.step()
+
+
+def _reduce_logs(logs: Dict[str, torch.Tensor], layout
+                 ) -> Dict[str, torch.Tensor]:
+    """Each term summed over the batch shards (each holds its part of the
+    global term); the identity without a mesh."""
+    if layout is None or layout.batch_group is None:
+        return logs
+    keys = list(logs)
+    vals = layout.reduce_batch(torch.stack([logs[k].float() for k in keys]))
+    return dict(zip(keys, vals))
 
 
 def _read_logs(chunk) -> list:
@@ -308,7 +359,8 @@ class DetectionTrainer:
                  augment: bool = False, aug_crop: bool = False,
                  aug_erase: bool = False, matcher: str = "host",
                  opt: str = "adamw", momentum: float = 0.9,
-                 norm_values: Optional[dict] = None, seed: int = 0) -> None:
+                 norm_values: Optional[dict] = None, seed: int = 0,
+                 mesh=None) -> None:
         """``model`` is a :class:`~vit_torch_tpu_torch.detection.detr.DETR`
         on its device, with ``masks`` a :class:`~vit_torch_tpu_torch.
         detection.segmentation.DETRSegm` (batches then carry
@@ -317,7 +369,8 @@ class DetectionTrainer:
         random draw (augmentation in :meth:`draw`, drop-path) comes from
         one generator on the model's device, seeded with ``seed``.
         ``matcher`` is ``"host"`` (exact, one copy of the costs) or
-        ``"device"`` (the auction, no host read)."""
+        ``"device"`` (the auction, no host read).  ``mesh``: data
+        parallelism over its ``data`` axis (see the module)."""
         if matcher not in ("host", "device"):
             raise ValueError(f"unknown matcher {matcher!r}")
         if opt not in ("adamw", "sgd"):
@@ -337,6 +390,7 @@ class DetectionTrainer:
         self.erase_value = [255.0 * m for m in self.norm["mean"]]
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         set_generator(model, self.generator)
+        self.layout = _data_layout(model, mesh)
         self.params = [p for p in model.parameters() if p.requires_grad]
         if opt == "sgd":
             self.optimizer = torch.optim.SGD(self.params, lr=lr,
@@ -448,24 +502,26 @@ class DetectionTrainer:
         backward, clip, update.  Returns the last layer's loss terms (and
         the mask losses) and ``loss_total`` as device tensors."""
         self.model.train()
+        B = len(batch["image"])
+        draws = self.draw(B)
+        if self.layout is not None:
+            batch = self.layout.shard_tree(batch, B)
+            draws = self.layout.shard_tree(draws, B)
         b = self._batch(batch)
-        images, boxes, box_mask, gt_masks = self._augmented(
-            b, self.draw(len(batch["image"])))
+        images, boxes, box_mask, gt_masks = self._augmented(b, draws)
         x = normalize(images, **self.norm)
         targets = prep_targets(b["labels"], boxes, box_mask, b["mask"],
                                self.image_size)
         outputs = self.model(x)
         layers = list(outputs.get("aux_outputs", [])) + [outputs]
         assign = self.match(layers, targets)
-        total, logs = self.losses(outputs, targets, assign,
-                                  gt_masks if self.masks else None)
-        self.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        if self.grad_clip is not None:
-            clip_grad_global_norm(self.params, self.grad_clip)
-        self.optimizer.step()
-        return {**{k: v.detach() for k, v in logs.items()},
-                "loss_total": total.detach()}
+        with global_denominators(self.layout and self.layout.batch_group):
+            total, logs = self.losses(outputs, targets, assign,
+                                      gt_masks if self.masks else None)
+        _step_update(self.layout, self.params, self.optimizer, total,
+                     self.grad_clip)
+        return _reduce_logs({**{k: v.detach() for k, v in logs.items()},
+                             "loss_total": total.detach()}, self.layout)
 
     def train_one_epoch(self, loader, epoch: int, print_freq: int = 10,
                         warmup: bool = True,
@@ -527,8 +583,9 @@ class DetectionTrainer:
         pq, sq, rq, n).  Each image's masks are unpacked, taken back to
         the original pixels (:func:`_unletterbox_masks`) and encoded by
         :class:`~vit_torch_tpu_torch.detection.coco_eval.CocoEvaluator`
-        (the JAX package's pixel route, with PQ or without).  One batch
-        deep: batch i + 1's forward is queued, and its predictions start
+        (the JAX package's pixel route, with PQ or without).  Under a
+        mesh each rank takes every n-th batch and the results (and PQ
+        counts) are merged across the ranks.  One batch deep: batch i + 1's forward is queued, and its predictions start
         for the host, before batch i's host work, whose per-image part
         runs on a pool of 8 threads.  ``last_eval_profile`` splits the
         host time: waiting for the predictions (``t_get``), the per-image
@@ -586,9 +643,13 @@ class DetectionTrainer:
             prof["t_get"] += t1 - t0
             prof["t_host"] += time.perf_counter() - t1
 
+        share = ((self.layout.batch_index, self.layout.batch_count)
+                 if getattr(self, "layout", None) is not None else (0, 1))
         with ThreadPoolExecutor(max_workers=8) as pool:
             pending = None
-            for batch in loader:
+            for i, batch in enumerate(loader):
+                if i % share[1] != share[0]:
+                    continue
                 host, event = _to_host(self.predict(batch))
                 if pending is not None:
                     drain(pool, *pending)
@@ -599,6 +660,13 @@ class DetectionTrainer:
         evaluator.synchronize_between_processes()
         evaluator.accumulate()
         out = evaluator.summarize()
+        if pq is not None and share[1] > 1:
+            from vit_torch_tpu_torch.parallel.multihost import (
+                all_gather_objects)
+            merged = PQStat()
+            for part in all_gather_objects(pq):
+                merged.merge(part)
+            pq = merged
         if pq is not None:
             out["panoptic"] = {k: v for k, v in pq.summarize().items()
                                if k != "per_class"}
@@ -626,11 +694,12 @@ class FasterRCNNTrainer:
     def __init__(self, model: torch.nn.Module, *, cfg, lr: float = 2e-3,
                  momentum: float = 0.9, weight_decay: float = 5e-4,
                  augment: bool = False, kp_flip_inds=None,
-                 norm_values: Optional[dict] = None, seed: int = 0) -> None:
+                 norm_values: Optional[dict] = None, seed: int = 0,
+                 mesh=None) -> None:
         """``model`` is a :class:`~vit_torch_tpu_torch.detection.
         faster_rcnn.FasterRCNN` on its device; ``kp_flip_inds`` the
         keypoints' left/right swap under the flip (None keeps their
-        order)."""
+        order); ``mesh`` as :class:`DetectionTrainer`'s."""
         self.model = model
         self.cfg = cfg
         self.device = next(model.parameters()).device
@@ -641,6 +710,7 @@ class FasterRCNNTrainer:
         self.norm = norm_values or NORM_VALUES["imagenet"]
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         set_generator(model, self.generator)
+        self.layout = _data_layout(model, mesh)
         self.params = [p for p in model.parameters() if p.requires_grad]
         # coupled decay: g + wd·p before the momentum, as the JAX chain's
         # add_decayed_weights then sgd
@@ -673,6 +743,8 @@ class FasterRCNNTrainer:
         detection.faster_rcnn.faster_rcnn_losses` of a host batch under
         ``draws`` (the flip applies where ``augment``)."""
         self.model.train()
+        if self.layout is not None:
+            batch = self.layout.shard_tree(batch, len(batch["image"]))
         b = self._batch(batch)
         images, boxes, kps = b["image"], b["boxes"], b.get("keypoints")
         if self.augment:
@@ -686,19 +758,23 @@ class FasterRCNNTrainer:
                    "box_mask": b["box_mask"], "mask": b["mask"]}
         if kps is not None:
             targets["keypoints"] = kps
-        return faster_rcnn_losses(outputs, targets, self.cfg, draws)
+        with global_denominators(self.layout and self.layout.batch_group):
+            return faster_rcnn_losses(outputs, targets, self.cfg, draws)
 
     def train_step(self, batch: dict) -> Dict[str, torch.Tensor]:
         """One step on a host batch; returns the loss terms and
-        ``loss_total`` as device tensors."""
-        losses = self.losses(batch, self.draw(len(batch["image"])))
-        self.optimizer.zero_grad(set_to_none=True)
-        losses["loss"].backward()
-        clip_grad_global_norm(self.params, self.GRAD_CLIP)
-        self.optimizer.step()
+        ``loss_total`` as device tensors.  Under a mesh the draws are the
+        global batch's and each rank keeps its rows."""
+        B = len(batch["image"])
+        draws = self.draw(B)
+        if self.layout is not None:
+            draws = self.layout.shard_tree(draws, B)
+        losses = self.losses(batch, draws)
+        _step_update(self.layout, self.params, self.optimizer,
+                     losses["loss"], self.GRAD_CLIP)
         logs = {k: v.detach() for k, v in losses.items() if k != "loss"}
         logs["loss_total"] = losses["loss"].detach()
-        return logs
+        return _reduce_logs(logs, self.layout)
 
     def train_one_epoch(self, loader, epoch: int, print_freq: int = 10,
                         warmup: bool = True,

@@ -60,6 +60,7 @@ from vit_torch_tpu_torch.detection.keypoint import (KeypointHead,
                                                     keypoint_loss)
 from vit_torch_tpu_torch.models.layers import (Conv2d, Linear, QLinear,
                                                init_weights)
+from vit_torch_tpu_torch.parallel.collectives import global_sum
 
 # --------------------------------------------------------------------------
 # anchors, box coding, matching and sampling
@@ -573,7 +574,7 @@ def faster_rcnn_losses(outputs: Dict[str, torch.Tensor],
     reg = smooth_l1(d - reg_t).sum(-1)
     roi_reg = (reg * spos).sum(-1) / spos.sum(-1).clamp_min(1.0)
 
-    n = sample_mask.sum().clamp_min(1.0)
+    n = global_sum(sample_mask.sum()).clamp_min(1.0)
     names = ("loss_rpn_cls", "loss_rpn_reg", "loss_cls", "loss_reg")
     out = {k: (v * sample_mask).sum() / n
            for k, v in zip(names, (rpn_cls, rpn_reg, roi_cls, roi_reg))}

@@ -25,6 +25,13 @@ class PQStat:
         self.fp = defaultdict(int)
         self.fn = defaultdict(int)
 
+    def merge(self, other: "PQStat") -> None:
+        """Add another rank's counts (a data-parallel evaluation)."""
+        for mine, theirs in ((self.iou, other.iou), (self.tp, other.tp),
+                             (self.fp, other.fp), (self.fn, other.fn)):
+            for k, v in theirs.items():
+                mine[k] += v
+
     def update(self, gt_map: np.ndarray, gt_segments: Dict[int, int],
                pred_map: np.ndarray, pred_segments: Dict[int, int],
                crowd_ids: Sequence[int] = ()) -> None:

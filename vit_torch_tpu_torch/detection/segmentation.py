@@ -51,6 +51,7 @@ from torch import nn
 
 from vit_torch_tpu_torch.detection.detr import DETR, DETRConfig
 from vit_torch_tpu_torch.models.layers import Conv2d, Linear
+from vit_torch_tpu_torch.parallel.collectives import global_sum
 
 GN_EPS = 1e-6
 
@@ -239,7 +240,7 @@ def dice_loss(inputs: torch.Tensor, targets: torch.Tensor,
     den = probs.sum(1) + targets.sum(1)
     loss = 1 - (num + 1) / (den + 1)
     valid = valid.float()
-    return (loss * valid).sum() / valid.sum().clamp_min(1.0)
+    return (loss * valid).sum() / global_sum(valid.sum()).clamp_min(1.0)
 
 
 def sigmoid_focal_loss(inputs: torch.Tensor, targets: torch.Tensor,
@@ -257,7 +258,7 @@ def sigmoid_focal_loss(inputs: torch.Tensor, targets: torch.Tensor,
         loss = loss * (alpha * t + (1 - alpha) * (1 - t))
     per = loss.flatten(1).mean(1)
     valid = valid.float()
-    return (per * valid).sum() / valid.sum().clamp_min(1.0)
+    return (per * valid).sum() / global_sum(valid.sum()).clamp_min(1.0)
 
 
 def mask_losses(pred_masks: torch.Tensor, gt_masks: torch.Tensor,

@@ -26,11 +26,14 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vit_torch_tpu_torch.models.layers import (LayerNorm, Linear, Mlp,
                                                PatchEmbed, run_block)
 from vit_torch_tpu_torch.ops import talking_heads as th
+from vit_torch_tpu_torch.parallel.collectives import (copy_to_group,
+                                                      reduce_from_group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,17 +141,26 @@ class ClassAttention(nn.Module):
         self.v = Linear(dim, dim, bias=qkv_bias)
         self.proj = Linear(dim, dim)
 
+    # set by parallel.partition.apply_tensor_parallel: q, k and v hold
+    # this rank's heads, proj their input columns
+    tp_group = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
-        d = C // H
+        d = self.q.weight.shape[0] // H
+        x = copy_to_group(x, self.tp_group)
         q = self.q(x[:, :1]).view(B, 1, H, d) * d ** -0.5
         k = self.k(x).view(B, N, H, d)
         v = self.v(x).view(B, N, H, d)
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
         attn = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, 1, C)
-        return self.proj(out)
+        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(B, 1, H * d)
+        if self.tp_group is None:
+            return self.proj(out)
+        dt = out.dtype
+        return reduce_from_group(F.linear(out, self.proj.weight.to(dt)),
+                                 self.tp_group) + self.proj.bias.to(dt)
 
 
 class LayerScaleBlock(nn.Module):

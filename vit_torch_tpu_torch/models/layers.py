@@ -35,7 +35,10 @@ import torch.utils.checkpoint
 from torch import nn
 
 from vit_torch_tpu_torch.ops import attn_block, fused_mlp, quant
-from vit_torch_tpu_torch.ops.attention import qkv_attention
+from vit_torch_tpu_torch.ops.attention import active_seq, qkv_attention
+from vit_torch_tpu_torch.parallel.collectives import (all_reduce_sum,
+                                                      copy_to_group,
+                                                      reduce_from_group)
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -136,17 +139,29 @@ def set_w8a8(model: nn.Module, on: Optional[bool]) -> None:
 
 
 def _keep_mask(x: torch.Tensor, shape, keep: float,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+               generator: Optional[torch.Generator],
+               shard: Optional[tuple] = None) -> torch.Tensor:
+    """The keep mask of ``shape``; with ``shard = (index, count)`` (a data
+    mesh, :func:`set_batch_shard`) the mask of the ``count`` times larger
+    global batch is drawn and this rank's rows taken, so that every rank
+    draws what one process would."""
     if generator is None:
         raise RuntimeError(
             "dropout and drop-path in training draw from an explicit "
             "torch.Generator: call set_generator(model, generator) first")
+    if shard is not None and shard[1] > 1:
+        i, n = shard
+        B = shape[0]
+        full = torch.rand((B * n, *shape[1:]), generator=generator,
+                          device=x.device)
+        return full[i * B:(i + 1) * B] < keep
     return torch.rand(shape, generator=generator, device=x.device) < keep
 
 
 def drop_path(x: torch.Tensor, rate: float, training: bool,
               generator: Optional[torch.Generator] = None,
-              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              mask: Optional[torch.Tensor] = None,
+              shard: Optional[tuple] = None) -> torch.Tensor:
     """Stochastic depth: drop the whole residual branch per sample, as the
     JAX ``drop_path`` does (``where(mask, x / keep, 0)``).  The keep mask
     (shape ``(B, 1, ...)``) is drawn from ``generator``, or given."""
@@ -155,7 +170,7 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
     keep = 1.0 - rate
     if mask is None:
         mask = _keep_mask(x, (x.shape[0],) + (1,) * (x.dim() - 1), keep,
-                          generator)
+                          generator, shard)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -167,9 +182,11 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.shard: Optional[tuple] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return drop_path(x, self.rate, self.training, self.generator)
+        return drop_path(x, self.rate, self.training, self.generator,
+                         shard=self.shard)
 
 
 class Dropout(nn.Module):
@@ -180,12 +197,13 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.shard: Optional[tuple] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = _keep_mask(x, x.shape, keep, self.generator)
+        mask = _keep_mask(x, x.shape, keep, self.generator, self.shard)
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -197,6 +215,15 @@ def set_generator(model: nn.Module,
     for mod in model.modules():
         if isinstance(mod, (DropPath, Dropout)):
             mod.generator = generator
+
+
+def set_batch_shard(model: nn.Module, shard: Optional[tuple]) -> None:
+    """Under a data mesh every :class:`DropPath` and :class:`Dropout` of
+    ``model`` draws the global batch's mask and keeps rows ``shard =
+    (index, count)`` (:func:`_keep_mask`); None draws per rank."""
+    for mod in model.modules():
+        if isinstance(mod, (DropPath, Dropout)):
+            mod.shard = shard
 
 
 class Conv2d(nn.Conv2d):
@@ -223,6 +250,39 @@ class BatchNorm(nn.BatchNorm2d):
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        # set under a data mesh (parallel/api.py): train-mode statistics
+        # over the global batch
+        self.sync_group = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.sync_group is not None:
+            return self._sync_forward(x)
+        return super().forward(x)
+
+    def _sync_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the global batch of a data mesh, SyncBatchNorm's
+        semantics and the JAX BatchNorm's under GSPMD: the fp32 per-channel
+        sums all-reduced over ``sync_group`` (two passes: the mean, then the
+        centred squares), the biased variance normalising, the unbiased
+        one (x n/(n-1)) into the running variance."""
+        g = self.sync_group
+        dims = (0, 2, 3)
+        xf = x.float() if x.dtype != torch.float64 else x
+        n = x.numel() // x.shape[1] * torch.distributed.get_world_size(g)
+        mean = all_reduce_sum(xf.sum(dims), g) / n
+        xc = xf - mean[None, :, None, None]
+        var = all_reduce_sum((xc * xc).sum(dims), g) / n
+        y = xc * torch.rsqrt(var + self.eps)[None, :, None, None]
+        y = y * self.weight[None, :, None, None].to(y.dtype) \
+            + self.bias[None, :, None, None].to(y.dtype)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean.detach().to(
+                self.running_mean.dtype))
+            self.running_var.mul_(1 - m).add_(m * (var.detach() * n / max(
+                n - 1, 1)).to(self.running_var.dtype))
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 # The conv+BN fold in eval is on by default on CUDA, as in the JAX
@@ -365,7 +425,30 @@ class Mlp(nn.Module):
         self.fc2 = QLinear(hidden_dim, out_dim or dim)
         self.drop = Dropout(dropout)
 
+    # set by parallel.partition.apply_tensor_parallel: fc1 holds this
+    # rank's rows of the hidden width, fc2 the matching columns
+    tp_group = None
+
+    def _forward_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """Column-sharded fc1, row-sharded fc2: the input's gradient and
+        the output all-reduced over the ``model`` group, fc2's bias added
+        once after the reduce.  Under ``VITX_FUSED_MLP=1`` the fused kernel
+        runs over the local hidden columns with a zero output bias."""
+        g, dt = self.tp_group, x.dtype
+        x = copy_to_group(x, g)
+        if _fused_mlp(x, self):
+            y = fused_mlp.fused_mlp(
+                x, self.fc1.weight.to(dt), self.fc1.bias.to(dt),
+                self.fc2.weight.to(dt), torch.zeros_like(self.fc2.bias,
+                                                         dtype=dt))
+        else:
+            y = F.linear(self.drop(gelu_exact(self.fc1(x))),
+                         self.fc2.weight.to(dt))
+        return self.drop(reduce_from_group(y, g) + self.fc2.bias.to(dt))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is not None:
+            return self._forward_tp(x)
         if self.fc1.quantized():
             return self.fc2(gelu_exact(self.fc1(x)))
         if _fused_mlp(x, self):
@@ -448,11 +531,27 @@ class Attention(nn.Module):
             self.qkv.weight, self.qkv.bias, self.proj.weight,
             self.proj.bias))
 
+    # set by parallel.partition.apply_tensor_parallel: qkv holds this
+    # rank's heads of each of q, k and v, proj their input columns
+    tp_group = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
         H = self.num_heads
-        # under W8A8 the qkv and proj QLinears quantise themselves
-        fused = not self.qkv.quantized()
+        if self.tp_group is not None:
+            # local heads: the flash kernel (or the ring) over H / model
+            # heads; proj's bias once, after the all-reduce
+            dt = x.dtype
+            qkv = self.qkv(copy_to_group(x, self.tp_group)).view(
+                B, N, 3, H, -1)
+            out = F.linear(qkv_attention(qkv, scale=self.scale)
+                           .reshape(B, N, -1), self.proj.weight.to(dt))
+            out = reduce_from_group(out, self.tp_group) \
+                + self.proj.bias.to(dt)
+            return self.proj_drop(out)
+        # under W8A8 the qkv and proj QLinears quantise themselves; the
+        # fused blocks yield to ring attention, as the JAX dispatch does
+        fused = not self.qkv.quantized() and active_seq() is None
         if fused and _packed_attention(x, H):
             out = attn_block.attention_block_packed(
                 x, *self._weights(x.dtype), num_heads=H, scale=self.scale)

@@ -51,6 +51,8 @@ from torch import nn
 from vit_torch_tpu_torch.models.layers import (DropPath, Dropout, LayerNorm,
                                                Linear, Mlp, run_block)
 from vit_torch_tpu_torch.ops import window_block as wb
+from vit_torch_tpu_torch.parallel.collectives import (copy_to_group,
+                                                      reduce_from_group)
 from vit_torch_tpu_torch.ops.window_block import (  # noqa: F401 (re-export)
     window_partition, window_reverse)
 
@@ -183,6 +185,9 @@ class WindowAttention(nn.Module):
                                          dtype=torch.long), persistent=False)
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = Linear(dim, dim)
+        # set by parallel.partition.apply_tensor_parallel: qkv, proj and
+        # the bias table hold this rank's heads
+        self.tp_group = None
         self.reset_buffers()
 
     def reset_buffers(self, device=None) -> None:
@@ -268,6 +273,9 @@ class SwinBlock(nn.Module):
         b = lambda t: None if t is None else t.to(dt)   # noqa: E731
         qkv = (attn.qkv.weight.to(dt), b(attn.qkv.bias))
         proj = (attn.proj.weight.to(dt), b(attn.proj.bias))
+        if attn.tp_group is not None:
+            return self._forward_tp(x, qkv, bias, mask, proj, w, shift,
+                                    pad_b, pad_r)
         if self._full_block_route(bool(pad_b or pad_r)):
             mlp = self.mlp
             return wb.window_block_full_spatial(
@@ -290,6 +298,26 @@ class SwinBlock(nn.Module):
             y = wb.window_block_spatial(y, *qkv, bias, mask, *proj,
                                         num_heads=attn.num_heads, window=w,
                                         scale=attn.scale, shift=shift)
+        if pad_b or pad_r:
+            y = y[:, :H, :W]
+        x = x + self.drop_path(y)
+        return x + self.drop_path(self.mlp(self.norm2(x)))
+
+    def _forward_tp(self, x, qkv, bias, mask, proj, w, shift, pad_b, pad_r):
+        """The block on this rank's heads (tensor parallel): LN1, pad, B8
+        over the local heads with a zero output bias, the output
+        all-reduced over the ``model`` group and proj's bias added once,
+        crop, DropPath, residual, then the (sharded) MLP."""
+        B, H, W, C = x.shape
+        g = self.attn.tp_group
+        y = self.norm1(x)
+        if pad_b or pad_r:
+            y = F.pad(y, (0, 0, 0, pad_r, 0, pad_b))
+        y = wb.window_block_spatial(
+            copy_to_group(y, g), *qkv, bias, mask, proj[0],
+            torch.zeros_like(proj[1]), num_heads=self.attn.num_heads,
+            window=w, scale=self.attn.scale, shift=shift)
+        y = reduce_from_group(y, g) + proj[1]
         if pad_b or pad_r:
             y = y[:, :H, :W]
         x = x + self.drop_path(y)

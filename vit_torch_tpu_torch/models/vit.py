@@ -5,6 +5,14 @@ CLS-token features out.
 
 Position embeddings are created for the grid of ``image_size``;
 ``checkpoint.torch_import`` interpolates a table trained at another size.
+
+Under a mesh (``parallel/api.py``) the forward has two more routes.  With
+``seq`` set (the mesh's ``seq`` axis) the tokens are padded to a multiple
+of the axis and each rank runs the blocks over its contiguous shard, its
+attention a ring over the ``seq`` group (``ops/ring_attention.py``); the
+prefix tokens' normed features come from the rank holding position 0.
+With ``pipe`` set (a pipeline stage, ``parallel/pipeline.py``) the blocks
+this rank holds are its stage of a GPipe schedule.
 """
 
 from __future__ import annotations
@@ -12,10 +20,13 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vit_torch_tpu_torch.models.layers import (Block, Dropout, LayerNorm,
                                                PatchEmbed, run_block)
+from vit_torch_tpu_torch.ops.attention import sequence_parallel
+from vit_torch_tpu_torch.parallel.collectives import broadcast_from
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +65,11 @@ class VisionTransformer(nn.Module):
     recomputes each block in the backward (:func:`layers.run_block`)."""
 
     family = "dino"
+    num_prefix_tokens = 1
+    # (seq group, seq size, this rank's index) under sequence parallelism
+    seq = None
+    # parallel.pipeline.PipeStage of this rank under pipeline parallelism
+    pipe = None
 
     def __init__(self, config: ViTConfig, image_size: int = 224,
                  image_channels: int = 3, dtype: torch.dtype = torch.bfloat16,
@@ -92,15 +108,44 @@ class VisionTransformer(nn.Module):
         """The features of the normed tokens: the CLS token's."""
         return x if self.return_all_tokens else x[:, 0]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """Patch embedding, prefix tokens and positions: (B, 1 + N, C)."""
         dt = self.dtype
         x = self.patch_embed(x.to(dt))
         x = torch.cat([*self._prefix_tokens(x.shape[0]), x], dim=1) \
             + self.pos_embed.to(dt)
-        x = self.pos_drop(x)
+        return self.pos_drop(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pipe is not None:
+            from vit_torch_tpu_torch.parallel.pipeline import (
+                vit_pipeline_features)
+            return vit_pipeline_features(self, x)
+        x = self.embed(x)
+        if self.seq is not None:
+            return self._forward_seq(x)
         for blk in self.blocks:
             x = run_block(blk, x, remat=self.remat)
         return self._pool(self.norm(x))
+
+    def _forward_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """The blocks over this rank's token shard (see the module)."""
+        group, S, idx = self.seq
+        if self.return_all_tokens:
+            raise ValueError("sequence parallelism returns the prefix "
+                             "tokens' features only")
+        B, N, C = x.shape
+        n = -(-N // S)
+        if n < self.num_prefix_tokens:
+            raise ValueError(f"{N} tokens over seq={S}: the prefix tokens "
+                             "must sit on the first shard")
+        x = F.pad(x, (0, 0, 0, n * S - N))[:, idx * n:(idx + 1) * n]
+        with sequence_parallel(group, N):
+            for blk in self.blocks:
+                x = run_block(blk, x, remat=self.remat)
+        k = self.num_prefix_tokens
+        prefix = broadcast_from(self.norm(x[:, :k]).contiguous(), 0, group)
+        return self._pool(prefix)
 
 
 def vit_flops(config: ViTConfig, image_size: int,

@@ -14,6 +14,12 @@ attention passes neither; the JAX segmentation head's attention map
 computes its own softmax), so on CUDA such a call raises: it has no
 kernel.  On the CPU the plain softmax attention below runs, as the JAX
 package's ``_xla_attention`` does off the TPU.
+
+Sequence parallelism: inside :class:`sequence_parallel` (entered by the
+ViT forward when the mesh's ``seq`` axis is larger than one) attention
+without a bias or mask goes to ring attention
+(:mod:`.ring_attention`) over the ``seq`` group, as the JAX
+``_active_seq_mesh`` dispatch does.
 """
 
 from __future__ import annotations
@@ -24,6 +30,38 @@ import torch
 
 from vit_torch_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_qkv)
+
+# (seq group, true sequence length) of the active sequence-parallel region
+_SEQ: list = []
+
+
+class sequence_parallel:
+    """Context manager routing bias-free attention through ring attention
+    over ``group`` for a sequence of true length ``kv_len`` whose shards
+    the group's ranks hold (the JAX ``sequence_parallel``)."""
+
+    def __init__(self, group, kv_len: int):
+        self.entry = (group, int(kv_len))
+
+    def __enter__(self):
+        _SEQ.append(self.entry)
+        return self
+
+    def __exit__(self, *exc):
+        _SEQ.pop()
+        return False
+
+
+def active_seq():
+    """The active (group, kv_len), or None outside a sequence-parallel
+    region."""
+    return _SEQ[-1] if _SEQ else None
+
+
+def _ring(q, k, v, scale):
+    from vit_torch_tpu_torch.ops.ring_attention import ring_attention
+    group, kv_len = _SEQ[-1]
+    return ring_attention(q, k, v, group, kv_len=kv_len, scale=scale)
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -39,6 +77,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``False`` positions are excluded."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if _SEQ and bias is None and mask is None:
+        return _ring(q, k, v, scale)
     if q.device.type == "cuda":
         if bias is not None or mask is not None:
             raise NotImplementedError(
@@ -59,6 +99,8 @@ def qkv_attention(qkv: torch.Tensor, *,
     three views."""
     if scale is None:
         scale = qkv.shape[-1] ** -0.5
+    if _SEQ:
+        return _ring(*qkv.unbind(2), scale)
     if qkv.device.type == "cuda":
         return flash_attention_qkv(qkv, scale=scale)
     return _plain_attention(*qkv.unbind(2), scale=scale)

@@ -138,7 +138,7 @@ def _attention_core_reference(t, w_qkv, b_qkv, bias, mask, w_proj, b_proj,
     Bn, N, C = t.shape
     dt = t.dtype
     qkv = dense_f32(t, w_qkv, b_qkv).to(dt).view(Bn, N, 3, num_heads, -1)
-    o = _plain_core(qkv, bias, mask, scale).reshape(Bn, N, C)
+    o = _plain_core(qkv, bias, mask, scale).reshape(Bn, N, -1)
     return dense_f32(o, w_proj, b_proj), qkv, o
 
 
@@ -235,7 +235,8 @@ def _layer_norm(x: torch.Tensor, ln: Pair) -> torch.Tensor:
 def _check_inputs(x: torch.Tensor, window: Optional[int], num_heads: int,
                   weights: Sequence[Tuple[str, Optional[torch.Tensor],
                                           Tuple[int, ...]]],
-                  lns: Sequence[Tuple[str, Pair]] = ()) -> None:
+                  lns: Sequence[Tuple[str, Pair]] = (),
+                  local_heads: bool = False) -> None:
     """What the CUDA chains take: a contiguous bf16 (B, H, W, C) map with
     H and W multiples of the window (or, for ``window=None``, (Bn, N, C)
     windows), head dim 32, N = w^2 <= 144, bf16 contiguous weights and
@@ -258,7 +259,9 @@ def _check_inputs(x: torch.Tensor, window: Optional[int], num_heads: int,
         raise ValueError(f"map {x.shape[1]}x{x.shape[2]} is not tiled by "
                          f"window {window} (or the window exceeds "
                          f"{MAX_TOKENS} tokens)")
-    if C % num_heads or C // num_heads != HEAD_DIM:
+    if local_heads:
+        pass            # a tensor-parallel rank's heads: widths below
+    elif C % num_heads or C // num_heads != HEAD_DIM:
         raise ValueError(f"C = {C} with {num_heads} heads: the kernels take "
                          f"head dim {HEAD_DIM}")
     for name, t, shape in weights:
@@ -285,7 +288,6 @@ def _attention_chain(src: torch.Tensor, w_qkv, b_qkv, bias, mask, geom,
     (Bn, N, C) windows already partitioned (``geom=None``).  Returns the
     (Bn, N, 3, H, D) window-major qkv projection and the (Bn, N, C)
     attention output."""
-    C = src.shape[-1]
     if geom is None:
         Bn, N = src.shape[:2]
     else:
@@ -297,7 +299,8 @@ def _attention_chain(src: torch.Tensor, w_qkv, b_qkv, bias, mask, geom,
                       device=src.device)
     gemm(src, w_qkv, b_qkv, qkv, epilogue=EPI_BIAS, geom=geom or FLAT,
          gather=geom is not None)
-    attn = torch.empty((Bn, N, C), dtype=src.dtype, device=src.device)
+    attn = torch.empty((Bn, N, num_heads * HEAD_DIM), dtype=src.dtype,
+                       device=src.device)
     launch_window_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], bias,
                             mask, attn.view(Bn, N, num_heads, HEAD_DIM),
                             scale)
@@ -315,10 +318,13 @@ def _spatial_parts(y, w_qkv, b_qkv, bias, mask, w_proj, b_proj, num_heads,
                                         shift)
     if y.device.type != "cuda":
         raise ValueError(f"no window block for device {y.device}")
-    C = y.shape[-1]
+    # a tensor-parallel rank passes its heads: qkv (3 Ca, C), proj (C, Ca)
+    # with Ca = heads x HEAD_DIM below C
+    C, Ca = y.shape[-1], num_heads * HEAD_DIM
     _check_inputs(y, window, num_heads, [
-        ("w_qkv", w_qkv, (3 * C, C)), ("b_qkv", b_qkv, (3 * C,)),
-        ("w_proj", w_proj, (C, C)), ("b_proj", b_proj, (C,))])
+        ("w_qkv", w_qkv, (3 * Ca, C)), ("b_qkv", b_qkv, (3 * Ca,)),
+        ("w_proj", w_proj, (C, Ca)), ("b_proj", b_proj, (C,))],
+        local_heads=Ca != C)
     B, Hp, Wp, _ = y.shape
     geom = (Hp, Wp, window, shift)
     qkv, attn = _attention_chain(y, w_qkv, b_qkv, bias, mask, geom,
@@ -351,15 +357,14 @@ def _block_grads(x_rows, do, qkv, attn, w_qkv, w_proj, bias, mask, scale,
     into one dqkv, the qkv product's gradients; ``need`` is the Function's
     ``needs_input_grad`` over (x, w_qkv, b_qkv, bias, mask, w_proj,
     b_proj).  Returns those seven gradients, x's as (T, C) rows."""
-    C = do.shape[-1]
-    dw_proj = do.t() @ attn.reshape(-1, C) if need[5] else None
+    dw_proj = do.t() @ attn.reshape(-1, attn.shape[-1]) if need[5] else None
     db_proj = do.sum(dim=0) if need[6] else None
     dqkv = torch.empty_like(qkv)
     _, _, _, dbias = window_attention_bwd(
         *qkv.unbind(2), bias, mask,
         (do @ w_proj).view(attn.shape[0], -1, *qkv.shape[3:]), scale=scale,
         **dict(zip(("dq", "dk", "dv"), dqkv.unbind(2))))
-    dqkv = dqkv.view(-1, 3 * C)
+    dqkv = dqkv.view(-1, 3 * attn.shape[-1])
     return (dqkv @ w_qkv if need[0] else None,
             dqkv.t() @ x_rows if need[1] else None,
             dqkv.sum(dim=0) if need[2] else None,

@@ -49,10 +49,11 @@ refused like any foreign format.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -71,13 +72,17 @@ _WEIGHTS = "weights.pt"
 
 @dataclasses.dataclass
 class ServingModel:
-    """A loaded classifier bundle on one device."""
+    """A loaded classifier bundle on one device, or, for a data-parallel
+    bundle (``num_devices > 1`` in its manifest), replicated onto several:
+    ``replicas`` then holds ``(model, device, mean, std)`` for each, and a
+    batch is split over them and the logits concatenated."""
 
     manifest: Dict
     model: torch.nn.Module
     device: torch.device
     mean: torch.Tensor
     std: torch.Tensor
+    replicas: Optional[List[tuple]] = None
 
     @property
     def batch_sizes(self) -> Tuple[int, ...]:
@@ -85,9 +90,19 @@ class ServingModel:
 
     @torch.inference_mode()
     def _forward(self, images: np.ndarray) -> np.ndarray:
-        x = torch.from_numpy(images).to(self.device)
-        x = (x.to(self.mean.dtype) / 255.0 - self.mean) / self.std
-        return self.model(x).float().cpu().numpy()
+        if self.replicas:
+            # every replica's part queued before any is read back
+            outs = [self._run(*rep, part) for rep, part in zip(
+                self.replicas, np.array_split(images, len(self.replicas)))
+                if len(part)]
+            return np.concatenate([o.float().cpu().numpy() for o in outs])
+        return self._run(self.model, self.device, self.mean, self.std,
+                         images).float().cpu().numpy()
+
+    @staticmethod
+    def _run(model, device, mean, std, images: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+        return model((x.to(mean.dtype) / 255.0 - mean) / std)
 
     def predict(self, images: np.ndarray) -> np.ndarray:
         """Run raw uint8 NHWC images through the classifier."""
@@ -239,7 +254,8 @@ def export_classifier(zoo_model: ZooModel, *,
                       norm: Optional[Dict[str, Sequence[float]]] = None,
                       param_dtype: Optional[str] = None,
                       prequant: bool = True,
-                      w8a8: Optional[bool] = None) -> Dict:
+                      w8a8: Optional[bool] = None,
+                      num_devices: int = 1) -> Dict:
     """Package a zoo classifier for serving.
 
     ``norm`` is ``{"mean": (3,), "std": (3,)}`` in 0-1 units (a
@@ -254,6 +270,11 @@ def export_classifier(zoo_model: ZooModel, *,
     are stored as int8 rows and fp32 scales, about a quarter of their fp32
     bytes, and serving skips the per-call weight quantisation.
     ``prequant=False`` keeps the fp32 weights, quantised per call.
+
+    ``num_devices > 1`` makes a data-parallel bundle: :func:`load_bundle`
+    replicates the model onto that many devices and splits each batch
+    over them (the JAX bundle shards its batch axis over a device mesh);
+    a machine with fewer devices refuses it.
 
     Returns ``{"manifest": dict, "state_dict": dict}``."""
     norm = norm or {"mean": (0.0, 0.0, 0.0), "std": (1.0, 1.0, 1.0)}
@@ -280,7 +301,7 @@ def export_classifier(zoo_model: ZooModel, *,
         "platforms": ["cuda", "cpu"],
         "activation_dtype": str(zoo_model.dtype).replace("torch.", ""),
         "param_dtype": str(param_dtype) if param_dtype else "float32",
-        "num_devices": 1,
+        "num_devices": int(num_devices),
         "w8a8": w8a8,
         "w8a8_prequant": prequantized,
         "torch_version": torch.__version__,
@@ -398,12 +419,33 @@ def save_bundle(bundle_dir: str, exported: Dict) -> None:
         json.dump(exported["manifest"], f, indent=1)
 
 
+def _replica_devices(manifest: Dict, dev: torch.device,
+                     devices: Optional[Sequence]) -> List[torch.device]:
+    """The devices a data-parallel bundle replicates onto: ``devices``, or
+    ``cuda:0..N-1``; fewer than the manifest's ``num_devices`` raises, as
+    the JAX bundle does."""
+    n = int(manifest.get("num_devices", 1))
+    if devices is not None:
+        have = [torch.device(d) for d in devices]
+    elif dev.type == "cuda":
+        have = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        have = [dev]
+    if len(have) < n:
+        raise ValueError(f"bundle needs {n} devices, have {len(have)}")
+    return have[:n]
+
+
 def load_bundle(bundle_dir: str,
-                device: Optional[Union[str, torch.device]] = None
+                device: Optional[Union[str, torch.device]] = None,
+                devices: Optional[Sequence] = None
                 ) -> Union[ServingModel, DetectionServingModel]:
     """Load a bundle directory onto ``device`` (CUDA when omitted): a
     classifier's as a :class:`ServingModel`, a detector's as a
-    :class:`DetectionServingModel`."""
+    :class:`DetectionServingModel`.  A data-parallel classifier bundle
+    (``num_devices > 1``) loads onto ``devices`` (default ``cuda:0..N-1``)
+    and raises ``ValueError`` where fewer are present."""
     dev = resolve_device(device)
     with open(os.path.join(bundle_dir, _MANIFEST)) as f:
         manifest = json.load(f)
@@ -435,7 +477,17 @@ def load_bundle(bundle_dir: str,
     # the manifest, not the server's environment, decides the path
     set_w8a8(model, bool(manifest.get("w8a8", False)))
     norm = manifest["norm"]
+    replicas = None
+    if int(manifest.get("num_devices", 1)) > 1:
+        replicas = []
+        for d in _replica_devices(manifest, dev, devices):
+            rep = copy.deepcopy(model).to(d).eval()
+            replicas.append((rep, d, torch.tensor(norm["mean"], dtype=dt,
+                                                  device=d),
+                             torch.tensor(norm["std"], dtype=dt, device=d)))
+        model, dev = replicas[0][0], replicas[0][1]
     return ServingModel(
         manifest=manifest, model=model, device=dev,
         mean=torch.tensor(norm["mean"], dtype=dt, device=dev),
-        std=torch.tensor(norm["std"], dtype=dt, device=dev))
+        std=torch.tensor(norm["std"], dtype=dt, device=dev),
+        replicas=replicas)

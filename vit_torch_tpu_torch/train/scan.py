@@ -6,7 +6,11 @@ CIFAR-10 184 MB), and every step gathers its batch there from a shuffled
 index array, so no image crosses the host link during an epoch.  The JAX
 package fuses an epoch into one ``lax.scan`` dispatch; here it is a
 Python loop over the same steps, with the metric sums kept on the device
-and read once per epoch (CUDA graphs are later work).
+and read once per epoch (CUDA graphs are later work).  On a pure data
+mesh the steps take the mesh's layout (``parallel/api.py``): the whole
+split stays replicated on every device as in the JAX package, and each
+rank gathers its rows of every global batch (the trainer hands the loops
+those columns of the index arrays).
 
 Also here: cached-feature linear eval, which runs the frozen backbone once
 over each split and then trains only the head on the cached features

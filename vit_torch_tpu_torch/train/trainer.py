@@ -31,8 +31,17 @@ fresh ``np.random.default_rng(seed)`` and loops from the start epoch, so
 a resumed run's first epoch takes epoch 0's permutation, not the one the
 unbroken run would take there (the per-step loaders restart theirs the
 same way).  A resumed run equals an unbroken one only where the order
-cannot matter.  Meshes and pipelines are not ported yet: the CLI refuses
-their flags (``utils/args.py:check_ported``).
+cannot matter.
+
+With a ``mesh`` (``parallel/mesh.py``) the model is laid out over it
+before the optimizer is built (``parallel/api.py:prepare_model``: the
+pipeline stage, tensor parallelism, the ring, FSDP2 with ``fsdp``), and
+the steps of ``train/steps.py`` take its layout: each rank moves only its
+rows of a global batch to its device, and the steps return the global
+batch's metrics.
+Checkpoints stay in the single-process layout (``api.full_state``,
+written by rank 0 only), so a run saved under one mesh resumes under any
+other and under none, as the JAX trainer's do.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from vit_torch_tpu_torch.checkpoint.ckpt_io import (BEST_SUBDIR,
                                                    save_checkpoint)
 from vit_torch_tpu_torch.models.layers import set_generator
 from vit_torch_tpu_torch.models.zoo import ZooModel
+from vit_torch_tpu_torch.parallel.multihost import is_main_process
 from vit_torch_tpu_torch.train.optimizers import (get_optimizer,
                                                   set_learning_rate)
 from vit_torch_tpu_torch.train.scan import (cache_backbone_features,
@@ -110,6 +120,10 @@ class Trainer:
         save_every: int = 0,
         resume: str = "",
         print_progress: bool = True,
+        mesh=None,
+        fsdp: bool = False,
+        fsdp_min_size: int = 2 ** 16,
+        pipe_microbatches: int = 0,
     ) -> None:
         self.zoo_model = zoo_model
         self.model = zoo_model.model
@@ -133,12 +147,22 @@ class Trainer:
                                              lr_scale)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         set_generator(self.model, self.generator)
-        self.optimizer = get_optimizer(
-            opt, split_params(self.model, lineareval), lr)
+        params = split_params(self.model, lineareval)
+        self.mesh = mesh
+        self.layout = None
+        if mesh is not None:
+            from vit_torch_tpu_torch.parallel.api import (param_groups,
+                                                          prepare_model)
+            self.layout = prepare_model(
+                self.model, mesh, fsdp=fsdp, fsdp_min_size=fsdp_min_size,
+                pipe_microbatches=pipe_microbatches, arch=zoo_model.arch)
+            params = param_groups([p for p in self.model.parameters()
+                                   if p.requires_grad])
+        self.optimizer = get_optimizer(opt, params, lr)
         self.train_step = make_train_step(
             self.model, self.optimizer, augment_fn, generator=self.generator,
-            lineareval=lineareval)
-        self.eval_step = make_eval_step(self.model, eval_transform)
+            lineareval=lineareval, layout=self.layout)
+        self.eval_step = self._make_eval_step()
 
         # best-val tracking persists across resume: without re-seeding, the
         # first epoch after it would always rank as a new best
@@ -147,10 +171,20 @@ class Trainer:
             self._restore(resume)
 
     # ------------------------------------------------------------------
+    def _make_eval_step(self, with_preds: bool = False):
+        return make_eval_step(self.model, self.eval_transform,
+                              with_preds=with_preds, layout=self.layout)
+
     def _restore(self, ckpt_dir: str) -> None:
-        state = restore_checkpoint(ckpt_dir, map_location=self.device)
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        if self.layout is not None:
+            from vit_torch_tpu_torch.parallel.api import load_full_state
+            state = restore_checkpoint(ckpt_dir, map_location="cpu")
+            load_full_state(self.model, self.optimizer, self.layout,
+                            state["model"], state["optimizer"])
+        else:
+            state = restore_checkpoint(ckpt_dir, map_location=self.device)
+            self.model.load_state_dict(state["model"])
+            self.optimizer.load_state_dict(state["optimizer"])
         self.step = state["step"]
         # a CUDA generator's state is a CPU ByteTensor
         self.generator.set_state(state["generator"].cpu())
@@ -164,7 +198,13 @@ class Trainer:
                      if prev_best is not None else ""))
 
     def checkpoint_state(self, epoch: int) -> Dict[str, Any]:
-        """What a checkpoint holds after ``epoch``."""
+        """What a checkpoint holds after ``epoch`` (in the single-process
+        layout; under a mesh a collective, every rank calls it)."""
+        if self.layout is not None:
+            from vit_torch_tpu_torch.parallel.api import full_state
+            model, opt = full_state(self.model, self.optimizer, self.layout)
+            return {"model": model, "optimizer": opt, "step": self.step,
+                    "epoch": epoch, "generator": self.generator.get_state()}
         return {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
                 "step": self.step, "epoch": epoch,
@@ -181,6 +221,8 @@ class Trainer:
                             and epoch % self.save_every == 0)):
             return
         state = self.checkpoint_state(epoch)
+        if not is_main_process():
+            return
         save_checkpoint(self.ckpt_dir, state, epoch,
                         metrics={"val_acc": val_acc})
         if is_best:
@@ -195,10 +237,13 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _to_device(self, batch: Dict[str, np.ndarray]):
-        return (torch.from_numpy(batch["image"]).to(self.device),
-                torch.from_numpy(np.asarray(batch["label"], np.int64)).to(
-                    self.device),
-                torch.from_numpy(batch["mask"]).to(self.device))
+        """The step's tensors of a host batch: this rank's rows of it under
+        a mesh."""
+        arrays = (batch["image"], np.asarray(batch["label"], np.int64),
+                  batch["mask"])
+        if self.layout is not None:
+            arrays = (self.layout.shard(a) for a in arrays)
+        return tuple(torch.from_numpy(a).to(self.device) for a in arrays)
 
     def run_one_epoch(self, loader: Iterable,
                       training: bool) -> Dict[str, float]:
@@ -219,10 +264,8 @@ class Trainer:
                 m = self.eval_step(images, labels, mask)
             if debug_eval:
                 keep = np.asarray(batch["mask"]).astype(bool)
-                with torch.no_grad():
-                    x = (images if self.eval_transform is None
-                         else self.eval_transform(images))
-                    preds = self.model(x).argmax(-1).cpu().numpy()
+                preds = self._make_eval_step(with_preds=True)(
+                    images, labels, mask)["pred"].cpu().numpy()
                 dbg_out.append(preds[keep])
                 dbg_lab.append(np.asarray(batch["label"])[keep])
             acc = accumulate_metrics(acc, m)
@@ -275,13 +318,12 @@ class Trainer:
         its batch there.  ``sets`` maps split → (uint8 images, labels)."""
         with_preds = _debug_eval_on()
         train_run = make_scan_train_fn(self.train_step)
-        eval_run = make_scan_eval_fn(
-            make_eval_step(self.model, self.eval_transform,
-                           with_preds=with_preds), with_preds=with_preds)
+        eval_run = make_scan_eval_fn(self._make_eval_step(with_preds),
+                                     with_preds=with_preds)
         device_sets = {split: device_split(imgs, labels, self.device)
                        for split, (imgs, labels) in sets.items()}
         return self._scan_epoch_loop(train_run, eval_run, device_sets,
-                                     batch_size, self.model)
+                                     batch_size, self.model, self.layout)
 
     def fit_lineareval_cached(self, sets: Dict[str, Any],
                               batch_size: int) -> Stats:
@@ -292,6 +334,9 @@ class Trainer:
         datasets."""
         if not self.lineareval:
             raise ValueError("fit_lineareval_cached requires lineareval")
+        if self.layout is not None and self.layout.pipe is not None:
+            raise ValueError("cached lineareval does not pipeline; use the "
+                             "per-step path (fit) with a pipe mesh")
         head = self.model.head
         device_sets = {}
         for split, (imgs, labels) in sets.items():
@@ -314,7 +359,10 @@ class Trainer:
             self.optimizer = outer_opt
 
     def _scan_epoch_loop(self, train_run, eval_run, device_sets,
-                         batch_size: int, module: torch.nn.Module) -> Stats:
+                         batch_size: int, module: torch.nn.Module,
+                         layout=None) -> Stats:
+        """The epochs over device-resident splits; under a ``layout`` each
+        step gathers this rank's rows of its global batch."""
         rng = np.random.default_rng(self.seed)   # epoch 0's, also on resume
         S = self.stats
         val_accs = self._seed_val_accs()
@@ -329,12 +377,14 @@ class Trainer:
                 S.new_round(epoch)
                 idx, msk = epoch_indices(len(labels), batch_size, rng,
                                          shuffle=training)
+                rows = (idx, msk) if layout is None else (
+                    layout.shard(idx, 1), layout.shard(msk, 1))
                 module.train(training)
                 if training:
-                    m = train_run(images, labels, idx, msk)
+                    m = train_run(images, labels, *rows)
                     self.step += len(idx)
                 else:
-                    m = eval_run(images, labels, idx, msk)
+                    m = eval_run(images, labels, *rows)
                     if isinstance(m, tuple):       # VITX_DEBUG_EVAL preds
                         m, preds = m
                         valid = msk.astype(bool)

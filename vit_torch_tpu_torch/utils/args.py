@@ -1,8 +1,8 @@
 """Declarative flag/config system, the port's own copy of
 ``vit_torch_tpu/utils/args.py`` with the same flag surface.  ``--device``
-is ``cuda`` (default) or ``cpu``.  Flags of slices that have not landed
-raise ``NotImplementedError`` naming their ROADMAP item when given a
-non-default value (:func:`check_ported`); none is silently ignored.
+is ``cuda`` (default) or ``cpu``.  Every flag of the JAX package's
+surface works, the parallelism flags (``--mesh``, ``--fsdp``,
+``--pipe_microbatches``) included.
 
 Capability parity with the reference's ``ARGS`` class (reference:
 ``utils_args.py:3-128``): a config is a list of
@@ -130,9 +130,7 @@ class ARGS:
 def classification_config(stamp: Optional[str] = None) -> List[Tuple]:
     """The reference ``main.py:73-101`` flag table, kept name-compatible.
 
-    ``device`` is ``cuda`` (the default, as in the reference) or ``cpu``;
-    the parallelism flags raise until their slice lands
-    (:func:`check_ported`).
+    ``device`` is ``cuda`` (the default, as in the reference) or ``cpu``.
     """
     stamp = stamp or time_stamp()
     return [
@@ -197,20 +195,3 @@ def classification_config(stamp: Optional[str] = None) -> List[Tuple]:
          "lineareval: cache frozen backbone features once and train only "
          "the head (the reference's frozen-representation datasets)"),
     ]
-
-
-# flag -> (its default, the ROADMAP item that ports it)
-UNPORTED_FLAGS = {
-    "mesh": ("", "A8, parallelism"),
-    "fsdp": (False, "A8, parallelism"),
-    "pipe_microbatches": (0, "A8, parallelism"),
-}
-
-
-def check_ported(args: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` for a flag of a slice that is not
-    ported yet, given a non-default value."""
-    for flag, (default, item) in UNPORTED_FLAGS.items():
-        if args.get(flag, default) != default:
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP.md {item})")
