@@ -37,7 +37,15 @@
    against each other at swin_base_384 stages 1 and 2, and its
    gradients at the headline; the flat
    window block (row 7) at the Swin block cases, with its gradients at
-   the headline;
+   the headline; then every kernel a tensor-parallel rank launches at
+   the widths the parallel modes give it (``tp_width_checks``): flash
+   forward and backward at 6 of dino_vitb8's 12 heads (model=2) and at
+   16 and 8 images (data=2, pipe=2's microbatches), B8 over a rank's
+   heads of swin_base_384 at bs8 and bs4 (stages 1-4 at model=2, stage 1
+   at model=4: one head) with its two window-GEMM launches alone at their
+   T, K and N
+   and its gradients through B6, the core and B6 at those widths, B12
+   over half of DeiT-base's hidden columns with a zero output bias;
 4. exports a full-width dino_vitb8 @224 classifier with seeded weights
    through ``vit_torch_tpu_torch.cli.export``, serves it with
    ``BundleServer`` on the card, sends concurrent HTTP requests, checks the
@@ -220,13 +228,25 @@
    bounds of the same seed's run without ``--mesh``, the step's ms both
    ways) and the same with ``--fsdp`` (``mesh_fsdp_world1``: over one
    rank FSDP shards nothing, as in the JAX package, and the peak memory
-   both ways); then two spawned ranks on ``cuda:0`` over gloo (two local
-   ranks on one card choose it: NCCL refuses them) train three steps of 16
-   images each against the single-process bs32 steps within the bf16
-   step bounds (``dp_two_ranks_one_card``: losses, each parameter's
-   relative gradient distance, step ms and the gradient all-reduce's
-   ms); prints an ``a8`` summary line;
-19. prints one JSON line with each kernel's numbers, then the card's name
+   both ways); then one spawn of two ranks on ``cuda:0`` over gloo (two
+   local ranks on one card choose it: NCCL refuses them; gloo's
+   point-to-point transfers of CUDA tensors are staged through host
+   memory) runs each mode on a fresh group: ``cli.main --mesh model=2
+   --ckpt_dir``, whose checkpoint must load into a single-process model
+   equal to the rank's gathered weights, and whose losses and checkpoint
+   are held to the resume phase's bounds of the run without ``--mesh``
+   (``tp_vit_cli_two_ranks_one_card``),
+   then three steps of the global bs32 at data=2
+   (``dp_two_ranks_one_card``, with the gradient all-reduce's ms),
+   model=2, seq=2 (the ring) and pipe=2 (4 microbatches) and three
+   swin_base_384 bs4 steps at model=2, each against its single-process
+   steps within the bf16 step bounds, each rank's launches against those
+   the block counts give (``<mode>_two_ranks_one_card``: losses, each
+   parameter's relative gradient distance, step ms, the collectives'
+   calls and bytes a step); prints an ``a8`` summary line and each phase
+   group's seconds (``phase_seconds``);
+19. prints one JSON line with each kernel's numbers (with the parallel
+   modes' launches and the ``tp_widths`` rows), then the card's name
    and power limit from nvidia-smi, then
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -693,14 +713,8 @@ def check_flash_bwd_kernel(shape, seed):
     smi = [_smi_sample()]
     ms = _time_ms(run, iters=20 if big else 100)
     smi.append(_smi_sample())
-    # the card's profiler now and then drops an event from a pass (a
-    # kernel read 0.9 times a call over 10 calls); a pass whose counts are
-    # off is made again, as _launch_times does, up to 3 passes
-    for _ in range(3):
-        split = _device_times(run, FLASH_BWD_KERNELS)
-        if all(t > 0 and n == 1 for t, n in split):
-            break
-    else:
+    whole, split = _once_a_call(run, FLASH_BWD_KERNELS)
+    if not whole:
         raise AssertionError(f"flash_attention_bwd {shape}: the profiler "
                              f"did not see each launch once a call: "
                              f"{split}")
@@ -777,8 +791,8 @@ def check_flash_kernel(shape, seed):
     smi = [_smi_sample()]
     ms = _time_ms(run, iters=20 if big else 100)
     smi.append(_smi_sample())
-    ((device_ms, seen),) = _device_times(run, ("flash_fwd_kernel",))
-    if not (device_ms > 0 and seen == 1):
+    whole, ((device_ms, seen),) = _once_a_call(run, ("flash_fwd_kernel",))
+    if not whole:
         raise AssertionError(f"flash_attention_fwd {shape}: the profiler "
                              f"saw {seen} launches a call, {device_ms} ms")
     plain_ms = _time_ms(lambda: fa.flash_attention_bhnd_reference(
@@ -865,7 +879,8 @@ def check_window_attention(case, seed):
            "library_ms": library_ms,
            "library_device_ms": _device_ms(library, ""),
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "bound_share": bound_ms / device_ms, "plan": plan._asdict(),
+           "bound_share": None if device_ms is None else bound_ms / device_ms,
+           "plan": plan._asdict(),
            "smi_before_after": smi}
     _say("kernel check window_attention", json.dumps(row))
     return row
@@ -949,10 +964,31 @@ def _launch_times(fn, launches: int, iters: int = 10, tries: int = 3):
     return [(None, None)] * launches
 
 
-def _device_ms(fn, kernel, iters: int = 10) -> float:
+def _once_a_call(fn, kernels, tries: int = 3):
+    """(whole, times): ``_device_times`` of ``fn`` over ``kernels``, whole
+    when the profiler saw every entry once a call with a positive time.
+    The card's profiler now and then drops an event from a pass (a kernel
+    read 0.9 times a call over 10 calls), so a pass that is not whole is
+    made again, up to ``tries`` passes; the last pass's times are
+    returned either way."""
+    for _ in range(tries):
+        times = _device_times(fn, kernels)
+        if all(t > 0 and n == 1 for t, n in times):
+            return True, times
+    return False, times
+
+
+def _device_ms(fn, kernel, iters: int = 10, tries: int = 3):
     """Mean device time per call of ``fn`` spent in the kernels whose name
-    holds ``kernel`` (a name, or a tuple of names)."""
-    return _device_times(fn, (kernel,), iters)[0][0]
+    holds ``kernel`` (a name, or a tuple of names).  A pass in which the
+    profiler recorded none of them is made again, up to ``tries`` passes
+    (as in ``_once_a_call``); then the time reads None ("not
+    measured")."""
+    for _ in range(tries):
+        ms = _device_times(fn, (kernel,), iters)[0][0]
+        if ms > 0:
+            return ms
+    return None
 
 
 def check_window_attention_bwd(case, seed):
@@ -1021,8 +1057,9 @@ def check_window_attention_bwd(case, seed):
 
     smi = [_smi_sample()]
     ms = _time_ms(run, iters=20)
-    (pass_ms, pass_n), (reduce_ms, reduce_n) = _device_times(
+    whole, ((pass_ms, pass_n), (reduce_ms, reduce_n)) = _once_a_call(
         run, ("window_attn_bwd_kernel", "dbias_reduce_kernel"))
+    device_ms = pass_ms + reduce_ms if whole else None
     smi.append(_smi_sample())
     plain_ms = _time_ms(lambda: wa.window_attention_bwd_reference(
         q, k, v, bias, mask, dout), iters=3)
@@ -1060,8 +1097,8 @@ def check_window_attention_bwd(case, seed):
            "masked": mask is not None, "rel_err_dq_dk_dv": errs,
            "rel_err_dbias": db_err, "max_abs_err": abs_err,
            "bitwise_repeat": bitwise, "ms": ms,
-           "device_ms": pass_ms + reduce_ms,
-           "device_ms_pass_reduce": [pass_ms, reduce_ms],
+           "device_ms": device_ms,
+           "device_ms_pass_reduce": [pass_ms, reduce_ms] if whole else None,
            "launches_per_call_pass_reduce": [pass_n, reduce_n],
            "plain_ms": plain_ms, "library_ms": libs["grad_bias"]["ms"],
            "library_kernel": libs["grad_bias"]["kernel"],
@@ -1070,7 +1107,7 @@ def check_window_attention_bwd(case, seed):
            "library_device_ms": libs["grad_bias"]["device_ms"],
            "library_bf16_mask_device_ms": libs["bf16_mask"]["device_ms"],
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "bound_share": bound_ms / (pass_ms + reduce_ms),
+           "bound_share": None if device_ms is None else bound_ms / device_ms,
            "plan": plan._asdict(), "smi_before_after": smi}
     _say("kernel check window_attention_bwd", json.dumps(row))
     return row
@@ -1172,8 +1209,18 @@ def _gemm_bound_ms(T, K, N, res):
                   (T * K + N * K + T * N * (2 if res else 1)) * 2)
 
 
-def check_window_gemm(case, d, launch_ms):
-    """B9's four window-GEMM launches at one block case, each launched
+def _b9_products(C):
+    """B9's window-GEMM launches: (name, K, N, epilogue, gather, scatter)."""
+    from vit_torch_tpu_torch.ops import gemm as gm
+    return (("qkv", C, 3 * C, gm.EPI_BIAS, True, False),
+            ("proj", C, C, gm.EPI_BIAS_RES, False, True),
+            ("fc1", C, 4 * C, gm.EPI_GELU, False, False),
+            ("fc2", 4 * C, C, gm.EPI_BIAS16_RES, False, False))
+
+
+def check_window_gemm(case, d, launch_ms, products=None, label=""):
+    """B9's four window-GEMM launches at one block case (or ``products``,
+    another chain's launches; ``label`` tags its line), each launched
     alone with its real options (the gathered qkv, the scattered proj with
     its residual, fc1 with GELU, fc2 with its residual) and held against
     its plain composition (dense_f32 and the epilogue's roundings, the
@@ -1199,12 +1246,8 @@ def check_window_gemm(case, d, launch_ms):
     def r16(x):
         return x.to(bf16).float()
 
-    products = []
-    for name, K, N, epi, gather, scatter in (
-            ("qkv", C, 3 * C, gm.EPI_BIAS, True, False),
-            ("proj", C, C, gm.EPI_BIAS_RES, False, True),
-            ("fc1", C, 4 * C, gm.EPI_GELU, False, False),
-            ("fc2", 4 * C, C, gm.EPI_BIAS16_RES, False, False)):
+    rows = []
+    for name, K, N, epi, gather, scatter in products or _b9_products(C):
         wt, bt = d[name]
         a = torch.randn((T, K), generator=gen, device=dev).to(bf16)
         res = (torch.randn((T, N), generator=gen, device=dev).to(bf16)
@@ -1255,7 +1298,7 @@ def check_window_gemm(case, d, launch_ms):
         bound_ms, bound_by = _gemm_bound_ms(T, K, N, res is not None)
         flops = 2 * T * K * N
         library_device_ms = _device_ms(library, "")
-        products.append({
+        rows.append({
             "launch": name, "T": T, "K": K, "N": N,
             "plan": gm.gemm_plan(T, K, N)._asdict(),
             "max_abs_err": err, "max_rel_err": rel, "device_ms": ms,
@@ -1264,13 +1307,14 @@ def check_window_gemm(case, d, launch_ms):
             "bound_share": None if ms is None else bound_ms / ms,
             "plain_ms": plain_ms, "library_ms": _time_ms(library, iters=20),
             "library_device_ms": library_device_ms,
-            "library_tflops": flops / library_device_ms / 1e9,
+            "library_tflops": (None if library_device_ms is None
+                               else flops / library_device_ms / 1e9),
             "library_backend": _library_backend(library),
             "index_select_linear_ms": (None if permuted is None
                                        else _time_ms(permuted, iters=20))})
         del a, res, out
-    row = {"case": list(case), "products": products}
-    _say("kernel check window_gemm", json.dumps(row))
+    row = {"case": list(case), "products": rows}
+    _say(f"kernel check window_gemm{label}", json.dumps(row))
     return row
 
 
@@ -2735,15 +2779,24 @@ def ptxas_gate(kernel: str, log: str):
     return lines
 
 
-def check_fused_mlp(shape, seed):
-    """B12 (row 12) vs its plain version on one (T, C, hidden, out) shape;
-    times the kernel on CUDA events and its device time from the profiler,
-    the plain version and the port's default MLP (cuBLAS + GELU +
-    cuBLAS)."""
+def _zero_out_bias(args):
+    """B12's inputs with a zero output bias, as ``Mlp._forward_tp`` passes
+    them (fc2's bias is added once, after the all-reduce)."""
+    import torch
+    return (*args[:4], torch.zeros_like(args[4]))
+
+
+def check_fused_mlp(shape, seed, zero_out_bias=False):
+    """B12 (row 12) vs its plain version on one (T, C, hidden, out) shape
+    (``zero_out_bias``: fc2's bias zero); times the kernel on CUDA events
+    and its device time from the profiler, the plain version and the
+    port's default MLP (cuBLAS + GELU + cuBLAS)."""
     import torch
     from vit_torch_tpu_torch.ops import fused_mlp as fm
     T, C, Hd, Co, bias = shape
     args = _mlp_inputs(T, C, Hd, Co, seed, bias)
+    if zero_out_bias:
+        args = _zero_out_bias(args)
     before = fm.fused_mlp.launches
     out = fm.fused_mlp(*args)
     torch.cuda.synchronize()
@@ -2768,13 +2821,14 @@ def check_fused_mlp(shape, seed):
         torch.cuda.get_device_properties(0).multi_processor_count)._asdict()
     plan["grid"] = "one block per (row tile, slab)"
     flops = fm.mlp_flops(T, C, Hd, Co)
-    row = {"shape": [T, C, Hd, Co], "biases": bias, "max_abs_err": abs_err,
+    row = {"shape": [T, C, Hd, Co], "biases": bias,
+           "zero_out_bias": zero_out_bias, "max_abs_err": abs_err,
            "max_rel_err": rel, "ms": ms, "device_ms": device_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "plan": plan,
-           "tflops": flops / device_ms / 1e9,
+           "tflops": None if device_ms is None else flops / device_ms / 1e9,
            "library_tflops": flops / library_ms / 1e9,
-           "bound_share": bound_ms / device_ms}
+           "bound_share": None if device_ms is None else bound_ms / device_ms}
     _say("kernel check fused_mlp", json.dumps(row))
     return row
 
@@ -2810,36 +2864,43 @@ def compare_fused_mlp_layouts(shape, seed):
     return row
 
 
-def check_fused_mlp_grads(shape, seed):
+def check_fused_mlp_grads(shape, seed, zero_out_bias=False):
     """All five gradients of B12 through its autograd Function (one kernel
     launch forward, the backward a recompute through cuBLAS) vs autograd
-    through the plain version; times a forward and backward of each and of
-    the port's default MLP."""
+    through the plain version (``zero_out_bias``: fc2's bias zero, no
+    gradient asked of it); times a forward and backward of each and of the
+    port's default MLP."""
     import torch
     from vit_torch_tpu_torch.ops import fused_mlp as fm
     T, C, Hd, Co, bias = shape
-    leaves = [t.requires_grad_(True)
-              for t in _mlp_inputs(T, C, Hd, Co, seed, bias)]
+    args = _mlp_inputs(T, C, Hd, Co, seed, bias)
+    if zero_out_bias:
+        args = _zero_out_bias(args)
+    leaves = [t.requires_grad_(True) for t in args[:4]]
+    if not zero_out_bias:
+        leaves.append(args[4].requires_grad_(True))
+    args = (*leaves, *args[len(leaves):])
     gen = torch.Generator(device="cuda").manual_seed(9500 + seed)
     dout = torch.randn((T, Co), generator=gen, device="cuda",
                        dtype=torch.bfloat16)
     before = fm.fused_mlp.launches
-    got = torch.autograd.grad(fm.fused_mlp(*leaves), leaves, dout)
+    got = torch.autograd.grad(fm.fused_mlp(*args), leaves, dout)
     torch.cuda.synchronize()
     if fm.fused_mlp.launches != before + 1:
         raise AssertionError("fused_mlp grad: not one forward launch")
-    want = torch.autograd.grad(fm.fused_mlp_reference(*leaves), leaves, dout)
+    want = torch.autograd.grad(fm.fused_mlp_reference(*args), leaves, dout)
     rel = [_rel_err(g, w) for g, w in zip(got, want)]
     finite = all(torch.isfinite(g).all().item() for g in got)
     del got, want
     if not (finite and max(rel) <= MLP_GRAD_RTOL):
         raise AssertionError(f"fused_mlp grads {shape}: error relative to "
                              f"max|plain| {rel} (limit {MLP_GRAD_RTOL})")
-    ms = _time_ms(lambda: torch.autograd.grad(fm.fused_mlp(*leaves), leaves,
+    ms = _time_ms(lambda: torch.autograd.grad(fm.fused_mlp(*args), leaves,
                                               dout), iters=10)
     library_ms = _time_ms(lambda: torch.autograd.grad(
-        _library_mlp(*leaves), leaves, dout), iters=10)
-    row = {"shape": [T, C, Hd, Co], "grad_rel_err": rel, "fwd_bwd_ms": ms,
+        _library_mlp(*args), leaves, dout), iters=10)
+    row = {"shape": [T, C, Hd, Co], "zero_out_bias": zero_out_bias,
+           "grad_rel_err": rel, "fwd_bwd_ms": ms,
            "library_fwd_bwd_ms": library_ms}
     _say("grad check fused_mlp", json.dumps(row))
     return row
@@ -3162,11 +3223,14 @@ def steady_state_resnext(iters: int = 12):
     return row
 
 
-def _cli_trainer(argv, fp: str, mode: str, want, augment_off=False):
+def _cli_trainer(argv, fp: str, mode: str, want, augment_off=False,
+                 read_stats=True):
     """One run of ``cli.main`` on the card; returns its trainer, the
     kernels' launch counts (checked against ``want``) and its seconds.
     ``augment_off`` gives the CLI's train augmentation no crop and no
-    flip (the resume phase's order-free configuration)."""
+    flip (the resume phase's order-free configuration); without
+    ``read_stats`` (a rank other than 0, which writes no stats file) only
+    the launches are checked."""
     import contextlib
     import functools
     from vit_torch_tpu_torch.cli import main as cli_main
@@ -3190,6 +3254,11 @@ def _cli_trainer(argv, fp: str, mode: str, want, augment_off=False):
         cli_main.main(argv + ["--stats_fp", fp])
         seconds = time.perf_counter() - t0
         counts = _read_counts()
+    if not read_stats:
+        if counts != want:
+            raise AssertionError(f"{mode}: kernel launches {counts} != "
+                                 f"{want}")
+        return seen[0], counts, seconds
     with open(fp) as f:
         stats = json.load(f)
     _say(json.dumps({"cli": {"mode": mode, "seconds": seconds,
@@ -3850,10 +3919,10 @@ def check_flash_cross(shape, seed):
                                dk=dk, dv=dv)
 
     ms, bwd_ms = _time_ms(fwd, iters=100), _time_ms(bwd, iters=100)
-    ((device_ms, seen),) = _device_times(fwd, ("flash_fwd_kernel",))
-    split = _device_times(bwd, FLASH_BWD_KERNELS)
-    if not (device_ms > 0 and seen == 1
-            and all(t > 0 and n == 1 for t, n in split)):
+    fwd_whole, ((device_ms, seen),) = _once_a_call(fwd,
+                                                   ("flash_fwd_kernel",))
+    bwd_whole, split = _once_a_call(bwd, FLASH_BWD_KERNELS)
+    if not (fwd_whole and bwd_whole):
         raise AssertionError(f"flash cross {shape}: the profiler saw "
                              f"forward {(device_ms, seen)}, backward "
                              f"{split}")
@@ -5495,6 +5564,225 @@ def frcnn_scan_bundle(root: str, workdir: str):
 
 
 # --------------------------------------------------------------------------
+# the hand kernels at their tensor-parallel widths (ROADMAP A8)
+# --------------------------------------------------------------------------
+
+# the flash shapes the parallel modes give a rank of dino_vitb8 @224 at the
+# global bs32: model=2 runs forward and backward over 6 of the 12 heads
+# (models/layers.py:Attention, the tp_group branch), data=2 over 16 images
+# a rank, pipe=2 over 8-image microbatches
+TP_FLASH_SHAPES = [(32, 6, 785, 64), (16, 12, 785, 64), (8, 12, 785, 64)]
+# a rank's Swin B8 chain (SwinBlock._forward_tp) at swin_base_384:
+# (B, H, W, C, window, shift, local heads, model ranks).  At model=2
+# stages 1-4 keep 2, 4, 8, 16 heads (Ca = 64, 128, 256, 512 < C); at
+# model=4 stage 1 keeps one (Ca = 32: the qkv product's N = 96, proj's
+# K = 32).  Stage 4's 12 x 12 map is one window, unshifted.  Each at bs8
+# and at the Swin mode's PAR_SWIN_BS = 4 (half the windows)
+TP_SWIN_CASES = [(B, H, W, C, 12, shift, heads, ranks)
+                 for B in (8, 4)
+                 for H, W, C, shift, heads, ranks in (
+                     (96, 96, 128, 6, 2, 2), (48, 48, 256, 6, 4, 2),
+                     (24, 24, 512, 6, 8, 2), (12, 12, 1024, 0, 16, 2),
+                     (96, 96, 128, 6, 1, 4))]
+# B12 over a model=2 rank's hidden columns at DeiT-base bs32 (Mlp._forward_tp
+# under VITX_FUSED_MLP=1): 1536 of 3072, a zero output bias
+TP_MLP_SHAPE = (6336, 768, 1536, 768, True)
+
+
+def _tp_block_inputs(case, seed):
+    """The full-width block inputs of ``_block_inputs`` cut as
+    ``partition.apply_tensor_parallel`` cuts them for the last rank of the
+    ``model`` axis: qkv's rows of its heads of each of q, k and v, proj's
+    matching input columns, the bias table's head slice; proj's bias zero,
+    as SwinBlock._forward_tp passes it."""
+    import torch
+    B, H, W, C, w, shift, heads, ranks = case
+    d = _block_inputs(case[:6], seed)
+    Ca, rank = heads * 32, ranks - 1
+    cols = slice(rank * Ca, (rank + 1) * Ca)
+    wq, bq = d["qkv"]
+    return dict(x=d["x"], mask=d["mask"],
+                qkv=(wq.view(3, C, C)[:, cols].reshape(3 * Ca, C)
+                     .contiguous(),
+                     bq.view(3, C)[:, cols].reshape(3 * Ca).contiguous()),
+                proj=(d["proj"][0][:, cols].contiguous(),
+                      torch.zeros(C, dtype=torch.bfloat16, device="cuda")),
+                bias=d["bias"][rank * heads:(rank + 1) * heads].contiguous())
+
+
+def _tp_block_bound_ms(case):
+    """The rank's chain: 2 T (3 Ca C + C Ca) + 4 T N Ca operations; the map
+    read and written once, its weights (bf16), its bias table and the mask
+    (fp32)."""
+    B, H, W, C, w, shift, heads, _ = case
+    T, N, Ca = B * H * W, w * w, heads * 32
+    return _bound(2 * T * 4 * C * Ca + 4 * T * N * Ca,
+                  2 * T * C * 2 + 4 * C * Ca * 2 + heads * N * N * 4
+                  + (shift > 0) * (H // w) * (W // w) * N * N * 4)
+
+
+def check_tp_window_block(case, seed):
+    """B8 over a rank's heads (row 8 at a tensor-parallel width) vs its plain
+    version, forward and gradients: the chain's three launches (each
+    one's device time), the window GEMM's two launches alone at their T, K
+    and N (the gathered qkv at N = 3 Ca, the scattered proj at K = Ca),
+    then the gradients through the Function (B6 in the backward, once) of
+    the map, qkv's weight and bias, the bias table and proj's weight
+    against autograd through the plain version."""
+    import torch
+    from vit_torch_tpu_torch.ops import gemm as gm
+    from vit_torch_tpu_torch.ops import window_attention as wa
+    from vit_torch_tpu_torch.ops import window_block as wb
+    B, H, W, C, w, shift, heads, ranks = case
+    Ca = heads * 32
+    d = _tp_block_inputs(case, seed)
+    kw = dict(num_heads=heads, window=w, shift=shift, scale=32 ** -0.5)
+    args = (d["x"], *d["qkv"], d["bias"], d["mask"], *d["proj"])
+    fn, ref_fn = wb.window_block_spatial, wb.window_block_spatial_reference
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    ref = ref_fn(*args, **kw).float()
+    abs_err = (out.float() - ref).abs().max().item()
+    rel = abs_err / ref.abs().max().item()
+    del ref, out
+    if not rel <= BLOCK_RTOL:
+        raise AssertionError(f"window_block_spatial at {case}: max abs err "
+                             f"relative to max|plain| {rel} > {BLOCK_RTOL}")
+    ms = _time_ms(lambda: fn(*args, **kw), iters=20)
+    times = _launch_times(lambda: fn(*args, **kw), len(B8_LAUNCHES))
+    device = [t for _, t in times]
+    plain_ms = _time_ms(lambda: ref_fn(*args, **kw), iters=3)
+    bound_ms, bound_by = _tp_block_bound_ms(case)
+    launch_ms = dict(zip(B8_LAUNCHES, device))
+    gemm = check_window_gemm(
+        case[:6], d, launch_ms, label="_tp",
+        products=(("qkv", C, 3 * Ca, gm.EPI_BIAS, True, False),
+                  ("proj", Ca, C, gm.EPI_BIAS, False, True)))
+    # the gradients: every input the model trains (proj's zero bias is a
+    # constant there)
+    gen = torch.Generator(device="cuda").manual_seed(5500 + seed)
+    dout = torch.randn(d["x"].shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    x, wq, bq, bias, wp = (t.detach().clone().requires_grad_(True) for t in (
+        d["x"], *d["qkv"], d["bias"], d["proj"][0]))
+    wrt = [x, wq, bq, bias, wp]
+    gargs = (x, wq, bq, bias, d["mask"], wp, d["proj"][1])
+    before = wa.window_attention_bwd.launches
+    got = torch.autograd.grad(fn(*gargs, **kw), wrt, dout)
+    torch.cuda.synchronize()
+    if wa.window_attention_bwd.launches != before + 1:
+        raise AssertionError(f"window_block_spatial grad at {case} did not "
+                             f"launch B6 once")
+    want = torch.autograd.grad(ref_fn(*gargs, **kw), wrt, dout)
+    grel = [((g.float() - r.float()).abs().max()
+             / r.float().abs().max().clamp_min(1e-30)).item()
+            for g, r in zip(got, want)]
+    finite = all(torch.isfinite(g).all().item() for g in got)
+    del got, want
+    if not (finite and max(grel) <= BLOCK_GRAD_RTOL):
+        raise AssertionError(f"window_block_spatial grads at {case}: error "
+                             f"relative to max|plain| {grel} (limit "
+                             f"{BLOCK_GRAD_RTOL})")
+    fwd_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+        fn(*gargs, **kw), wrt, dout), iters=5)
+    row = {"case": list(case), "Ca": Ca, "max_abs_err": abs_err,
+           "max_rel_err": rel, "ms": ms,
+           "device_ms": None if None in device else sum(device),
+           "launch_device_ms": launch_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "grad_rel_err_x_wqkv_bqkv_bias_wproj": grel,
+           "fwd_bwd_ms": fwd_bwd_ms,
+           "gemm_T_K_N_device_ms_err": [
+               [p["launch"], p["T"], p["K"], p["N"], p["device_ms"],
+                p["max_rel_err"]] for p in gemm["products"]]}
+    _say("kernel check window_block_spatial_tp", json.dumps(row))
+    return {"block": row, "gemm": gemm}
+
+
+def tp_width_checks():
+    """Every hand kernel a tensor-parallel rank launches, at the widths the
+    parallel modes give it, against its plain version under the limits of
+    the full-width checks: flash forward and backward at each
+    TP_FLASH_SHAPES shape, the B8 chain at each TP_SWIN_CASES width (with
+    the window GEMM's launches and the gradients through B6), the window
+    core and B6 alone at those widths (a rank's heads are a model of
+    C = Ca), B12 over half the hidden columns with a zero output bias
+    (forward and gradients)."""
+    out = {"flash_fwd": [check_flash_kernel(s, seed=40 + i)
+                         for i, s in enumerate(TP_FLASH_SHAPES)],
+           "flash_bwd": [check_flash_bwd_kernel(s, seed=45 + i)
+                         for i, s in enumerate(TP_FLASH_SHAPES)],
+           "blocks": [check_tp_window_block(c, seed=50 + i)
+                      for i, c in enumerate(TP_SWIN_CASES)]}
+    local = [(B, H, W, heads * 32, w, shift)
+             for B, H, W, C, w, shift, heads, _ in TP_SWIN_CASES]
+    out["core"] = [check_window_attention(c, seed=60 + i)
+                   for i, c in enumerate(local)]
+    out["core_bwd"] = [check_window_attention_bwd(c, seed=70 + i)
+                       for i, c in enumerate(local)]
+    out["mlp"] = check_fused_mlp(TP_MLP_SHAPE, seed=80, zero_out_bias=True)
+    out["mlp_grads"] = check_fused_mlp_grads(TP_MLP_SHAPE, seed=81,
+                                             zero_out_bias=True)
+    return out
+
+
+def _tp_width_rows(tp, full):
+    """The ``tp_widths`` entries of the kernels line: each kernel's rows at
+    the tensor-parallel widths (shape, ms, plain ms, bound, error) beside
+    the full-width row's ms (``full``: kernel name -> its head row)."""
+    def flash(r):
+        return {"shape": r["shape"], "ms": r["ms"],
+                "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "max_abs_err": r["max_abs_err"]}
+
+    rows = {
+        "flash_attention_fwd": [flash(r) for r in tp["flash_fwd"]],
+        "flash_attention_bwd": [{**flash(r), "max_rel_err":
+                                 max(r["rel_err_dq_dk_dv"])}
+                                for r in tp["flash_bwd"]],
+        "window_block_spatial": [
+            {"case": b["block"]["case"], "Ca": b["block"]["Ca"],
+             "ms": b["block"]["ms"], "device_ms": b["block"]["device_ms"],
+             "plain_ms": b["block"]["plain_ms"],
+             "bound_ms": b["block"]["bound_ms"],
+             "max_rel_err": b["block"]["max_rel_err"],
+             "grad_max_rel_err": max(
+                 b["block"]["grad_rel_err_x_wqkv_bqkv_bias_wproj"]),
+             "fwd_bwd_ms": b["block"]["fwd_bwd_ms"]} for b in tp["blocks"]],
+        "window_gemm": [
+            {"case": b["block"]["case"], "launch": p["launch"], "T": p["T"],
+             "K": p["K"], "N": p["N"], "ms": p["device_ms"],
+             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+             "max_rel_err": p["max_rel_err"],
+             "library_device_ms": p["library_device_ms"]}
+            for b in tp["blocks"] for p in b["gemm"]["products"]],
+        "window_attention": [
+            {"tp_case": c, "shape": r["shape"], "ms": r["ms"],
+             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "max_abs_err": r["max_abs_err"]}
+            for c, r in zip(TP_SWIN_CASES, tp["core"])],
+        "window_attention_bwd": [
+            {"tp_case": c, "shape": r["shape"], "ms": r["ms"],
+             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"],
+             "max_rel_err": max(r["rel_err_dq_dk_dv"]),
+             "rel_err_dbias": r["rel_err_dbias"]}
+            for c, r in zip(TP_SWIN_CASES, tp["core_bwd"])],
+        "fused_mlp": [{
+            "shape": tp["mlp"]["shape"], "zero_out_bias": True,
+            "ms": tp["mlp"]["ms"], "device_ms": tp["mlp"]["device_ms"],
+            "plain_ms": tp["mlp"]["plain_ms"],
+            "bound_ms": tp["mlp"]["bound_ms"],
+            "max_rel_err": tp["mlp"]["max_rel_err"],
+            "grad_max_rel_err": max(tp["mlp_grads"]["grad_rel_err"]),
+            "fwd_bwd_ms": tp["mlp_grads"]["fwd_bwd_ms"]}]}
+    for name, full_row in full.items():
+        for r in rows[name]:
+            r["full_width"] = full_row
+    return rows
+
+
+# --------------------------------------------------------------------------
 # parallelism (ROADMAP A8)
 # --------------------------------------------------------------------------
 
@@ -5507,7 +5795,8 @@ def frcnn_scan_bundle(root: str, workdir: str):
 # val loss after that update moved by 6.2e-4 on an H100)
 MESH_ARGS = RESUME_ARGS + ["--epoch", "1"]
 MESH_ITERS = 6
-# two ranks on one card: 16 images each, the single-process step's bs32
+# two ranks on one card (in data=2 16 images each of the single-process
+# step's bs32)
 DP_RANKS, DP_STEPS = 2, 3
 
 
@@ -5525,13 +5814,13 @@ def _full_weights(trainer):
     return {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
 
 
-def _step_batch(seed: int = 0):
+def _step_batch(seed: int = 0, bs: int = TRAIN_BS, size: int = IMAGE_SIZE):
     import torch
     gen = torch.Generator().manual_seed(seed)
-    images = torch.randint(0, 256, (TRAIN_BS, IMAGE_SIZE, IMAGE_SIZE, 3),
-                           generator=gen, dtype=torch.uint8)
-    labels = torch.randint(0, 10, (TRAIN_BS,), generator=gen)
-    return (images.cuda(), labels.cuda(), torch.ones(TRAIN_BS).cuda())
+    images = torch.randint(0, 256, (bs, size, size, 3), generator=gen,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 10, (bs,), generator=gen)
+    return (images.cuda(), labels.cuda(), torch.ones(bs).cuda())
 
 
 def _steady_ms(trainer, batch, iters: int = MESH_ITERS):
@@ -5568,6 +5857,11 @@ def mesh_world1(workdir: str):
         info = {"seconds": seconds, "launches": counts,
                 "losses": [stats[s][0]["loss"] for s in ("train", "val")],
                 "weights": _full_weights(trainer)}
+        if mode == "plain":     # AdamW's first moment: 0.1 of the gradient
+            opt = trainer.optimizer
+            info["exp_avg"] = {n: opt.state[p]["exp_avg"].float().cpu()
+                               for n, p in trainer.model.named_parameters()
+                               if p in opt.state}
         if trainer.layout is not None:
             info["backend"] = dist.get_backend()
             if dist.get_backend() != "nccl":
@@ -5594,24 +5888,11 @@ def mesh_world1(workdir: str):
         torch.cuda.empty_cache()
     out = {}
     plain = runs["plain"]
+    plain["init"] = init
     for mode in ("dp", "fsdp"):
         r = runs[mode]
-        loss_diff = max(abs(a - b) for a, b in zip(r["losses"],
-                                                   plain["losses"]))
-        keys = [k for k, v in plain["weights"].items()
-                if v.is_floating_point()]
-        max_abs = max(float((r["weights"][k].float()
-                             - plain["weights"][k].float()).abs().max())
-                      for k in keys)
-        diff = sum(float(((r["weights"][k] - plain["weights"][k]).float()
-                          ** 2).sum()) for k in keys) ** 0.5
-        update = sum(float(((plain["weights"][k] - init[k]).float()
-                            ** 2).sum()) for k in keys) ** 0.5
-        row = {"launches": r["launches"], "losses_mesh_plain":
-               [r["losses"], plain["losses"]], "loss_max_diff": loss_diff,
-               "weights_max_abs_diff": max_abs,
-               "update_rel_diff": diff / update,
-               "limits": [STEP_LOSS_ATOL, RESUME_ATOL, RESUME_UPDATE_RTOL],
+        row = {"launches": r["launches"],
+               **_against_plain(r["losses"], r["weights"], plain),
                "backend": r["backend"],
                "step_ms_mesh_plain": [r["step_ms"], plain["step_ms"]],
                "peak_gb_mesh_plain": [r["peak_gb"], plain["peak_gb"]],
@@ -5623,30 +5904,122 @@ def mesh_world1(workdir: str):
         if r["launches"] != plain["launches"]:
             raise AssertionError(f"{name}: launches {r['launches']} != the "
                                  f"plain trainer's {plain['launches']}")
-        if not (loss_diff <= STEP_LOSS_ATOL and max_abs <= RESUME_ATOL
-                and diff / update <= RESUME_UPDATE_RTOL):
+        if not row["within_limits"]:
             raise AssertionError(f"{name}: losses or weights past their "
                                  f"bounds: {row}")
         out[name] = row
+    return out, plain
+
+
+def _against_plain(losses, weights, plain, exp_avg=None):
+    """The losses and weights of a run of MESH_ARGS against ``plain``'s
+    (``mesh_world1``'s run without --mesh, with its ``init`` weights and
+    AdamW first moments): losses to STEP_LOSS_ATOL, every weight to
+    RESUME_ATOL and the update's distance to RESUME_UPDATE_RTOL of its
+    norm.  Given the run's first moments (``exp_avg``, by name), each is
+    held to STEP_GRAD_RTOL of the plain one's norm (one step: a tenth of
+    the gradient), and the update's distance is taken over the elements
+    whose first moments agree in sign: AdamW's first step moves an element
+    by about lr times its gradient's sign, so an element whose gradient
+    is near zero moves by 2 lr the other way when rounding flips that
+    sign (the flipped share is reported beside the whole distance)."""
+    loss_diff = max(abs(a - b) for a, b in zip(losses, plain["losses"]))
+    want, init = plain["weights"], plain["init"]
+    keys = [k for k, v in want.items() if v.is_floating_point()]
+    max_abs = max(float((weights[k].float() - want[k].float()).abs().max())
+                  for k in keys)
+    update = sum(float(((want[k] - init[k]).float() ** 2).sum())
+                 for k in keys) ** 0.5
+    out = {"losses_mesh_plain": [losses, plain["losses"]],
+           "loss_max_diff": loss_diff, "weights_max_abs_diff": max_abs}
+    agree, moment_rel = {}, {}
+    if exp_avg is not None:
+        for k, m in exp_avg.items():
+            ref = plain["exp_avg"][k]
+            agree[k] = m.sign() == ref.sign()
+            moment_rel[k] = float((m - ref).norm()
+                                  / ref.norm().clamp_min(1e-30))
+    diff_sq = {k: (weights[k] - want[k]).float() ** 2 for k in keys}
+    diff = sum(float(d.sum()) for d in diff_sq.values()) ** 0.5
+    gated = sum(float(d[agree[k]].sum()) if k in agree else float(d.sum())
+                for k, d in diff_sq.items()) ** 0.5
+    out["update_rel_diff"] = diff / update
+    ok = (loss_diff <= STEP_LOSS_ATOL and max_abs <= RESUME_ATOL
+          and gated / update <= RESUME_UPDATE_RTOL)
+    if exp_avg is not None:
+        worst = max(moment_rel, key=moment_rel.get)
+        flipped = sum(int((~a).sum()) for a in agree.values())
+        out.update(update_rel_diff_signs_agree=gated / update,
+                   flipped_share=flipped / sum(a.numel()
+                                               for a in agree.values()),
+                   exp_avg_rel_max=[worst, moment_rel[worst]],
+                   exp_avg_rel_median=float(np.median(
+                       list(moment_rel.values()))))
+        ok = ok and moment_rel[worst] <= STEP_GRAD_RTOL
+    out.update(limits=[STEP_LOSS_ATOL, RESUME_ATOL, RESUME_UPDATE_RTOL]
+               + ([STEP_GRAD_RTOL] if exp_avg is not None else []),
+               within_limits=ok)
     return out
 
 
-def _dp_trainer(device, mesh=None):
+# the parallel modes that one card runs (two ranks share cuda:0 over gloo:
+# multihost.dist_backend takes it where the local ranks outnumber the
+# cards), spawned once; each mode forms a fresh group on a port of its
+# own, takes DP_STEPS steps of one global batch and is held against the
+# single-process steps (STEP_LOSS_ATOL, STEP_GRAD_RTOL): (name, --mesh,
+# arch).  The four ViT modes share _step_batch's bs32, so that one
+# single-process dino_vitb8 run is their reference; Swin has one of its
+# own at PAR_SWIN_BS.  The tensor-parallel ViT also runs cli.main as
+# torchrun starts it (_par_cli)
+PAR_MODES = (("data", "data=2", ARCH), ("tp_vit", "model=2", ARCH),
+             ("seq_vit", "seq=2", ARCH), ("pipe_vit", "pipe=2", ARCH),
+             ("tp_swin", "model=2", SWIN_ARCH))
+PIPE_MICROBATCHES = 4
+PAR_SWIN_BS = 4
+# seconds the parent waits for the two ranks to run every mode (about 80
+# on an H100 host)
+PAR_TIMEOUT = 480
+
+
+def _par_want(name: str):
+    """One rank's launches over DP_STEPS train steps of mode ``name``,
+    from the block counts: a data or tensor-parallel ViT rank runs every
+    block, flash forward and backward once each (TP over 6 of 12 heads);
+    the ring's attention is einsums (no kernel, as in JAX); a pipeline
+    stage runs its depth / 2 blocks once a microbatch; a tensor-parallel
+    Swin rank runs every block through B8 over its heads (the core once)
+    and B6 in the backward, two window-GEMM launches a B8."""
+    from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS
+    from vit_torch_tpu_torch.models.vit import VIT_CONFIGS
+    depth = VIT_CONFIGS[ARCH].depth
+    flash = {"data": depth, "tp_vit": depth, "seq_vit": 0,
+             "pipe_vit": depth // DP_RANKS * PIPE_MICROBATCHES}
+    if name in flash:
+        return _want(flash_attention_fwd=flash[name] * DP_STEPS,
+                     flash_attention_bwd=flash[name] * DP_STEPS)
+    blocks = sum(SWIN_CONFIGS[SWIN_ARCH].depths) * DP_STEPS
+    return _want(window_attention=blocks, window_attention_bwd=blocks,
+                 window_block_spatial=blocks)
+
+
+def _dp_trainer(device, mesh=None, arch: str = ARCH,
+                image_size: int = IMAGE_SIZE, pipe_microbatches: int = 0):
     import torch
     from vit_torch_tpu_torch.models.zoo import VisionModelZoo
     from vit_torch_tpu_torch.train.trainer import Trainer
     zm = VisionModelZoo.get_model(
-        ARCH, classifier=[512, 10], image_size=IMAGE_SIZE,
+        arch, classifier=[512, 10], image_size=image_size,
         dtype=torch.bfloat16, device=device,
         generator=torch.Generator().manual_seed(0))
     return Trainer(zm, epochs=1, lr=1e-4, opt="adamw", seed=0, mesh=mesh,
                    augment_fn=lambda g, x: x.float() / 255.0,
-                   print_progress=False)
+                   print_progress=False, pipe_microbatches=pipe_microbatches)
 
 
-def _dp_steps(trainer, batch):
+def _dp_steps(trainer, batch, grads_fn=None, on_first=None):
     """DP_STEPS steps: losses, the first step's gradients (after the
-    all-reduce), the later steps' ms."""
+    all-reduce; ``grads_fn`` gathers them to the single-process layout),
+    the later steps' ms; ``on_first`` runs after the first step."""
     import torch
     losses, grads, ms = [], None, []
     for i in range(DP_STEPS):
@@ -5656,87 +6029,278 @@ def _dp_steps(trainer, batch):
         losses.append((m["loss_sum"] / m["count"]).item())
         ms.append(1e3 * (time.perf_counter() - t0))
         if i == 0:
-            grads = {n: p.grad.float().cpu()
-                     for n, p in trainer.model.named_parameters()}
+            grads = grads_fn() if grads_fn else {
+                n: p.grad.float().cpu()
+                for n, p in trainer.model.named_parameters()}
+            if on_first:
+                on_first()
     return {"losses": losses, "grads": grads, "step_ms": ms[1:]}
 
 
-def _dp_rank(rank: int, port: int, workdir: str) -> None:
-    """One rank of ``dp_two_ranks_one_card`` (spawned)."""
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_RANKS),
-                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port), LOCAL_WORLD_SIZE=str(DP_RANKS))
+def _count_collectives() -> dict:
+    """Count, in this process, every collective and point-to-point call and
+    the bytes of the tensors it is handed: {kind: [calls, bytes]}.  Both
+    the ``torch.distributed`` names the port calls and the module globals
+    that torch's own helpers call are wrapped, so a ``batch_isend_irecv``
+    op counts once."""
     import torch
     import torch.distributed as dist
-    from vit_torch_tpu_torch.parallel.api import _all_reduce_flat
-    from vit_torch_tpu_torch.parallel.multihost import setup_mesh
-    mesh, device, _ = setup_mesh("data=2", torch.device("cuda"))
-    trainer = _dp_trainer(device, mesh)
-    # the step takes this rank's rows of the global batch
-    res = _dp_steps(trainer, tuple(trainer.layout.shard(t)
-                                   for t in _step_batch()))
-    grads = [p.grad for p in trainer.model.parameters()]
-    res["allreduce_ms"] = _time_ms(lambda: _all_reduce_flat(
-        grads, trainer.layout.replica_group, 1), 3, warmup=1)
-    res["device"] = str(device)
-    res["backend"] = dist.get_backend()
-    res["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
-    if rank == 0:
-        torch.save(res, os.path.join(workdir, "dp_rank0.pt"))
+    from torch.distributed import distributed_c10d as c10d
+    counts: dict = {}
+
+    def nbytes(x):
+        if isinstance(x, torch.Tensor):
+            return x.numel() * x.element_size()
+        return sum(nbytes(t) for t in x) if isinstance(x, (list, tuple)) \
+            else 0
+
+    for name, kind in (("all_reduce", "all_reduce"),
+                       ("broadcast", "broadcast"),
+                       ("all_gather", "all_gather"), ("isend", "send"),
+                       ("send", "send"), ("irecv", "recv"),
+                       ("recv", "recv")):
+        def counted(*a, _fn=getattr(c10d, name), _kind=kind, **k):
+            c = counts.setdefault(_kind, [0, 0])
+            c[0] += 1
+            c[1] += nbytes(a[0] if a else next(iter(k.values())))
+            return _fn(*a, **k)
+
+        setattr(c10d, name, counted)
+        setattr(dist, name, counted)
+    return counts
+
+
+def _par_cli(rank: int, workdir: str):
+    """The tensor-parallel ViT through its entry point, as torchrun starts
+    it: ``cli.main --mesh model=2 --device cuda --ckpt_dir`` on the resume
+    phase's one-batch epoch; then the rank's weights gathered to the
+    single-process layout (``api.full_state``), which the parent holds
+    against the checkpoint."""
+    import torch.distributed as dist
+    from vit_torch_tpu_torch.cli import main as cli_main
+    from vit_torch_tpu_torch.parallel.api import full_state
+    argv = MESH_ARGS + ["--mesh", "model=2", "--device", "cuda",
+                        "--ckpt_dir", os.path.join(workdir, "tp_vit_ckpt")]
+    # keep the group the CLI formed until the weights are gathered
+    with mock.patch.object(cli_main.dist, "destroy_process_group",
+                           lambda *a, **k: None):
+        trainer, counts, seconds = _cli_trainer(
+            argv, os.path.join(workdir, "tp_vit_cli.json"), "tp_vit_cli",
+            _mesh_want(), augment_off=True, read_stats=rank == 0)
+    weights = full_state(trainer.model, None, trainer.layout)[0]
+    res = {"launches": counts, "seconds": seconds,
+           "backend": dist.get_backend(),
+           "weights": weights if rank == 0 else None,
+           "trainable": trainer.layout.trainable}
     dist.barrier()
     dist.destroy_process_group()
+    return res
 
 
-def dp_two_ranks_one_card(workdir: str):
-    """Two spawned ranks on cuda:0 over gloo against the single-process
-    bs32 steps (STEP_LOSS_ATOL, STEP_GRAD_RTOL)."""
+def _par_mode(name: str, spec: str, arch: str, collectives: dict,
+              rank: int):
+    """One mode on this rank: a fresh group (MASTER_PORT), the trainer laid
+    out over ``spec``, DP_STEPS steps of this rank's part of the global
+    batch; the launches over them, the first step's gradients gathered to
+    the single-process layout (rank 0), the collectives' calls and bytes
+    over the later steps."""
+    import torch
+    import torch.distributed as dist
+    from vit_torch_tpu_torch.parallel.api import _all_reduce_flat, full_grads
+    from vit_torch_tpu_torch.parallel.multihost import setup_mesh
+    t0 = time.perf_counter()
+    mesh, device, _ = setup_mesh(spec, torch.device("cuda"))
+    swin = arch == SWIN_ARCH
+    trainer = _dp_trainer(
+        device, mesh, arch, SWIN_SIZE if swin else IMAGE_SIZE,
+        PIPE_MICROBATCHES if name == "pipe_vit" else 0)
+    batch = _step_batch(bs=PAR_SWIN_BS, size=SWIN_SIZE) if swin \
+        else _step_batch()
+    _reset_counts()
+    collectives.clear()
+    res = _dp_steps(trainer, tuple(trainer.layout.shard(t) for t in batch),
+                    lambda: full_grads(trainer.model, trainer.layout),
+                    collectives.clear)
+    res.update(launches=_read_counts(), backend=dist.get_backend(),
+               device=str(device),
+               collectives={k: list(v) for k, v in collectives.items()})
+    if name == "data":
+        grads = [p.grad for p in trainer.model.parameters()]
+        res["allreduce_ms"] = _time_ms(lambda: _all_reduce_flat(
+            grads, trainer.layout.replica_group, 1), 3, warmup=1)
+        res["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+    if rank:
+        res["grads"] = None
+    dist.barrier()
+    dist.destroy_process_group()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _par_rank(rank: int, ports, workdir: str) -> None:
+    """One of the two ranks: every mode of PAR_MODES in turn, each on its
+    own port (the tensor-parallel ViT's CLI run on one more); each mode's
+    result saved for the parent."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_RANKS),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      LOCAL_WORLD_SIZE=str(DP_RANKS))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    collectives = _count_collectives()
+    ports = iter(ports)
+    for name, spec, arch in PAR_MODES:
+        if name == "tp_vit":
+            os.environ["MASTER_PORT"] = str(next(ports))
+            torch.save(_par_cli(rank, workdir),
+                       os.path.join(workdir, f"par_tp_vit_cli_r{rank}.pt"))
+        os.environ["MASTER_PORT"] = str(next(ports))
+        torch.save(_par_mode(name, spec, arch, collectives, rank),
+                   os.path.join(workdir, f"par_{name}_r{rank}.pt"))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _check_tp_cli(workdir: str, plain):
+    """``tp_vit_cli``: both ranks' launches against the one-batch epoch's;
+    the checkpoint the CLI wrote loaded strictly into a single-process
+    model, whose every tensor must equal the rank's gathered weights; its
+    losses (rank 0's stats), weights and AdamW first moments held to
+    ``plain``'s, the same run without --mesh (``mesh_world1``), by
+    ``_against_plain``."""
+    import torch
+    from vit_torch_tpu_torch.checkpoint.ckpt_io import restore_checkpoint
+    from vit_torch_tpu_torch.models.zoo import VisionModelZoo
+    runs = [torch.load(os.path.join(workdir, f"par_tp_vit_cli_r{r}.pt"),
+                       weights_only=False) for r in range(DP_RANKS)]
+    gathered = runs[0]["weights"]
+    model = VisionModelZoo.get_model(
+        ARCH, classifier=[512, 10], image_size=IMAGE_SIZE,
+        device="cpu").model
+    ckpt = restore_checkpoint(os.path.join(workdir, "tp_vit_ckpt"))
+    model.load_state_dict(ckpt["model"], strict=True)
+    loaded = model.state_dict()
+    names = runs[0]["trainable"]
+    exp_avg = {names[i]: v["exp_avg"].float()
+               for i, v in ckpt["optimizer"]["state"].items()}
+    differ = [k for k, v in gathered.items()
+              if not torch.equal(loaded[k], v)]
+    with open(os.path.join(workdir, "tp_vit_cli.json")) as f:
+        stats = json.load(f)
+    row = {"mesh": "model=2", "backend": runs[0]["backend"],
+           "seconds_by_rank": [r["seconds"] for r in runs],
+           "launches_by_rank": [r["launches"] for r in runs],
+           "want": _mesh_want(), "tensors": len(gathered),
+           "tensors_differing_from_checkpoint": differ,
+           "keys_equal": sorted(gathered) == sorted(loaded),
+           **_against_plain([stats[s][0]["loss"] for s in ("train", "val")],
+                            loaded, plain, exp_avg)}
+    _say(json.dumps({"tp_vit_cli_two_ranks_one_card": row}))
+    if differ or not row["keys_equal"] or any(
+            r["launches"] != row["want"] for r in runs):
+        raise AssertionError(f"tp_vit_cli_two_ranks_one_card: {row}")
+    if not row["within_limits"]:
+        raise AssertionError(f"tp_vit_cli_two_ranks_one_card: losses or "
+                             f"weights past their bounds: {row}")
+    return row
+
+
+def parallel_modes_one_card(workdir: str, plain):
+    """The five modes of PAR_MODES as two spawned ranks on cuda:0 (one
+    spawn), each held against its single-process steps (the CLI run
+    against ``plain``, ``mesh_world1``'s run): ``<mode>`` lines
+    with the mode's seconds, step ms, the collectives' calls and bytes a
+    step and the backend, each rank's launches beside the expected ones;
+    ``dp_two_ranks_one_card`` keeps its keys.  A rank that exits non-zero,
+    a launch count off, a loss or gradient past its bound fails the
+    run."""
     import multiprocessing
 
     import torch
     from vit_torch_tpu_torch.parallel.multihost import free_port
+    gc.collect()
+    torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
-    port = free_port()
-    procs = [ctx.Process(target=_dp_rank, args=(r, port, workdir))
+    ports = [free_port() for _ in range(len(PAR_MODES) + 1)]
+    procs = [ctx.Process(target=_par_rank, args=(r, ports, workdir))
              for r in range(DP_RANKS)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
     for p in procs:
-        p.join(600)
+        p.join(max(1.0, PAR_TIMEOUT - (time.perf_counter() - t0)))
     for p in procs:
         if p.is_alive():
             p.kill()
             p.join()
-    if [p.exitcode for p in procs] != [0] * DP_RANKS:
-        raise AssertionError(f"dp_two_ranks_one_card: rank exit codes "
-                             f"{[p.exitcode for p in procs]}")
+    codes = [p.exitcode for p in procs]
     seconds = time.perf_counter() - t0
-    dp = torch.load(os.path.join(workdir, "dp_rank0.pt"), weights_only=False)
-    single = _dp_steps(_dp_trainer(torch.device("cuda")), _step_batch())
-    loss_diff = max(abs(a - b) for a, b in zip(dp["losses"],
-                                               single["losses"]))
-    rel = {n: float((dp["grads"][n] - g).norm() / g.norm().clamp_min(1e-30))
-           for n, g in single["grads"].items()}
-    worst = max(rel, key=rel.get)
-    row = {"ranks": DP_RANKS, "device": dp["device"],
-           "backend": dp["backend"], "seconds": seconds,
-           "losses_dp_single": [dp["losses"], single["losses"]],
-           "loss_max_diff": loss_diff,
-           "grad_rel_max": [worst, rel[worst]],
-           "grad_rel_median": float(np.median(list(rel.values()))),
-           "limits": [STEP_LOSS_ATOL, STEP_GRAD_RTOL],
-           "step_ms_dp_single": [dp["step_ms"], single["step_ms"]],
-           "allreduce_ms": dp["allreduce_ms"],
-           "allreduce_bytes": dp["grad_bytes"]}
-    _say(json.dumps({"dp_two_ranks_one_card": row}))
-    if not (loss_diff <= STEP_LOSS_ATOL and rel[worst] <= STEP_GRAD_RTOL):
-        raise AssertionError(f"dp_two_ranks_one_card past its bounds: {row}")
-    return row
+    if codes != [0] * DP_RANKS:
+        raise AssertionError(f"parallel modes: rank exit codes {codes} "
+                             f"after {seconds:.1f} s")
+    out = {"spawn_seconds": seconds,
+           "tp_vit_cli": _check_tp_cli(workdir, plain)}
+    singles = {
+        ARCH: _dp_steps(_dp_trainer(torch.device("cuda")), _step_batch()),
+        SWIN_ARCH: _dp_steps(
+            _dp_trainer(torch.device("cuda"), arch=SWIN_ARCH,
+                        image_size=SWIN_SIZE),
+            _step_batch(bs=PAR_SWIN_BS, size=SWIN_SIZE))}
+    for name, spec, arch in PAR_MODES:
+        runs = [torch.load(os.path.join(workdir, f"par_{name}_r{r}.pt"),
+                           weights_only=False) for r in range(DP_RANKS)]
+        got, single = runs[0], singles[arch]
+        loss_diff = max(abs(a - b) for a, b in zip(got["losses"],
+                                                   single["losses"]))
+        rel = {n: float((got["grads"][n] - g).norm()
+                        / g.norm().clamp_min(1e-30))
+               for n, g in single["grads"].items()}
+        worst = max(rel, key=rel.get)
+        want = _par_want(name)
+        row = {"mesh": spec, "arch": arch,
+               "bs": PAR_SWIN_BS if arch == SWIN_ARCH else TRAIN_BS,
+               "ranks": DP_RANKS, "device": got["device"],
+               "backend": got["backend"],
+               "seconds_by_rank": [r["seconds"] for r in runs],
+               "losses_mode_single": [got["losses"], single["losses"]],
+               "loss_max_diff": loss_diff, "grad_rel_max": [worst, rel[worst]],
+               "grad_rel_median": float(np.median(list(rel.values()))),
+               "limits": [STEP_LOSS_ATOL, STEP_GRAD_RTOL],
+               "step_ms_mode_single": [got["step_ms"], single["step_ms"]],
+               "launches_by_rank": [r["launches"] for r in runs],
+               "want": want,
+               # [calls, bytes] a step by kind, over the steps after the
+               # first, on each rank
+               "collectives_per_step_by_rank": [
+                   {k: [c / (DP_STEPS - 1), b / (DP_STEPS - 1)]
+                    for k, (c, b) in r["collectives"].items()}
+                   for r in runs]}
+        if name == "data":      # the DP phase's line and keys
+            row.update(losses_dp_single=row["losses_mode_single"],
+                       step_ms_dp_single=row["step_ms_mode_single"],
+                       seconds=got["seconds"],
+                       allreduce_ms=got["allreduce_ms"],
+                       allreduce_bytes=got["grad_bytes"])
+            line = "dp_two_ranks_one_card"
+        else:
+            line = f"{name}_two_ranks_one_card"
+        _say(json.dumps({line: row}))
+        odd = sorted(set(got["grads"]) ^ set(single["grads"]))
+        if odd:
+            raise AssertionError(f"{line}: the gathered gradients' names "
+                                 f"differ from the single process's: {odd}")
+        if any(r["launches"] != want for r in runs):
+            raise AssertionError(f"{line}: launches {row['launches_by_rank']}"
+                                 f" != {want}")
+        if not (loss_diff <= STEP_LOSS_ATOL and rel[worst] <= STEP_GRAD_RTOL):
+            raise AssertionError(f"{line} past its bounds: {row}")
+        out[name] = row
+    return out
 
 
 def parallel_phases(workdir: str):
-    out = mesh_world1(workdir)
-    out["dp_two_ranks_one_card"] = dp_two_ranks_one_card(workdir)
+    out, plain = mesh_world1(workdir)
+    out.update(parallel_modes_one_card(workdir, plain))
     return out
 
 
@@ -5749,13 +6313,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from vit_torch_tpu_torch.ops import _build
 
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    _say(f"device {name} | count {torch.cuda.device_count()} | torch "
+    _say(f"device {device_name} | count {torch.cuda.device_count()} | torch "
          f"{torch.__version__} cuda {torch.version.cuda} | {smi}")
+
+    # each phase group's seconds, printed before the kernels line
+    phase_s, mark = {}, [time.perf_counter()]
+
+    def done(group: str) -> None:
+        now = time.perf_counter()
+        phase_s[group] = now - mark[0]
+        mark[0] = now
 
     _say(f"build seconds {_build.build():.2f} ({', '.join(_build.KERNELS)})")
     for kernel, log in _build.LOGS.items():   # registers, smem, spills
@@ -5808,6 +6380,9 @@ def main() -> int:
     flat_rows = [check_window_block_flat(case, seed=i)
                  for i, case in enumerate(SWIN_BLOCKS)]
     flat_grads = check_window_block_flat_grads(SWIN_BLOCKS[0], seed=0)
+    done("build_and_kernel_checks")
+    tp = tp_width_checks()
+    done("tp_width_checks")
 
     from vit_torch_tpu_torch.models.swin import SWIN_CONFIGS, swin_flops
     from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, vit_flops
@@ -5820,6 +6395,7 @@ def main() -> int:
         lineareval = train_through_cli(workdir, lineareval=True)
     steady_state_train()
     compare_step_with_plain()
+    done("dino_vitb8")
 
     with tempfile.TemporaryDirectory() as workdir:
         swin_serve = serve_end_to_end(
@@ -5834,6 +6410,7 @@ def main() -> int:
     swin_step = steady_state_swin_lineareval()
     swin_ft_step = steady_state_swin_finetune()
     compare_swin_step_with_plain()
+    done("swin")
 
     from vit_torch_tpu_torch.models.cait import CAIT_CONFIGS, cait_flops
     with tempfile.TemporaryDirectory() as workdir:
@@ -5846,6 +6423,7 @@ def main() -> int:
             cait_paths[mode] = cait_through_cli(workdir, mode)
     cait_steps = steady_state_cait()
     compare_cait_step_with_plain()
+    done("cait")
 
     with tempfile.TemporaryDirectory() as workdir:
         with mock.patch.dict(os.environ, {"VITX_FUSED_ATTN": "1"}):
@@ -5869,6 +6447,7 @@ def main() -> int:
         plain=_plain_attention_block,
         want=_want(attention_block_packed=VIT_CONFIGS[ARCH].depth),
         name="vitb8_32px_step_vs_plain")
+    done("attention_blocks")
 
     from vit_torch_tpu_torch.models.deit import deit_flops
     with tempfile.TemporaryDirectory() as workdir:
@@ -5888,6 +6467,7 @@ def main() -> int:
         want=_want(fused_mlp=DEIT_DEPTH, flash_attention_fwd=DEIT_DEPTH,
                    flash_attention_bwd=DEIT_DEPTH),
         name="deit_step_vs_plain")
+    done("deit_and_b7")
 
     from vit_torch_tpu_torch.models.resnet import RESNET_CONFIGS, resnet_flops
     from vit_torch_tpu_torch.models.xcit import XCIT_CONFIGS, xcit_flops
@@ -5911,7 +6491,9 @@ def main() -> int:
                 workdir, RESNEXT_ARCH, mode, {}, {})
     xcit_steps = steady_state_xcit()
     resnext_steps = steady_state_resnext()
+    done("conv_families")
     extra_paths = lifecycle_and_data_extras()
+    done("lifecycle_and_data_extras")
 
     w8a8_ptxas = ptxas_gate("w8a8", _build.LOGS.get("w8a8", ""))
     auction_ptxas = ptxas_gate("auction", _build.LOGS.get("auction", ""))
@@ -5920,12 +6502,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         w8a8_serve = serve_w8a8(workdir)
     w8a8_families = w8a8_every_family()
+    done("w8a8")
     with tempfile.TemporaryDirectory() as workdir:
         detr = detr_phases(workdir)
+    done("detr")
     with tempfile.TemporaryDirectory() as workdir:
         frcnn = frcnn_phases(workdir)
+    done("frcnn")
     with tempfile.TemporaryDirectory() as workdir:
         segm = segm_phases(workdir, detr["step"])
+    done("segm")
 
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -6434,11 +7020,38 @@ def main() -> int:
             "epoch_seconds", "reads", "latency_ms")}}}))
     with tempfile.TemporaryDirectory() as workdir:
         a8 = parallel_phases(workdir)
+    done("parallel")
     _say(json.dumps({"a8": a8}))
+    # the parallel modes' per-rank launches and the kernels at their
+    # tensor-parallel widths, beside each kernel's full-width row
+    par_paths = {"tp_vit": a8["tp_vit"], "pipe_vit": a8["pipe_vit"],
+                 "seq_vit": a8["seq_vit"], "tp_swin": a8["tp_swin"]}
+    head_rows = {
+        "flash_attention_fwd": serving_row, "flash_attention_bwd": train_row,
+        "window_block_spatial": block_rows[0]["window_block_spatial"],
+        "window_gemm": block_rows[0]["window_gemm"]["products"][0],
+        "window_attention": attn_rows[0],
+        "window_attention_bwd": attn_bwd_rows[0], "fused_mlp": mlp_rows[0]}
+    tp_rows = _tp_width_rows(tp, {
+        k: {"shape": r.get("shape", r.get("case", [r.get("T"), r.get("K"),
+                                                    r.get("N")])),
+            "ms": r.get("ms"), "device_ms": r.get("device_ms")}
+        for k, r in head_rows.items()})
+    for entry in kernels:
+        kernel = entry["name"]
+        if kernel in tp_rows:
+            entry["tp_widths"] = tp_rows[kernel]
+        paths = (("tp_vit", "seq_vit", "pipe_vit")
+                 if kernel.startswith("flash") else ("tp_swin",)
+                 if kernel.startswith("window") else ())
+        for path in paths:    # rank 0's launches over the mode's steps
+            entry["launches_by_path"][path] = par_paths[path][
+                "launches_by_rank"][0][kernel]
+    _say(json.dumps({"phase_seconds": phase_s}))
     _say(json.dumps({"kernels": kernels}))
     _say(smi)
     _say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
     return 0
 

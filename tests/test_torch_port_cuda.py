@@ -24,7 +24,9 @@ fp32 CPU forwards, and their BN running statistics after one card step;
 Faster R-CNN's padded NMS against its CPU result, and a Keypoint R-CNN
 train step that reads nothing from the device before its loss; DETR's
 auction kernel against its plain version, and a device-matcher DETR step
-that reads nothing from the device before its loss.
+that reads nothing from the device before its loss; the flash pair, B8
+with its gradients and B12 at the widths of a tensor-parallel rank, and
+B8's refusal of local heads that are no share of C's.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere.  They
 import neither JAX nor the JAX package, so they run on a machine without
@@ -1680,3 +1682,118 @@ def test_mesh_world1_nccl_step_matches_plain(cuda, fsdp, monkeypatch):
     for k, v in want[2].items():
         np.testing.assert_allclose(got[2][k].float().numpy(),
                                    v.float().numpy(), atol=5e-3, err_msg=k)
+
+
+# --------------------------------------------------------------------------
+# the kernels at their tensor-parallel widths (a model-axis rank's heads
+# and hidden columns, as the parallel modes give them)
+# --------------------------------------------------------------------------
+
+def test_flash_at_tensor_parallel_heads_matches_plain(cuda):
+    """Flash forward and backward at 6 of dino_vitb8's 12 heads (a model=2
+    rank at bs8, N = 785), q, k and v strided views into the rank's qkv
+    product as the tp branch of ``Attention`` feeds them, against the
+    plain versions."""
+    B, H, N, D = 8, 6, 785, 64
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    qkv = torch.randn((B, N, 3 * H * D), generator=gen, device=cuda,
+                      dtype=torch.bfloat16).view(B, N, 3, H, D)
+    qkv.requires_grad_(True)
+    dout = torch.randn((B, N, H, D), generator=gen, device=cuda,
+                       dtype=torch.bfloat16)
+    before = (fa.flash_attention_bhnd.launches,
+              fa.flash_attention_bwd.launches)
+    out = fa.flash_attention_qkv(qkv)
+    (dqkv,) = torch.autograd.grad(out, qkv, dout)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bhnd.launches,
+            fa.flash_attention_bwd.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    q, k, v = (x.detach().transpose(1, 2) for x in qkv.unbind(2))
+    ref = fa.flash_attention_bhnd_reference(q, k, v).transpose(1, 2)
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    want = fa.flash_attention_bwd_reference(q, k, v, dout.transpose(1, 2))
+    for got, w in zip(dqkv.unbind(2), want):
+        err = (got.transpose(1, 2).float() - w.float()).abs().max().item()
+        assert err <= BWD_RTOL * max(w.float().abs().max().item(), BWD_FLOOR)
+
+
+# (B, H, W, C, window, shift, local heads): swin_base_384 stage 1 at bs1
+# over a model=2 rank's 2 heads (Ca = 64) and a model=4 rank's one
+# (Ca = 32: the qkv product's N = 96, proj's K = 32)
+TP_BLOCK_CASES = [(1, 96, 96, 128, 12, 6, 2), (1, 96, 96, 128, 12, 6, 1)]
+
+
+@pytest.mark.parametrize("case", TP_BLOCK_CASES, ids=str)
+def test_window_block_at_local_heads_matches_plain_with_grads(cuda, case):
+    """B8 over a rank's heads as ``SwinBlock._forward_tp`` runs it: qkv's
+    rows of the rank's heads of each of q, k and v, proj's matching input
+    columns, the bias table's head slice and a zero proj bias; forward and
+    the gradients through the Function (B6 once) against the plain
+    version."""
+    B, H, W, C, w, shift, heads = case
+    d = _block_inputs(case[:6], cuda, seed=heads)
+    Ca, rank = heads * 32, C // (heads * 32) - 1
+    cols = slice(rank * Ca, (rank + 1) * Ca)
+    wq = d["qkv"][0].view(3, C, C)[:, cols].reshape(3 * Ca, C).contiguous()
+    bq = d["qkv"][1].view(3, C)[:, cols].reshape(3 * Ca).contiguous()
+    wp = d["proj"][0][:, cols].contiguous()
+    bias = d["bias"][rank * heads:(rank + 1) * heads].contiguous()
+    zero = torch.zeros(C, dtype=torch.bfloat16, device=cuda)
+    kw = dict(num_heads=heads, window=w, shift=shift, scale=32 ** -0.5)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (d["x"], wq, bq, bias, wp)]
+    x, wq, bq, bias, wp = leaves
+    args = (x, wq, bq, bias, d["mask"], wp, zero)
+    before = (wb.window_block_spatial.launches,
+              wa.window_attention_bwd.launches)
+    out = wb.window_block_spatial(*args, **kw)
+    dout = torch.randn_like(out)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (wb.window_block_spatial.launches,
+            wa.window_attention_bwd.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    ref = wb.window_block_spatial_reference(*args, **kw)
+    assert torch.isfinite(out).all()
+    assert _rel_err(out, ref) <= BLOCK_RTOL
+    want = torch.autograd.grad(ref, leaves, dout)
+    for g, r in zip(got, want):
+        assert g.shape == r.shape and torch.isfinite(g).all()
+        assert _rel_err(g, r) <= 5e-2
+
+
+def test_fused_mlp_at_half_hidden_width_with_zero_bias(cuda):
+    """B12 over a model=2 rank's 1536 of DeiT-base's 3072 hidden columns
+    with a zero output bias (``Mlp._forward_tp``), forward and the four
+    gradients the rank trains, against the plain version."""
+    from vit_torch_tpu_torch.ops import fused_mlp as fm
+    x, w1, b1, w2, b2 = _mlp_inputs(2 * 198, 768, 1536, 768, cuda, seed=4)
+    leaves = [t.requires_grad_(True) for t in (x, w1, b1, w2)]
+    zero = torch.zeros_like(b2)
+    dout = torch.randn((2 * 198, 768), device=cuda, dtype=torch.bfloat16)
+    before = fm.fused_mlp.launches
+    out = fm.fused_mlp(*leaves, zero)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp.launches == before + 1
+    ref = fm.fused_mlp_reference(*leaves, zero)
+    assert _rel_err(out, ref) <= BLOCK_RTOL
+    want = torch.autograd.grad(ref, leaves, dout)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert _rel_err(g, w) <= 5e-2
+
+
+def test_window_block_refuses_local_heads_that_are_no_share(cuda):
+    """Three local heads of head dim 32 (Ca = 96) are no share of C = 128's
+    four heads: the chain refuses before a launch."""
+    d = _block_inputs((1, 24, 24, 128, 12, 0), cuda)
+    C, Ca = 128, 96
+    with pytest.raises(ValueError, match="no share"):
+        wb.window_block_spatial(
+            d["x"], d["qkv"][0][:3 * Ca].contiguous(),
+            d["qkv"][1][:3 * Ca].contiguous(), d["bias"][:3].contiguous(),
+            None, d["proj"][0][:, :Ca].contiguous(),
+            torch.zeros(C, dtype=torch.bfloat16, device=cuda), num_heads=3,
+            window=12, scale=32 ** -0.5)

@@ -8,13 +8,17 @@ runs every multi-rank case once per session: the first xdist worker to
 need it runs it behind an ``fcntl`` lock in the session's shared base
 temp directory and the others read its results.  The ranks import no JAX.
 Each test then runs its JAX reference here (8 virtual CPU devices,
-``tests/conftest.py``) from the same seeded weights.  Tolerances: losses
+``tests/conftest.py``) from the same seeded weights.  The group also runs
+the ring and the pipeline with every transfer staged through host
+buffers (as gloo needs for CUDA tensors), held bit for bit against the
+direct ones.  Tolerances: losses
 rtol 2e-4 (``tests/test_parallel.py:111``), parameters atol 1e-5 after 3
 fp32 SGD steps, the ring atol 2e-5 / rtol 1e-4
 (``tests/test_ring_attention.py:24``), ResNet in float64.
 """
 
 import contextlib
+import dataclasses
 import fcntl
 import json
 import os
@@ -27,8 +31,13 @@ import torch
 
 import torch_parallel_cases as cases
 from vit_torch_tpu.detection import detr as jax_detr
+from vit_torch_tpu.detection import faster_rcnn as jax_frcnn
 from vit_torch_tpu.detection.engine import (
     DetectionTrainer as JaxDetectionTrainer)
+from vit_torch_tpu.detection.engine import (
+    FasterRCNNTrainer as JaxFasterRCNNTrainer)
+from vit_torch_tpu.models.resnet import RESNET_CONFIGS as JAX_RESNET_CONFIGS
+from vit_torch_tpu.models.resnet import ResNet as JaxResNet
 from vit_torch_tpu.models.swin import SWIN_CONFIGS as JAX_SWIN_CONFIGS
 from vit_torch_tpu.models.swin import SwinTransformer as JaxSwin
 from vit_torch_tpu.models.zoo import VisionModelZoo as JaxZoo
@@ -40,6 +49,7 @@ from vit_torch_tpu.parallel.pipeline import zoo_pipeline_forms
 from vit_torch_tpu.train.optimizers import get_optimizer as jax_optimizer
 from vit_torch_tpu.train.steps import create_train_state
 from vit_torch_tpu_torch.checkpoint.jax_import import state_dict_from_jax
+from vit_torch_tpu_torch.detection.faster_rcnn import FasterRCNNConfig
 from torch_threads import fit_threads_to_workers
 
 fit_threads_to_workers()
@@ -121,14 +131,51 @@ def _jax_detr(num_classes):
     return jmodel, _seeded(shapes, 6)
 
 
+def _jax_frcnn(num_classes):
+    """The JAX Faster R-CNN over resnet_test of the rank group's detection
+    config, and seeded variables (params and BatchNorm statistics)."""
+    backbone = JaxResNet(JAX_RESNET_CONFIGS["resnet_test"],
+                         dtype=jnp.float32, features_only=True,
+                         name="backbone")
+    jmodel = jax_frcnn.FasterRCNN(jax_frcnn.FasterRCNNConfig(
+        num_classes=num_classes, **cases.FRCNN_CFG), backbone,
+        dtype=jnp.float32)
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)),
+        deterministic=True))
+    return jmodel, _seeded(shapes, 7)
+
+
+def _jax_frcnn_draws(jmodel, batch):
+    """The JAX trainer's draws in its first step (``engine.py:833``, its
+    ``train_step``): the flip, then per image the RPN and the RoI noise
+    (``faster_rcnn.py:459`` and ``:140``)."""
+    _, step = jax.random.split(jax.random.PRNGKey(0))
+    flip_rng, sample_rng = jax.random.split(step)
+    keys = [jax.random.split(k) for k in jax.random.split(sample_rng, batch)]
+    cfg = jmodel.config
+    n_anchors = FasterRCNNConfig(**dataclasses.asdict(cfg)).num_anchors
+    return {"flip": torch.from_numpy(np.array(
+                jax.random.bernoulli(flip_rng, 0.5, (batch,)))),
+            "rpn_noise": torch.from_numpy(np.stack([np.asarray(
+                jax.random.uniform(k[0], (n_anchors,))) for k in keys])),
+            "roi_noise": torch.from_numpy(np.stack([np.asarray(
+                jax.random.uniform(k[1], (cfg.num_proposals,)))
+                for k in keys]))}
+
+
 def _inputs():
     _, vit = _jax_vit()
     _, params, stats = _jax_resnet()
     rng = np.random.default_rng(3)
     families = {arch: state_dict_from_jax(_jax_family(arch, size)[1])
                 for arch, size in cases.TP_FAMILIES}
-    _, k = cases.detection_batches()
+    batches, k = cases.detection_batches()
+    frcnn, frcnn_vars = _jax_frcnn(k)
     return {**families, "detr": state_dict_from_jax(_jax_detr(k)[1]),
+            "frcnn": state_dict_from_jax(
+                frcnn_vars["params"], batch_stats=frcnn_vars["batch_stats"]),
+            "frcnn_draws": _jax_frcnn_draws(frcnn, len(batches[0]["image"])),
             "vit_flax": vit, "vit": state_dict_from_jax(vit),
             "resnet_flax": (params, stats),
             "resnet": {k: v.double() for k, v in state_dict_from_jax(
@@ -299,6 +346,39 @@ def test_pipeline_matches_jax_pipeline_step(group):
     assert np.isfinite(cl).all() and cl[-1] < cl[0]
 
 
+@pytest.mark.parametrize("case", ["ring", "pipe"])
+def test_staged_transfers_equal_direct_ones(group, case):
+    """The ring (seq=4) and the pipeline's three steps (data=2,pipe=2) with
+    every point-to-point transfer staged through host buffers, as gloo
+    needs for CUDA tensors, bit for bit the same as with direct
+    transfers."""
+    staged = _ok(group[0], "case_staged")[case]
+    direct = _ok(group[0], "case_ring" if case == "ring" else "case_pipe")
+    if case == "pipe":
+        direct = direct["trainer_steps"]
+        assert staged[0] == direct[0]
+        staged, direct = staged[1], direct[1]
+    assert sorted(staged) == sorted(direct)
+    for k, v in direct.items():
+        assert torch.equal(staged[k], v), k
+
+
+@pytest.mark.parametrize("spec", ["data=2,model=2", "data=2,pipe=2"])
+def test_full_grads_gathers_the_single_process_gradients(group, spec):
+    """``api.full_grads`` after one step on a tensor-parallel and a
+    pipeline mesh: every parameter's gradient in the single-process
+    layout, equal to the single-process step's."""
+    got = _ok(group[0], "case_full_grads")[spec]
+    zm = cases._zoo(**cases.VIT)
+    zm.model.load_state_dict(group[1]["vit"])
+    cases.plain_steps(zm, *cases.vit_batch(), steps=1)
+    want = {n: p.grad for n, p in zm.model.named_parameters()}
+    assert sorted(got) == sorted(want)
+    for n, w in want.items():
+        np.testing.assert_allclose(got[n].numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=n)
+
+
 def test_vit_data_parallel_augmentation_matches_single_process(group):
     """data=4 with the real train augmentation (crop, flip, AutoAugment,
     cutout on uint8 pictures): each rank draws for the global batch and
@@ -429,6 +509,42 @@ def test_detr_data_parallel_matches_jax(group):
                                        atol=1e-6, err_msg=key)
     want = state_dict_from_jax(jax.tree.map(np.asarray, jtr.params))
     for key, w in want.items():
+        np.testing.assert_allclose(state[key].numpy(), w.numpy(), atol=2e-5,
+                                   rtol=1e-4, err_msg=key)
+
+
+def test_faster_rcnn_data_parallel_matches_jax(group):
+    """Faster R-CNN over resnet_test at data=4 (one picture a rank), one
+    step with the flip on, against the JAX trainer on the same data=4 mesh:
+    the ranks take the JAX key sequence's draws for the global batch (the
+    flip and the RPN and RoI sampling noise, which the JAX step draws
+    inside itself), global loss denominators and BatchNorm statistics;
+    every logged term and every parameter and running statistic after the
+    step."""
+    logs, state = _ok(group[0], "case_detection")["frcnn_jax"]
+    batches, k = cases.detection_batches()
+    jmodel, var = _jax_frcnn(k)
+    jtr = JaxFasterRCNNTrainer(
+        jmodel, var["params"], cfg=jmodel.config, lr=cases.FRCNN_LR,
+        augment=True, mesh=make_mesh("data=4", devices=jax.devices()[:4]))
+    jtr.model_state = {"batch_stats": var["batch_stats"]}
+    want_logs = []
+    jtr.train_one_epoch(batches[:1], 0, print_freq=1, warmup=False,
+                        log_fn=lambda i, n, l: want_logs.append(l))
+    assert len(logs) == len(want_logs) == 1
+    got = {("loss" if k == "loss_total" else k): v
+           for k, v in logs[0].items()}
+    assert sorted(got) == sorted(want_logs[0])
+    for key, w in want_logs[0].items():
+        np.testing.assert_allclose(got[key], w, rtol=1e-4, atol=1e-6,
+                                   err_msg=key)
+    want = state_dict_from_jax(
+        jax.tree.map(np.asarray, jtr.params),
+        batch_stats=jax.tree.map(np.asarray,
+                                 jtr.model_state["batch_stats"]))
+    for key, w in want.items():
+        if key.endswith("num_batches_tracked"):
+            continue
         np.testing.assert_allclose(state[key].numpy(), w.numpy(), atol=2e-5,
                                    rtol=1e-4, err_msg=key)
 

@@ -11,6 +11,7 @@ import os
 import tempfile
 import traceback
 import warnings
+from unittest import mock
 
 import numpy as np
 import torch
@@ -221,6 +222,39 @@ def case_ring(inputs, workdir):
             "dk": gather(kl.grad), "dv": gather(vl.grad)}
 
 
+def case_full_grads(inputs, workdir):
+    """One step's gradients gathered to the single-process layout
+    (``api.full_grads``) on a tensor-parallel and a pipeline mesh."""
+    from vit_torch_tpu_torch.parallel.api import (full_grads, param_groups,
+                                                  prepare_model)
+    from vit_torch_tpu_torch.train.optimizers import get_optimizer
+    from vit_torch_tpu_torch.train.steps import make_train_step
+    out = {}
+    for spec in ("data=2,model=2", "data=2,pipe=2"):
+        zm = _zoo(**VIT)
+        zm.model.load_state_dict(inputs["vit"])
+        layout = prepare_model(zm.model, _mesh(spec), arch=zm.arch)
+        step = make_train_step(zm.model, get_optimizer("sgd", param_groups(
+            list(zm.model.parameters())), LR), None,
+            generator=torch.Generator().manual_seed(7), layout=layout)
+        _run_steps(zm, step, layout, *vit_batch(), 1)
+        out[spec] = full_grads(zm.model, layout)
+    return out
+
+
+def case_staged(inputs, workdir):
+    """The ring and the pipeline's steps again with every point-to-point
+    transfer staged through host buffers (``collectives._staged`` forced
+    true): the tests hold them bit for bit against the direct transfers."""
+    from vit_torch_tpu_torch.parallel import collectives
+    with mock.patch.object(collectives, "_staged", lambda t, group: True):
+        out = {"ring": case_ring(inputs, workdir)}
+        zm = _zoo(**VIT)
+        zm.model.load_state_dict(inputs["vit"])
+        out["pipe"] = sharded_steps(zm, "data=2,pipe=2", *vit_batch())
+    return out
+
+
 def _ckpt_trainer(spec, workdir, **kw):
     from vit_torch_tpu_torch.data.loader import ArrayDataLoader
     from vit_torch_tpu_torch.train.trainer import Trainer
@@ -306,6 +340,13 @@ def detection_batches(masks=False):
 DETR_CFG = dict(num_queries=8, hidden_dim=32, num_heads=4, enc_layers=1,
                 dec_layers=2, ffn_dim=64)
 DETR_LR = 1e-3
+FRCNN_LR = 1e-2
+
+
+FRCNN_CFG = dict(image_size=32, fpn_channels=32, strides=(4, 8),
+                 anchor_sizes=(8.0, 16.0), num_proposals=32,
+                 rpn_pre_nms_topk=64, rpn_batch=32, roi_batch=16,
+                 detections=10)
 
 
 def detection_trainers(kind, num_classes, mesh=None, state=None,
@@ -324,14 +365,12 @@ def detection_trainers(kind, num_classes, mesh=None, state=None,
         return DetectionTrainer(model, image_size=32,
                                 num_classes=num_classes, lr=DETR_LR,
                                 augment=augment, seed=0, mesh=mesh)
-    cfg = FasterRCNNConfig(num_classes=num_classes, image_size=32,
-                           fpn_channels=32,
-                           strides=(4, 8), anchor_sizes=(8.0, 16.0),
-                           num_proposals=32, rpn_pre_nms_topk=64,
-                           rpn_batch=32, roi_batch=16, detections=10)
+    cfg = FasterRCNNConfig(num_classes=num_classes, **FRCNN_CFG)
     model = build_faster_rcnn(cfg, "resnet_test", torch.float32, gen, "cpu")
-    return FasterRCNNTrainer(model, cfg=cfg, lr=1e-2, augment=True, seed=0,
-                             mesh=mesh)
+    if state is not None:
+        model.load_state_dict(state)
+    return FasterRCNNTrainer(model, cfg=cfg, lr=FRCNN_LR, augment=True,
+                             seed=0, mesh=mesh)
 
 
 def detection_run(tr, batches):
@@ -348,6 +387,11 @@ def case_detection(inputs, workdir):
            for kind in ("detr", "frcnn")}
     out["detr_jax"] = detection_run(detection_trainers(
         "detr", k, mesh, state=inputs["detr"], augment=False), batches)
+    # one step on the JAX trainer's draws for the global batch (its flip
+    # and sampling noise), each rank keeping its row
+    tr = detection_trainers("frcnn", k, mesh, state=inputs["frcnn"])
+    tr.draw = lambda B: dict(inputs["frcnn_draws"])
+    out["frcnn_jax"] = detection_run(tr, batches[:1])
     return out
 
 
@@ -399,9 +443,9 @@ def case_utils(inputs, workdir):
                             if f.startswith("master_"))}
 
 
-CASES = [case_utils, case_ring, case_vit, case_seq, case_pipe,
-         case_tp_families, case_resnet, case_ckpt, case_scan, case_detection,
-         case_cli]
+CASES = [case_utils, case_ring, case_vit, case_seq, case_pipe, case_staged,
+         case_full_grads, case_tp_families, case_resnet, case_ckpt,
+         case_scan, case_detection, case_cli]
 
 
 def _rank_main(rank: int, port: int, workdir: str) -> None:

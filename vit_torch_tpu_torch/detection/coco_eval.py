@@ -15,8 +15,9 @@ ignored, and the 10-number summary (AP, AP50, AP75, APm, APl, AR, AR50,
 AR75, ARm, ARl).  The IoUs are :mod:`~vit_torch_tpu_torch.detection.
 _mask`'s: boxes, and RLE masks (polygons rasterised at the image's size)
 with crowd regions; a segm result's area is its mask's (``area_segm``),
-so that segm buckets by mask area.  A multi-process merge comes with
-ROADMAP.md A8.
+so that segm buckets by mask area.  Under a data mesh every rank's
+results are merged before the summary
+(:meth:`CocoEvaluator.synchronize_between_processes`).
 """
 
 from __future__ import annotations

@@ -260,7 +260,12 @@ def _check_inputs(x: torch.Tensor, window: Optional[int], num_heads: int,
                          f"window {window} (or the window exceeds "
                          f"{MAX_TOKENS} tokens)")
     if local_heads:
-        pass            # a tensor-parallel rank's heads: widths below
+        # a tensor-parallel rank's heads (the weights' widths below): a
+        # share of C's heads of head dim 32
+        if num_heads < 1 or C % HEAD_DIM or (C // HEAD_DIM) % num_heads:
+            raise ValueError(f"{num_heads} local heads of head dim "
+                             f"{HEAD_DIM} are no share of C = {C}'s "
+                             f"{C // HEAD_DIM} heads")
     elif C % num_heads or C // num_heads != HEAD_DIM:
         raise ValueError(f"C = {C} with {num_heads} heads: the kernels take "
                          f"head dim {HEAD_DIM}")

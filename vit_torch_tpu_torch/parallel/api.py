@@ -334,6 +334,16 @@ def full_state(model: nn.Module, optimizer: Optional[torch.optim.Optimizer],
     return _gather_pipe(state, layout), opt
 
 
+def full_grads(model: nn.Module, layout: Layout) -> Dict[str, torch.Tensor]:
+    """The single-process gradients of a laid-out model after
+    :func:`sync_gradients`, on the CPU, by standard parameter name (FSDP's
+    shards, the tensor-parallel ones and the stages gathered): collective,
+    as :func:`full_state`."""
+    grads = {layout.from_pipe(n): _full(p.grad, n, layout)
+             for n, p in model.named_parameters() if p.grad is not None}
+    return _gather_pipe(grads, layout)
+
+
 @torch.no_grad()
 def load_full_state(model: nn.Module,
                     optimizer: Optional[torch.optim.Optimizer],

@@ -14,6 +14,16 @@ call them where a tensor crosses from replicated to sharded work or back:
   statistics under a data mesh).
 
 Every function is the identity when ``group`` is None.
+
+The point-to-point transfers of the ring and the pipeline (:func:`isend`,
+:func:`recv`, :func:`ring_exchange`) go through pinned host buffers when
+the group's backend is gloo and the tensor lies on the card, as it does
+when two ranks share one card: gloo's send and receive hand the tensor's
+address to its TCP transport, which reads and writes host memory only (a
+CUDA tensor aborts the process there: "writev: Bad address" on an H100
+with torch 2.11), while its collectives stage CUDA tensors themselves.
+The staging copies the bytes and nothing else; NCCL groups and CPU
+tensors transfer as they are.
 """
 
 from __future__ import annotations
@@ -103,6 +113,51 @@ def broadcast_from(x: torch.Tensor, group_rank: int,
         x, dist.get_global_rank(group, group_rank), group)
 
 
+def _staged(t: torch.Tensor, group: dist.ProcessGroup) -> bool:
+    """Whether a point-to-point transfer of ``t`` over ``group`` goes
+    through host memory (see the module)."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A host buffer shaped as ``t`` (pinned where ``t`` is on the card)."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+
+
+class _StagedSend:
+    """The work of a staged send: it keeps the host copy alive until the
+    send is waited on."""
+
+    def __init__(self, work, buf: torch.Tensor):
+        self.work, self.buf = work, buf
+
+    def wait(self):
+        return self.work.wait()
+
+
+def isend(t: torch.Tensor, dst: int, group: dist.ProcessGroup):
+    """``dist.isend`` of ``t`` to global rank ``dst``; returns its work."""
+    t = t.contiguous()
+    if not _staged(t, group):
+        return dist.isend(t, dst, group=group)
+    buf = _host(t)
+    buf.copy_(t)               # synchronous: the bytes are on the host
+    return _StagedSend(dist.isend(buf, dst, group=group), buf)
+
+
+def recv(like: torch.Tensor, src: int, group: dist.ProcessGroup
+         ) -> torch.Tensor:
+    """A tensor shaped, typed and placed as ``like``, received from global
+    rank ``src``."""
+    if not _staged(like, group):
+        buf = torch.empty_like(like)
+        dist.recv(buf, src, group=group)
+        return buf
+    buf = _host(like)
+    dist.recv(buf, src, group=group)
+    return buf.to(like.device)
+
+
 def ring_exchange(send: torch.Tensor, group: dist.ProcessGroup
                   ) -> torch.Tensor:
     """Send ``send`` to the next rank of ``group`` and return what the
@@ -110,13 +165,19 @@ def ring_exchange(send: torch.Tensor, group: dist.ProcessGroup
     ranks = dist.get_process_group_ranks(group)
     me = dist.get_group_rank(group, dist.get_rank())
     n = len(ranks)
-    recv = torch.empty_like(send)
+    send = send.contiguous()
+    staged = _staged(send, group)
+    if staged:
+        out, into = _host(send), _host(send)
+        out.copy_(send)
+    else:
+        out, into = send, torch.empty_like(send)
     reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, send.contiguous(), ranks[(me + 1) % n], group),
-        dist.P2POp(dist.irecv, recv, ranks[(me - 1) % n], group)])
+        dist.P2POp(dist.isend, out, ranks[(me + 1) % n], group),
+        dist.P2POp(dist.irecv, into, ranks[(me - 1) % n], group)])
     for r in reqs:
         r.wait()
-    return recv
+    return into.to(send.device)
 
 
 # the batch group of the active data-parallel loss (detection engines):

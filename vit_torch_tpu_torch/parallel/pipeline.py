@@ -37,6 +37,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from vit_torch_tpu_torch.parallel.collectives import isend, recv
+
 PIPE_AXIS = "pipe"
 
 
@@ -127,16 +129,6 @@ class PipeStage:
         return self.stage * self.depth // self.n_stages
 
 
-def _send(t: torch.Tensor, dst: int, group) -> dist.Work:
-    return dist.isend(t.contiguous(), dst, group=group)
-
-
-def _recv(like: torch.Tensor, src: int, group) -> torch.Tensor:
-    buf = torch.empty_like(like)
-    dist.recv(buf, src, group=group)
-    return buf
-
-
 def _forward_schedule(stage_fn, pipe: PipeStage, x: torch.Tensor,
                       keep_graph: bool):
     mbs = x.chunk(pipe.num_microbatches)
@@ -145,7 +137,7 @@ def _forward_schedule(stage_fn, pipe: PipeStage, x: torch.Tensor,
         if pipe.stage == 0:
             h = mb.detach()
         else:
-            h = _recv(mb, pipe.peer(-1), pipe.group)
+            h = recv(mb, pipe.peer(-1), pipe.group)
         if keep_graph:
             h.requires_grad_(pipe.stage > 0 or x.requires_grad)
             with torch.enable_grad():
@@ -153,7 +145,7 @@ def _forward_schedule(stage_fn, pipe: PipeStage, x: torch.Tensor,
         else:
             y = stage_fn(h)
         if not pipe.last:
-            sends.append(_send(y.detach(), pipe.peer(1), pipe.group))
+            sends.append(isend(y.detach(), pipe.peer(1), pipe.group))
         ins.append(h)
         outs.append(y)
     for w in sends:
@@ -179,10 +171,10 @@ class _GPipe(torch.autograd.Function):
         gs = g.chunk(pipe.num_microbatches) if pipe.last else None
         sends = []
         for m, (h, y) in enumerate(zip(ins, outs)):
-            gy = gs[m] if pipe.last else _recv(y, pipe.peer(1), pipe.group)
+            gy = gs[m] if pipe.last else recv(y, pipe.peer(1), pipe.group)
             torch.autograd.backward(y, gy)
             if pipe.stage > 0:
-                sends.append(_send(h.grad, pipe.peer(-1), pipe.group))
+                sends.append(isend(h.grad, pipe.peer(-1), pipe.group))
         for w in sends:
             w.wait()
         gx = None
