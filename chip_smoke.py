@@ -140,10 +140,12 @@
    may differ);
 13. W8A8 (``csrc/w8a8.cu``): holds Q1 (row quantisation; bit for bit)
    and Q2 (the int8 product; within W8A8_ULPS) against their plain
-   versions at dino_vitb8 @224 bs8 and bs32's qkv, proj, fc1 and fc2 and
-   a ragged shape, timed beside their bounds, the plain versions,
-   ``torch._int_mm`` plus the same rescale and the bf16 ``F.linear``
-   (``kernel check w8a8``; the source passes the ptxas gate); exports
+   versions at dino_vitb8 @224 bs8 and bs32's qkv, proj, fc1 and fc2,
+   the Swin MLPs W8A8 runs at bs8 (stage 1's fc1 and fc2, stage 4's fc1)
+   and a ragged shape, timed beside their bounds, the plain versions,
+   ``torch._int_mm`` plus the same rescale and the bf16 ``F.linear``,
+   with Q2's plan (tile, stages, schedule) in each row (``kernel check
+   w8a8``; the source passes the ptxas gate); exports
    dino_vitb8 @224 through ``cli.export --w8a8`` and serves it over HTTP
    as in 4 (per dispatch 48 Q1 and 48 Q2 launches and 12 flash, the
    logits against the plain versions), then the fp bundle of the same
@@ -528,12 +530,16 @@ TIRE_ARGS = ["--dataset", "tire", "--arch", VITS_ARCH, "--image_size",
 # bit for bit; Q2 (int8 product) may differ from its plain version by one
 # ulp of its output (both round each step once; nvcc contracts nothing).
 # The shapes: dino_vitb8 @224 (785 tokens) at bs8 and bs32, its qkv, proj,
-# fc1 and fc2 (T, K, N), then a partial row tile, a K tail and a partial
-# column tile
+# fc1 and fc2 (T, K, N); the Swin MLPs that W8A8 runs at W8A8_FAMILY_BS
+# (swin_base_384, 96 x 96 and 12 x 12 tokens): stage 1's fc1 (one k-step,
+# the most epilogue-bound product) and fc2, stage 4's fc1; then a partial
+# row tile, a K tail and a partial column tile
 W8A8_ULPS = 1
 W8A8_SHAPES = [(785 * bs, K, N) for bs in (8, 32)
                for K, N in ((768, 2304), (768, 768), (768, 3072),
-                            (3072, 768))] + [(203, 784, 200)]
+                            (3072, 768))] + [
+    (8 * 96 * 96, 128, 512), (8 * 96 * 96, 512, 128),
+    (8 * 12 * 12, 1024, 4096), (203, 784, 200)]
 # served W8A8 logits against the plain versions on the card (flash's
 # rounding can move a code by one step, so not bit for bit): max abs err
 # relative to max |plain logit|; the W8A8 bundle's logits against the fp
@@ -554,7 +560,9 @@ DETR_FLASH_SHAPES = [(8, 8, 100, 256, 32), (8, 8, 256, 256, 32),
                      (8, 8, 100, 100, 32), (3, 8, 100, 391, 32),
                      (8, 8, 300, 256, 32)]
 DETR_BACKBONE, DETR_SIZE, DETR_BS = "swin_tiny_patch4_window7_224", 512, 8
-DETR_TRAIN_N, DETR_VAL_N = 64, 32      # synthetic COCO pictures, 512 px
+# synthetic COCO pictures at 512 px; the validation split cut to 16 (two
+# eval batches) to keep the run inside its time limit
+DETR_TRAIN_N, DETR_VAL_N = 64, 16
 DETR_LAYERS = 6                        # encoder and decoder layers each
 # a forward runs 6 encoder self-, 6 decoder self- and 6 cross-attentions
 DETR_FLASH = 3 * DETR_LAYERS
@@ -574,7 +582,7 @@ DETR_ARGS = ["--backbone", DETR_BACKBONE, "--image_size", str(DETR_SIZE),
 # Faster R-CNN / Keypoint R-CNN (ROADMAP A10b) at the JAX CLI's full
 # settings, 512 px bs8, on a synthetic COCO set with keypoints
 FRCNN_SIZE, FRCNN_BS = 512, 8
-FRCNN_TRAIN_N, FRCNN_VAL_N = 64, 32
+FRCNN_TRAIN_N, FRCNN_VAL_N = 64, 16
 FRCNN_BACKBONE = RESNEXT_ARCH
 FRCNN_ARGS = ["--head", "faster_rcnn", "--image_size", str(FRCNN_SIZE),
               "--bs", str(FRCNN_BS), "--epochs", "1", "--no_initial_eval"]
@@ -591,9 +599,9 @@ FRCNN_PLAIN_RTOL = SWIN_LOGITS_RTOL
 # DETR instance masks and panoptic (ROADMAP A10c): DETRSegm (the JAX CLI's
 # 8 mask heads) with DETR's settings on the DETR phases' synthetic COCO set
 # (its polygons are the gt masks), and a synthetic panoptic split at 512
-# px, cut to 32 + 16 pictures to fit the time limit
+# px, cut to 16 + 8 pictures to fit the time limit
 SEGM_ARGS = DETR_ARGS + ["--masks"]
-PAN_TRAIN_N, PAN_VAL_N = 32, 16
+PAN_TRAIN_N, PAN_VAL_N = 16, 8
 # the bs8 DETRSegm step against the fp32 step (compare_segm_step_with_plain):
 # the mean focal and dice losses of the matched masks, bf16 logits through
 # the conv head against fp32 ones, within 2%; the pred_masks logits and the
@@ -3700,6 +3708,11 @@ def check_w8a8_kernels(shape, seed):
     q2_ms = q2_dev or row["q2"]["ms"]   # events where not measured
     row["q2"]["tops"] = 2 * T * K * N / q2_ms / 1e9
     row["q2"]["bound_share"] = q2_bound / q2_ms
+    # the bf16 launch's plan; the consumer warpgroups share each tile
+    # (cooperative), its epilogue leaving by TMA stores
+    row["q2"]["plan"] = {**quant.int8_plan(
+        T, K, N, torch.cuda.get_device_properties(0).multi_processor_count
+    )._asdict(), "schedule": "cooperative, TMA-store epilogue"}
     _say("kernel check w8a8", json.dumps(row))
     return row
 
@@ -3729,8 +3742,10 @@ def serve_w8a8(workdir: str):
     launches and one flash launch a block, nothing else; the logits held
     against the plain versions.  Then the fp bundle of the same seeded
     weights: bundle bytes, the two bundles' logits on one batch (cosine,
-    top-1 agreement) and their predict times in turns."""
+    top-1 agreement), their predict times and their forwards' times in
+    turns."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from vit_torch_tpu_torch.cli import export as cli_export
     from vit_torch_tpu_torch.data.datasets import resize_images
     from vit_torch_tpu_torch.models.vit import VIT_CONFIGS, vit_flops
@@ -3770,13 +3785,45 @@ def serve_w8a8(workdir: str):
         for _ in range(10):
             models[k].predict(batch)
         predict_ms[k].append(1e3 * (time.perf_counter() - t0) / 10)
-    fwd_ms = {}
-    for k in ("fp", "w8a8"):
+    # the model's forward alone, in the same turns: CUDA events, the host's
+    # time to enqueue the timed forwards (near the events time, the
+    # forward is bound by the host), and one profiler pass's device busy
+    # time with Q1's and Q2's share
+    fwd = {k: {"ms": [], "enqueue_ms": [], "busy_ms": [], "q1_ms": [],
+               "q2_ms": []} for k in models}
+    for k in ("fp", "w8a8", "w8a8", "fp"):
         m = models[k]
         x = torch.from_numpy(batch).to(m.device)
         with torch.inference_mode():
-            fwd_ms[k] = _time_ms(lambda: m.model(
-                (x.to(m.mean.dtype) / 255.0 - m.mean) / m.std), iters=10)
+            def forward():
+                return m.model((x.to(m.mean.dtype) / 255.0 - m.mean) / m.std)
+            forward()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(10):
+                forward()
+            fwd[k]["enqueue_ms"].append(1e3 * (time.perf_counter() - t0) / 10)
+            end.record()
+            torch.cuda.synchronize()
+            fwd[k]["ms"].append(start.elapsed_time(end) / 10)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    forward()
+                torch.cuda.synchronize()
+        busy = q1 = q2 = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms = ev.self_device_time_total / 1e3 / 3
+            busy += ms
+            q1 += ms if "quantize_rows_kernel" in ev.key else 0.0
+            q2 += ms if "w8a8_gemm_kernel" in ev.key else 0.0
+        fwd[k]["busy_ms"].append(busy)
+        fwd[k]["q1_ms"].append(q1)
+        fwd[k]["q2_ms"].append(q2)
     sizes = {k: os.path.getsize(f"{v}/weights.pt")
              for k, v in bundles.items()}
     row = {"arch": ARCH, "image_size": IMAGE_SIZE, "bucket": big,
@@ -3791,7 +3838,12 @@ def serve_w8a8(workdir: str):
                predict_ms["w8a8"][1], predict_ms["fp"][1]],
            "predict_img_per_s": {k: big * 1e3 / min(v)
                                  for k, v in predict_ms.items()},
-           "forward_ms_cuda_events": fwd_ms}
+           # each model's two turns of fp, w8a8, w8a8, fp
+           "forward_ms_cuda_events": {k: v["ms"] for k, v in fwd.items()},
+           "forward_enqueue_ms": {k: v["enqueue_ms"] for k, v in fwd.items()},
+           "forward_busy_ms": {k: v["busy_ms"] for k, v in fwd.items()},
+           "forward_q1_q2_ms": {k: [v["q1_ms"], v["q2_ms"]]
+                                for k, v in fwd.items()}}
     _say(json.dumps({"w8a8_serve": row}))
     del models
     return row
@@ -6880,6 +6932,8 @@ def main() -> int:
     kernels[-1]["tops_bound_share_by_shape"] = [
         [r["shape"], r["q2"]["tops"], r["q2"]["bound_share"]]
         for r in w8a8_rows]
+    kernels[-1]["plan_by_shape"] = [[r["shape"], r["q2"]["plan"]]
+                                    for r in w8a8_rows]
     kernels[-1]["w8a8_serve"] = {k: w8a8_serve[k] for k in (
         "bundle_bytes_ratio", "cosine_vs_fp_bundle",
         "top1_agree_vs_fp_bundle", "predict_img_per_s")}

@@ -1196,10 +1196,14 @@ def test_bn_running_stats_after_one_card_step(cuda, arch):
 
 # ---- W8A8 (csrc/w8a8.cu): Q1 row quantisation and Q2 int8 product -------
 
-# dino_vitb8 @224 (785 tokens) at bs8 and bs32: qkv, proj, fc1, fc2
+# dino_vitb8 @224 (785 tokens) at bs8 and bs32: qkv, proj, fc1, fc2; the
+# Swin MLPs that W8A8 runs at bs8 (swin_base_384): stage 1's fc1 (a single
+# k-step, the most epilogue-bound product) and fc2, stage 4's fc1
 W8A8_PRODUCTS = [(785 * bs, K, N) for bs in (8, 32)
                  for K, N in ((768, 2304), (768, 768), (768, 3072),
-                              (3072, 768))]
+                              (3072, 768))] + [
+    (8 * 96 * 96, 128, 512), (8 * 96 * 96, 512, 128),
+    (8 * 12 * 12, 1024, 4096)]
 # a partial row tile, a K tail past the last 128-wide k-step, a partial
 # column tile (200 = 192 + 8); the smallest shape the kernel takes
 W8A8_RAGGED = [(203, 784, 200), (1, 16, 8)]
@@ -1261,6 +1265,38 @@ def test_w8a8_kernels_match_plain(cuda, shape):
     assert torch.equal(acc.double(), exact.float().double())
     assert (quant.quantize_rowwise.launches - before[0],
             quant.int8_gemm.launches - before[1]) == (2, 5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=str)
+def test_w8a8_gemm_writes_nothing_past_t_or_n(cuda, dtype):
+    """Q2 into the head of a buffer filled with a canary, at every tile the
+    plan may choose, on ragged rows and columns (T and N not multiples of
+    any tile, a K tail): the (T, N) output within one ulp of the plain
+    version, and everything after it (where a row past T, or the last
+    row's columns past N, would land) still the canary."""
+    from vit_torch_tpu_torch.ops import quant
+    from vit_torch_tpu_torch.ops.gemm import ptr
+    T, K, N = 203, 784, 200
+    x, w, b = _w8a8_operands(T, K, N, seed=11, device=cuda)
+    x_q, x_s = quant.quantize_rowwise(x)
+    w_q, w_s = quant.quantize_weight(w)
+    x_s = x_s.view(-1)
+    want = quant.int8_gemm_reference(x_q, x_s, w_q, w_s, b, dtype)
+    guard = 64 * 256   # past any tile's last row and column
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for bm, bn in [(m, n) for m in quant.BLOCK_MS for n in quant.BLOCK_NS]:
+        stages = (232448 - quant.int8_smem_bytes(bm, bn, 0)) // (
+            (bm + bn) * 128)
+        buf = torch.full((T * N + guard,), -3.0, dtype=dtype, device=cuda)
+        err = quant._lib().w8a8_gemm(
+            x_q.data_ptr(), w_q.data_ptr(), x_s.data_ptr(), w_s.data_ptr(),
+            ptr(b), buf.data_ptr(), int(dtype == torch.bfloat16), T, K, N,
+            bm, bn, min(stages, 8), 132, stream)
+        torch.cuda.synchronize()
+        assert err == 0, (bm, bn)
+        assert _ulps(buf[:T * N].view(T, N), want).max().item() <= 1
+        assert bool((buf[T * N:] == -3.0).all()), (bm, bn)
 
 
 def test_w8a8_linear_on_cuda_matches_cpu(cuda):

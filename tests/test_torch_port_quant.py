@@ -214,10 +214,14 @@ def test_int8_plan_and_refusals():
     for K, N in ((768, 2304), (768, 768), (768, 3072), (3072, 768)):
         plan = quant.int8_plan(25120, K, N)
         assert plan.block_n in quant.BLOCK_NS and plan.grid <= 132
+        assert plan.block_m in quant.BLOCK_MS
         assert plan.smem_bytes <= 232448 and 2 <= plan.stages <= 8
-        assert plan.tiles_m == 197
+        assert plan.tiles_m == -(-25120 // plan.block_m)
+        # 192 x 192 tiles: 131 x 12, 4, 16 and 4 tiles, whole waves of 132
+        assert (plan.block_m, plan.block_n, plan.tiles_m) == (192, 192, 131)
     ragged = quant.int8_plan(203, 784, 200)
-    assert ragged.tiles_m == 2 and ragged.tiles_n * ragged.block_n >= 200
+    assert ragged.tiles_m == -(-203 // ragged.block_m) == 2
+    assert ragged.tiles_n * ragged.block_n >= 200
     assert quant.int8_plan(1, 128, 8).grid == 1
     for K, N in ((24, 64), (128, 12), (8, 64)):
         with pytest.raises(ValueError):
@@ -229,6 +233,51 @@ def test_int8_plan_and_refusals():
         quant.int8_gemm(torch.zeros((4, 64), dtype=torch.int8),
                         torch.ones(4), meta.to(torch.int8), torch.ones(4),
                         None, torch.float32)
+
+
+# dino_vitb8 @224 bs32's products; the Swin MLPs W8A8 runs at bs8; Faster
+# R-CNN's box head at bs8 x 256 RoIs (chip_smoke.py's FRCNN_W8A8_SHAPES);
+# a ragged shape and the smallest the kernel takes
+INT8_PLAN_SHAPES = [(25120, 768, 2304), (25120, 768, 768),
+                    (25120, 768, 3072), (25120, 3072, 768),
+                    (73728, 128, 512), (73728, 512, 128), (1152, 1024, 4096),
+                    (2048, 12544, 1024), (2048, 1024, 1024), (203, 784, 200),
+                    (1, 16, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=str)
+@pytest.mark.parametrize("shape", INT8_PLAN_SHAPES, ids=str)
+def test_int8_plan_fits_shared_memory(shape, dtype):
+    """The plan's shared memory: 1 KB of alignment and the barriers, two
+    8 KB output slices and the tile's column scales and bias per consumer
+    warpgroup, and at least two ring stages, within the 232,448 bytes a
+    block may use in either output dtype; a stage more would not fit (or
+    the ring holds its eight)."""
+    T, K, N = shape
+    plan = quant.int8_plan(T, K, N)
+    bm, bn = plan.block_m, plan.block_n
+    assert bm in quant.BLOCK_MS and bn in quant.BLOCK_NS
+    # a slice: 64 rows of 64 bf16 or 32 fp32 columns, 128 bytes a row
+    slice_cols = 128 // dtype.itemsize
+    assert slice_cols in (64, 32)
+    assert 64 * slice_cols * dtype.itemsize == quant.SLICE_BYTES
+    ring = plan.stages * (bm + bn) * 128
+    fixed = 1024 + 2 * 8 * 8 + 2 * (bm // 64) * quant.SLICE_BYTES + (
+        bm // 64) * 2 * bn * 4
+    assert plan.smem_bytes == fixed + ring == quant.int8_smem_bytes(
+        bm, bn, plan.stages)
+    assert 2 <= plan.stages <= 8 and plan.smem_bytes <= 232448
+    assert plan.stages == 8 or plan.smem_bytes + (bm + bn) * 128 > 232448
+    assert plan.tiles_m * bm >= T > (plan.tiles_m - 1) * bm
+    assert plan.tiles_n * bn >= N > (plan.tiles_n - 1) * bn
+    assert plan.grid == min(plan.tiles_m * plan.tiles_n, 132)
+    # the plan is the tile whose busiest SM reads the fewest operand rows
+    # a k-step (the larger tile on a tie)
+    def load(m, n):
+        return -(-(-(-T // m) * -(-N // n)) // 132) * (m + n)
+    assert min(load(m, n) for m in quant.BLOCK_MS
+               for n in quant.BLOCK_NS) == load(bm, bn)
 
 
 # ---- dispatch ---------------------------------------------------------

@@ -25,7 +25,9 @@
 // contiguous (dS^T in the flash backward) takes the transposed-A form
 // (WgmmaTT, both operands MN-major).  An int8 operand tile has the same
 // 128-byte rows, 128 int8 of K each (encode_s8_2d, WgmmaS8: W8A8's
-// product, whose 8-bit wgmma takes K-major operands only).
+// product, whose 8-bit wgmma takes K-major operands only); its fp32 output
+// slices are 32-column tiles in the 128-byte swizzle (encode_f32_2d), its
+// bf16 ones written by stmatrix (stmatrix_x4).
 //
 // Kernels built with this header need `-gencode arch=compute_90a,...`:
 // wgmma and setmaxnreg do not exist on plain sm_90.
@@ -287,6 +289,26 @@ inline bool encode_bf16_2d(CUtensorMap* map, const void* base, int rows,
   return encode_bf16_box(map, base, rows, cols, 64, box_rows);
 }
 
+// An fp32 row-major (rows, cols) matrix in boxes of box_rows x 32 with the
+// 128-byte swizzle: 32 fp32 fill a 128-byte row, so fp32 element (r, c)
+// sits at the bf16 tile's byte offset swizzle128(r, 2 c).  The row stride
+// (4 cols bytes) must be a multiple of 16; a store writes nothing out of
+// bounds.  Returns false when the driver refuses it.
+inline bool encode_f32_2d(CUtensorMap* map, const void* base, int rows,
+                          int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};
+  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // Tensor maps by (base, rows, cols, box_rows): weights keep their pointer
 // from step to step, so their maps are encoded once; a small ring replaces
 // the oldest entry.  Safe to call from several host threads.
@@ -367,6 +389,18 @@ __device__ __forceinline__ int swizzle128(int row, int col) {
 // c ^ ((r / 2) % 4)
 __device__ __forceinline__ int swizzle64(int row, int col) {
   return row * 64 + ((((col >> 3) ^ ((row >> 1) & 3))) << 4) + (col & 7) * 2;
+}
+
+// stmatrix: four 8 x 8 b16 matrices from registers into shared memory.
+// r[q] holds the thread's pair of matrix q in the mma fragment layout (row
+// lane / 4, columns 2 (lane % 4) and + 1); lane l gives the 16-byte-aligned
+// shared address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void stmatrix_x4(void* row, const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(smem_addr(row)),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
 }
 
 // ---- cp.async onto an mbarrier -------------------------------------------

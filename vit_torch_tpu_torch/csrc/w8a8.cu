@@ -35,22 +35,45 @@
 //   fp32 a lane), a first pass for the absmax (butterfly over the warp),
 //   a second pass that reads the row again (from L1/L2) and writes 8 or 4
 //   codes a lane.  K a multiple of 16.
-// - Q2: the shape of window_gemm.cu's plain product, over int8: persistent,
-//   warp-specialised blocks of 384 threads walking 128 x BN output tiles
-//   (BN = 128 or 192, ops/quant.py:int8_plan picks it as ops/gemm.py's
-//   gemm_plan does), tile index column-fastest.  A stage of the mbarrier
-//   ring is a k-step of 128: the 128 x 128 int8 A tile and the BN x 128
-//   W tile, each a TMA box in the 128-byte swizzle, which for int8 is the
-//   bf16 tile's layout byte for byte (sm90.cuh).  Warpgroup 2's first
-//   thread is the producer; warpgroups 0 and 1 own 64 rows each and run
-//   wgmma m64nBNk32 s32.s8.s8 (four a stage), releasing a stage once the
-//   wgmma that read it has retired.  Both operands are K-major, the only
-//   form the 8-bit wgmma takes: the port's (N, K) weight is read as it is
-//   stored.  The K tail (K a multiple of 16, not of 128) is TMA's zero fill
-//   in both operands; rows past T and columns past N read zero and are not
-//   written.  The epilogue rescales each thread's accumulator pairs and
-//   writes them straight to device memory (two fp32 or bf16 a store, a
-//   warp covering 8 rows of 8 columns): simple, not yet fast.
+// - Q2: persistent, warp-specialised blocks walking BM x BN output tiles
+//   (BM = 128 or 192 rows, 64 a consumer warpgroup; BN = 128 or 192;
+//   ops/quant.py:int8_plan picks the tile whose busiest SM reads the
+//   fewest operand bytes), tile index column-fastest.  A stage of the
+//   mbarrier ring is a k-step of 128: the BM x 128 int8 A tile and the
+//   BN x 128 W tile, each a TMA box in the 128-byte swizzle, which for
+//   int8 is the bf16 tile's layout byte for byte (sm90.cuh).  The last
+//   warpgroup's first thread is the producer; each consumer warpgroup
+//   owns 64 rows of the tile and runs wgmma m64nBNk32 s32.s8.s8 (four a
+//   stage), releasing a stage once the wgmma that read it has retired.
+//   Both operands are K-major, the only form the 8-bit wgmma takes: the
+//   port's (N, K) weight is read as it is stored.  The K tail (K a
+//   multiple of 16, not of 128) is TMA's zero fill in both operands.
+//   Epilogue: each thread loads its two row scales and its share of the
+//   tile's column scales and bias at the tile's start, while the first
+//   stages land, and puts the latter in shared memory after the products.
+//   Each consumer warpgroup rescales its 64 rows 64 bf16 (or 32 fp32)
+//   columns at a time into two 8 KB slice buffers in the 128-byte
+//   swizzle, used in turn (a buffer is written again once the store two
+//   slices back has read it); bf16 slices are written by stmatrix, and one
+//   thread sends each slice out with a TMA store, which clips rows past T
+//   and columns past N.  The warpgroup goes back to the next tile's
+//   products as soon as its last slice is in shared memory; the stores
+//   drain while they run.
+//   What holds it back (tools/w8a8_takeout.py on an H100 80GB HBM3 at
+//   700 W, dino_vitb8 @224 bs32's qkv): the epilogue still runs with no
+//   wgmma on the SM, a third of the time (0.079 ms whole, 0.053 without
+//   it); the stores themselves cost 0.005 ms, the rescale arithmetic
+//   0.006, the staging into the slices the rest.  Overlapping it needs a
+//   second set of accumulators: two warpgroups each owning 128 x 128
+//   tiles in turn (CUTLASS's ping-pong) ran slower at the dino shapes
+//   (more operand bytes a product, an epilogue of four warps), and at
+//   128 x 192 spilled; 192-row tiles of three warpgroups, each at 152
+//   registers, have no room for one.  A fourth ring stage (one slice
+//   buffer a warpgroup) or k-steps of 64 gained nothing; two stages
+//   take 30% longer.
+//   The first design (128 x BN tiles, each thread storing its accumulator
+//   pairs straight to device memory after the products, the column scales
+//   read there) spent three quarters of its time in that epilogue.
 //
 // C entry points (ctypes): w8a8_quantize_rows(...) and w8a8_gemm(...)
 // return the cudaError_t of the launch; they launch on the given stream and
@@ -124,20 +147,27 @@ __global__ void __launch_bounds__(32 * kQRows)
 
 // ---- Q2 ------------------------------------------------------------------
 
-constexpr int kThreads = 384;      // 2 consumer warpgroups + producer
-constexpr int kBM = 128;           // rows a tile: 64 a consumer warpgroup
 constexpr int kBK = 128;           // int8 of K a stage (128-byte rows)
 constexpr int kSmemMax = 232448;   // 227 KB a block may use
 constexpr int kMaxStages = 8;
+constexpr int kSlice = 64 * 128;   // a 64 x 64 bf16 or 64 x 32 fp32 slice
 constexpr int kFixed = 1024 + 2 * kMaxStages * 8;   // alignment, barriers
+
+// a block: a consumer warpgroup for every 64 rows of a tile, and the
+// producer's
+constexpr int threads(int bm) { return 128 * (bm / 64 + 1); }
+
+// dynamic shared bytes of a block: the ring, then per consumer warpgroup
+// two output slices and the tile's column scales and bias (fp32)
+constexpr int smem_bytes(int bm, int bn, int stages) {
+  return kFixed + (bm / 64) * (2 * kSlice + 8 * bn) + stages * (bm + bn) * kBK;
+}
 
 struct Params {
   const float* x_scale;   // (T)
   const float* w_scale;   // (N)
   const float* bias;      // (N) or null
-  void* y;                // (T, N) fp32 or bf16
   int T, K, N;
-  int out_bf16;
   int tiles_n, tiles, ksteps, stages;
 };
 
@@ -148,37 +178,103 @@ __device__ __forceinline__ float rescale(uint32_t acc, float xs, float ws,
   return has_bias ? __fadd_rn(y, b) : y;
 }
 
-template <int BN>
-__global__ void __launch_bounds__(kThreads, 1)
+// Slice c of a consumer warpgroup's 64 x BN accumulator, rescaled into a
+// 128-byte-swizzled slice buffer: 64 bf16 or 32 fp32 columns.  The thread
+// holds rows r0 and r0 + 8 (row scales xs0, xs1) and, in each group i of 8
+// columns, columns 8 i + c0 and + 1 (wgmma's accumulator layout: per
+// group, an 8 x 8 matrix in each row half, the mma fragment of each).
+// wsb holds the tile's column scales and bias as float4s {w_scale[j],
+// w_scale[j + 1], bias[j], bias[j + 1]} per even column j.  bf16 leaves by
+// stmatrix, four 8 x 8 matrices (two groups, both row halves) a warp
+// instruction, each row at its swizzled 16 bytes; fp32 by 8-byte stores.
+template <int BN, typename OutT>
+__device__ __forceinline__ void stage_slice(int c, uint8_t* slice,
+                                            const uint32_t (&acc)[BN / 2],
+                                            const float* wsb, float xs0,
+                                            float xs1, bool has_bias, int t) {
+  constexpr bool kBf16 = sizeof(OutT) == 2;
+  constexpr int kGroups = (kBf16 ? 64 : 32) / 8;   // column groups a slice
+  const int lane = t & 31;
+  const int r0 = 16 * (t >> 5) + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  if constexpr (kBf16) {
+    // lane l addresses row l % 8 of matrix l / 8: row half (l / 8) % 2,
+    // group g + l / 16
+    const int m = lane >> 3, rr = lane & 7;
+    uint8_t* row = slice + (16 * (t >> 5) + 8 * (m & 1) + rr) * 128;
+#pragma unroll
+    for (int g = 0; g < kGroups; g += 2) {
+      uint32_t r[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {   // matrix q: group g + q / 2, half q % 2
+        const int i = c * kGroups + g + q / 2, half = q % 2;
+        const float4 sb =
+            *reinterpret_cast<const float4*>(wsb + 16 * i + 2 * c0);
+        const float xs = half ? xs1 : xs0;
+        const __nv_bfloat162 h = __floats2bfloat162_rn(
+            rescale(acc[4 * i + 2 * half], xs, sb.x, sb.z, has_bias),
+            rescale(acc[4 * i + 2 * half + 1], xs, sb.y, sb.w, has_bias));
+        r[q] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      sm90::stmatrix_x4(row + (((g + (m >> 1)) ^ rr) << 4), r);
+    }
+  } else {
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int i = c * kGroups + g;
+      const float4 sb =
+          *reinterpret_cast<const float4*>(wsb + 16 * i + 2 * c0);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float xs = half ? xs1 : xs0;
+        *reinterpret_cast<float2*>(
+            slice + sm90::swizzle128(r0 + 8 * half, 2 * (8 * g + c0))) =
+            make_float2(
+                rescale(acc[4 * i + 2 * half], xs, sb.x, sb.z, has_bias),
+                rescale(acc[4 * i + 2 * half + 1], xs, sb.y, sb.w,
+                        has_bias));
+      }
+    }
+  }
+}
+
+template <int BM, int BN, typename OutT>
+__global__ void __launch_bounds__(128 * (BM / 64 + 1), 1)
     w8a8_gemm_kernel(const __grid_constant__ CUtensorMap tm_x,
                      const __grid_constant__ CUtensorMap tm_w,
+                     const __grid_constant__ CUtensorMap tm_y,
                      const Params p) {
-  constexpr int kStage = (kBM + BN) * kBK;   // A + W tiles of a k-step
+  constexpr int kWGs = BM / 64;              // consumer warpgroups
+  constexpr int kStage = (BM + BN) * kBK;    // A + W tiles of a k-step
+  constexpr int kCols = sizeof(OutT) == 2 ? 64 : 32;   // columns a slice
+  constexpr int kLoads = 2 * BN / 128;       // column values a thread loads
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = sm90::align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * kStage);
+  uint8_t* slices = ring + p.stages * kStage;
+  float* scales = reinterpret_cast<float*>(slices + kWGs * 2 * kSlice);
+  uint64_t* full = reinterpret_cast<uint64_t*>(scales + kWGs * 2 * BN);
   uint64_t* empty = full + kMaxStages;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
       sm90::mbar_init(full + s, 1);
-      sm90::mbar_init(empty + s, 8);   // one arrival per consumer warp
+      sm90::mbar_init(empty + s, 4 * kWGs);   // one arrival a consumer warp
     }
     sm90::mbar_init_fence();
   }
   __syncthreads();
   const int wg = threadIdx.x / 128;
 
-  if (wg == 2) {
+  if (wg == kWGs) {
     // ---- producer
-    sm90::setmaxnreg_dec<56>();
-    if (threadIdx.x == 256) {
+    sm90::setmaxnreg_dec<kWGs == 2 ? 56 : 40>();
+    if (threadIdx.x == 128 * kWGs) {
       sm90::tma_prefetch_desc(&tm_x);
       sm90::tma_prefetch_desc(&tm_w);
       sm90::RingPos rp;
 #pragma unroll 1
       for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-        const int m0 = (tile / p.tiles_n) * kBM;
+        const int m0 = (tile / p.tiles_n) * BM;
         const int n0 = (tile % p.tiles_n) * BN;
 #pragma unroll 1
         for (int kk = 0; kk < p.ksteps; ++kk) {
@@ -186,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           uint8_t* st = ring + rp.stage * kStage;
           sm90::mbar_arrive_expect_tx(full + rp.stage, kStage);
           sm90::tma_load_2d(st, &tm_x, full + rp.stage, kk * kBK, m0);
-          sm90::tma_load_2d(st + kBM * kBK, &tm_w, full + rp.stage,
+          sm90::tma_load_2d(st + BM * kBK, &tm_w, full + rp.stage,
                             kk * kBK, n0);
           rp.advance(p.stages);
         }
@@ -194,26 +290,45 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ---- consumers
-    sm90::setmaxnreg_inc<224>();
+    sm90::setmaxnreg_inc<kWGs == 2 ? 224 : 152>();
     const int t = threadIdx.x & 127;
     const int lane = t & 31;
-    const int r0 = 16 * (t >> 5) + (lane >> 2);
-    const int c0 = 2 * (lane & 3);
+    const int r0 = 16 * (t >> 5) + (lane >> 2);   // the thread's first row
     const bool has_bias = p.bias != nullptr;
+    uint8_t* own = slices + wg * 2 * kSlice;   // two slices, used in turn
+    float* wsb = scales + wg * 2 * BN;         // see stage_slice
+    int sc = 0;                                // slices written
     uint32_t acc[BN / 2];
     sm90::RingPos rp;
 #pragma unroll 1
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-      const int m0 = (tile / p.tiles_n) * kBM;
+      const int m0 = (tile / p.tiles_n) * BM;
       const int n0 = (tile % p.tiles_n) * BN;
       const int mw = m0 + 64 * wg;   // this warpgroup's first row
+      // the tile's scales and bias, loaded while the products run: the
+      // thread's two row scales, and values t + 128 u of (w_scale, bias)
+      // over the tile's columns, which reach shared memory after the
+      // products
+      const int row0 = mw + r0, row1 = row0 + 8;
+      const float xs0 = row0 < p.T ? __ldg(p.x_scale + row0) : 0.f;
+      const float xs1 = row1 < p.T ? __ldg(p.x_scale + row1) : 0.f;
+      float cv[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int j = t + 128 * u;
+        const int col = n0 + (j < BN ? j : j - BN);
+        cv[u] = col >= p.N                ? 0.f
+                : j < BN                  ? __ldg(p.w_scale + col)
+                : has_bias                ? __ldg(p.bias + col)
+                                          : 0.f;
+      }
       int prev = -1;
 #pragma unroll 1
       for (int kk = 0; kk < p.ksteps; ++kk) {
         sm90::mbar_wait(full + rp.stage, rp.phase);
         const uint8_t* st = ring + rp.stage * kStage;
         const uint64_t da = sm90::make_desc(st + wg * 64 * kBK);
-        const uint64_t db = sm90::make_desc(st + kBM * kBK);
+        const uint64_t db = sm90::make_desc(st + BM * kBK);
         sm90::wgmma_fence();
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
@@ -232,47 +347,41 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::fence_regs(acc);
       if (lane == 0) sm90::mbar_arrive(empty + prev);
 
-      // epilogue: rows mw + r0 and + 8, columns n0 + 8 i + c0 and + 1
-      const int row0 = mw + r0, row1 = row0 + 8;
-      const float xs0 = row0 < p.T ? __ldg(p.x_scale + row0) : 0.f;
-      const float xs1 = row1 < p.T ? __ldg(p.x_scale + row1) : 0.f;
+      // epilogue: every thread of the warpgroup finished reading the last
+      // tile's scales before the last named barrier, so they are replaced
+      // now and read after the next one
 #pragma unroll
-      for (int i = 0; i < BN / 8; ++i) {
-        const int col = n0 + 8 * i + c0;
-        if (col >= p.N) break;   // N is a multiple of 8: col + 1 < N too
-        const float2 ws = __ldg(reinterpret_cast<const float2*>(
-            p.w_scale + col));
-        const float2 b = has_bias ? __ldg(reinterpret_cast<const float2*>(
-                                        p.bias + col))
-                                  : make_float2(0.f, 0.f);
+      for (int u = 0; u < kLoads; ++u) {
+        const int j = t + 128 * u;
+        const int col = j < BN ? j : j - BN;
+        wsb[4 * (col >> 1) + 2 * (j >= BN) + (col & 1)] = cv[u];
+      }
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = half ? row1 : row0;
-          if (row >= p.T) continue;
-          const float xs = half ? xs1 : xs0;
-          const float v0 = rescale(acc[4 * i + 2 * half], xs, ws.x, b.x,
-                                   has_bias);
-          const float v1 = rescale(acc[4 * i + 2 * half + 1], xs, ws.y, b.y,
-                                   has_bias);
-          const long long off = static_cast<long long>(row) * p.N + col;
-          if (p.out_bf16) {
-            *reinterpret_cast<__nv_bfloat162*>(
-                static_cast<__nv_bfloat16*>(p.y) + off) =
-                __floats2bfloat162_rn(v0, v1);
-          } else {
-            *reinterpret_cast<float2*>(static_cast<float*>(p.y) + off) =
-                make_float2(v0, v1);
-          }
+      for (int c = 0; c < BN / kCols; ++c) {
+        const int nc = n0 + kCols * c;
+        if (nc >= p.N) break;
+        uint8_t* slice = own + (sc++ & 1) * kSlice;
+        // the store two slices back has read this buffer
+        if (t == 0) sm90::bulk_wait_read<1>();
+        sm90::named_barrier(1 + wg, 128);
+        stage_slice<BN, OutT>(c, slice, acc, wsb, xs0, xs1, has_bias, t);
+        sm90::fence_proxy_async();   // st.shared -> the store's reads
+        sm90::named_barrier(1 + wg, 128);
+        // TMA clips rows past T and columns past N
+        if (t == 0 && mw < p.T) {
+          sm90::tma_store_2d(&tm_y, slice, nc, mw);
+          sm90::bulk_commit();
         }
       }
     }
+    if (t == 0) sm90::bulk_wait<0>();
   }
 }
 
-template <int BN>
-cudaError_t launch(const Params& p, const void* xq, const void* wq, int grid,
-                   cudaStream_t s) {
-  auto kernel = w8a8_gemm_kernel<BN>;
+template <int BM, int BN, typename OutT>
+cudaError_t launch(const Params& p, const void* xq, const void* wq, void* y,
+                   int grid, cudaStream_t s) {
+  auto kernel = w8a8_gemm_kernel<BM, BN, OutT>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -280,14 +389,33 @@ cudaError_t launch(const Params& p, const void* xq, const void* wq, int grid,
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  CUtensorMap mx, mw;
-  if (!sm90::encode_s8_2d(&mx, xq, p.T, p.K, kBM) ||
-      !sm90::encode_s8_2d(&mw, wq, p.N, p.K, BN)) {
+  CUtensorMap mx, mw, my;
+  const bool y_ok = sizeof(OutT) == 2
+                        ? sm90::encode_bf16_2d(&my, y, p.T, p.N, 64)
+                        : sm90::encode_f32_2d(&my, y, p.T, p.N, 64);
+  if (!sm90::encode_s8_2d(&mx, xq, p.T, p.K, BM) ||
+      !sm90::encode_s8_2d(&mw, wq, p.N, p.K, BN) || !y_ok) {
     return cudaErrorInvalidValue;
   }
-  const int smem = kFixed + p.stages * (kBM + BN) * kBK;
-  kernel<<<grid, kThreads, smem, s>>>(mx, mw, p);
+  kernel<<<grid, threads(BM), smem_bytes(BM, BN, p.stages), s>>>(mx, mw, my,
+                                                                 p);
   return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch_tile(const Params& p, const void* xq, const void* wq,
+                        void* y, int block_m, int block_n, int grid,
+                        cudaStream_t s) {
+  if (block_m == 128 && block_n == 128) {
+    return launch<128, 128, OutT>(p, xq, wq, y, grid, s);
+  }
+  if (block_m == 128 && block_n == 192) {
+    return launch<128, 192, OutT>(p, xq, wq, y, grid, s);
+  }
+  if (block_m == 192 && block_n == 128) {
+    return launch<192, 128, OutT>(p, xq, wq, y, grid, s);
+  }
+  return launch<192, 192, OutT>(p, xq, wq, y, grid, s);
 }
 
 }  // namespace
@@ -314,39 +442,39 @@ extern "C" int w8a8_quantize_rows(const void* x, int x_bf16, void* q,
 }
 
 // x_q (T, K) int8, w_q (N, K) int8, x_scale (T), w_scale (N), bias (N) or
-// null, all fp32; y (T, N) fp32 (y_bf16 = 0) or bf16 (1).  The plan
-// (block_n, stages, grid) is ops/quant.py:int8_plan's
+// null, all fp32; y (T, N) fp32 (y_bf16 = 0) or bf16 (1), 16-byte
+// aligned.  The plan (block_m, block_n, stages, grid) is
+// ops/quant.py:int8_plan's
 extern "C" int w8a8_gemm(const void* x_q, const void* w_q,
                          const void* x_scale, const void* w_scale,
                          const void* bias, void* y, int y_bf16, int T, int K,
-                         int N, int block_n, int stages, int grid,
-                         void* stream) {
+                         int N, int block_m, int block_n, int stages,
+                         int grid, void* stream) {
   if (T < 1 || K < 16 || K % 16 || N < 8 || N % 8 || stages < 2 ||
-      stages > kMaxStages ||
-      kFixed + stages * (kBM + block_n) * kBK > kSmemMax || grid < 1) {
+      stages > kMaxStages || (block_m != 128 && block_m != 192) ||
+      (block_n != 128 && block_n != 192) ||
+      smem_bytes(block_m, block_n, stages) > kSmemMax || grid < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
   p.x_scale = static_cast<const float*>(x_scale);
   p.w_scale = static_cast<const float*>(w_scale);
   p.bias = static_cast<const float*>(bias);
-  p.y = y;
   p.T = T;
   p.K = K;
   p.N = N;
-  p.out_bf16 = y_bf16 != 0;
   p.tiles_n = (N + block_n - 1) / block_n;
   const long long tiles =
-      static_cast<long long>((T + kBM - 1) / kBM) * p.tiles_n;
+      static_cast<long long>((T + block_m - 1) / block_m) * p.tiles_n;
   if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   p.tiles = static_cast<int>(tiles);
   p.ksteps = (K + kBK - 1) / kBK;
   p.stages = stages;
   if (grid > p.tiles) grid = p.tiles;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (block_n) {
-    case 128: return static_cast<int>(launch<128>(p, x_q, w_q, grid, s));
-    case 192: return static_cast<int>(launch<192>(p, x_q, w_q, grid, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(
+      y_bf16 ? launch_tile<__nv_bfloat16>(p, x_q, w_q, y, block_m, block_n,
+                                          grid, s)
+             : launch_tile<float>(p, x_q, w_q, y, block_m, block_n, grid,
+                                  s));
 }

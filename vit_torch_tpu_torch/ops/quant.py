@@ -13,7 +13,8 @@ dynamic post-training quantisation:
   fp32 (+ bias) and cast to the caller's dtype (Q2).
 
 On CUDA, Q1 is ``csrc/w8a8.cu``'s ``quantize_rows_kernel`` and Q2 its
-``w8a8_gemm_kernel`` (wgmma ``s32.s8.s8`` fed by TMA); the source note
+``w8a8_gemm_kernel`` (wgmma ``s32.s8.s8`` fed by TMA, the rescaled output
+leaving through shared memory by TMA stores); the source note
 gives their arithmetic, bounds and design.  Dispatch is by the tensors'
 device: CPU tensors run the plain versions
 (:func:`quantize_rowwise_reference`, :func:`int8_gemm_reference`); CUDA
@@ -46,15 +47,19 @@ _EPS = 1e-8
 _QMAX = 127.0
 
 # csrc/w8a8.cu: rows of 16-byte loads (Q1) and TMA rows (Q2), so K a
-# multiple of 16; Q2's 128-row tiles, its column widths (the widest first),
-# k-steps of 128 int8 and the ring's bounds
+# multiple of 16; Q2's tile heights (64 rows a consumer warpgroup) and
+# widths, the widest first, k-steps of 128 int8, the ring's bounds, and
+# the output slices (two 8 KB buffers a consumer warpgroup: 64 rows of 64
+# bf16 or 32 fp32 columns) with the tile's column scales and bias beside
+# them
 _K_ALIGN = 16
-BLOCK_M = 128
+BLOCK_MS = (192, 128)
 BLOCK_NS = (192, 128)
 _BLOCK_K = 128
 _MAX_STAGES = 8
 _SMEM_MAX = 232448
 _SMEM_FIXED = 1024 + 2 * _MAX_STAGES * 8
+SLICE_BYTES = 64 * 128
 
 
 def w8a8_enabled() -> bool:
@@ -89,10 +94,14 @@ def int8_gemm_reference(x_q: torch.Tensor, x_scale: torch.Tensor,
 
 
 class Int8Plan(NamedTuple):
-    """How ``csrc/w8a8.cu``'s product is launched: output columns a tile
-    (rows: :data:`BLOCK_M`), row and column tiles, ring stages of (128 +
-    block_n) x 128 int8, persistent blocks and their dynamic shared
-    bytes."""
+    """How ``csrc/w8a8.cu``'s product is launched: the output tile
+    (block_m rows, a consumer warpgroup each 64 of them, by block_n
+    columns), row and column tiles, ring stages of (block_m + block_n) x
+    128 int8, persistent blocks and their dynamic shared bytes (1 KB of
+    alignment and the barriers, the ring, two output slice buffers of
+    :data:`SLICE_BYTES` a consumer warpgroup, and the tile's column scales
+    and bias)."""
+    block_m: int
     block_n: int
     tiles_m: int
     tiles_n: int
@@ -101,30 +110,44 @@ class Int8Plan(NamedTuple):
     smem_bytes: int
 
 
+def int8_smem_bytes(block_m: int, block_n: int, stages: int) -> int:
+    """Dynamic shared bytes of one Q2 block (``csrc/w8a8.cu:smem_bytes``):
+    alignment and barriers, per consumer warpgroup two output slices and
+    the tile's fp32 column scales and bias, and the ring."""
+    return (_SMEM_FIXED + block_m // 64 * (2 * SLICE_BYTES + 8 * block_n)
+            + stages * (block_m + block_n) * _BLOCK_K)
+
+
 def int8_plan(T: int, K: int, N: int, sms: int = 132) -> Int8Plan:
-    """Q2's launch plan for ``T`` rows of ``K`` in, ``N`` out, chosen as
-    ``ops/gemm.py:gemm_plan`` chooses the window GEMM's: the width of
-    :data:`BLOCK_NS` whose busiest SM computes the fewest columns (the
-    wider on a tie), as many stages as shared memory holds (up to 8), one
-    persistent block per SM or per tile.  Widths the kernel does not take
-    raise ``ValueError``: K a multiple of 16, N of 8."""
+    """Q2's launch plan for ``T`` rows of ``K`` in, ``N`` out: of the
+    tiles :data:`BLOCK_MS` x :data:`BLOCK_NS`, the one whose busiest SM
+    (``ceil(tiles / sms)`` tiles) reads the fewest operand bytes, ``(block_m
+    + block_n) K`` a tile (the larger tile on a tie); as many stages as
+    shared memory holds beside the slices (up to 8); one persistent block
+    per SM or per tile.  A slice holds 64 bf16 or 32 fp32 columns, the
+    same bytes, so the plan does not depend on the output dtype.  Widths
+    the kernel does not take raise ``ValueError``: K a multiple of 16, N
+    of 8."""
     if T < 1 or K < _K_ALIGN or K % _K_ALIGN or N < 8 or N % 8:
         raise ValueError(f"the int8 product takes T >= 1 rows, K a multiple "
                          f"of {_K_ALIGN} and N a multiple of 8, got T, K, N "
                          f"= {T}, {K}, {N}")
-    tiles_m = -(-T // BLOCK_M)
 
-    def load(bn):   # columns the busiest SM computes
-        return -(-(tiles_m * -(-N // bn)) // sms) * bn
+    def tiles(bm, bn):
+        return -(-T // bm) * -(-N // bn)
 
-    bn = min(BLOCK_NS, key=lambda b: (load(b), -b))
-    tiles_n = -(-N // bn)
-    stage = (BLOCK_M + bn) * _BLOCK_K
-    stages = min(_MAX_STAGES, (_SMEM_MAX - _SMEM_FIXED) // stage)
-    if tiles_m * tiles_n > 2 ** 31 - 1:
-        raise ValueError(f"{tiles_m * tiles_n} tiles exceed 2^31 - 1")
-    return Int8Plan(bn, tiles_m, tiles_n, stages, min(tiles_m * tiles_n, sms),
-                    _SMEM_FIXED + stages * stage)
+    def load(tile):   # operand rows the busiest SM reads a k-step
+        bm, bn = tile
+        return -(-tiles(bm, bn) // sms) * (bm + bn)
+
+    bm, bn = min(((m, n) for m in BLOCK_MS for n in BLOCK_NS),
+                 key=lambda tile: (load(tile), -tile[0] * tile[1]))
+    if tiles(bm, bn) > 2 ** 31 - 1:
+        raise ValueError(f"{tiles(bm, bn)} tiles exceed 2^31 - 1")
+    stages = min(_MAX_STAGES, (_SMEM_MAX - int8_smem_bytes(bm, bn, 0))
+                 // ((bm + bn) * _BLOCK_K))
+    return Int8Plan(bm, bn, -(-T // bm), -(-N // bn), stages,
+                    min(tiles(bm, bn), sms), int8_smem_bytes(bm, bn, stages))
 
 
 @functools.lru_cache(maxsize=None)
@@ -136,7 +159,7 @@ def _lib():
                                        + [ctypes.c_int] * 2
                                        + [ctypes.c_void_p])
     lib.w8a8_quantize_rows.restype = ctypes.c_int
-    lib.w8a8_gemm.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    lib.w8a8_gemm.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                               + [ctypes.c_void_p])
     lib.w8a8_gemm.restype = ctypes.c_int
     return lib
@@ -233,8 +256,8 @@ def int8_gemm(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
     check(_lib().w8a8_gemm(
         x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(),
         w_scale.data_ptr(), ptr(bias), y.data_ptr(),
-        int(out_dtype == torch.bfloat16), T, K, N, plan.block_n, plan.stages,
-        plan.grid, stream), "w8a8 gemm")
+        int(out_dtype == torch.bfloat16), T, K, N, plan.block_m,
+        plan.block_n, plan.stages, plan.grid, stream), "w8a8 gemm")
     int8_gemm.launches += 1
     return y
 
