@@ -144,8 +144,10 @@
    the Swin MLPs W8A8 runs at bs8 (stage 1's fc1 and fc2, stage 4's fc1)
    and a ragged shape, timed beside their bounds, the plain versions,
    ``torch._int_mm`` plus the same rescale and the bf16 ``F.linear``,
-   with Q2's plan (tile, stages, schedule) in each row (``kernel check
-   w8a8``; the source passes the ptxas gate); exports
+   with Q1's share of its bound and plans (threads a row, units a
+   thread, passes, block, grid) and Q2's plan (tile, stages, schedule) in
+   each row (``kernel check w8a8``; the source passes the ptxas gate);
+   exports
    dino_vitb8 @224 through ``cli.export --w8a8`` and serves it over HTTP
    as in 4 (per dispatch 48 Q1 and 48 Q2 launches and 12 flash, the
    logits against the plain versions), then the fp bundle of the same
@@ -3629,10 +3631,10 @@ def check_w8a8_kernels(shape, seed):
     (T, K, N) product: Q1 on bf16 activations and the fp32 weight (codes
     and scales bit for bit), Q2 in bf16 out with a bias (the model's) and
     fp32 out (within W8A8_ULPS); each timed on CUDA events and by its
-    device time, beside its plain version, its bound and the library
-    yardsticks: none for Q1; ``torch._int_mm`` plus the same rescale for
-    Q2 (timed only), and the bf16 product ``F.linear`` the int8 pair
-    replaces."""
+    device time, beside its plain version, its bound (with Q1's share of
+    it and its plans) and the library yardsticks: none for Q1;
+    ``torch._int_mm`` plus the same rescale for Q2 (timed only), and the
+    bf16 product ``F.linear`` the int8 pair replaces."""
     import torch
     import torch.nn.functional as F
     from vit_torch_tpu_torch.ops import quant
@@ -3705,14 +3707,19 @@ def check_w8a8_kernels(shape, seed):
                   "library_ms": lib_ms, "library_error": lib_error,
                   "bf16_linear_ms": _time_ms(
                       lambda: F.linear(x, wb16, bb16), iters=20)}}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # Q1's share of its bound, and its plans: the bf16 activations' (the
+    # timed launch) and the fp32 weight's
+    row["q1"]["bound_share"] = q1_bound / (q1_dev or row["q1"]["ms"])
+    row["q1"]["plan"] = quant.quant_plan(T, K, 2, sms)._asdict()
+    row["q1"]["weight_plan"] = quant.quant_plan(N, K, 4, sms)._asdict()
     q2_ms = q2_dev or row["q2"]["ms"]   # events where not measured
     row["q2"]["tops"] = 2 * T * K * N / q2_ms / 1e9
     row["q2"]["bound_share"] = q2_bound / q2_ms
     # the bf16 launch's plan; the consumer warpgroups share each tile
     # (cooperative), its epilogue leaving by TMA stores
-    row["q2"]["plan"] = {**quant.int8_plan(
-        T, K, N, torch.cuda.get_device_properties(0).multi_processor_count
-    )._asdict(), "schedule": "cooperative, TMA-store epilogue"}
+    row["q2"]["plan"] = {**quant.int8_plan(T, K, N, sms)._asdict(),
+                         "schedule": "cooperative, TMA-store epilogue"}
     _say("kernel check w8a8", json.dumps(row))
     return row
 
@@ -6924,6 +6931,9 @@ def main() -> int:
                  r[key]["plain_ms"], r[key]["library_ms"],
                  r[key]["bound_ms"], r["q2"]["bf16_linear_ms"]]
                 for r in frcnn["w8a8"]["kernel_rows"]]})
+    kernels[-2]["bound_share_plan_by_shape"] = [
+        [r["shape"], r["q1"]["bound_share"], r["q1"]["plan"]]
+        for r in w8a8_rows + frcnn["w8a8"]["kernel_rows"]]
     kernels[-1]["library"] = "torch._int_mm + the same rescale (cuBLASLt)"
     kernels[-1]["max_ulps"] = max(max(r["q2"]["max_ulps_bf16_fp32"])
                                   for r in w8a8_rows)

@@ -1267,6 +1267,108 @@ def test_w8a8_kernels_match_plain(cuda, shape):
             quant.int8_gemm.launches - before[1]) == (2, 5)
 
 
+# Q1 alone at a shape for every branch of quant_plan (R, K, input dtype,
+# the branch): the box head's box_fc1 and box_fc2 inputs at bs8 x 256
+# RoIs, rows fewer than the SMs (each row spread over a whole block), the
+# narrowest row, a K that is a multiple of 16 but not of a team's 16
+# values a thread, an fp32 weight, and rows wider than a block holds in
+# registers (two passes, bf16 and fp32)
+Q1_PLAN_CASES = [((2048, 12544), torch.bfloat16, "box_fc1"),
+                 ((2048, 1024), torch.bfloat16, "box_fc2, spread"),
+                 ((7, 12544), torch.bfloat16, "R < SMs"),
+                 ((300, 16), torch.bfloat16, "K = 16"),
+                 ((1000, 1040), torch.bfloat16, "K % 256 != 0"),
+                 ((4096, 1024), torch.float32, "fp32 weight"),
+                 ((5, 32784), torch.bfloat16, "two passes"),
+                 ((5, 16400), torch.float32, "two passes fp32")]
+
+
+@pytest.mark.parametrize("shape,dtype,branch", Q1_PLAN_CASES,
+                         ids=[c[2] for c in Q1_PLAN_CASES])
+def test_w8a8_quantize_rows_every_plan_branch(cuda, shape, dtype, branch):
+    """Q1's codes and scales equal its plain version's (max error 0) at
+    every branch of its plan, with the zero row (scale = eps) and the row
+    of rounding ties of ``_w8a8_operands``, one launch each."""
+    from vit_torch_tpu_torch.ops import quant
+    R, K = shape
+    x = _w8a8_operands(R, K, 8, seed=R + K, device=cuda, dtype=dtype)[0]
+    plan = quant.quant_plan(R, K, x.element_size(),
+                            torch.cuda.get_device_properties(
+                                cuda).multi_processor_count)
+    assert (plan.passes > 1) == branch.startswith("two passes")
+    if branch == "R < SMs":
+        assert plan.team == plan.threads == quant.Q_THREADS
+    before = quant.quantize_rowwise.launches
+    q, s = quant.quantize_rowwise(x)
+    torch.cuda.synchronize()
+    assert quant.quantize_rowwise.launches - before == 1
+    want_q, want_s = quant.quantize_rowwise_reference(x)
+    assert (q.int() - want_q.int()).abs().max().item() == 0
+    assert (s - want_s).abs().max().item() == 0
+    if R > 2:
+        assert s[0].item() == np.float32(1e-8) and not q[0].any()
+        assert q[1, :8].tolist() == [127, 0, 2, 2, 0, -2, 4, 0]
+
+
+def test_w8a8_quantize_rows_every_bf16_value(cuda):
+    """Every finite bf16 value (65,280 of them, subnormals and both zeros
+    included) against 96 scales: a row a scale, holding its absmax A and
+    every value no larger than A in magnitude (the others zeroed).  The
+    A's run from a subnormal to the largest bf16, among them 127 * 2^k,
+    whose scales for k >= -2 are powers of two that make many quotients
+    exact rounding ties.  Codes and scales equal the plain version's on
+    the CPU; the rows are wider than a block holds, so the kernel takes
+    two passes."""
+    from vit_torch_tpu_torch.ops import quant
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    values = bits.view(torch.bfloat16).float()
+    values = values[torch.isfinite(values)]
+    assert values.numel() == 65280
+    mags = values[values > 0].unique()
+    picks = torch.linspace(0, mags.numel() - 1, 64).round().long()
+    absmax = torch.cat([mags[picks], 127.0 * 2.0 ** torch.arange(-16, 16)])
+    assert absmax.numel() == 96
+    x = torch.where(values.abs() <= absmax[:, None], values, 0.0)
+    x = x.bfloat16()
+    assert torch.equal(x.float().abs().amax(1), absmax)
+    assert quant.quant_plan(*x.shape, 2).passes == 2
+    q, sc = quant.quantize_rowwise(x.to(cuda))
+    want_q, want_s = quant.quantize_rowwise_reference(x)
+    assert torch.equal(q.cpu(), want_q) and torch.equal(sc.cpu(), want_s)
+
+
+def test_w8a8_quantize_rows_entry_refuses_before_any_launch(cuda):
+    """The C entry returns cudaErrorInvalidValue (1), and writes nothing,
+    for K not a multiple of 16, R < 1, and a plan that would not cover
+    every row or every unit of a row."""
+    from vit_torch_tpu_torch.ops import quant
+    R, K = 64, 256
+    x = torch.randn((R, K), device=cuda).bfloat16()
+    q = torch.full((R, K), 7, dtype=torch.int8, device=cuda)
+    s = torch.full((R,), -3.0, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    good = quant.quant_plan(R, K, 2)
+    plan = (good.team, good.units, good.passes, good.threads, good.grid)
+    for r, k, bad in [(R, 24, plan), (R, K - 8, plan), (0, K, plan),
+                      (-1, K, plan),
+                      (R, K, (3,) + plan[1:]),                  # team
+                      (R, K, plan[:1] + (5,) + plan[2:]),       # units
+                      (R, K, plan[:2] + (0,) + plan[3:]),       # passes
+                      (R, K, plan[:4] + (good.grid - 1,)),      # rows
+                      (R, K, (1, 1, 1, 256, 1))]:              # units
+        err = quant._lib().w8a8_quantize_rows(
+            x.data_ptr(), 1, q.data_ptr(), s.data_ptr(), r, k, stream, *bad)
+        torch.cuda.synchronize()
+        assert err == 1, (r, k, bad)
+    assert bool((q == 7).all()) and bool((s == -3.0).all())
+    err = quant._lib().w8a8_quantize_rows(
+        x.data_ptr(), 1, q.data_ptr(), s.data_ptr(), R, K, stream, *plan)
+    torch.cuda.synchronize()
+    assert err == 0
+    want_q, want_s = quant.quantize_rowwise_reference(x)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s.view(-1))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=str)
 def test_w8a8_gemm_writes_nothing_past_t_or_n(cuda, dtype):

@@ -280,6 +280,84 @@ def test_int8_plan_fits_shared_memory(shape, dtype):
                for n in quant.BLOCK_NS) == load(bm, bn)
 
 
+# Q1's plan for 132 SMs, (R, K, bytes a value) -> (team, units, passes,
+# threads, grid): dino_vitb8 @224 bs32 and bs8's inputs at K = 768 and
+# 3072, the box head's at bs8 x 256 RoIs (box_fc2's spread over twice the
+# threads: 128 blocks would leave SMs without one), Swin bs8's stage-1
+# MLP inputs, and the card tests' branches: rows fewer than the SMs (a
+# block a row), K = 16, a K that is no multiple of a team's values, an
+# fp32 weight, rows wider than a block holds (two passes)
+Q1_PLANS = [((25120, 768, 2), (16, 3, 1, 256, 1570)),
+            ((25120, 3072, 2), (64, 3, 1, 256, 6280)),
+            ((6280, 768, 2), (16, 3, 1, 256, 393)),
+            ((6280, 3072, 2), (64, 3, 1, 256, 1570)),
+            ((2048, 12544, 2), (256, 4, 1, 256, 2048)),
+            ((2048, 1024, 2), (32, 2, 1, 256, 256)),
+            ((73728, 128, 2), (2, 4, 1, 256, 576)),
+            ((73728, 512, 2), (8, 4, 1, 256, 2304)),
+            ((7, 12544, 2), (512, 2, 1, 512, 7)),
+            ((300, 16, 2), (1, 1, 1, 256, 2)),
+            ((1000, 1040, 2), (64, 2, 1, 256, 250)),
+            ((4096, 1024, 4), (32, 2, 1, 256, 512)),
+            ((5, 32784, 2), (512, 4, 2, 512, 5)),
+            ((5, 16400, 4), (512, 2, 2, 512, 5))]
+
+
+@pytest.mark.parametrize("shape,want", Q1_PLANS, ids=str)
+def test_quant_plan_choices(shape, want):
+    """Q1's plan at the port's shapes: the fewest threads a row (a power
+    of two) that hold it at 128 bytes a thread, spread over more where
+    the blocks would not give every SM one; several passes only past a
+    block's 512 threads."""
+    R, K, nbytes = shape
+    plan = quant.quant_plan(R, K, nbytes, sms=132)
+    assert (plan.team, plan.units, plan.passes, plan.threads,
+            plan.grid) == want
+    assert plan.rows == plan.threads // plan.team
+    assert plan.units * 16 * nbytes <= quant.Q_UNIT_BYTES
+    assert plan.threads == max(plan.team, quant.Q_BLOCK) <= quant.Q_THREADS
+
+
+@pytest.mark.parametrize("shape", [c[0] for c in Q1_PLANS], ids=str)
+def test_quant_plan_covers_every_row_once(shape):
+    """The kernel's indexing under the plan: thread t of block b holds row
+    b * rows + t // team and, in each pass, units (t % team) + team j;
+    every unit of every row is held by exactly one thread, and nothing
+    past R rows or K / 16 units is."""
+    R, K, nbytes = shape
+    plan = quant.quant_plan(R, K, nbytes, sms=132)
+    units = K // 16
+    t = np.arange(plan.threads)
+    rows = (np.arange(plan.grid)[:, None] * plan.rows
+            + t // plan.team)[:, :, None]
+    held = ((t % plan.team)[:, None]
+            + plan.team * np.arange(plan.units * plan.passes))[None]
+    rows, held = np.broadcast_arrays(rows, held)
+    keep = (rows < R) & (held < units)
+    count = np.bincount((rows[keep] * units + held[keep]).ravel(),
+                        minlength=R * units)
+    assert count.shape == (R * units,) and (count == 1).all()
+    assert plan.grid * plan.rows >= R > (plan.grid - 1) * plan.rows
+
+
+def test_quant_plan_spreads_rows_by_the_sm_count():
+    """Fewer rows than the SMs can take in blocks spread each row over
+    more threads (the box head's box_fc2 input), and a card with fewer
+    SMs keeps the narrower team."""
+    assert quant.quant_plan(2048, 1024, 2, sms=132).team == 32
+    assert quant.quant_plan(2048, 1024, 2, sms=114).team == 16
+    assert quant.quant_plan(7, 12544, 2, sms=132).team == quant.Q_THREADS
+
+
+def test_quant_plan_refusals():
+    """Widths and value sizes the kernel does not take raise before any
+    launch."""
+    for R, K, nbytes in ((0, 64, 2), (-3, 64, 2), (8, 24, 2), (8, 8, 2),
+                         (8, 0, 2), (8, 64, 3), (8, 64, 1)):
+        with pytest.raises(ValueError):
+            quant.quant_plan(R, K, nbytes)
+
+
 # ---- dispatch ---------------------------------------------------------
 
 

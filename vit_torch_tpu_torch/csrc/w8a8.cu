@@ -31,10 +31,36 @@
 // 25,120, K = 768, N = 3,072) it is bound by operations (0.060 ms).
 //
 // Design.
-// - Q1: one warp a row, eight rows a block; 16-byte loads (8 bf16 or 4
-//   fp32 a lane), a first pass for the absmax (butterfly over the warp),
-//   a second pass that reads the row again (from L1/L2) and writes 8 or 4
-//   codes a lane.  K a multiple of 16.
+// - Q1: a team of threads (a power of two, 1 to 512) a row; each thread
+//   holds J of the row's 16-value units in registers (two 16-byte loads
+//   a bf16 unit, four an fp32 one; J <= 4, at most 128 bytes a thread),
+//   unit m + team j for member m, so a team's threads read neighbouring
+//   units.  Every load is issued before the first is used, then the
+//   absmax over the registers, a butterfly over the team's lanes and,
+//   for a team of several warps, their maxima through shared memory; the
+//   codes are made from the same registers and leave 16 bytes a thread.
+//   The row is read from device memory once.  ops/quant.py:quant_plan
+//   picks the team (the fewest threads that hold the row so), blocks of
+//   256 threads (several rows a warp where a row is narrow) or of one
+//   team, and spreads each row over more threads, up to 512, where the
+//   blocks would not give every SM one (few rows, as in the box head).  A
+//   row wider than 512 threads hold (K > 32,768 bf16, 16,384 fp32) takes
+//   several passes and reads the earlier ones again for their codes.
+//   Each code leaves as the low byte of a float (code_bits), four packed
+//   into a word by byte permutes, in place of a float-to-int conversion.
+//   K a multiple of 16.
+//   What holds it back (tools/w8a8_takeout.py --kernel q1 on an H100 80GB
+//   HBM3 at 700 W, device ms): its per-value arithmetic, not its loads.
+//   At dino_vitb8 @224 bs32's fc2 input (25,120 x 3,072 bf16, bound
+//   0.069) it takes 0.081 (85%), and 0.073 without the code stores,
+//   0.077 with a multiply for the division, 0.078 without rintf; at K =
+//   768 0.023 of 0.017, 0.020 with the multiply.  The division (a
+//   reciprocal on the quarter-rate unit, its range check and three FMAs a
+//   value) stays: a reciprocal a row with the exact division only near a
+//   rounding tie measured no faster (0.080, 0.024).  The first design (a
+//   warp a row, eight rows a block, the row read again for its codes)
+//   took 0.129 and 0.026; its second read alone was 39% of the former,
+//   56% at the box head's (2048, 12,544) input (0.068, now 0.032).
 // - Q2: persistent, warp-specialised blocks walking BM x BN output tiles
 //   (BM = 128 or 192 rows, 64 a consumer warpgroup; BN = 128 or 192;
 //   ops/quant.py:int8_plan picks the tile whose busiest SM reads the
@@ -91,58 +117,146 @@ namespace {
 
 // ---- Q1 ------------------------------------------------------------------
 
-constexpr int kQRows = 8;   // rows a block, one warp each
+constexpr int kQThreads = 512;   // the most threads a block (and a team)
+constexpr int kQUnits = 4;       // the most 16-element units a thread holds
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// The code of x as the low byte of a float's bits: n = clamp(rint(x /
+// scale), -127, 127) is an integer (a NaN quotient clamps to -127), so
+// n + 1.5 * 2^23 is exact, an integer in [2^23, 2^24) whose bits are
+// 0x4B400000 + n, and its low byte is n as an int8.  This takes the
+// place of a float-to-int conversion on the quarter-rate unit.
+__device__ __forceinline__ uint32_t code_bits(float x, float scale) {
+  const float q = fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(q, 12582912.f));
 }
 
-__device__ __forceinline__ int8_t code(float x, float scale) {
-  const float q = rintf(__fdiv_rn(x, scale));
-  return static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
+// element e (< 16) of a unit held as 32-bit words: bf16 pairs, widened
+// exactly (a bf16 is the high half of its fp32), or fp32 words
+template <typename T>
+__device__ __forceinline__ float element(const uint32_t (&w)[4 * sizeof(T)],
+                                         int e) {
+  if constexpr (sizeof(T) == 2) {
+    const uint32_t v = w[e >> 1];
+    return __uint_as_float((e & 1) ? (v & 0xffff0000u) : (v << 16));
+  } else {
+    return __uint_as_float(w[e]);
+  }
+}
+
+// pass p's J units of a row into registers: unit member + team (j + J p),
+// so a team's threads read neighbouring units; units past the row (and
+// rows past R) read as zeros.  Every load is issued before any is used.
+template <typename T, int J>
+__device__ __forceinline__ void load_units(uint32_t (&w)[J][4 * sizeof(T)],
+                                           const uint4* src, int first,
+                                           int team, int units, bool live) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int u = first + team * j;
+    const bool in = live && u < units;
+#pragma unroll
+    for (int i = 0; i < static_cast<int>(sizeof(T)); ++i) {
+      const uint4 v =
+          in ? __ldg(src + sizeof(T) * u + i) : make_uint4(0, 0, 0, 0);
+      w[j][4 * i] = v.x;
+      w[j][4 * i + 1] = v.y;
+      w[j][4 * i + 2] = v.z;
+      w[j][4 * i + 3] = v.w;
+    }
+  }
+}
+
+// the codes of the J units held, 16 bytes a unit
+template <typename T, int J>
+__device__ __forceinline__ void store_codes(uint32_t (&w)[J][4 * sizeof(T)],
+                                            uint4* dst, float s, int first,
+                                            int team, int units, bool live) {
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int u = first + team * j;
+    if (!live || u >= units) continue;
+    uint32_t out[4];   // four codes a word, one word at a time
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t lo =
+          __byte_perm(code_bits(element<T>(w[j], 4 * k), s),
+                      code_bits(element<T>(w[j], 4 * k + 1), s), 0x0040);
+      const uint32_t hi =
+          __byte_perm(code_bits(element<T>(w[j], 4 * k + 2), s),
+                      code_bits(element<T>(w[j], 4 * k + 3), s), 0x0040);
+      out[k] = __byte_perm(lo, hi, 0x5410);
+    }
+    dst[u] = make_uint4(out[0], out[1], out[2], out[3]);
+  }
+}
+
+// A team of `team` threads (a power of two) a row, blockDim.x / team rows
+// a block; each thread holds J units of its row a pass (`passes` > 1 only
+// where the row is wider than a team holds, and then the earlier passes
+// are read again for their codes).
+template <typename T, int J>
+__global__ void __launch_bounds__(kQThreads)
+    quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                         float* __restrict__ scale, int R, int K, int team,
+                         int passes) {
+  __shared__ float warp_max[kQThreads / 32];
+  const int member = threadIdx.x & (team - 1);
+  const long long r = static_cast<long long>(blockIdx.x) * (blockDim.x / team) +
+                      threadIdx.x / team;
+  const bool live = r < R;
+  const int units = K >> 4;
+  const long long row = (live ? r : 0) * static_cast<long long>(K);
+  const uint4* src = reinterpret_cast<const uint4*>(x + row);
+  uint4* dst = reinterpret_cast<uint4*>(q + row);
+  uint32_t w[J][4 * sizeof(T)];
+  float amax = 0.f;
+  for (int p = 0; p < passes; ++p) {
+    load_units<T, J>(w, src, member + team * J * p, team, units, live);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        amax = fmaxf(amax, fabsf(element<T>(w[j], e)));
+      }
+    }
+  }
+  // the team's absmax: a butterfly inside the warp, then across its warps
+  for (int off = (team < 32 ? team : 32) >> 1; off > 0; off >>= 1) {
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  }
+  if (team > 32) {
+    if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
+    __syncthreads();
+    const int w0 = (threadIdx.x & ~(team - 1)) >> 5;
+    for (int i = 0; i < team >> 5; ++i) amax = fmaxf(amax, warp_max[w0 + i]);
+  }
+  const float s = __fadd_rn(__fdiv_rn(amax, 127.f), 1e-8f);
+  if (live && member == 0) scale[r] = s;
+  store_codes<T, J>(w, dst, s, member + team * J * (passes - 1), team, units,
+                    live);
+  for (int p = 0; p + 1 < passes; ++p) {
+    load_units<T, J>(w, src, member + team * J * p, team, units, live);
+    store_codes<T, J>(w, dst, s, member + team * J * p, team, units, live);
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(32 * kQRows)
-    quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                         float* __restrict__ scale, int R, int K) {
-  constexpr int kE = 16 / sizeof(T);   // elements a 16-byte load
-  const int lane = threadIdx.x & 31;
-  const long long r =
-      static_cast<long long>(blockIdx.x) * kQRows + (threadIdx.x >> 5);
-  if (r >= R) return;
-  const T* src = x + r * K;
-  float amax = 0.f;
-  for (int c = lane * kE; c < K; c += 32 * kE) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src + c));
-    const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-    for (int i = 0; i < kE; ++i) amax = fmaxf(amax, fabsf(widen(e[i])));
+cudaError_t launch_rows(const void* x, void* q, void* scale, int R, int K,
+                        int team, int units, int passes, int threads,
+                        int grid, cudaStream_t s) {
+  auto run = [&](auto kernel) {
+    kernel<<<grid, threads, 0, s>>>(static_cast<const T*>(x),
+                                    static_cast<int8_t*>(q),
+                                    static_cast<float*>(scale), R, K, team,
+                                    passes);
+  };
+  switch (units) {
+    case 1: run(quantize_rows_kernel<T, 1>); break;
+    case 2: run(quantize_rows_kernel<T, 2>); break;
+    case 3: run(quantize_rows_kernel<T, 3>); break;
+    default: run(quantize_rows_kernel<T, 4>); break;
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  }
-  const float s = __fadd_rn(__fdiv_rn(amax, 127.f), 1e-8f);
-  int8_t* dst = q + r * K;
-  for (int c = lane * kE; c < K; c += 32 * kE) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src + c));
-    const T* e = reinterpret_cast<const T*>(&v);
-    uint32_t out[kE / 4] = {};   // the codes, four a word
-#pragma unroll
-    for (int i = 0; i < kE; ++i) {
-      out[i / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(
-                        code(widen(e[i]), s)))
-                    << (8 * (i % 4));
-    }
-    if constexpr (kE == 8) {
-      *reinterpret_cast<uint2*>(dst + c) = make_uint2(out[0], out[1]);
-    } else {
-      *reinterpret_cast<uint32_t*>(dst + c) = out[0];
-    }
-  }
-  if (lane == 0) scale[r] = s;
+  return cudaGetLastError();
 }
 
 // ---- Q2 ------------------------------------------------------------------
@@ -421,24 +535,28 @@ cudaError_t launch_tile(const Params& p, const void* xq, const void* wq,
 }  // namespace
 
 // x (R, K) fp32 (x_bf16 = 0) or bf16 (1), q (R, K) int8, scale (R) fp32;
-// K a multiple of 16, x 16-byte aligned
+// K a multiple of 16, x and q 16-byte aligned.  The plan (team, units,
+// passes, threads, grid) is ops/quant.py:quant_plan's: `team` threads a
+// row holding `units` 16-element units each a pass, `threads` a block
+// (threads / team rows)
 extern "C" int w8a8_quantize_rows(const void* x, int x_bf16, void* q,
-                                  void* scale, int R, int K, void* stream) {
-  if (R < 1 || K < 16 || K % 16) {
+                                  void* scale, int R, int K, void* stream,
+                                  int team, int units, int passes,
+                                  int threads, int grid) {
+  const auto pow2 = [](int v) { return v > 0 && (v & (v - 1)) == 0; };
+  if (R < 1 || K < 16 || K % 16 || !pow2(team) || team > kQThreads ||
+      !pow2(threads) || threads < 32 || threads > kQThreads ||
+      threads < team || units < 1 || units > kQUnits || passes < 1 ||
+      static_cast<long long>(team) * units * passes < K / 16 || grid < 1 ||
+      static_cast<long long>(grid) * (threads / team) < R) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (R + kQRows - 1) / kQRows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    quantize_rows_kernel<__nv_bfloat16><<<blocks, 32 * kQRows, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q),
-        static_cast<float*>(scale), R, K);
-  } else {
-    quantize_rows_kernel<float><<<blocks, 32 * kQRows, 0, s>>>(
-        static_cast<const float*>(x), static_cast<int8_t*>(q),
-        static_cast<float*>(scale), R, K);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      x_bf16 ? launch_rows<__nv_bfloat16>(x, q, scale, R, K, team, units,
+                                          passes, threads, grid, s)
+             : launch_rows<float>(x, q, scale, R, K, team, units, passes,
+                                  threads, grid, s));
 }
 
 // x_q (T, K) int8, w_q (N, K) int8, x_scale (T), w_scale (N), bias (N) or

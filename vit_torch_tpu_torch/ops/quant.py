@@ -12,9 +12,10 @@ dynamic post-training quantisation:
 - the product accumulates in s32, is rescaled per row and per column in
   fp32 (+ bias) and cast to the caller's dtype (Q2).
 
-On CUDA, Q1 is ``csrc/w8a8.cu``'s ``quantize_rows_kernel`` and Q2 its
-``w8a8_gemm_kernel`` (wgmma ``s32.s8.s8`` fed by TMA, the rescaled output
-leaving through shared memory by TMA stores); the source note
+On CUDA, Q1 is ``csrc/w8a8.cu``'s ``quantize_rows_kernel`` (a team of
+threads a row holding it in registers, read once; :func:`quant_plan`) and
+Q2 its ``w8a8_gemm_kernel`` (wgmma ``s32.s8.s8`` fed by TMA, the rescaled
+output leaving through shared memory by TMA stores); the source note
 gives their arithmetic, bounds and design.  Dispatch is by the tensors'
 device: CPU tensors run the plain versions
 (:func:`quantize_rowwise_reference`, :func:`int8_gemm_reference`); CUDA
@@ -47,12 +48,17 @@ _EPS = 1e-8
 _QMAX = 127.0
 
 # csrc/w8a8.cu: rows of 16-byte loads (Q1) and TMA rows (Q2), so K a
-# multiple of 16; Q2's tile heights (64 rows a consumer warpgroup) and
-# widths, the widest first, k-steps of 128 int8, the ring's bounds, and
-# the output slices (two 8 KB buffers a consumer warpgroup: 64 rows of 64
-# bf16 or 32 fp32 columns) with the tile's column scales and bias beside
-# them
+# multiple of 16; Q1's blocks (at most 512 threads, 256 where a row takes
+# fewer) and the input a thread holds a pass (at most 128 bytes, in units
+# of 16 values: 16 bytes of codes); Q2's tile heights (64 rows a consumer
+# warpgroup) and widths, the widest first, k-steps of 128 int8, the
+# ring's bounds, and the output slices (two 8 KB buffers a consumer
+# warpgroup: 64 rows of 64 bf16 or 32 fp32 columns) with the tile's
+# column scales and bias beside them
 _K_ALIGN = 16
+Q_THREADS = 512
+Q_BLOCK = 256
+Q_UNIT_BYTES = 128
 BLOCK_MS = (192, 128)
 BLOCK_NS = (192, 128)
 _BLOCK_K = 128
@@ -91,6 +97,57 @@ def int8_gemm_reference(x_q: torch.Tensor, x_scale: torch.Tensor,
     if bias is not None:
         y = y + bias.float()
     return y.to(out_dtype)
+
+
+class QuantPlan(NamedTuple):
+    """How ``csrc/w8a8.cu``'s row quantisation is launched: ``team``
+    threads a row (a power of two), each holding ``units`` 16-element
+    units of it in registers a pass, ``passes`` over the row (1 unless it
+    is wider than a block of :data:`Q_THREADS` holds), ``threads`` a block
+    of ``rows`` rows, and ``grid`` blocks."""
+    team: int
+    units: int
+    passes: int
+    threads: int
+    rows: int
+    grid: int
+
+
+def quant_plan(R: int, K: int, dtype_bytes: int = 2,
+               sms: int = 132) -> QuantPlan:
+    """Q1's launch plan for ``R`` rows of ``K`` values of ``dtype_bytes``
+    (2 bf16, 4 fp32).  A thread holds at most :data:`Q_UNIT_BYTES` of
+    input a pass (4 bf16 or 2 fp32 units of 16 values): the team is the
+    fewest threads (a power of two) that hold the row so, every load issued
+    before the absmax.  Where the blocks would not give every SM one (few
+    rows), each row is spread over more threads, fewer units each, up to
+    :data:`Q_THREADS`.  A row wider than :data:`Q_THREADS` threads hold
+    takes several passes.  Blocks are :data:`Q_BLOCK` threads, or one
+    team.  Widths the kernel does not take raise ``ValueError``: K a
+    multiple of 16."""
+    if R < 1 or K < _K_ALIGN or K % _K_ALIGN or dtype_bytes not in (2, 4):
+        raise ValueError(f"the row quantisation takes R >= 1 rows, K a "
+                         f"multiple of {_K_ALIGN} and 2- or 4-byte values, "
+                         f"got R, K = {R}, {K}, {dtype_bytes} bytes")
+    units = K // _K_ALIGN
+    most = Q_UNIT_BYTES // (_K_ALIGN * dtype_bytes)   # units a thread holds
+
+    def blocks(team):
+        return -(-R // (max(team, Q_BLOCK) // team))
+
+    if units > Q_THREADS * most:
+        team, per = Q_THREADS, most
+    else:
+        team = 1
+        while team * most < units:
+            team *= 2
+        per = -(-units // team)
+        while per > 1 and team < Q_THREADS and blocks(team) < sms:
+            team *= 2
+            per = -(-units // team)
+    threads = max(team, Q_BLOCK)
+    return QuantPlan(team, per, -(-units // (team * per)), threads,
+                     threads // team, blocks(team))
 
 
 class Int8Plan(NamedTuple):
@@ -157,7 +214,8 @@ def _lib():
     lib.w8a8_quantize_rows.argtypes = ([ctypes.c_void_p, ctypes.c_int]
                                        + [ctypes.c_void_p] * 2
                                        + [ctypes.c_int] * 2
-                                       + [ctypes.c_void_p])
+                                       + [ctypes.c_void_p]
+                                       + [ctypes.c_int] * 5)
     lib.w8a8_quantize_rows.restype = ctypes.c_int
     lib.w8a8_gemm.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
                               + [ctypes.c_void_p])
@@ -189,7 +247,8 @@ def quantize_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
     Returns ``(x_q int8, scale fp32)`` with ``scale`` shaped ``x.shape[:-1]
     + (1,)`` such that ``x ~= x_q * scale``.  CPU tensors run the plain
-    version; a CUDA tensor (bf16 or fp32) is one kernel launch."""
+    version; a CUDA tensor (bf16 or fp32) is one kernel launch, planned by
+    :func:`quant_plan`."""
     if not _on_cuda(x):
         return quantize_rowwise_reference(x)
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -202,10 +261,12 @@ def quantize_rowwise(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     q = torch.empty((R, K), dtype=torch.int8, device=x.device)
     scale = torch.empty((R,), dtype=torch.float32, device=x.device)
     if R:
+        plan = quant_plan(R, K, x.element_size(), sm_count(x.device))
         stream = torch.cuda.current_stream(x.device).cuda_stream
         check(_lib().w8a8_quantize_rows(
             x2.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
-            scale.data_ptr(), R, K, stream), "w8a8 quantize_rows")
+            scale.data_ptr(), R, K, stream, plan.team, plan.units,
+            plan.passes, plan.threads, plan.grid), "w8a8 quantize_rows")
         quantize_rowwise.launches += 1
     return q.view(x.shape), scale.view(*x.shape[:-1], 1)
 
